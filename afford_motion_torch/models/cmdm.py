@@ -1,0 +1,133 @@
+"""CMDM, the stage-2 contact-to-motion diffusion denoiser, arch ``trans_enc``
+(counterpart of ``afford_motion_tpu/models/cmdm.py``).
+
+``encode_contact`` (the 8192-point SceneMap encoder) is split from
+``denoise`` so a sampling chain encodes its constant condition once. The
+classifier-free-guidance flags ``c_text_mask``, ``c_text_erase``,
+``c_pc_mask`` and ``c_pc_erase`` act as in the JAX package. Parameter names
+are the reference state_dict's, so a converted checkpoint loads with
+``strict=True``. Inference only (eval mode, no dropout).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import torch
+from torch import nn
+
+from afford_motion_tpu.utils.misc import compute_repr_dimension
+
+from .layers import Linear, PositionalEncoding, TimestepEmbedder, TransformerEncoder
+from .scene_map import SceneMapEncoder
+from .text import get_lang_feat_dim_type
+
+
+class CMDM(nn.Module):
+    def __init__(
+        self,
+        motion_dim: int,
+        latent_dim: int = 512,
+        time_emb_dim: int = 512,
+        text_feat_dim: int = 512,
+        contact_dim: int = 6,
+        planes: Sequence[int] = (32, 64, 128, 256),
+        blocks: Sequence[int] = (2, 2, 2, 2),
+        arch: str = "trans_enc",
+        mask_motion: bool = True,
+        num_layers: Sequence[int] = (1, 1, 1, 1, 1),
+        num_heads: int = 8,
+        dim_feedforward: int = 1024,
+        dtype: torch.dtype = torch.float32,
+        knn_exact: bool = False,
+    ):
+        super().__init__()
+        if arch != "trans_enc":
+            raise NotImplementedError(f"CMDM arch {arch!r} is not ported yet")
+        self.mask_motion = mask_motion
+        self.dtype = dtype
+        # bit-exact kNN for the hierarchy instead of the packed-key kernel
+        self.knn_exact = knn_exact
+        self.timestep_embedder = TimestepEmbedder(latent_dim, time_emb_dim, 1000, dtype)
+        self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype)
+        self.contact_adapter = Linear(planes[-1], latent_dim, dtype=dtype)
+        self.self_attn_layer = TransformerEncoder(sum(num_layers), latent_dim, num_heads,
+                                                  dim_feedforward, dtype)
+        self.language_adapter = Linear(text_feat_dim, latent_dim, dtype=dtype)
+        self.motion_adapter = Linear(motion_dim, latent_dim, dtype=dtype)
+        self.positional_encoder = PositionalEncoding(latent_dim, 5000, dtype)
+        # the prediction head stays float32: the x0 math is full precision
+        self.motion_layer = Linear(latent_dim, motion_dim, dtype=torch.float32)
+
+    # trans_enc pools encoder-only group tokens; the hierarchy's 3-NN
+    # up-interpolation is read only by trans_dec
+    needs_up_interpolation = False
+
+    def encode_contact(self, cond: Dict[str, Any]) -> torch.Tensor:
+        """(xyz ⊕ contact) -> (B, G, planes[-1]) group tokens."""
+        return self.contact_encoder(cond["levels_sm"], cond["c_pc_contact"])
+
+    def denoise(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, Any],
+                cont_emb: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        dev = x.device
+        time_emb = self.timestep_embedder(timesteps)               # (B, 1, D)
+
+        text_emb = cond["text_emb"].to(self.dtype)                 # (B, Lt, Dt)
+        Lt = text_emb.shape[1]
+        if "text_token_mask" in cond:
+            text_mask = cond["text_token_mask"].bool()
+        else:
+            text_mask = torch.zeros((B, Lt), dtype=torch.bool, device=dev)
+        if "c_text_mask" in cond:
+            text_mask = text_mask | cond["c_text_mask"].bool()
+        if "c_text_erase" in cond:
+            text_emb = text_emb * (1.0 - cond["c_text_erase"][..., None].to(text_emb.dtype))
+        text_emb = self.language_adapter(text_emb)
+
+        h = self.motion_adapter(x)                                  # (B, L, D)
+
+        c = cont_emb
+        cont_mask = torch.zeros((B, c.shape[1]), dtype=torch.bool, device=dev)
+        if "c_pc_mask" in cond:
+            cont_mask = cont_mask | cond["c_pc_mask"].bool().expand_as(cont_mask)
+        if "c_pc_erase" in cond:
+            c = c * (1.0 - cond["c_pc_erase"][..., None].to(c.dtype))
+        c = self.contact_adapter(c)                                 # (B, G, D)
+
+        tokens = self.positional_encoder(torch.cat([time_emb, text_emb, c, h], dim=1))
+        pad_mask = None
+        if self.mask_motion:
+            time_mask = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+            pad_mask = torch.cat([time_mask, text_mask, cont_mask, cond["x_mask"].bool()], dim=1)
+        tokens = self.self_attn_layer(tokens, pad_mask)
+        h = tokens[:, 1 + Lt + c.shape[1]:, :]
+        return self.motion_layer(h.float())
+
+    def forward(self, x, timesteps, cond):
+        return self.denoise(x, timesteps, cond, self.encode_contact(cond))
+
+
+def build_cmdm(model_cfg: Any) -> CMDM:
+    """A CMDM from the model YAML block (``configs/model/cmdm.yaml``)."""
+    text_feat_dim, _ = get_lang_feat_dim_type(model_cfg.text_model.version)
+    cm = model_cfg.contact_model
+    if str(model_cfg.get("norm", "batch")) != "batch":
+        raise NotImplementedError("only norm='batch' is ported")
+    if bool(model_cfg.get("use_banded", False)) or bool(model_cfg.get("fused_qkv", False)):
+        raise NotImplementedError("use_banded / fused_qkv are not ported yet")
+    return CMDM(
+        motion_dim=int(model_cfg.input_feats),
+        latent_dim=int(model_cfg.latent_dim),
+        time_emb_dim=int(model_cfg.time_emb_dim),
+        text_feat_dim=text_feat_dim,
+        contact_dim=compute_repr_dimension(str(cm.contact_type)),
+        planes=tuple(cm.planes),
+        blocks=tuple(cm.blocks),
+        arch=str(model_cfg.arch),
+        mask_motion=bool(model_cfg.mask_motion),
+        num_layers=tuple(model_cfg.num_layers),
+        num_heads=int(model_cfg.num_heads),
+        dim_feedforward=int(model_cfg.dim_feedforward),
+        dtype=getattr(torch, str(model_cfg.get("dtype", "float32"))),
+        knn_exact=bool(model_cfg.get("knn_exact", False)),
+    )

@@ -1,0 +1,169 @@
+"""Transformer building blocks of the CMDM denoiser
+(counterpart of ``afford_motion_tpu/models/layers.py``).
+
+Mixed precision follows the JAX package, with explicit casts and no
+autocast: parameters stay float32, a module computes in its ``dtype``
+(bfloat16 in the shipped config), and attention logits, softmax and
+LayerNorm run in float32. Where flax's defaults differ from torch's, the
+port follows flax: LayerNorm epsilon 1e-6, GELU in its tanh form.
+
+Masks follow the torch convention, True = padding. A masked logit becomes
+``finfo(float32).min``, not -inf, so a fully masked row gives a uniform
+softmax (as in JAX) instead of NaN. Inference only: there is no dropout.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
+    """Classic transformer sin/cos table, (max_len, dim), float32."""
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float64) * (-math.log(10000.0) / dim))
+    pe = np.zeros((max_len, dim), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
+    return pe.astype(np.float32)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that casts its input and parameters to ``dtype`` (the
+    flax ``Dense(dtype=...)`` rule); parameters are stored in float32."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=float32)``: epsilon 1e-6, computed in
+    float32, result cast to ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class PositionalEncoding(nn.Module):
+    """Adds the sinusoidal table over the sequence dim of (B, L, D)."""
+
+    def __init__(self, dim: int, max_len: int = 5000, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("pe", torch.from_numpy(sinusoidal_table(max_len, dim)),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype) + self.pe[: x.shape[1]].to(self.dtype)[None]
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal timestep lookup + Linear, SiLU, Linear -> (B, 1, d_model)."""
+
+    def __init__(self, d_model: int, time_embed_dim: int, max_len: int = 1000,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.register_buffer("pe", torch.from_numpy(sinusoidal_table(max_len, time_embed_dim)),
+                             persistent=False)
+        self.time_embed = nn.Sequential(
+            Linear(time_embed_dim, d_model, dtype=dtype), nn.SiLU(),
+            Linear(d_model, d_model, dtype=dtype),
+        )
+
+    def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
+        return self.time_embed(self.pe[timesteps.long()][:, None, :])
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+               pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Masked scaled-dot-product attention over (B, L, H*C) projections;
+    logits and softmax in float32, the weighted sum in ``v.dtype``."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    hd = D // num_heads
+    q = q.reshape(B, Lq, num_heads, hd).transpose(1, 2)
+    k = k.reshape(B, Lk, num_heads, -1).transpose(1, 2)
+    v = v.reshape(B, Lk, num_heads, -1).transpose(1, 2)
+    attn = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
+    if pad_mask is not None:
+        attn = attn.masked_fill(pad_mask[:, None, None, :], torch.finfo(torch.float32).min)
+    attn = torch.softmax(attn, dim=-1).to(v.dtype)
+    o = torch.matmul(attn, v)
+    return o.transpose(1, 2).reshape(B, Lq, -1)
+
+
+class TorchMultiHeadAttention(nn.Module):
+    """``torch.nn.MultiheadAttention``'s parameters (``in_proj_weight`` packs
+    q, k, v; ``out_proj``), computed as three separate projections, as the
+    unfused flax module does."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.num_heads, self.dtype = d_model, num_heads, dtype
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = Linear(d_model, d_model, dtype=dtype)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, query, key, value, pad_mask=None):
+        dt, D = self.dtype, self.d_model
+        w = self.in_proj_weight.to(dt)
+        b = self.in_proj_bias.to(dt)
+        q = F.linear(query.to(dt), w[:D], b[:D])
+        k = F.linear(key.to(dt), w[D:2 * D], b[D:2 * D])
+        v = F.linear(value.to(dt), w[2 * D:], b[2 * D:])
+        return self.out_proj(_attention(q, k, v, self.num_heads, pad_mask))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder layer with torch's parameter names: self-attn, add,
+    norm1, linear1, GELU (tanh), linear2, add, norm2."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.self_attn = TorchMultiHeadAttention(d_model, num_heads, dtype)
+        self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
+        self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
+        self.norm1 = LayerNorm(d_model, dtype)
+        self.norm2 = LayerNorm(d_model, dtype)
+
+    def forward(self, x: torch.Tensor, pad_mask=None) -> torch.Tensor:
+        x = x.to(self.dtype)
+        x = self.norm1(x + self.self_attn(x, x, x, pad_mask))
+        h = self.linear2(F.gelu(self.linear1(x), approximate="tanh"))
+        return self.norm2(x + h)
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of post-LN encoder layers (``layers.{i}``)."""
+
+    def __init__(self, num_layers: int, d_model: int, num_heads: int,
+                 dim_feedforward: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dtype)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, pad_mask=None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, pad_mask)
+        return x

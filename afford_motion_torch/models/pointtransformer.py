@@ -1,0 +1,163 @@
+"""PointTransformer encoder in dense (B, N, C) layout on a precomputed
+hierarchy (counterpart of ``afford_motion_tpu/models/pointtransformer.py``).
+
+Parameter names are the reference torch names (``enc{i}.{j}.linear``,
+``transformer2.linear_p.1``, ...), the layout ``export_cmdm_checkpoint``
+writes. Every neighbourhood gather goes through :func:`bgather`, i.e. the
+row-gather kernel for CUDA tensors. BatchNorm runs in eval mode only: the
+train-mode statistics (flax's biased running variance) come with training.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.cuda.gather import gather_rows
+from ..ops.hierarchy import LevelGeometry
+from .layers import Linear
+
+SCENEMAP_STRIDES = (1, 4, 4, 4)
+SCENEMAP_NSAMPLES = (8, 16, 16, 16)
+
+
+def bgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched neighbourhood gather: x (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
+    return gather_rows(x.contiguous(), idx.to(torch.int32).contiguous())
+
+
+class PointNorm(nn.BatchNorm1d):
+    """Eval-mode BatchNorm over the last axis of any (..., C) tensor, in
+    float32 with epsilon 1e-5 (flax ``BatchNorm(dtype=float32)``), the
+    result cast to ``dtype``."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, eps=1e-5)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "PointNorm: train-mode BatchNorm is not ported yet; call .eval()"
+            )
+        y = F.batch_norm(x.float().reshape(-1, x.shape[-1]), self.running_mean,
+                         self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        return y.reshape(x.shape).to(self.compute_dtype)
+
+
+class PointTransformerLayer(nn.Module):
+    """Vector self-attention over kNN neighbourhoods; xyz, k and v share one
+    packed gather."""
+
+    def __init__(self, planes: int, share_planes: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.planes, self.share_planes, self.dtype = planes, share_planes, dtype
+        mid = planes // share_planes
+        self.linear_q = Linear(planes, planes, dtype=dtype)
+        self.linear_k = Linear(planes, planes, dtype=dtype)
+        self.linear_v = Linear(planes, planes, dtype=dtype)
+        self.linear_p = nn.Sequential(
+            Linear(3, 3, dtype=dtype), PointNorm(3, dtype), nn.ReLU(),
+            Linear(3, planes, dtype=dtype),
+        )
+        self.linear_w = nn.Sequential(
+            PointNorm(planes, dtype), nn.ReLU(), Linear(planes, mid, dtype=dtype),
+            PointNorm(mid, dtype), nn.ReLU(), Linear(mid, mid, dtype=dtype),
+        )
+
+    def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
+        C, s = self.planes, self.share_planes
+        B, N, K = knn_idx.shape
+        p = p.to(self.dtype)
+        x = x.to(self.dtype)
+        x_q = self.linear_q(x)
+        packed = bgather(torch.cat([p, self.linear_k(x), self.linear_v(x)], dim=-1),
+                         knn_idx)                                  # (B, N, K, 3+2C)
+        rel = packed[..., :3] - p[:, :, None, :]
+        x_k, x_v = packed[..., 3:3 + C], packed[..., 3 + C:]
+        p_r = self.linear_p(rel)
+        w = self.linear_w(x_k - x_q[:, :, None, :] + p_r)
+        w = torch.softmax(w.float(), dim=2).to(self.dtype)
+        agg = (x_v + p_r).reshape(B, N, K, s, C // s) * w[:, :, :, None, :]
+        return agg.sum(dim=2).reshape(B, N, C)
+
+
+class TransitionDown(nn.Module):
+    """Stride 1: linear + BN + ReLU. Otherwise the kNN group of every FPS
+    point in the parent level, linear + BN + ReLU, max over the group."""
+
+    def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.dtype = stride, dtype
+        in_ch = in_planes if stride == 1 else 3 + in_planes
+        self.linear = Linear(in_ch, out_planes, bias=False, dtype=dtype)
+        self.bn = PointNorm(out_planes, dtype)
+
+    def forward(self, parent_xyz: torch.Tensor, x: torch.Tensor,
+                geom: LevelGeometry) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.stride == 1:
+            return F.relu(self.bn(self.linear(x)))
+        new_xyz = geom.xyz.to(self.dtype)
+        packed = bgather(torch.cat([parent_xyz.to(self.dtype), x], dim=-1),
+                         geom.down_knn_idx)
+        rel = packed[..., :3] - new_xyz[:, :, None, :]
+        h = self.linear(torch.cat([rel, packed[..., 3:]], dim=-1))
+        return F.relu(self.bn(h)).amax(dim=2)
+
+
+class PointTransformerBlock(nn.Module):
+    """Residual bottleneck around the vector-attention layer."""
+
+    def __init__(self, planes: int, share_planes: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.linear1 = Linear(planes, planes, bias=False, dtype=dtype)
+        self.bn1 = PointNorm(planes, dtype)
+        self.transformer2 = PointTransformerLayer(planes, share_planes, dtype)
+        self.bn2 = PointNorm(planes, dtype)
+        self.linear3 = Linear(planes, planes, bias=False, dtype=dtype)
+        self.bn3 = PointNorm(planes, dtype)
+
+    def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        h = F.relu(self.bn1(self.linear1(x)))
+        h = F.relu(self.bn2(self.transformer2(p, h, knn_idx)))
+        h = self.bn3(self.linear3(h))
+        return F.relu(h + x)
+
+
+class PointTransformerEncoder(nn.Module):
+    """Stages ``enc1..encL``, each a TransitionDown followed by
+    ``blocks[i] - 1`` PointTransformerBlocks; returns every stage's output."""
+
+    def __init__(self, in_planes: int, planes: Sequence[int], blocks: Sequence[int],
+                 strides: Sequence[int], share_planes: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_stages = len(planes)
+        for i, (plane, nblocks, stride) in enumerate(zip(planes, blocks, strides), start=1):
+            stage = nn.ModuleList([TransitionDown(in_planes, plane, stride, dtype)])
+            stage.extend(PointTransformerBlock(plane, share_planes, dtype)
+                         for _ in range(1, nblocks))
+            setattr(self, f"enc{i}", stage)
+            in_planes = plane
+
+    def encode(self, levels: List[LevelGeometry], feats: torch.Tensor) -> List[torch.Tensor]:
+        outs = []
+        x = feats
+        parent_xyz = levels[0].xyz
+        for i in range(self.num_stages):
+            geom = levels[i]
+            stage = getattr(self, f"enc{i + 1}")
+            x = stage[0](parent_xyz, x, geom)
+            for block in stage[1:]:
+                x = block(geom.xyz, x, geom.knn_idx)
+            outs.append(x)
+            parent_xyz = geom.xyz
+        return outs

@@ -1,0 +1,122 @@
+"""Build the hand-written Hopper kernels in ``afford_motion_torch/csrc`` and
+bind them with ctypes.
+
+The ``.cu`` files are compiled with nvcc, at first use, into one shared
+library with a plain C interface in ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``). The library's name carries a hash of
+the sources and flags, so an edited kernel is rebuilt and a stale library
+is never loaded. ``-fmad=false`` keeps nvcc from contracting ``a*b+c`` into
+an FMA anywhere; the distance kernels also spell their rounding out with
+``__fmul_rn``/``__fadd_rn``, because their picks must be bit-equal to the
+plain PyTorch versions.
+
+Every C entry point launches on the stream it is given, returns the
+``cudaError_t`` of ``cudaGetLastError()`` right after the launch, and
+allocates nothing; :func:`check` turns a non-zero code into an error.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+SOURCES = ("fps.cu", "knn.cu", "gather.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (xyz, b, n, m, out, stream)
+    "amt_fps": [_P, _I, _I, _I, _P, _P],
+    # (query, support, b, m, n, k, idx, dist, stream)
+    "amt_knn_packed": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # (x, idx, b, n, c, m, k, elem_bytes, out, stream)
+    "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels are built "
+        "on a machine with the CUDA toolkit"
+    )
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libamt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists. The
+    compiler's output (ptxas registers / shared memory per kernel) is kept
+    beside the library as ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC_DIR / name) for name in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+        )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.amt_error_string.argtypes = [ctypes.c_int]
+            lib.amt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        msg = library().amt_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {t.device}")

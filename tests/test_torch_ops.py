@@ -1,0 +1,200 @@
+"""Parity of the PyTorch port's point ops and the plain versions of its CUDA
+kernels (``afford_motion_torch.ops``) with the JAX package on the CPU.
+
+The JAX Pallas kernels run in interpret mode, as the JAX package's own CPU
+tests run them. Inputs are made from a seed with numpy. FPS picks, the
+packed kNN's idx and dist, and gathered rows must be bit-equal. The exact
+kNN's indices must be equal and its distances agree to 1e-5 (abs): both
+sides use the expanded form |q|^2 - 2 q.s + |s|^2, whose matmul may round
+differently.
+
+The packed kNN's d^2 is ((dx*dx + dy*dy) + dz*dz) with every step rounded,
+as the kernel is written. XLA:CPU contracts the interpret-mode kernel's
+sums into FMAs, which moves about one quantized key in 2000 on a generic
+float cloud. So the comparison with ``knn_pallas`` uses clouds on a 2^-8
+grid, where every step of d^2 is exact and FMA cannot matter, and a numpy
+oracle of the kernel's definition (no contraction) covers generic clouds.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from afford_motion_tpu.ops import pointops as jpo
+from afford_motion_tpu.ops.pallas import knn as jknn
+from afford_motion_tpu.ops.pallas.fps import fps_pallas
+from afford_motion_tpu.ops.pallas.gather import gather_rows as jax_gather_rows
+from afford_motion_torch.ops import pointops as tpo
+from afford_motion_torch.ops.cuda import knn as tknn
+from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
+from afford_motion_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+
+
+def _cloud(kind, shape, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "tie":
+        # coarse grid: duplicate points and exactly equal distances
+        return (rng.integers(0, 6, size=shape) * 0.25).astype(np.float32)
+    if kind == "dyadic":
+        # 2^-8 grid in [-2, 2): d^2 < 48 in multiples of 2^-16, exact in f32
+        return (rng.integers(-512, 512, size=shape) / 256.0).astype(np.float32)
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _packed_knn_oracle(q, s, k):
+    """numpy statement of the TPU kernel's definition, every step rounded."""
+    d = np.zeros(q.shape[:2] + (s.shape[1],), dtype=np.float32)
+    for c in range(3):
+        t = q[:, :, None, c] - s[:, None, :, c]
+        d = t * t if c == 0 else d + t * t
+    keys = (d.view(np.int32) & ~tknn.IDX_MASK) | np.arange(s.shape[1], dtype=np.int32)
+    keys = np.sort(keys, axis=-1)[..., :k]
+    dq = (keys & ~tknn.IDX_MASK).view(np.float32)
+    return keys & tknn.IDX_MASK, np.sqrt(dq.astype(np.float64)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "tie"])
+def test_fps_plain_matches_pallas_and_xla(kind):
+    pts = _cloud(kind, (2, 1024, 3), 0)
+    got = fps_plain(torch.from_numpy(pts), 256).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(fps_pallas(jnp.asarray(pts), 256)))
+    np.testing.assert_array_equal(got, np.asarray(jpo._batched_fps_xla(jnp.asarray(pts), 256)))
+
+
+def test_fps_cuda_wrapper_routes_cpu_to_plain():
+    pts = torch.from_numpy(_cloud("random", (2, 512, 3), 1))
+    before = fps_cuda.launches
+    np.testing.assert_array_equal(fps_cuda(pts, 128).numpy(), fps_plain(pts, 128).numpy())
+    np.testing.assert_array_equal(tpo.farthest_point_sampling(pts[1], 128).numpy(),
+                                  fps_plain(pts, 128)[1].numpy())
+    assert fps_cuda.launches == before
+    with pytest.raises(ValueError):
+        fps_cuda(pts.double(), 128)
+
+
+@pytest.mark.parametrize("kind,m,n,k", [
+    ("dyadic", 128, 256, 8),
+    ("dyadic", 256, 512, 16),
+    ("dyadic", 128, 1024, 16),
+    ("tie", 256, 512, 16),
+])
+def test_knn_plain_matches_pallas_packed(kind, m, n, k):
+    """The packed-quantized order of knn_pallas, not exact top-k."""
+    s = _cloud(kind, (2, n, 3), 2)
+    q = s[:, :m].copy() if kind == "tie" else _cloud(kind, (2, m, 3), 3)
+    want_i, want_d = jknn.knn_pallas(jnp.asarray(q), jnp.asarray(s), k)
+    got_i, got_d = tknn.knn_plain(torch.from_numpy(q), torch.from_numpy(s), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_d.numpy().view(np.int32),
+                                  np.asarray(want_d).view(np.int32))
+    exact_i, _ = jpo.knn(jnp.asarray(q[0]), jnp.asarray(s[0]), k, method="exact")
+    if kind == "dyadic":  # the quantization is visible: not exact top-k
+        assert (got_i.numpy()[0] != np.asarray(exact_i)).any()
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 256, 8), (256, 2048, 16)])
+def test_knn_plain_matches_packed_oracle(m, n, k):
+    q, s = _cloud("random", (2, m, 3), 12), _cloud("random", (2, n, 3), 13)
+    want_i, want_d = _packed_knn_oracle(q, s, k)
+    got_i, got_d = tknn.knn_plain(torch.from_numpy(q), torch.from_numpy(s), k)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_array_equal(got_d.numpy().view(np.int32), want_d.view(np.int32))
+
+
+def test_knn_plain_chunking_is_invisible():
+    q, s = _cloud("random", (2, 384, 3), 4), _cloud("random", (2, 512, 3), 5)
+    a = tknn.knn_plain(torch.from_numpy(q), torch.from_numpy(s), 8, chunk=128)
+    b = tknn.knn_plain(torch.from_numpy(q), torch.from_numpy(s), 8, chunk=384)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 256, 8), (384, 8192, 64), (100, 512, 8),
+                                   (128, 200, 8), (128, 256, 256), (128, 8320, 8)])
+def test_knn_supports_matches_jax(m, n, k):
+    assert tknn.supports(m, n, k) == jknn.supports(m, n, k)
+
+
+@pytest.mark.parametrize("m,n,k,chunk", [(64, 200, 8, 2048), (96, 300, 16, 32),
+                                         (20, 5, 8, 2048), (16, 16, 16, 8)])
+def test_exact_knn_matches_jax(m, n, k, chunk):
+    """Generic clouds, including the k > n clamp (index 0, dist sqrt(1e10))."""
+    q, s = _cloud("random", (2, m, 3), 6), _cloud("random", (2, n, 3), 7)
+    want_i, want_d = jax.vmap(
+        lambda a, b: jpo.knn(a, b, k, chunk=chunk, method="exact"))(jnp.asarray(q), jnp.asarray(s))
+    got_i, got_d = tpo.knn(torch.from_numpy(q), torch.from_numpy(s), k, chunk=chunk)
+    assert got_i.dtype == torch.int32 and tuple(got_i.shape) == (2, m, k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=0, atol=1e-5)
+
+
+def test_batched_knn_routing():
+    """Supported shapes take the packed kNN unless method='exact'."""
+    q, s = _cloud("random", (2, 128, 3), 8), _cloud("random", (2, 256, 3), 9)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    packed = tknn.knn_plain(qt, st, 8)
+    exact = tpo.knn(qt, st, 8)
+    for x, y in zip(tpo.batched_knn(qt, st, 8), packed):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    for x, y in zip(tpo.batched_knn(qt, st, 8, "exact"), exact):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    # 128 support points are below the packed kernel's range
+    small = tpo.batched_knn(qt, st[:, :128], 16)
+    np.testing.assert_array_equal(small[0].numpy(), tpo.knn(qt, st[:, :128], 16)[0].numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_plain_matches_gather_rows(dtype):
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(2, 300, 67)).astype(np.float32)
+    idx = rng.integers(0, 300, size=(2, 128, 16)).astype(np.int32)
+    xj = jnp.asarray(x).astype(dtype)
+    want = np.asarray(jax_gather_rows(xj, jnp.asarray(idx)).astype(jnp.float32))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    before = gather_rows.launches
+    got = gather_rows(xt, torch.from_numpy(idx))
+    assert got.dtype == xt.dtype and gather_rows.launches == before
+    np.testing.assert_array_equal(got.float().numpy().view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got.numpy() if dtype == "float32" else got.float().numpy(),
+                                  gather_rows_plain(xt, torch.from_numpy(idx)).float().numpy())
+
+
+def test_interpolation_weights_match_jax():
+    d = np.abs(_cloud("random", (2, 64, 3), 11))
+    np.testing.assert_allclose(tpo.interpolation_weights(torch.from_numpy(d)).numpy(),
+                               np.asarray(jpo.interpolation_weights(jnp.asarray(d))),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_port_imports_without_jax():
+    """Every port module imports, and a tiny CPU chain runs, without jax."""
+    code = (
+        "import sys, pkgutil, importlib, torch\n"
+        "import afford_motion_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'afford_motion_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from afford_motion_torch.models.cmdm import CMDM\n"
+        "from afford_motion_torch.diffusion import create_gaussian_diffusion\n"
+        "from afford_motion_torch.train.sampling import make_sample_fn\n"
+        "from afford_motion_tpu.utils.config import DictConfig\n"
+        "torch.manual_seed(0)\n"
+        "m = CMDM(motion_dim=12, latent_dim=32, time_emb_dim=32, text_feat_dim=16,\n"
+        "         planes=(8, 16, 32, 64), num_layers=(1,), num_heads=4,\n"
+        "         dim_feedforward=64).eval()\n"
+        "d = create_gaussian_diffusion(DictConfig({'steps': 4}))\n"
+        "cond = {'c_pc_xyz': torch.randn(1, 512, 3), 'c_pc_contact': torch.rand(1, 512, 6),\n"
+        "        'text_emb': torch.randn(1, 1, 16), 'x_mask': torch.zeros(1, 10, dtype=torch.bool)}\n"
+        "x0 = make_sample_fn(m, d, sampler='ddim')((1, 10, 12), cond)\n"
+        "assert x0.shape == (1, 10, 12) and bool(torch.isfinite(x0).all())\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr[-3000:]
