@@ -1,4 +1,4 @@
-"""Gaussian diffusion, sampling half (counterpart of
+"""Gaussian diffusion (counterpart of
 ``afford_motion_tpu/diffusion/gaussian.py``).
 
 The schedule is computed once on the host in float64 and kept as float32
@@ -6,8 +6,9 @@ tensors on one device, as the JAX package keeps it. Models are plain
 functions ``model_fn(x, t) -> prediction`` with the condition bound by
 closure. The sampling loops are Python loops over the reversed schedule;
 noise is drawn from an explicit ``torch.Generator`` or injected (``noise``
-for x_T, ``noise_seq`` for the per-step draws). Training losses come with
-the training slice.
+for x_T, ``noise_seq`` for the per-step draws). ``training_losses`` is the
+per-sample loss of one noised batch: the MSE is averaged over valid frames
+x features only.
 """
 from __future__ import annotations
 
@@ -18,6 +19,12 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .losses import (
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+    sum_flat,
+)
 from .schedule import get_named_beta_schedule, respaced_betas, space_timesteps
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -36,10 +43,18 @@ class ModelVarType(str, enum.Enum):
     LEARNED_RANGE = "learned_range"
 
 
+class LossType(str, enum.Enum):
+    MSE = "mse"
+    RESCALED_MSE = "rescaled_mse"
+    KL = "kl"
+    RESCALED_KL = "rescaled_kl"
+
+
 @dataclass(frozen=True)
 class DiffusionConfig:
     model_mean_type: ModelMeanType
     model_var_type: ModelVarType
+    loss_type: LossType = LossType.MSE
     rescale_timesteps: bool = False
     original_num_steps: int = 1000
 
@@ -61,7 +76,7 @@ _SCHEDULE_FIELDS = (
 
 
 class GaussianDiffusion:
-    """Schedule tensors + the sampling math."""
+    """Schedule tensors + the sampling and training math."""
 
     def __init__(self, arrays: Dict[str, torch.Tensor], timestep_map: torch.Tensor,
                  config: DiffusionConfig):
@@ -77,6 +92,7 @@ class GaussianDiffusion:
         *,
         model_mean_type: ModelMeanType,
         model_var_type: ModelVarType,
+        loss_type: LossType = LossType.MSE,
         rescale_timesteps: bool = False,
         timestep_map: Optional[np.ndarray] = None,
         original_num_steps: Optional[int] = None,
@@ -120,7 +136,7 @@ class GaussianDiffusion:
         return cls(
             arrays,
             torch.tensor(np.asarray(timestep_map, dtype=np.int64), device=device),
-            DiffusionConfig(model_mean_type, model_var_type, rescale_timesteps,
+            DiffusionConfig(model_mean_type, model_var_type, loss_type, rescale_timesteps,
                             int(original_num_steps or T)),
         )
 
@@ -141,6 +157,17 @@ class GaussianDiffusion:
         return new_t
 
     # -------------------------------------------------------------- q-process
+    def q_mean_variance(self, x_start, t):
+        nd = x_start.ndim
+        return (_extract(self.sqrt_alphas_cumprod, t, nd) * x_start,
+                _extract(1.0 - self.alphas_cumprod, t, nd),
+                _extract(self.log_one_minus_alphas_cumprod, t, nd))
+
+    def q_sample(self, x_start, t, noise):
+        nd = x_start.ndim
+        return (_extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+                + _extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
     def q_posterior_mean_variance(self, x_start, x_t, t):
         nd = x_t.ndim
         mean = (_extract(self.posterior_mean_coef1, t, nd) * x_start
@@ -276,6 +303,64 @@ class GaussianDiffusion:
         return x
 
 
+    # ---------------------------------------------------------------- training
+    def _vb_terms_bpd(self, model_fn, x_start, x_t, t, *, clip_denoised=True):
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, clip_denoised=clip_denoised)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"],
+                                 out["log_variance"])) / np.log(2.0)
+        decoder_nll = mean_flat(-discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])) / np.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl),
+                "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(self, model_fn: ModelFn, x_start: torch.Tensor, t: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None,
+                        x_mask: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Per-sample masked diffusion loss. ``x_mask`` (B, L) is the padding
+        mask, True = padded frame; the MSE is averaged over valid frames x
+        features only. ``noise`` is drawn from ``generator`` unless given."""
+        cfg = self.config
+        if noise is None:
+            noise = self._randn(x_start.shape, generator).to(x_start.dtype)
+        x_t = self.q_sample(x_start, t, noise)
+        if x_mask is None:
+            x_mask = torch.zeros(x_start.shape[:-1], dtype=torch.bool, device=x_start.device)
+        valid = (~x_mask.bool()).to(x_start.dtype)[..., None]      # (B, L, 1)
+
+        terms: Dict[str, torch.Tensor] = {}
+        if cfg.loss_type in (LossType.KL, LossType.RESCALED_KL):
+            terms["loss"] = self._vb_terms_bpd(model_fn, x_start, x_t, t,
+                                               clip_denoised=False)["output"]
+            if cfg.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output = model_fn(x_t, self.model_timesteps(t))
+        if cfg.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            C = x_t.shape[-1]
+            model_output, var_values = torch.split(
+                model_output, [C, model_output.shape[-1] - C], dim=-1)
+            # the bound trains the variance only: the mean is detached
+            frozen_out = torch.cat([model_output.detach(), var_values], dim=-1)
+            terms["vb"] = self._vb_terms_bpd(lambda *_args: frozen_out, x_start, x_t, t,
+                                             clip_denoised=False)["output"]
+            if cfg.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
+
+        if cfg.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif cfg.model_mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+        mse = (target - model_output) ** 2
+        terms["mse"] = sum_flat(mse * valid) / (sum_flat(valid) * target.shape[-1])
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        return terms
+
+
 def create_gaussian_diffusion(diff_cfg: Any,
                               device: torch.device = torch.device("cpu")) -> GaussianDiffusion:
     """A (possibly respaced) diffusion from the config's ``diffusion`` block."""
@@ -298,6 +383,7 @@ def create_gaussian_diffusion(diff_cfg: Any,
         new_betas,
         model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
         model_var_type=var_type,
+        loss_type=LossType(str(diff_cfg.get("loss_type", "MSE")).lower()),
         rescale_timesteps=bool(diff_cfg.get("rescale_timesteps", False)),
         timestep_map=timestep_map,
         original_num_steps=steps,

@@ -11,8 +11,8 @@ from .cmdm import CMDM, build_cmdm
 
 
 def create_model(model_cfg: Any, device: torch.device) -> CMDM:
-    """The configured model on ``device``, in eval mode (the port runs
-    inference only)."""
+    """The configured model on ``device``, in eval mode; a train step puts
+    it in train mode itself."""
     name = str(model_cfg.name)
     if name != "CMDM":
         raise NotImplementedError(f"model {name!r} is not ported yet")

@@ -6,7 +6,9 @@
 classifier-free-guidance flags ``c_text_mask``, ``c_text_erase``,
 ``c_pc_mask`` and ``c_pc_erase`` act as in the JAX package. Parameter names
 are the reference state_dict's, so a converted checkpoint loads with
-``strict=True``. Inference only (eval mode, no dropout).
+``strict=True``. Train or eval is the module's mode: ``.train()`` turns on
+the batch statistics of the contact encoder's BatchNorms and the dropout of
+the transformer (see ``layers.set_dropout_generator``).
 """
 from __future__ import annotations
 
@@ -15,8 +17,7 @@ from typing import Any, Dict, Sequence
 import torch
 from torch import nn
 
-from afford_motion_tpu.utils.misc import compute_repr_dimension
-
+from ..utils.misc import compute_repr_dimension
 from .layers import Linear, PositionalEncoding, TimestepEmbedder, TransformerEncoder
 from .scene_map import SceneMapEncoder
 from .text import get_lang_feat_dim_type
@@ -39,6 +40,7 @@ class CMDM(nn.Module):
         dim_feedforward: int = 1024,
         dtype: torch.dtype = torch.float32,
         knn_exact: bool = False,
+        dropout: float = 0.0,
     ):
         super().__init__()
         if arch != "trans_enc":
@@ -51,10 +53,10 @@ class CMDM(nn.Module):
         self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype)
         self.contact_adapter = Linear(planes[-1], latent_dim, dtype=dtype)
         self.self_attn_layer = TransformerEncoder(sum(num_layers), latent_dim, num_heads,
-                                                  dim_feedforward, dtype)
+                                                  dim_feedforward, dtype, dropout)
         self.language_adapter = Linear(text_feat_dim, latent_dim, dtype=dtype)
         self.motion_adapter = Linear(motion_dim, latent_dim, dtype=dtype)
-        self.positional_encoder = PositionalEncoding(latent_dim, 5000, dtype)
+        self.positional_encoder = PositionalEncoding(latent_dim, 5000, dtype, dropout)
         # the prediction head stays float32: the x0 math is full precision
         self.motion_layer = Linear(latent_dim, motion_dim, dtype=torch.float32)
 
@@ -130,4 +132,5 @@ def build_cmdm(model_cfg: Any) -> CMDM:
         dim_feedforward=int(model_cfg.dim_feedforward),
         dtype=getattr(torch, str(model_cfg.get("dtype", "float32"))),
         knn_exact=bool(model_cfg.get("knn_exact", False)),
+        dropout=float(model_cfg.get("dropout", 0.0)),
     )

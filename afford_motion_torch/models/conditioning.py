@@ -50,9 +50,11 @@ def cond_to_device(cond: Dict[str, np.ndarray], device: torch.device) -> Dict[st
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in cond.items()}
 
 
+@torch.no_grad()
 def add_hierarchies(model: CMDM, cond: Dict[str, Any]) -> Dict[str, Any]:
     """Attach ``levels_sm``, the SceneMap hierarchy: from a full geometry
-    cache, from cached FPS indices, or built from ``c_pc_xyz``."""
+    cache, from cached FPS indices, or built from ``c_pc_xyz``. Indices and
+    level coordinates carry no gradient."""
     if not isinstance(model, CMDM):
         raise NotImplementedError(f"add_hierarchies: {type(model).__name__} is not ported")
     xyz = cond.get("c_pc_xyz")

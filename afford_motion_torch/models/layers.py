@@ -9,7 +9,13 @@ port follows flax: LayerNorm epsilon 1e-6, GELU in its tanh form.
 
 Masks follow the torch convention, True = padding. A masked logit becomes
 ``finfo(float32).min``, not -inf, so a fully masked row gives a uniform
-softmax (as in JAX) instead of NaN. Inference only: there is no dropout.
+softmax (as in JAX) instead of NaN.
+
+Dropout sits where the JAX layers have it (after the positional encoding,
+on the attention weights, after the FFN activation and on both residual
+branches). It is active in train mode only and draws its masks from an
+explicit ``torch.Generator`` on the module's device, set for a whole model
+by :func:`set_dropout_generator`; the masks are torch's, not JAX's.
 """
 from __future__ import annotations
 
@@ -30,6 +36,36 @@ def sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
     return pe.astype(np.float32)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode an entry is zeroed with probability
+    ``p`` and the rest scaled by ``1 / (1 - p)``; the identity in eval mode
+    or with ``p = 0``. The mask comes from ``self.generator``."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator: call "
+                               "set_dropout_generator(model, generator) first")
+        keep = torch.rand(x.shape, device=x.device, generator=self.generator) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every :class:`Dropout` of ``model`` at ``generator``."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
 
 
 class Linear(nn.Linear):
@@ -61,16 +97,19 @@ class LayerNorm(nn.LayerNorm):
 
 
 class PositionalEncoding(nn.Module):
-    """Adds the sinusoidal table over the sequence dim of (B, L, D)."""
+    """Adds the sinusoidal table over the sequence dim of (B, L, D), then
+    dropout."""
 
-    def __init__(self, dim: int, max_len: int = 5000, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, max_len: int = 5000, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = Dropout(dropout)
         self.register_buffer("pe", torch.from_numpy(sinusoidal_table(max_len, dim)),
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) + self.pe[: x.shape[1]].to(self.dtype)[None]
+        return self.dropout(x.to(self.dtype) + self.pe[: x.shape[1]].to(self.dtype)[None])
 
 
 class TimestepEmbedder(nn.Module):
@@ -91,9 +130,10 @@ class TimestepEmbedder(nn.Module):
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-               pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+               pad_mask: Optional[torch.Tensor], dropout: nn.Module) -> torch.Tensor:
     """Masked scaled-dot-product attention over (B, L, H*C) projections;
-    logits and softmax in float32, the weighted sum in ``v.dtype``."""
+    logits and softmax in float32, dropout on the weights, the weighted sum
+    in ``v.dtype``."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     hd = D // num_heads
@@ -103,7 +143,7 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
     attn = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
     if pad_mask is not None:
         attn = attn.masked_fill(pad_mask[:, None, None, :], torch.finfo(torch.float32).min)
-    attn = torch.softmax(attn, dim=-1).to(v.dtype)
+    attn = dropout(torch.softmax(attn, dim=-1).to(v.dtype))
     o = torch.matmul(attn, v)
     return o.transpose(1, 2).reshape(B, Lq, -1)
 
@@ -113,9 +153,11 @@ class TorchMultiHeadAttention(nn.Module):
     q, k, v; ``out_proj``), computed as three separate projections, as the
     unfused flax module does."""
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.d_model, self.num_heads, self.dtype = d_model, num_heads, dtype
+        self.dropout = Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
@@ -128,18 +170,20 @@ class TorchMultiHeadAttention(nn.Module):
         q = F.linear(query.to(dt), w[:D], b[:D])
         k = F.linear(key.to(dt), w[D:2 * D], b[D:2 * D])
         v = F.linear(value.to(dt), w[2 * D:], b[2 * D:])
-        return self.out_proj(_attention(q, k, v, self.num_heads, pad_mask))
+        return self.out_proj(_attention(q, k, v, self.num_heads, pad_mask, self.dropout))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer with torch's parameter names: self-attn, add,
-    norm1, linear1, GELU (tanh), linear2, add, norm2."""
+    norm1, linear1, GELU (tanh), linear2, add, norm2; dropout on both
+    residual branches and after the activation."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
-        self.self_attn = TorchMultiHeadAttention(d_model, num_heads, dtype)
+        self.self_attn = TorchMultiHeadAttention(d_model, num_heads, dtype, dropout)
+        self.dropout = Dropout(dropout)
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
         self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
         self.norm1 = LayerNorm(d_model, dtype)
@@ -147,19 +191,20 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask=None) -> torch.Tensor:
         x = x.to(self.dtype)
-        x = self.norm1(x + self.self_attn(x, x, x, pad_mask))
-        h = self.linear2(F.gelu(self.linear1(x), approximate="tanh"))
-        return self.norm2(x + h)
+        x = self.norm1(x + self.dropout(self.self_attn(x, x, x, pad_mask)))
+        h = self.linear2(self.dropout(F.gelu(self.linear1(x), approximate="tanh")))
+        return self.norm2(x + self.dropout(h))
 
 
 class TransformerEncoder(nn.Module):
     """Stack of post-LN encoder layers (``layers.{i}``)."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 dim_feedforward: int, dtype: torch.dtype = torch.float32):
+                 dim_feedforward: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dtype)
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dtype, dropout)
             for _ in range(num_layers)
         )
 

@@ -4,8 +4,9 @@ hierarchy (counterpart of ``afford_motion_tpu/models/pointtransformer.py``).
 Parameter names are the reference torch names (``enc{i}.{j}.linear``,
 ``transformer2.linear_p.1``, ...), the layout ``export_cmdm_checkpoint``
 writes. Every neighbourhood gather goes through :func:`bgather`, i.e. the
-row-gather kernel for CUDA tensors. BatchNorm runs in eval mode only: the
-train-mode statistics (flax's biased running variance) come with training.
+row-gather kernel (and, backward, its scatter-add kernel) for CUDA tensors.
+Train or eval is the module's mode (``.train()`` / ``.eval()``), which
+stands for the JAX package's ``train=`` argument.
 """
 from __future__ import annotations
 
@@ -29,21 +30,34 @@ def bgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class PointNorm(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the last axis of any (..., C) tensor, in
-    float32 with epsilon 1e-5 (flax ``BatchNorm(dtype=float32)``), the
-    result cast to ``dtype``."""
+    """BatchNorm over the last axis of any (..., C) tensor, in float32 with
+    epsilon 1e-5, the result cast to ``dtype``: flax
+    ``BatchNorm(momentum=0.9, dtype=float32)``. In train mode the statistics
+    run over all other axes, the variance is flax's ``max(E[x^2] - E[x]^2,
+    0)`` and it is the biased one both for normalising and for the running
+    update ``ra = 0.9 * ra + 0.1 * batch`` (torch's own BatchNorm would store
+    the unbiased variance)."""
+
+    FLAX_MOMENTUM = 0.9
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "PointNorm: train-mode BatchNorm is not ported yet; call .eval()"
-            )
-        y = F.batch_norm(x.float().reshape(-1, x.shape[-1]), self.running_mean,
-                         self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float().reshape(-1, x.shape[-1])
+        if not self.training:
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.reshape(x.shape).to(self.compute_dtype)
+        mean = xf.mean(dim=0)
+        var = ((xf * xf).mean(dim=0) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            keep = self.FLAX_MOMENTUM
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+            self.num_batches_tracked += 1
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.reshape(x.shape).to(self.compute_dtype)
 
 

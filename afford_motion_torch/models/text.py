@@ -14,7 +14,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from afford_motion_tpu.utils.io import get_logger
+from ..utils.io import get_logger
 
 logger = get_logger()
 
@@ -73,20 +73,28 @@ class HashTextEncoder(TextEncoder):
 
 
 class TableTextEncoder(TextEncoder):
-    """Embeddings from an ``.npz`` with ``texts`` and ``embeddings`` (N, dim);
-    an unknown caption falls back to the hash encoder, with a one-time
-    warning."""
+    """Embeddings from an ``.npz`` with ``texts`` and ``embeddings`` (N, dim).
+    An unknown caption raises with ``strict=True`` (training: a stale table
+    must not silently train on hash embeddings), else falls back to the
+    hash encoder with a one-time warning."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, strict: bool = False):
         data = np.load(path, allow_pickle=False)
         texts = [str(t) for t in data["texts"]]
         emb = np.asarray(data["embeddings"], dtype=np.float32)
         super().__init__(emb.shape[1])
         self._cache = dict(zip(texts, emb))
         self._fallback = HashTextEncoder(self.dim)
+        self.strict = bool(strict)
         self._warned = False
 
     def _encode_one(self, text: str) -> np.ndarray:
+        if self.strict:
+            raise KeyError(
+                f"caption not in embedding table: {text!r}; re-export the table or "
+                "set text_encoder.allow_fallback=true to train on hash embeddings "
+                "for unknown captions"
+            )
         if not self._warned:
             logger.warning(f"caption not in embedding table, falling back to hash "
                            f"encoder: {text!r}")
@@ -96,10 +104,13 @@ class TableTextEncoder(TextEncoder):
 
 def create_text_encoder(version: str, *, table_path: Optional[str] = None,
                         weights_dir: Optional[str] = None,
-                        per_token: bool = False) -> TextEncoder:
+                        per_token: bool = False,
+                        strict_table: bool = False) -> TextEncoder:
     """The JAX package's provider choice minus the local-weights encoders:
     existing CLIP/BERT weights are refused, not hashed. A pooled table does
-    not serve per-token BERT features."""
+    not serve per-token BERT features. ``strict_table`` (the training
+    default): a table's unknown captions raise, and a BERT model without
+    weights is an error; no provider at all still hashes, with a warning."""
     dim, family = get_lang_feat_dim_type(version)
     if weights_dir and Path(weights_dir).exists():
         raise NotImplementedError(
@@ -107,7 +118,13 @@ def create_text_encoder(version: str, *, table_path: Optional[str] = None,
             "export an embedding table or point text_encoder.weights_dir elsewhere"
         )
     if table_path and Path(table_path).exists() and not (family == "bert" and per_token):
-        return TableTextEncoder(table_path)
+        return TableTextEncoder(table_path, strict=strict_table)
+    if strict_table and family == "bert":
+        raise FileNotFoundError(
+            f"text_model.version={version!r} needs local BERT weights, which the "
+            "port cannot run yet; set text_encoder.allow_fallback=true to use "
+            "hash embeddings (tests only)"
+        )
     logger.warning(f"no embedding table at {table_path!r}; using HASH text "
                    "embeddings — test/bench use only")
     return HashTextEncoder(dim)

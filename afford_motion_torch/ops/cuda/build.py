@@ -1,9 +1,10 @@
 """Build the hand-written Hopper kernels in ``afford_motion_torch/csrc`` and
 bind them with ctypes.
 
-The ``.cu`` files are compiled with nvcc, at first use, into one shared
-library with a plain C interface in ``build/kernels/`` at the root of the
-checkout (listed in ``.gitignore``). The library's name carries a hash of
+The ``.cu`` files are compiled with nvcc, at first use (one nvcc process per
+source, all started together, then one link), into one shared library with
+a plain C interface in ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``). The library's name carries a hash of
 the sources and flags, so an edited kernel is rebuilt and a stale library
 is never loaded. ``-fmad=false`` keeps nvcc from contracting ``a*b+c`` into
 an FMA anywhere; the distance kernels also spell their rounding out with
@@ -27,11 +28,11 @@ from pathlib import Path
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("fps.cu", "knn.cu", "gather.cu")
+SOURCES = ("fps.cu", "knn.cu", "gather.cu", "scatter.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "amt_knn_packed": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # (x, idx, b, n, c, m, k, elem_bytes, out, stream)
     "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # (g, idx, b, n, c, mk, elem_bytes, counts, start, unsorted, sorted, out, stream)
+    "amt_scatter_add_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -76,16 +79,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(SOURCES, objects)]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(name, proc.returncode, log)
+                  for name, proc, log in zip(SOURCES, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(
+                f"nvcc failed on {name} with exit code {rc}:\n{log}" for name, rc, log in failed))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link with exit code {link.returncode}:\n"
+                               f"{link.stdout}{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

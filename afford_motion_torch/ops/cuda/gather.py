@@ -1,9 +1,12 @@
-"""Neighbourhood row gather: the CUDA kernel ``csrc/gather.cu`` and its
-plain PyTorch version.
+"""Neighbourhood row gather and its scatter-add backward: the CUDA kernels
+``csrc/gather.cu`` and ``csrc/scatter.cu`` with their plain PyTorch versions.
 
-Counterpart of the forward of ``afford_motion_tpu/ops/pallas/gather.py``
-(``gather_rows``). Forward only: the scatter-add backward kernel comes with
-training, so the CUDA path refuses inputs that require grad.
+Counterpart of ``afford_motion_tpu/ops/pallas/gather.py``: ``gather_rows``
+is differentiable in ``x``, through a ``torch.autograd.Function`` whose
+backward is the scatter-add. The scatter sums every destination row's
+contributions in ascending flat position ``m * K + k``, from zero, in
+float32, on the card and in the plain version alike, so the backward is
+deterministic and the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -20,26 +23,51 @@ def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[rows, idx.long()]
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) f32|bf16, (B, M, K) int32 -> (B, M, K, C), bit-exact.
-    Launches the kernel for CUDA tensors; CPU tensors take
-    :func:`gather_rows_plain`."""
-    if x.ndim != 3 or idx.ndim != 3 or x.shape[0] != idx.shape[0]:
-        raise ValueError(f"gather_rows: expected (B, N, C) and (B, M, K), got "
-                         f"{tuple(x.shape)} and {tuple(idx.shape)}")
+def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, M, K, C), (B, M, K) int -> (B, n, C): ``out[b, idx[b, m, k]] +=
+    g[b, m, k]`` from zero, each destination's contributions added in
+    ascending ``m * K + k``. A stable sort groups the positions by
+    destination; pass r then adds every destination's r-th contributor, so a
+    pass touches a destination at most once and the order of the sum is
+    fixed. float32 and bfloat16 accumulate in float32 (the bfloat16 sum is
+    rounded once at the end); other types in their own."""
+    B, M, K, C = g.shape
+    acc_dtype = torch.float32 if g.dtype in _ELEM_BYTES else g.dtype
+    flat = idx.reshape(B, M * K).long()
+    dest, order = torch.sort(flat, dim=1, stable=True)
+    pos = torch.arange(M * K, device=g.device).expand(B, -1)
+    new_segment = torch.ones_like(dest, dtype=torch.bool)
+    new_segment[:, 1:] = dest[:, 1:] != dest[:, :-1]
+    segment_start = torch.where(new_segment, pos, torch.zeros_like(pos)).cummax(dim=1).values
+    rank = pos - segment_start
+    rows = g.reshape(B, M * K, C).to(acc_dtype)
+    out = torch.zeros((B, n, C), dtype=acc_dtype, device=g.device)
+    for r in range(int(rank.max()) + 1):
+        b_i, p_i = (rank == r).nonzero(as_tuple=True)
+        d_i = dest[b_i, p_i]
+        out[b_i, d_i] = out[b_i, d_i] + rows[b_i, order[b_i, p_i]]
+    return out.to(g.dtype)
+
+
+def _check(x: torch.Tensor, idx: torch.Tensor, name: str, x_ndim: int) -> None:
+    if x.ndim != x_ndim or idx.ndim != 3 or x.shape[0] != idx.shape[0]:
+        raise ValueError(f"{name}: bad shapes {tuple(x.shape)} and {tuple(idx.shape)}")
     if x.device != idx.device:
-        raise ValueError("gather_rows: x and idx lie on different devices")
+        raise ValueError(f"{name}: the rows and idx lie on different devices")
+    if x.device.type == "cpu":
+        return
+    build.require_cuda(x, name)
+    if x.dtype not in _ELEM_BYTES or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: takes float32/bfloat16 rows and int32 "
+                         f"indices, got {x.dtype} and {idx.dtype}")
+    if not (x.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{name}: the rows and idx must be contiguous")
+
+
+def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _check(x, idx, "gather_rows", 3)
     if x.device.type == "cpu":
         return gather_rows_plain(x, idx)
-    build.require_cuda(x, "gather_rows")
-    if x.dtype not in _ELEM_BYTES or idx.dtype != torch.int32:
-        raise ValueError(f"gather_rows: takes float32/bfloat16 rows and int32 "
-                         f"indices, got {x.dtype} and {idx.dtype}")
-    if x.requires_grad:
-        raise RuntimeError("gather_rows: the CUDA path is forward-only; its "
-                           "scatter-add backward is not ported yet")
-    if not (x.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("gather_rows: x and idx must be contiguous")
     B, N, C = x.shape
     _, M, K = idx.shape
     out = torch.empty((B, M, K, C), dtype=x.dtype, device=x.device)
@@ -53,4 +81,55 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, M, K, C) f32|bf16, (B, M, K) int32 in [0, n) -> (B, n, C): the
+    ordered scatter-add (see :func:`scatter_add_rows_plain`). Launches the
+    kernel for CUDA tensors; CPU tensors take the plain version."""
+    _check(g, idx, "scatter_add_rows", 4)
+    if g.shape[1:3] != idx.shape[1:]:
+        raise ValueError(f"scatter_add_rows: g {tuple(g.shape)} does not match "
+                         f"idx {tuple(idx.shape)}")
+    if g.device.type == "cpu":
+        return scatter_add_rows_plain(g, idx, n)
+    B, M, K, C = g.shape
+    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
+    # scratch: counts / cursors and slice starts per destination, the
+    # positions grouped by destination before and after the sort
+    per_dest = torch.empty((2, B, n), dtype=torch.int32, device=g.device)
+    per_pos = torch.empty((2, B, M * K), dtype=torch.int32, device=g.device)
+    lib = build.library()
+    with torch.cuda.device(g.device):
+        code = lib.amt_scatter_add_rows(
+            g.data_ptr(), idx.data_ptr(), B, n, C, M * K, _ELEM_BYTES[g.dtype],
+            per_dest[0].data_ptr(), per_dest[1].data_ptr(), per_pos[0].data_ptr(),
+            per_pos[1].data_ptr(), out.data_ptr(), build.stream_of(g))
+    build.check(code, "amt_scatter_add_rows")
+    scatter_add_rows.launches += 1
+    return out
+
+
+class GatherRows(torch.autograd.Function):
+    """``out[b, m, k] = x[b, idx[b, m, k]]``; the gradient of ``x`` is the
+    ordered scatter-add of the output's gradient, ``idx`` gets none."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n = x.shape[1]
+        return _gather_forward(x, idx)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        return scatter_add_rows(g.contiguous(), idx, ctx.n), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) f32|bf16, (B, M, K) int32 -> (B, M, K, C), bit-exact, and
+    differentiable in ``x``. Launches the kernels for CUDA tensors (forward
+    and backward); CPU tensors take the plain versions."""
+    return GatherRows.apply(x, idx)
+
+
 gather_rows.launches = 0
+scatter_add_rows.launches = 0

@@ -8,7 +8,9 @@ repeat takes the k-th pre-generated contact, ``c_pc_contact[:, k]``) and
 writes ``samples.npz`` (the generated motions and their case ids) and
 ``timing.json`` to ``<eval_dir>/test-<ts>/``. The evaluators (``eval/``)
 are not ported yet, so no metrics are computed; the run says so in its log.
-It runs on ``cuda:<gpu>`` when a card is present, else on the CPU.
+It runs on ``cuda:<gpu>`` unless the caller names another device (the
+``device=cpu`` override, or ``main(argv, device=...)``), and raises when the
+card is asked for and absent.
 """
 from __future__ import annotations
 
@@ -21,16 +23,16 @@ import time
 import numpy as np
 import torch
 
-from afford_motion_tpu.data import create_dataset
-from afford_motion_tpu.utils.config import DictConfig, load_config
-from afford_motion_tpu.utils.io import add_file_handler, get_logger, mkdir_if_not_exists, time_str
-from afford_motion_tpu.utils.misc import compute_repr_dimension
-
+from .data import create_dataset
 from .models.base import create_model_and_diffusion
 from .models.conditioning import cond_to_device, host_prepare_cond
 from .models.text import create_text_encoder
 from .train.checkpoint import latest_ckpt, load_ckpt
 from .train.sampling import make_sample_fn, parity_noise
+from .utils.config import DictConfig, load_config
+from .utils.device import resolve_device
+from .utils.io import add_file_handler, get_logger, mkdir_if_not_exists, time_str
+from .utils.misc import compute_repr_dimension
 
 logger = get_logger()
 
@@ -148,7 +150,7 @@ def test(cfg: DictConfig, device: torch.device) -> str:
     return test_dir
 
 
-def main(argv=None) -> str:
+def main(argv=None, device=None) -> str:
     cfg = load_config("configs", argv if argv is not None else sys.argv[1:])
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
@@ -157,9 +159,7 @@ def main(argv=None) -> str:
     # f32 stays f32 on the card: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = (torch.device(f"cuda:{int(cfg.get('gpu', 0))}") if torch.cuda.is_available()
-              else torch.device("cpu"))
-    return test(cfg, device)
+    return test(cfg, resolve_device(cfg, device))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,3 @@
+from .entry import main
+
+main()

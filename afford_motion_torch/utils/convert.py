@@ -1,21 +1,144 @@
-"""Weights from the JAX package: flax CMDM variables -> the port's
-state_dict, through ``afford_motion_tpu.utils.torch_convert`` (numpy only).
+"""Weights between the JAX package and the port: the flax variable tree of a
+``trans_enc`` CMDM <-> the port's state_dict (the reference torch layout).
+
+One table of (state_dict key, flax path, kind) entries drives both
+directions, so they are inverses by construction. Kinds: ``w`` a Dense
+kernel (transposed), ``v`` a vector copied as is, ``qkv_w`` / ``qkv_b`` the
+three separate q/k/v Dense layers packed into torch's ``in_proj``.
+Numpy only; the leaves may be numpy or jax arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from afford_motion_tpu.utils.torch_convert import export_cmdm_checkpoint
+Path = Tuple[str, ...]
+
+
+def _dense(key: str, path: Path, bias: bool = True):
+    yield f"{key}.weight", ("params", *path, "kernel"), "w"
+    if bias:
+        yield f"{key}.bias", ("params", *path, "bias"), "v"
+
+
+def _layernorm(key: str, path: Path):
+    yield f"{key}.weight", ("params", *path, "scale"), "v"
+    yield f"{key}.bias", ("params", *path, "bias"), "v"
+
+
+def _bn(key: str, path: Path):
+    yield f"{key}.weight", ("params", *path, "BatchNorm_0", "scale"), "v"
+    yield f"{key}.bias", ("params", *path, "BatchNorm_0", "bias"), "v"
+    yield f"{key}.running_mean", ("batch_stats", *path, "BatchNorm_0", "mean"), "v"
+    yield f"{key}.running_var", ("batch_stats", *path, "BatchNorm_0", "var"), "v"
+
+
+def _pt_layer(key: str, path: Path):
+    for i, name in enumerate(("linear_q", "linear_k", "linear_v")):
+        yield from _dense(f"{key}.{name}", (*path, f"Dense_{i}"))
+    yield from _dense(f"{key}.linear_p.0", (*path, "Dense_3"))
+    yield from _bn(f"{key}.linear_p.1", (*path, "PointNorm_0"))
+    yield from _dense(f"{key}.linear_p.3", (*path, "Dense_4"))
+    yield from _bn(f"{key}.linear_w.0", (*path, "PointNorm_1"))
+    yield from _dense(f"{key}.linear_w.2", (*path, "Dense_5"))
+    yield from _bn(f"{key}.linear_w.3", (*path, "PointNorm_2"))
+    yield from _dense(f"{key}.linear_w.5", (*path, "Dense_6"))
+
+
+def _pt_block(key: str, path: Path):
+    yield from _dense(f"{key}.linear1", (*path, "Dense_0"), bias=False)
+    yield from _bn(f"{key}.bn1", (*path, "PointNorm_0"))
+    yield from _pt_layer(f"{key}.transformer2", (*path, "PointTransformerLayer_0"))
+    yield from _bn(f"{key}.bn2", (*path, "PointNorm_1"))
+    yield from _dense(f"{key}.linear3", (*path, "Dense_1"), bias=False)
+    yield from _bn(f"{key}.bn3", (*path, "PointNorm_2"))
+
+
+def _encoder_layer(key: str, path: Path):
+    mha = (*path, "TorchMultiHeadAttention_0")
+    yield f"{key}.self_attn.in_proj_weight", ("params", *mha), "qkv_w"
+    yield f"{key}.self_attn.in_proj_bias", ("params", *mha), "qkv_b"
+    yield from _dense(f"{key}.self_attn.out_proj", (*mha, "Dense_3"))
+    yield from _layernorm(f"{key}.norm1", (*path, "LayerNorm_0"))
+    yield from _dense(f"{key}.linear1", (*path, "Dense_0"))
+    yield from _dense(f"{key}.linear2", (*path, "Dense_1"))
+    yield from _layernorm(f"{key}.norm2", (*path, "LayerNorm_1"))
+
+
+def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int]
+                 ) -> Iterator[Tuple[str, Path, str]]:
+    """Every (state_dict key, flax path, kind) of a ``trans_enc`` CMDM."""
+    yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
+    yield from _dense("timestep_embedder.time_embed.2", ("timestep_embedder", "Dense_1"))
+    for name in ("language_adapter", "motion_adapter", "motion_layer", "contact_adapter"):
+        yield from _dense(name, (name,))
+    for k, nblocks in enumerate(blocks, start=1):
+        stage = ("contact_encoder", "enc", f"PointEncoderStage_{k - 1}")
+        yield from _dense(f"contact_encoder.enc{k}.0.linear",
+                          (*stage, "TransitionDown_0", "Dense_0"), bias=False)
+        yield from _bn(f"contact_encoder.enc{k}.0.bn", (*stage, "TransitionDown_0", "PointNorm_0"))
+        for j in range(1, nblocks):
+            yield from _pt_block(f"contact_encoder.enc{k}.{j}",
+                                 (*stage, f"PointTransformerBlock_{j - 1}"))
+    for i in range(sum(num_layers)):
+        yield from _encoder_layer(f"self_attn_layer.layers.{i}",
+                                  ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
+
+
+def _get(tree: Dict, path: Path):
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def _put(tree: Dict, path: Path, value: np.ndarray) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
 
 
 def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
                              blocks: Sequence[int]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of a ``trans_enc`` CMDM (numpy
-    leaves) -> a state_dict that :class:`afford_motion_torch.models.cmdm.CMDM`
-    loads with ``strict=True``, BatchNorm running stats included."""
-    sd = export_cmdm_checkpoint(variables_np, num_layers=tuple(num_layers),
-                                blocks=tuple(blocks), arch="trans_enc")
-    return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+    """flax ``{"params", "batch_stats"}`` of a ``trans_enc`` CMDM -> a
+    state_dict that :class:`afford_motion_torch.models.cmdm.CMDM` loads with
+    ``strict=True``, BatchNorm running stats included."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, path, kind in cmdm_entries(num_layers, blocks):
+        if kind == "qkv_w":
+            mha = _get(variables_np, path)
+            v = np.concatenate([np.asarray(mha[f"Dense_{i}"]["kernel"], np.float32).T
+                                for i in range(3)])
+        elif kind == "qkv_b":
+            mha = _get(variables_np, path)
+            v = np.concatenate([np.asarray(mha[f"Dense_{i}"]["bias"], np.float32)
+                                for i in range(3)])
+        else:
+            v = np.asarray(_get(variables_np, path), np.float32)
+            v = v.T if kind == "w" else v
+        out[key] = torch.tensor(np.ascontiguousarray(v))
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
+                                  num_layers: Sequence[int], blocks: Sequence[int]) -> Dict:
+    """The inverse: a dict of tensors keyed like the state_dict (parameters,
+    buffers, or the gradients of the parameters) -> the flax tree
+    ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Keys that are
+    missing from ``tensors`` (e.g. buffers, when gradients are carried) are
+    left out of the tree."""
+    tree: Dict = {}
+    for key, path, kind in cmdm_entries(num_layers, blocks):
+        if key not in tensors:
+            continue
+        v = tensors[key].detach().cpu().float().numpy()
+        if kind in ("qkv_w", "qkv_b"):
+            leaf = "kernel" if kind == "qkv_w" else "bias"
+            for i, part in enumerate(np.split(v, 3, axis=0)):
+                _put(tree, (*path, f"Dense_{i}", leaf), part.T if kind == "qkv_w" else part)
+        else:
+            _put(tree, path, v.T if kind == "w" else v)
+    return tree

@@ -9,25 +9,39 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 2. build: nvcc builds the kernels of ``afford_motion_torch/csrc`` into
    ``build/kernels``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the sampling path gives it (batch 32, 8192-point contact
-   clouds) and on a near-tie cloud, plus a few shapes off that path. FPS
-   picks, kNN idx and dist and the gathered rows (f32 and bf16) must be
-   bit-equal. Times by CUDA events;
-4. reference: a small float32 chain (full-width CMDM, 1024 points, 10 DDIM
-   steps) on the card, through the kernels, against the same chain on the
-   CPU through the plain versions;
-5. slice: ``afford_motion_torch.test`` (the port's test entry) with the
-   flagship CMDM ``trans_enc`` at full width from a seeded random init, in
-   the config's bf16, on one batch of 32 HumanML3D-shaped items (8192-point
-   clouds, 196x263 motions), once with DDIM-50 and once with DDPM-1000. x0
-   must be finite with shape (32, 196, 263), and every kernel must have been
-   launched by the run.
+   the shapes the sampling and training paths give it (batch 32, 8192-point
+   contact clouds) and on a near-tie cloud, plus a few shapes off those
+   paths. FPS picks, kNN idx and dist, the gathered rows and the
+   scatter-added rows (f32 and bf16) must be bit-equal, the scatter also
+   from one launch to the next. Times by CUDA events, beside the plain
+   version and, where one PyTorch call computes the same function
+   (``torch.gather``, ``index_add_``), beside that call; the bound is the
+   least time the card could take, from the bytes moved and the operations
+   done at these shapes;
+4. autograd: ``gather_rows(x, idx).backward(g)`` through the kernels on the
+   card equals the CPU's plain path bit for bit in float32;
+5. reference: a small float32 chain (full-width CMDM, 1024 points, 10 DDIM
+   steps) and two float32 train steps on the card, through the kernels,
+   against the same on the CPU through the plain versions;
+6. train: ``afford_motion_torch.train`` (the port's train entry) with the
+   flagship CMDM ``trans_enc`` at full width from the seeded init, in the
+   config's bf16, batch 32, 8192-point clouds, 196x263 motions, on the
+   synthetic HumanML3D tree: 8 steps with a checkpoint every 4, then 4 more
+   steps resumed from ``model000004.pt``, whose weights must equal the
+   straight run's within RESUME_LIMIT. Every loss must be finite, FPS, kNN
+   and gather launched, and the scatter launched 7 times per step;
+7. slice: ``afford_motion_torch.test`` (the port's test entry) from the
+   checkpoint the train phase wrote, on one batch of 32 test items, once
+   with DDIM-50 and once with DDPM-1000. x0 must be finite with shape
+   (32, 196, 263), and FPS, kNN and gather must have been launched.
 
-The line before the last is a JSON object with each kernel's launches in
-the slice runs, its largest difference from the plain version, and its time
-and the plain version's summed over the sampling path's shapes. The last
-line is ``{"ok": true, "device": {...}}``. Everything written at run time
-goes under ``build/`` in the checkout.
+The line before the last is a JSON object with, for each kernel, its
+launches over the driven paths (train, resumed train, both chains), its
+largest difference from the plain version, and its time, the plain
+version's, the bound and the library call's, each summed over the shapes of
+one pass of its path (one hierarchy and encoder forward; for the scatter
+one backward). The last line is ``{"ok": true, "device": {...}}``.
+Everything written at run time goes under ``build/`` in the checkout.
 """
 from __future__ import annotations
 
@@ -50,7 +64,19 @@ REPLACES = {
     "fps": ("afford_motion_torch/csrc/fps.cu", "afford_motion_tpu/ops/pallas/fps.py:124"),
     "knn": ("afford_motion_torch/csrc/knn.cu", "afford_motion_tpu/ops/pallas/knn.py:101"),
     "gather": ("afford_motion_torch/csrc/gather.cu", "afford_motion_tpu/ops/pallas/gather.py:95"),
+    "scatter": ("afford_motion_torch/csrc/scatter.cu",
+                "afford_motion_tpu/ops/pallas/gather.py:112"),
 }
+# published peaks of one H100 SXM: device memory, float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# largest difference allowed between the resumed run's weights and the
+# straight run's: every kernel of the step is deterministic, so 0 is expected
+RESUME_LIMIT = 1e-6
+# assumed least time of one block-wide argmax over 1024 threads (two levels
+# of five shuffle rounds and two barriers at ~1.7 GHz): FPS picks are
+# sequential, so picks x this is its latency floor, not bytes or operations
+FPS_PICK_FLOOR_US = 0.25
 
 
 def log(msg: str) -> None:
@@ -75,11 +101,20 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
+def bound_ms(nbytes: float, flops: float):
+    """Least time for the work: (ms, which limit sets it)."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 class KernelReport:
     def __init__(self):
         self.err = {k: 0.0 for k in REPLACES}
         self.ms = {k: 0.0 for k in REPLACES}
         self.plain_ms = {k: 0.0 for k in REPLACES}
+        self.library_ms = {k: None for k in REPLACES}
+        self.bytes = {k: 0.0 for k in REPLACES}
+        self.flops = {k: 0.0 for k in REPLACES}
 
     def check(self, name: str, label: str, got, want) -> None:
         for g, w in zip(got, want):
@@ -88,17 +123,33 @@ class KernelReport:
                 raise AssertionError(f"{name} {label}: kernel differs from plain (max {diff})")
             self.err[name] = max(self.err[name], (g.double() - w.double()).abs().max().item())
 
-    def timed(self, name, label, kernel, plain, reps, path_shape=True):
+    def timed(self, name, label, kernel, plain, reps, path_shape=True, *, nbytes, flops,
+              library=None):
+        """Time one shape. ``nbytes``: every input read once and every output
+        written once; ``flops``: the arithmetic the function needs."""
         k_ms, p_ms = time_ms(kernel, reps), time_ms(plain, max(1, reps // 3))
+        l_ms = None if library is None else time_ms(library, reps)
+        b_ms, by = bound_ms(nbytes, flops)
         if path_shape:
             self.ms[name] += k_ms
             self.plain_ms[name] += p_ms
-        log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            self.bytes[name] += nbytes
+            self.flops[name] += flops
+            if l_ms is not None:
+                self.library_ms[name] = (self.library_ms[name] or 0.0) + l_ms
+        lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
+        log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
+            f"bound {b_ms:.4f} ms ({by})")
 
 
 def phase_kernels(dev: torch.device) -> KernelReport:
     from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
-    from afford_motion_torch.ops.cuda.gather import gather_rows, gather_rows_plain
+    from afford_motion_torch.ops.cuda.gather import (
+        gather_rows,
+        gather_rows_plain,
+        scatter_add_rows,
+        scatter_add_rows_plain,
+    )
     from afford_motion_torch.ops.cuda.knn import knn_cuda, knn_plain
 
     rep = KernelReport()
@@ -118,8 +169,13 @@ def phase_kernels(dev: torch.device) -> KernelReport:
             label = f"{kind} ({B},{parent.shape[1]},3)->{n_out}"
             got = fps_cuda(parent, n_out)
             rep.check("fps", label, [got], [fps_plain(parent, n_out)])
+            # per pick and point: 3 differences, 3 products, 2 sums, a min
+            # and a compare. The picks are sequential, so the real floor is
+            # n_out dependent block-wide argmax steps, far above this bound
+            n_in = parent.shape[1]
             rep.timed("fps", label, lambda p=parent, m=n_out: fps_cuda(p, m),
-                      lambda p=parent, m=n_out: fps_plain(p, m), 5, path)
+                      lambda p=parent, m=n_out: fps_plain(p, m), 5, path,
+                      nbytes=B * (n_in * 12 + n_out * 4), flops=10.0 * B * n_out * n_in)
             levels.append(torch.gather(parent, 1, got.long()[..., None].expand(-1, -1, 3)))
         # the packed-kNN calls of one SceneMap hierarchy (the 128x128 level
         # is below the kernel's range and takes the exact path)
@@ -129,8 +185,12 @@ def phase_kernels(dev: torch.device) -> KernelReport:
             label = f"{kind} q{tuple(q.shape)} s{tuple(s.shape)} k={k}"
             got = knn_cuda(q, s, k)
             rep.check("knn", label, got, knn_plain(q, s, k))
+            # per query-support pair: 3 differences, 3 products, 2 sums and
+            # the compare against the k-th key
+            m, n = q.shape[1], s.shape[1]
             rep.timed("knn", label, lambda q=q, s=s, k=k: knn_cuda(q, s, k),
-                      lambda q=q, s=s, k=k: knn_plain(q, s, k), 5, path)
+                      lambda q=q, s=s, k=k: knn_plain(q, s, k), 5, path,
+                      nbytes=B * ((m + n) * 12 + m * k * 8), flops=9.0 * B * m * n)
             knn_idx[(qi, si)] = got[0]
         # the row gathers of the SceneMap encoder: per level, the
         # TransitionDown group (3 + C_in channels) and the block's packed
@@ -146,10 +206,36 @@ def phase_kernels(dev: torch.device) -> KernelReport:
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(B, n_src, c, device=dev, generator=gen).to(dtype)
                 label = f"{kind} x({B},{n_src},{c}) idx{tuple(idx.shape)} {str(dtype)[6:]}"
+                on_path = path and dtype == torch.bfloat16
+                m, k = idx.shape[1:]
+                size = x.element_size()
                 rep.check("gather", label, [gather_rows(x, idx)], [gather_rows_plain(x, idx)])
+                wide = idx.long().reshape(B, m * k, 1).expand(-1, -1, c)
                 rep.timed("gather", label, lambda x=x, i=idx: gather_rows(x, i),
-                          lambda x=x, i=idx: gather_rows_plain(x, i), 10,
-                          path and dtype == torch.bfloat16)
+                          lambda x=x, i=idx: gather_rows_plain(x, i), 10, on_path,
+                          nbytes=B * (n_src * c * size + m * k * 4 + m * k * c * size), flops=0.0,
+                          library=lambda x=x, w=wide: torch.gather(x, 1, w))
+                del wide
+                # the backward of this gather: g has the gathered rows' shape
+                g = torch.randn(B, m, k, c, device=dev, generator=gen).to(dtype)
+                got = scatter_add_rows(g, idx, n_src)
+                rep.check("scatter", label, [got], [scatter_add_rows_plain(g, idx, n_src)])
+                rep.check("scatter", label + " again", [scatter_add_rows(g, idx, n_src)], [got])
+                flat = (idx.long() + n_src * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+
+                def index_add(g=g, flat=flat, n_src=n_src, c=c):
+                    out = torch.zeros((B * n_src, c), dtype=g.dtype, device=g.device)
+                    return out.index_add_(0, flat, g.reshape(-1, c))
+
+                rep.timed("scatter", label, lambda g=g, i=idx, n=n_src: scatter_add_rows(g, i, n),
+                          lambda g=g, i=idx, n=n_src: scatter_add_rows_plain(g, i, n), 10, on_path,
+                          nbytes=B * (m * k * c * size + m * k * 4 + n_src * c * size),
+                          flops=1.0 * B * m * k * c, library=index_add)
+                del g, got, flat
+    picks = 2048 + 512 + 128
+    log(f"  fps: {picks} dependent picks per hierarchy: latency floor {picks * FPS_PICK_FLOOR_US / 1e3:.3f} "
+        f"ms at an assumed {FPS_PICK_FLOOR_US} us per block-wide argmax; measured "
+        f"{1e3 * rep.ms['fps'] / picks:.3f} us per pick")
     # off the sampling path, checked but not timed: the kNN's other
     # register-array sizes (k=3 is the 3-NN up-interpolation), an FPS cloud
     # that does not fill its block, a one-channel gather
@@ -163,8 +249,37 @@ def phase_kernels(dev: torch.device) -> KernelReport:
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(B, 1000, 1, device=dev, generator=gen).to(dtype)
         rep.check("gather", "off-path C=1", [gather_rows(x, idx)], [gather_rows_plain(x, idx)])
-    log("  off-path checks: kNN k=3/32/64, FPS N=1000, gather C=1 bit-equal")
+        g = torch.randn(B, 300, 5, 1, device=dev, generator=gen).to(dtype)
+        rep.check("scatter", "off-path C=1", [scatter_add_rows(g, idx, 1000)],
+                  [scatter_add_rows_plain(g, idx, 1000)])
+        # every position on one destination: a slice as long as the table
+        one = torch.full((2, 700, 3), 5, device=dev, dtype=torch.int32)
+        g = torch.randn(2, 700, 3, 131, device=dev, generator=gen).to(dtype)
+        rep.check("scatter", "off-path one destination", [scatter_add_rows(g, one, 9)],
+                  [scatter_add_rows_plain(g, one, 9)])
+    log("  off-path checks: kNN k=3/32/64, FPS N=1000, gather and scatter C=1, "
+        "scatter onto one destination bit-equal")
     return rep
+
+
+def phase_autograd(dev: torch.device) -> None:
+    """backward through the kernels on the card == the CPU's plain path."""
+    from afford_motion_torch.ops.cuda.gather import gather_rows
+
+    rng = np.random.default_rng(SEED + 2)
+    x = rng.normal(size=(4, 2048, 67)).astype(np.float32)
+    idx = rng.integers(0, 2048, size=(4, 512, 16)).astype(np.int32)
+    g = rng.normal(size=(4, 512, 16, 67)).astype(np.float32)
+    grads = []
+    for device in (torch.device("cpu"), dev):
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        out = gather_rows(xt, torch.from_numpy(idx).to(device))
+        out.backward(torch.from_numpy(g).to(device))
+        grads.append((out.detach().cpu(), xt.grad.cpu()))
+    for a, b, what in zip(grads[0], grads[1], ("forward", "backward")):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"autograd {what}: card differs from the CPU's plain path")
+    log("autograd: gather_rows forward and backward on the card bit-equal to the CPU's plain path")
 
 
 def phase_reference(dev: torch.device) -> float:
@@ -172,7 +287,9 @@ def phase_reference(dev: torch.device) -> float:
     from afford_motion_torch.diffusion import create_gaussian_diffusion
     from afford_motion_torch.models.cmdm import CMDM
     from afford_motion_torch.train.sampling import make_sample_fn
-    from afford_motion_tpu.utils.config import DictConfig
+    from afford_motion_torch.train.loop import make_train_step
+    from afford_motion_torch.train.state import TrainState
+    from afford_motion_torch.utils.config import DictConfig
 
     torch.manual_seed(SEED)
     cpu_model = CMDM(motion_dim=D).eval()
@@ -200,18 +317,50 @@ def phase_reference(dev: torch.device) -> float:
     log(f"reference: DDIM-10 x0 (2,{L},{D}) f32, card vs CPU max abs diff {err:.3e}")
     if not (torch.isfinite(out[1]).all() and err <= 1e-3):
         raise AssertionError(f"card chain disagrees with the CPU chain: {err}")
+
+    # two float32 train steps (dropout 0) from the same weights, batch, t and
+    # noise. Limits: each loss within 1e-3 (rel). Adam moves an entry by at
+    # most lr a step whatever its gradient's size, and by +-lr with a sign
+    # that is rounding noise where the true gradient is 0 (biases in front of
+    # a train-mode BatchNorm or a softmax), so the weights are held to
+    # 2 steps x 2 lr at most, and to 2e-6 for all but 2% of the entries
+    lr = 1e-4
+    x = rng.standard_normal((lb, L, D)).astype(np.float32)
+    ts = rng.integers(0, 1000, size=(2, lb))
+    noises = rng.standard_normal((2, lb, L, D)).astype(np.float32)
+    losses, weights = [], []
+    for model, device in ((cpu_model, torch.device("cpu")), (gpu_model, dev)):
+        diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), device)
+        state = TrainState.create(model, lr=lr)
+        step = make_train_step(model, diffusion)
+        c = {k: torch.from_numpy(v).to(device) for k, v in cond.items()}
+        losses.append([float(step(state, torch.from_numpy(x).to(device), c, seed=i,
+                                  t=torch.from_numpy(ts[i]).to(device),
+                                  noise=torch.from_numpy(noises[i]).to(device))["loss"])
+                       for i in range(2)])
+        weights.append(torch.cat([p.detach().cpu().reshape(-1) for p in model.parameters()]))
+        model.eval()
+    diff = (weights[0] - weights[1]).abs()
+    far = float((diff > 2e-6).float().mean())
+    log(f"reference: 2 f32 train steps, card vs CPU: losses {losses[1]} vs {losses[0]}, "
+        f"weights max abs diff {diff.max().item():.3e}, {100 * far:.3f}% of entries beyond 2e-6")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses[0], losses[1]))
+    if not (np.isfinite(losses[1]).all() and rel <= 1e-3 and diff.max().item() <= 4.004 * lr
+            and far <= 0.02):
+        raise AssertionError("card train steps disagree with the CPU's")
     return err
 
 
 def make_tree() -> dict:
     """Synthetic HumanML3D tree (8192-point clouds, motions of 40..196
-    frames) whose test split holds 32 items, plus the stage-1 handoff
+    frames) whose train split holds 144 items (one megabatch of four steps is
+    128) and whose test split 48, plus the stage-1 handoff
     ``H3D/pred_contact/{id}-0.npy`` each test item reads, from the seed."""
-    from afford_motion_tpu.data.synthetic import make_synthetic_h3d
+    from afford_motion_torch.data.synthetic import make_synthetic_h3d
 
     shutil.rmtree(WORK, ignore_errors=True)
     data, contacts, exp = WORK / "data", WORK / "contacts", WORK / "exp"
-    make_synthetic_h3d(str(data), n_items=4 * B, num_points=N_POINTS, horizon_range=(40, 197))
+    make_synthetic_h3d(str(data), n_items=6 * B, num_points=N_POINTS, horizon_range=(40, 197))
     pred = contacts / "H3D" / "pred_contact"
     pred.mkdir(parents=True)
     rng = np.random.default_rng(SEED)
@@ -221,33 +370,88 @@ def make_tree() -> dict:
     return {"data": data, "contacts": contacts, "exp": exp}
 
 
-def phase_slice(dev: torch.device, counters: dict) -> dict:
-    from afford_motion_torch import test as entry
-    from afford_motion_torch.models.base import create_model
-    from afford_motion_torch.train.checkpoint import save_ckpt
-    from afford_motion_tpu.utils.config import load_config
-    from afford_motion_tpu.utils.misc import compute_repr_dimension
-
-    tree = make_tree()
-    base = [
+def base_args(tree: dict) -> list:
+    """The flagship configuration of ``scripts/t2m_contact_motion/train_ddp.sh``
+    on the synthetic tree; both entries read it."""
+    return [
         "task=text_to_motion_contact_motion_gen", "model=cmdm", "model.arch=trans_enc",
         "model.data_repr=h3d", "model.text_model.max_length=20", "diffusion.steps=1000",
-        f"task.dataset.data_dir={tree['data']}", f"task.test.contact_folder={tree['contacts']}",
-        f"exp_dir={tree['exp']}", f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1",
-        f"seed={SEED}", f"text_encoder.table_path={WORK / 'no_table'}",
-        f"text_encoder.weights_dir={WORK / 'no_weights'}",
+        "task.dataset.sigma=0.8", f"task.dataset.data_dir={tree['data']}",
+        f"task.test.contact_folder={tree['contacts']}", f"exp_dir={tree['exp']}",
+        f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1", f"seed={SEED}",
+        f"text_encoder.table_path={WORK / 'no_table'}",
+        f"text_encoder.weights_dir={WORK / 'no_weights'}", "platform=jsonl",
     ]
-    cfg = load_config(str(ROOT / "configs"), base)
-    cfg.model.input_feats = compute_repr_dimension(cfg.model.data_repr)
-    torch.manual_seed(SEED)
-    save_ckpt(create_model(cfg.model, dev), str(tree["exp"] / "ckpt"), 0)
 
+
+def reset(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def phase_train(tree: dict, counters: dict) -> dict:
+    """8 full-width bf16 steps through the train entry, then 4 more resumed
+    from step 4; returns the launches of both runs."""
+    from afford_motion_torch import train as entry
+
+    train_args = base_args(tree) + [
+        f"task.train.batch_size={B}", "task.train.save_every_step=4",
+        "task.train.log_every_step=1", "task.train.max_steps=8",
+        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']",
+    ]
+    launches = {k: 0 for k in counters}
+    runs = {"train": (train_args, 8),
+            "resumed": ([a for a in train_args if not a.startswith("exp_dir=")] + [
+                f"exp_dir={tree['exp']}_resumed",
+                f"task.train.resume_ckpt={tree['exp'] / 'ckpt' / 'model000004.pt'}"], 4)}
+    for name, (args, steps) in runs.items():
+        reset(counters)
+        t0 = time.monotonic()
+        summary = entry.main(args)
+        wall = time.monotonic() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        logged = summary["logged"]
+        losses = [e["loss"] for e in logged]
+        log(f"{name}: steps {[e['step'] for e in logged]} losses {[round(v, 4) for v in losses]} "
+            f"launches {counts}")
+        if len(logged) != steps or summary["step"] != 8 or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: expected {steps} finite losses up to step 8")
+        if min(counts.values()) <= 0 or counts["scatter"] != 7 * steps:
+            raise AssertionError(f"{name}: launches {counts}; the scatter must be launched "
+                                 f"7 times in each of {steps} steps")
+        if not summary["last_ckpt"].endswith("model000008.pt") or not os.path.exists(
+                summary["last_ckpt"]):
+            raise AssertionError(f"{name}: model000008.pt was not written")
+        rest = [e["seconds"] / e["steps"] for e in logged[1:]]
+        log(f"{name}: first step {logged[0]['seconds']:.3f} s (one-off set-up of the process "
+            f"and the libraries included), then {np.mean(rest):.4f} s/step "
+            f"(min {min(rest):.4f}, max {max(rest):.4f}; data loading on the host included), "
+            f"peak memory {summary['peak_memory_bytes'] / 2**30:.2f} GiB, entry {wall:.1f} s")
+        for k in launches:
+            launches[k] += counts[k]
+    straight = torch.load(tree["exp"] / "ckpt" / "model000008.pt", weights_only=True)
+    resumed = torch.load(Path(f"{tree['exp']}_resumed") / "ckpt" / "model000008.pt",
+                         weights_only=True)
+    diff = max((straight[k].double() - resumed[k].double()).abs().max().item() for k in straight)
+    log(f"resumed: largest difference from the straight run's weights and buffers at step 8: "
+        f"{diff:.3e} (limit {RESUME_LIMIT:.0e})")
+    if not diff <= RESUME_LIMIT:
+        raise AssertionError(f"the resumed run differs from the straight one by {diff}")
+    return launches
+
+
+def phase_slice(tree: dict, counters: dict) -> dict:
+    """Both sampling chains through the test entry, from the checkpoint the
+    train phase wrote (the natsort-latest, ``model000008.pt``)."""
+    from afford_motion_torch import test as entry
+
+    base = base_args(tree)
+    sampled = [k for k in counters if k != "scatter"]  # no backward in a chain
     launches = {k: 0 for k in counters}
     runs = {"ddim50": ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"],
             "ddpm1000": ["task.test.sampler=ddpm"]}
     for name, extra in runs.items():
-        for fn in counters.values():
-            fn.launches = 0
+        reset(counters)
         out = Path(entry.main(base + extra))
         counts = {k: fn.launches for k, fn in counters.items()}
         z = np.load(out / "samples.npz")
@@ -257,7 +461,7 @@ def phase_slice(dev: torch.device, counters: dict) -> dict:
             f"launches {counts}")
         if x0.shape != (B, L, D) or not np.isfinite(x0).all():
             raise AssertionError(f"{name}: bad x0 {x0.shape}")
-        if min(counts.values()) <= 0:
+        if min(counts[k] for k in sampled) <= 0 or counts["scatter"] != 0:
             raise AssertionError(f"{name}: a kernel of the path was never launched: {counts}")
         chain = timing["chains"][0]
         log(f"slice {name}: chain {chain['chain_s']:.3f} s (hierarchy + contact encoding "
@@ -275,10 +479,10 @@ def main() -> int:
         return 2
     from afford_motion_torch.ops.cuda import build
     from afford_motion_torch.ops.cuda.fps import fps_cuda
-    from afford_motion_torch.ops.cuda.gather import gather_rows
+    from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
 
-    os.chdir(ROOT)  # the entry reads ./configs, as the root test.py does
+    os.chdir(ROOT)  # the entries read ./configs, as the root train.py and test.py do
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     log(card)
@@ -296,15 +500,24 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     rep = phase_kernels(dev)
+    phase_autograd(dev)
     phase_reference(dev)
-    counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows}
-    launches = phase_slice(dev, counters)
+    counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
+                "scatter": scatter_add_rows}
+    tree = make_tree()
+    launches = phase_train(tree, counters)
+    for name, n in phase_slice(tree, counters).items():
+        launches[name] += n
 
-    kernels = [{
-        "name": name, "route": "cuda", "source": REPLACES[name][0],
-        "replaces": REPLACES[name][1], "launches": launches[name],
-        "max_abs_err": rep.err[name], "ms": rep.ms[name], "plain_ms": rep.plain_ms[name],
-    } for name in REPLACES]
+    kernels = []
+    for name in REPLACES:
+        b_ms, by = bound_ms(rep.bytes[name], rep.flops[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": REPLACES[name][0],
+            "replaces": REPLACES[name][1], "launches": launches[name],
+            "max_abs_err": rep.err[name], "ms": rep.ms[name], "plain_ms": rep.plain_ms[name],
+            "bound_ms": b_ms, "bound_by": by, "library_ms": rep.library_ms[name],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

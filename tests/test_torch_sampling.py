@@ -156,14 +156,16 @@ def test_chain_matches_jax(chain_setup, sampler):
 def test_entry_runs_without_jax(tmp_path):
     """``python -m afford_motion_torch.test`` on a tiny synthetic tree: the
     natsort-latest checkpoint is loaded strictly, the k-th pre-generated
-    contact is sliced, samples.npz and timing.json are written, and jax is
-    never imported."""
+    contact is sliced, samples.npz and timing.json are written, and neither
+    jax nor the JAX package is ever imported. Without ``device=cpu`` the entry
+    asks for the card and raises here, where there is none."""
     script = textwrap.dedent(f"""
-        import os, runpy, sys
+        import importlib, os, pkgutil, runpy, sys
         import numpy as np, torch
-        from afford_motion_tpu.data.synthetic import make_synthetic_h3d
-        from afford_motion_tpu.utils.config import load_config
-        from afford_motion_tpu.utils.misc import compute_repr_dimension
+        import afford_motion_torch
+        from afford_motion_torch.data.synthetic import make_synthetic_h3d
+        from afford_motion_torch.utils.config import load_config
+        from afford_motion_torch.utils.misc import compute_repr_dimension
         from afford_motion_torch.models.base import create_model
         from afford_motion_torch.train.checkpoint import save_ckpt
         root = {str(tmp_path)!r}
@@ -189,14 +191,27 @@ def test_entry_runs_without_jax(tmp_path):
         cfg.model.input_feats = compute_repr_dimension(cfg.model.data_repr)
         torch.manual_seed(0)
         save_ckpt(create_model(cfg.model, torch.device("cpu")), os.path.join(exp, "ckpt"), 0)
-        sys.argv = ["afford_motion_torch.test"] + argv
+        from afford_motion_torch import test as entry
+        if not torch.cuda.is_available():
+            try:
+                entry.main(argv)
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), e
+            else:
+                raise AssertionError("the entry ran without a card and without device=cpu")
+        sys.argv = ["afford_motion_torch.test"] + argv + ["device=cpu"]
         runpy.run_module("afford_motion_torch.test", run_name="__main__")
         out, = [os.path.join(exp, "eval", d) for d in os.listdir(os.path.join(exp, "eval"))]
         z = np.load(os.path.join(out, "samples.npz"))
         assert z["sample"].shape == (2, 196, 263) and np.isfinite(z["sample"]).all()
         assert z["k_samples"].shape == (2, 2, 196, 263)
         assert os.path.exists(os.path.join(out, "timing.json"))
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax"))
+        for m in pkgutil.walk_packages(afford_motion_torch.__path__, "afford_motion_torch."):
+            if not m.name.endswith("__main__"):
+                importlib.import_module(m.name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("afford_motion_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
         assert not bad, bad
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -204,3 +219,36 @@ def test_entry_runs_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "not ported yet" in proc.stderr
+
+
+def test_port_refuses_what_is_not_ported(tmp_path):
+    """The configurations the port does not run yet are refused by name,
+    not run some other way: ``use_banded``, ``fused_qkv``, ``trans_dec``,
+    and a packed dataset tree under the training wire format."""
+    from afford_motion_torch.data import create_dataset
+    from afford_motion_torch.data.synthetic import make_synthetic_h3d
+    from afford_motion_torch.models.cmdm import build_cmdm
+    from afford_motion_torch.utils.config import load_config
+
+    base = ["task=text_to_motion_contact_motion_gen", "model=cmdm", "model.data_repr=h3d",
+            f"task.dataset.data_dir={tmp_path}", "task.dataset.num_points=64"]
+
+    def model_cfg(*extra):
+        cfg = load_config(str(REPO / "configs"), base + list(extra))
+        cfg.model.input_feats = 263
+        return cfg.model
+
+    assert isinstance(build_cmdm(model_cfg()), CMDM)
+    for override in ("model.use_banded=true", "model.fused_qkv=true", "model.arch=trans_dec"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_cmdm(model_cfg(override))
+
+    make_synthetic_h3d(str(tmp_path), n_items=8, num_points=64, horizon_range=(40, 60))
+    cfg = load_config(str(REPO / "configs"), base)
+    assert len(create_dataset(cfg.task.dataset, "train")) > 0
+    (tmp_path / "H3D" / "packed").mkdir()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        create_dataset(cfg.task.dataset, "train")
+    # the test split never reads the packed store
+    cfg.task.test.contact_folder = str(tmp_path)
+    assert len(create_dataset(cfg.task.dataset, "test", contact_folder=str(tmp_path))) > 0
