@@ -1,6 +1,6 @@
 """Host-side datasets of the port (copies of the jax-free modules of
-``afford_motion_tpu/data``). The HumanML3D family is ported; the MotionX
-family and the packed store are not yet."""
+``afford_motion_tpu/data``). The HumanML3D family and the packed store are
+ported; the MotionX family is not yet."""
 from .base import (
     BaseDataset,
     contact_to_dist,

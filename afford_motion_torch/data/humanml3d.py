@@ -162,23 +162,37 @@ class _H3DBase(BaseDataset):
                         continue
                     data[k] = npz[k]
 
-    def _refuse_packed(self) -> None:
-        """The packed memmap store (``prepare.py pack``) is the training
-        fast path of the JAX package; a config that would engage it on a
-        tree that holds one is refused instead of silently read the slow
-        way."""
+    # ---------------------------------------------------------------- packed
+    def _open_packed(self, contact_type: str, contact_joints) -> None:
+        """Open the packed memmap store (the prepare ``pack`` stage) for the
+        training fast path. Train-only, and only under the half_wire wire
+        format (the packed f16 fields are that format); silently absent
+        otherwise."""
+        self._packed = None
         if self.phase not in ("train", "all"):
             return
         if not (self.cfg.get("use_packed", True) and self.cfg.get("half_wire", False)):
             return
         if not self.cfg.get("use_geometry_cache", True):
             return
-        packed_dir = os.path.join(self.data_dir, "H3D", "packed")
-        if os.path.isdir(packed_dir):
-            raise NotImplementedError(
-                f"packed dataset store ({packed_dir}) is not ported yet; set "
-                "task.dataset.use_packed=false to read the plain tree"
-            )
+        from .packed import PackedStore
+
+        self._packed = PackedStore.try_open(
+            os.path.join(self.data_dir, "H3D", "packed"),
+            expect={"contact_type": contact_type,
+                    "contact_joints": list(contact_joints)},
+        )
+
+    def _packed_row(self, base: str):
+        packed = getattr(self, "_packed", None)
+        return packed.row(base) if packed is not None else None
+
+    def _packed_geometry(self, data: Dict, row: Dict) -> None:
+        self._packed.attach_geometry(
+            data, row,
+            str(self.cfg.get("geometry_arch", "")) == "trans_enc",
+            str(self.cfg.get("geometry_wire", "full")) == "fps",
+        )
 
     def _pick_caption(self, text_list: List[Dict], rng=None) -> Dict:
         if self.phase == "test":
@@ -310,7 +324,7 @@ class ContactHumanML3DDataset(_H3DBase):
 
     def _load_datasets(self) -> None:
         self._load_corpus()
-        self._refuse_packed()
+        self._open_packed(self.contact_type, self.contact_joints)
 
     def _prepare_statistics(self) -> None:
         kind = "Dist" if self.use_raw_dist else "Cont"
@@ -344,11 +358,18 @@ class ContactHumanML3DDataset(_H3DBase):
         item = self.data_dict[name]
         text = self._pick_caption(item["text"])
         base = name.split("_")[-1]
-        npz = np.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
-        points3 = npz["points"].astype(np.float32)[:, 0:3]
-        contact = extract_contact(
-            npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
-        )
+        row = self._packed_row(base)
+        if row is not None:
+            # packed fast path: xyz already at wire dtype; dist32 is the
+            # bit-identical full-precision diffusion target input
+            points3 = row["xyz16"]
+            contact = row["dist32"]
+        else:
+            npz = np.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
+            points3 = npz["points"].astype(np.float32)[:, 0:3]
+            contact = extract_contact(
+                npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
+            )
         if not self.use_raw_dist:
             contact = gaussian_contact(contact, self.sigma)
         contact = self.normalize(contact).astype(np.float32)
@@ -359,7 +380,10 @@ class ContactHumanML3DDataset(_H3DBase):
             "info_index": base,
             "info_caption_index": text["caption_idx"],
         }
-        self._load_geometry(data, base)
+        if row is not None:
+            self._packed_geometry(data, row)
+        else:
+            self._load_geometry(data, base)
         return self.transform(data)
 
 
@@ -414,7 +438,7 @@ class ContactMotionHumanML3DDataset(_H3DBase):
 
     def _load_datasets(self) -> None:
         self._load_corpus()
-        self._refuse_packed()
+        self._open_packed(self.contact_type, self.contact_joints)
         if self.phase in ("train", "all") and self.mix_train_ratio > 0:
             self.pred_contact_dict = defaultdict(list)
             for f in glob.glob(os.path.join(self.data_dir, "H3D", "pred_contact", "*-*.npy")):
@@ -430,11 +454,18 @@ class ContactMotionHumanML3DDataset(_H3DBase):
         text = self._pick_caption(item["text"])
         base = name.split("_")[-1]
 
-        npz = np.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
-        points = npz["points"].astype(np.float32)
-        contact = extract_contact(
-            npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
-        )
+        row = self._packed_row(base)
+        if row is not None:
+            # packed fast path: f16 wire dtypes straight off the memmap;
+            # the sigma kernel below runs in f32 (cheap) like the live path
+            points = row["xyz16"]
+            contact = row["dist16"].astype(np.float32)
+        else:
+            npz = np.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
+            points = npz["points"].astype(np.float32)
+            contact = extract_contact(
+                npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
+            )
         if self.phase == "test":
             contact = np.load(
                 os.path.join(
@@ -462,7 +493,10 @@ class ContactMotionHumanML3DDataset(_H3DBase):
             "info_index": base,
             "info_caption_index": text["caption_idx"],
         }
-        self._load_geometry(data, base)
+        if row is not None:
+            self._packed_geometry(data, row)
+        else:
+            self._load_geometry(data, base)
         return self._finalize(self.transform(data))
 
 

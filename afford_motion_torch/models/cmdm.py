@@ -12,7 +12,7 @@ the transformer (see ``layers.set_dropout_generator``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -41,6 +41,9 @@ class CMDM(nn.Module):
         dtype: torch.dtype = torch.float32,
         knn_exact: bool = False,
         dropout: float = 0.0,
+        use_banded: bool = False,
+        banded_window: int = 0,
+        banded_adaptive: Optional[bool] = None,
     ):
         super().__init__()
         if arch != "trans_enc":
@@ -49,6 +52,13 @@ class CMDM(nn.Module):
         self.dtype = dtype
         # bit-exact kNN for the hierarchy instead of the packed-key kernel
         self.knn_exact = knn_exact
+        # banded windowed-neighbourhood kernels for the hierarchy and the
+        # encoder's gathers (curve-sorted clouds only): set by the TrainLoop
+        # for a curve-sorted packed store, or by the config for a test run;
+        # the W0 width (0 = env/default) and the adaptive starts ride along
+        self.use_banded = use_banded
+        self.banded_window = banded_window
+        self.banded_adaptive = banded_adaptive
         self.timestep_embedder = TimestepEmbedder(latent_dim, time_emb_dim, 1000, dtype)
         self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype)
         self.contact_adapter = Linear(planes[-1], latent_dim, dtype=dtype)
@@ -115,8 +125,8 @@ def build_cmdm(model_cfg: Any) -> CMDM:
     cm = model_cfg.contact_model
     if str(model_cfg.get("norm", "batch")) != "batch":
         raise NotImplementedError("only norm='batch' is ported")
-    if bool(model_cfg.get("use_banded", False)) or bool(model_cfg.get("fused_qkv", False)):
-        raise NotImplementedError("use_banded / fused_qkv are not ported yet")
+    if bool(model_cfg.get("fused_qkv", False)):
+        raise NotImplementedError("fused_qkv is not ported yet")
     return CMDM(
         motion_dim=int(model_cfg.input_feats),
         latent_dim=int(model_cfg.latent_dim),
@@ -133,4 +143,7 @@ def build_cmdm(model_cfg: Any) -> CMDM:
         dtype=getattr(torch, str(model_cfg.get("dtype", "float32"))),
         knn_exact=bool(model_cfg.get("knn_exact", False)),
         dropout=float(model_cfg.get("dropout", 0.0)),
+        use_banded=bool(model_cfg.get("use_banded", False)),
+        banded_window=int(model_cfg.get("banded_window", 0) or 0),
+        banded_adaptive=model_cfg.get("banded_adaptive", None),
     )

@@ -54,7 +54,9 @@ def cond_to_device(cond: Dict[str, np.ndarray], device: torch.device) -> Dict[st
 def add_hierarchies(model: CMDM, cond: Dict[str, Any]) -> Dict[str, Any]:
     """Attach ``levels_sm``, the SceneMap hierarchy: from a full geometry
     cache, from cached FPS indices, or built from ``c_pc_xyz``. Indices and
-    level coordinates carry no gradient."""
+    level coordinates carry no gradient. Bandedness and its window knobs
+    ride on the model (``use_banded``, set by the TrainLoop for curve-sorted
+    packed data or by the config; ``banded_window``, ``banded_adaptive``)."""
     if not isinstance(model, CMDM):
         raise NotImplementedError(f"add_hierarchies: {type(model).__name__} is not ported")
     xyz = cond.get("c_pc_xyz")
@@ -63,16 +65,20 @@ def add_hierarchies(model: CMDM, cond: Dict[str, Any]) -> Dict[str, Any]:
     cond = dict(cond)
     with_up = bool(model.needs_up_interpolation)
     knn_method = "exact" if model.knn_exact else None
+    knobs = dict(banded=bool(model.use_banded), window=int(model.banded_window or 0),
+                 adaptive=model.banded_adaptive)
     prefix = "geo_sm"
     if f"{prefix}0_knn_idx" in cond:
-        levels = geometry_from_arrays(cond, xyz, len(SCENEMAP_STRIDES), prefix=prefix)
+        # a full cache rides with use_banded only where its indices came
+        # from the banded kNN; offline caches from the full kNN keep it off
+        levels = geometry_from_arrays(cond, xyz, len(SCENEMAP_STRIDES), prefix=prefix, **knobs)
     elif f"{prefix}1_fps_idx" in cond:
         levels = build_point_hierarchy_from_fps(
             xyz, cond, SCENEMAP_STRIDES, SCENEMAP_NSAMPLES, prefix=prefix,
-            with_up=with_up, knn_method=knn_method)
+            with_up=with_up, knn_method=knn_method, **knobs)
     else:
         levels = build_point_hierarchy(xyz, SCENEMAP_STRIDES, SCENEMAP_NSAMPLES,
-                                       with_up=with_up, knn_method=knn_method)
+                                       with_up=with_up, knn_method=knn_method, **knobs)
     cond["levels_sm"] = levels
     return cond
 

@@ -4,18 +4,20 @@ hierarchy (counterpart of ``afford_motion_tpu/models/pointtransformer.py``).
 Parameter names are the reference torch names (``enc{i}.{j}.linear``,
 ``transformer2.linear_p.1``, ...), the layout ``export_cmdm_checkpoint``
 writes. Every neighbourhood gather goes through :func:`bgather`, i.e. the
-row-gather kernel (and, backward, its scatter-add kernel) for CUDA tensors.
+row-gather kernel or, on a banded hierarchy, the windowed gather kernel (and,
+backward, their scatter-add kernels) for CUDA tensors.
 Train or eval is the module's mode (``.train()`` / ``.eval()``), which
 stands for the JAX package's ``train=`` argument.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import banded as banded_ops
 from ..ops.cuda.gather import gather_rows
 from ..ops.hierarchy import LevelGeometry
 from .layers import Linear
@@ -24,9 +26,22 @@ SCENEMAP_STRIDES = (1, 4, 4, 4)
 SCENEMAP_NSAMPLES = (8, 16, 16, 16)
 
 
-def bgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched neighbourhood gather: x (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
-    return gather_rows(x.contiguous(), idx.to(torch.int32).contiguous())
+def bgather(x: torch.Tensor, idx: torch.Tensor, banded: bool = False,
+            starts: Optional[torch.Tensor] = None, window: int = 0) -> torch.Tensor:
+    """Batched neighbourhood gather: x (B, N, C), idx (B, M, K) -> (B, M, K, C).
+
+    With ``banded=True`` (indices produced by the windowed kNN on
+    curve-ordered clouds: callers pass ``geom.banded``) and a shape the
+    banded gather supports, the windowed gather kernel; else the row-gather
+    kernel. ``starts`` (B, G) are the per-cloud window starts the indices
+    were produced with (``LevelGeometry.down_starts`` / ``up_starts``; None =
+    proportional policy), ``window`` the W0 width knob they were built with
+    (``LevelGeometry.window``; 0 = env/default)."""
+    x, idx = x.contiguous(), idx.to(torch.int32).contiguous()
+    if banded and banded_ops.gather_supports(idx.shape[1], x.shape[1], x.shape[2], idx.shape[2],
+                                             x.element_size(), window):
+        return banded_ops.gather_banded(x, idx, starts, window)
+    return gather_rows(x, idx)
 
 
 class PointNorm(nn.BatchNorm1d):
@@ -82,14 +97,17 @@ class PointTransformerLayer(nn.Module):
             PointNorm(mid, dtype), nn.ReLU(), Linear(mid, mid, dtype=dtype),
         )
 
-    def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor,
+                banded: bool = False, window: int = 0) -> torch.Tensor:
+        """``banded``/``window``: ``knn_idx`` came from the banded windowed
+        kNN with this W0 (the level's ``LevelGeometry`` fields)."""
         C, s = self.planes, self.share_planes
         B, N, K = knn_idx.shape
         p = p.to(self.dtype)
         x = x.to(self.dtype)
         x_q = self.linear_q(x)
         packed = bgather(torch.cat([p, self.linear_k(x), self.linear_v(x)], dim=-1),
-                         knn_idx)                                  # (B, N, K, 3+2C)
+                         knn_idx, banded, window=window)           # (B, N, K, 3+2C)
         rel = packed[..., :3] - p[:, :, None, :]
         x_k, x_v = packed[..., 3:3 + C], packed[..., 3 + C:]
         p_r = self.linear_p(rel)
@@ -118,7 +136,7 @@ class TransitionDown(nn.Module):
             return F.relu(self.bn(self.linear(x)))
         new_xyz = geom.xyz.to(self.dtype)
         packed = bgather(torch.cat([parent_xyz.to(self.dtype), x], dim=-1),
-                         geom.down_knn_idx)
+                         geom.down_knn_idx, geom.banded, geom.down_starts, geom.window)
         rel = packed[..., :3] - new_xyz[:, :, None, :]
         h = self.linear(torch.cat([rel, packed[..., 3:]], dim=-1))
         return F.relu(self.bn(h)).amax(dim=2)
@@ -138,10 +156,11 @@ class PointTransformerBlock(nn.Module):
         self.linear3 = Linear(planes, planes, bias=False, dtype=dtype)
         self.bn3 = PointNorm(planes, dtype)
 
-    def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor,
+                banded: bool = False, window: int = 0) -> torch.Tensor:
         x = x.to(self.dtype)
         h = F.relu(self.bn1(self.linear1(x)))
-        h = F.relu(self.bn2(self.transformer2(p, h, knn_idx)))
+        h = F.relu(self.bn2(self.transformer2(p, h, knn_idx, banded, window)))
         h = self.bn3(self.linear3(h))
         return F.relu(h + x)
 
@@ -171,7 +190,7 @@ class PointTransformerEncoder(nn.Module):
             stage = getattr(self, f"enc{i + 1}")
             x = stage[0](parent_xyz, x, geom)
             for block in stage[1:]:
-                x = block(geom.xyz, x, geom.knn_idx)
+                x = block(geom.xyz, x, geom.knn_idx, geom.banded, geom.window)
             outs.append(x)
             parent_xyz = geom.xyz
         return outs

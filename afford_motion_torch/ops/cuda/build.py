@@ -28,7 +28,9 @@ from pathlib import Path
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("fps.cu", "knn.cu", "gather.cu", "scatter.cu")
+SOURCES = ("fps.cu", "knn.cu", "gather.cu", "scatter.cu", "banded_knn.cu", "banded_gather.cu",
+           "banded_scatter.cu")
+HEADERS = ("segment_lists.cuh",)  # included by the sources; part of the library's hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +48,13 @@ _SIGNATURES = {
     "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # (g, idx, b, n, c, mk, elem_bytes, counts, start, unsorted, sorted, out, stream)
     "amt_scatter_add_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (query, support, starts, starts_stride, b, m, n, s, k, idx, dist, stream)
+    "amt_knn_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (x, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, out, stream)
+    "amt_gather_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, counts, start, unsorted,
+    #  sorted, out, stream)
+    "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -66,7 +75,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libamt_kernels_{h.hexdigest()[:16]}.so"
 

@@ -14,7 +14,7 @@ import torch
 
 from . import build
 
-_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -23,33 +23,42 @@ def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[rows, idx.long()]
 
 
+def ordered_segment_sum(rows: torch.Tensor, order: torch.Tensor, seg: torch.Tensor,
+                        nseg: int) -> torch.Tensor:
+    """``out[b, s] = sum of rows[b, order[b, p]] over the p with seg[b, p] ==
+    s``, from zero, in ascending ``p``. rows (B, P', C), order and seg (B, P)
+    int64 with ``seg`` non-decreasing along P -> (B, nseg, C) in rows' type.
+    Pass r adds every segment's r-th member, so a pass touches a segment at
+    most once and the order of each sum is fixed."""
+    B, P = seg.shape
+    pos = torch.arange(P, device=seg.device).expand(B, -1)
+    new_segment = torch.ones_like(seg, dtype=torch.bool)
+    new_segment[:, 1:] = seg[:, 1:] != seg[:, :-1]
+    segment_start = torch.where(new_segment, pos, torch.zeros_like(pos)).cummax(dim=1).values
+    rank = pos - segment_start
+    out = torch.zeros((B, nseg, rows.shape[-1]), dtype=rows.dtype, device=rows.device)
+    for r in range(int(rank.max()) + 1 if P else 0):
+        b_i, p_i = (rank == r).nonzero(as_tuple=True)
+        s_i = seg[b_i, p_i]
+        out[b_i, s_i] = out[b_i, s_i] + rows[b_i, order[b_i, p_i]]
+    return out
+
+
 def scatter_add_rows_plain(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """(B, M, K, C), (B, M, K) int -> (B, n, C): ``out[b, idx[b, m, k]] +=
     g[b, m, k]`` from zero, each destination's contributions added in
-    ascending ``m * K + k``. A stable sort groups the positions by
-    destination; pass r then adds every destination's r-th contributor, so a
-    pass touches a destination at most once and the order of the sum is
-    fixed. float32 and bfloat16 accumulate in float32 (the bfloat16 sum is
-    rounded once at the end); other types in their own."""
+    ascending ``m * K + k``: a stable sort groups the positions by
+    destination for :func:`ordered_segment_sum`. float32 and bfloat16
+    accumulate in float32 (the bfloat16 sum is rounded once at the end);
+    other types in their own."""
     B, M, K, C = g.shape
-    acc_dtype = torch.float32 if g.dtype in _ELEM_BYTES else g.dtype
-    flat = idx.reshape(B, M * K).long()
-    dest, order = torch.sort(flat, dim=1, stable=True)
-    pos = torch.arange(M * K, device=g.device).expand(B, -1)
-    new_segment = torch.ones_like(dest, dtype=torch.bool)
-    new_segment[:, 1:] = dest[:, 1:] != dest[:, :-1]
-    segment_start = torch.where(new_segment, pos, torch.zeros_like(pos)).cummax(dim=1).values
-    rank = pos - segment_start
+    acc_dtype = torch.float32 if g.dtype in ELEM_BYTES else g.dtype
+    dest, order = torch.sort(idx.reshape(B, M * K).long(), dim=1, stable=True)
     rows = g.reshape(B, M * K, C).to(acc_dtype)
-    out = torch.zeros((B, n, C), dtype=acc_dtype, device=g.device)
-    for r in range(int(rank.max()) + 1):
-        b_i, p_i = (rank == r).nonzero(as_tuple=True)
-        d_i = dest[b_i, p_i]
-        out[b_i, d_i] = out[b_i, d_i] + rows[b_i, order[b_i, p_i]]
-    return out.to(g.dtype)
+    return ordered_segment_sum(rows, order, dest, n).to(g.dtype)
 
 
-def _check(x: torch.Tensor, idx: torch.Tensor, name: str, x_ndim: int) -> None:
+def check_rows(x: torch.Tensor, idx: torch.Tensor, name: str, x_ndim: int) -> None:
     if x.ndim != x_ndim or idx.ndim != 3 or x.shape[0] != idx.shape[0]:
         raise ValueError(f"{name}: bad shapes {tuple(x.shape)} and {tuple(idx.shape)}")
     if x.device != idx.device:
@@ -57,7 +66,7 @@ def _check(x: torch.Tensor, idx: torch.Tensor, name: str, x_ndim: int) -> None:
     if x.device.type == "cpu":
         return
     build.require_cuda(x, name)
-    if x.dtype not in _ELEM_BYTES or idx.dtype != torch.int32:
+    if x.dtype not in ELEM_BYTES or idx.dtype != torch.int32:
         raise ValueError(f"{name}: takes float32/bfloat16 rows and int32 "
                          f"indices, got {x.dtype} and {idx.dtype}")
     if not (x.is_contiguous() and idx.is_contiguous()):
@@ -65,7 +74,7 @@ def _check(x: torch.Tensor, idx: torch.Tensor, name: str, x_ndim: int) -> None:
 
 
 def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    _check(x, idx, "gather_rows", 3)
+    check_rows(x, idx, "gather_rows", 3)
     if x.device.type == "cpu":
         return gather_rows_plain(x, idx)
     B, N, C = x.shape
@@ -74,7 +83,7 @@ def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = build.library()
     with torch.cuda.device(x.device):
         code = lib.amt_gather_rows(x.data_ptr(), idx.data_ptr(), B, N, C, M, K,
-                                   _ELEM_BYTES[x.dtype], out.data_ptr(),
+                                   ELEM_BYTES[x.dtype], out.data_ptr(),
                                    build.stream_of(x))
     build.check(code, "amt_gather_rows")
     gather_rows.launches += 1
@@ -85,7 +94,7 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor
     """(B, M, K, C) f32|bf16, (B, M, K) int32 in [0, n) -> (B, n, C): the
     ordered scatter-add (see :func:`scatter_add_rows_plain`). Launches the
     kernel for CUDA tensors; CPU tensors take the plain version."""
-    _check(g, idx, "scatter_add_rows", 4)
+    check_rows(g, idx, "scatter_add_rows", 4)
     if g.shape[1:3] != idx.shape[1:]:
         raise ValueError(f"scatter_add_rows: g {tuple(g.shape)} does not match "
                          f"idx {tuple(idx.shape)}")
@@ -100,7 +109,7 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor
     lib = build.library()
     with torch.cuda.device(g.device):
         code = lib.amt_scatter_add_rows(
-            g.data_ptr(), idx.data_ptr(), B, n, C, M * K, _ELEM_BYTES[g.dtype],
+            g.data_ptr(), idx.data_ptr(), B, n, C, M * K, ELEM_BYTES[g.dtype],
             per_dest[0].data_ptr(), per_dest[1].data_ptr(), per_pos[0].data_ptr(),
             per_pos[1].data_ptr(), out.data_ptr(), build.stream_of(g))
     build.check(code, "amt_scatter_add_rows")

@@ -1,6 +1,6 @@
 """Where one full-width train step's time goes on the card:
 
-    python -m afford_motion_torch.tools.profile_train_step [out_dir]
+    python -m afford_motion_torch.tools.profile_train_step [out_dir] [--banded]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -10,7 +10,11 @@ then (1) times the parts of a step by a host clock to a device synchronize
 (2) traces one step with ``torch.profiler`` and prints the device time by
 kernel. Prints the card's name and power limit first; writes the table to
 ``out_dir`` (default ``build/profile``). No dataset is read: this measures the
-device's step, not the host's loading.
+device's step, not the host's loading. With ``--banded`` it profiles the
+banded step instead, as the loop runs it on a curve-sorted packed store: the
+clouds are Hilbert-sorted, the batch carries each item's cached ascending
+``fps_idx`` (so no FPS runs in the step) and the model has ``use_banded`` on;
+the table goes to ``profile_train_step_banded.txt``.
 """
 from __future__ import annotations
 
@@ -41,7 +45,25 @@ def _sync_time(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def main(out_dir: str = "build/profile") -> None:
+def _banded_batch(rng, dev):
+    """Hilbert-sorted clouds (f16 on the wire) and their cached FPS indices,
+    as the packed store with the fps geometry wire delivers them."""
+    from ..models.pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES
+    from ..ops.curves import curve_order
+    from ..ops.hierarchy import build_point_hierarchy
+
+    pts = rng.normal(size=(B, N, 3)).astype(np.float32)
+    pts = np.stack([p[curve_order(p, "hilbert")] for p in pts])
+    with torch.no_grad():
+        levels = build_point_hierarchy(torch.from_numpy(pts).to(dev), SCENEMAP_STRIDES,
+                                       SCENEMAP_NSAMPLES, with_up=False, sort_fps=True)
+    cond = {f"geo_sm{li}_fps_idx": lvl.fps_idx.to(torch.int16)
+            for li, lvl in enumerate(levels) if lvl.fps_idx is not None}
+    cond["c_pc_xyz"] = torch.from_numpy(pts.astype(np.float16)).to(dev)
+    return cond
+
+
+def main(out_dir: str = "build/profile", banded: bool = False) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -56,12 +78,17 @@ def main(out_dir: str = "build/profile") -> None:
     step = make_train_step(model, diffusion)
     rng = np.random.default_rng(2023)
     x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
-    cond = {
-        "c_pc_xyz": torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev),
+    if banded:
+        model.use_banded = True
+        cond = _banded_batch(rng, dev)
+    else:
+        cond = {"c_pc_xyz":
+                torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev)}
+    cond.update({
         "c_pc_contact": torch.from_numpy(rng.uniform(size=(B, N, 6)).astype(np.float16)).to(dev),
         "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32)).to(dev),
         "x_mask": torch.from_numpy(x_mask).to(dev),
-    }
+    })
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
     for i in range(3):
         step(state, x, cond, seed=i)
@@ -86,7 +113,8 @@ def main(out_dir: str = "build/profile") -> None:
             group["lr"] = annealed_lr(state.lr, state.step, state.lr_anneal_steps)
         _, ms = _sync_time(state.optimizer.step)
         parts["optimizer"].append(ms)
-    lines = ["parts of one step, ms to a synchronize (5 steps: min / mean / max):"]
+    lines = [f"{'banded' if banded else 'non-banded'} step: parts of one step, ms to a "
+             "synchronize (5 steps: min / mean / max):"]
     for name, v in parts.items():
         lines.append(f"  {name}: {min(v):.3f} / {np.mean(v):.3f} / {max(v):.3f}")
     whole = [_sync_time(lambda i=i: step(state, x, cond, seed=200 + i))[1] for i in range(5)]
@@ -111,8 +139,10 @@ def main(out_dir: str = "build/profile") -> None:
     print(text, flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_train_step.txt").write_text(text + "\n")
+    name = "profile_train_step_banded.txt" if banded else "profile_train_step.txt"
+    (out / name).write_text(text + "\n")
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    _args = [a for a in sys.argv[1:] if a != "--banded"]
+    main(*_args[:1], banded="--banded" in sys.argv[1:])

@@ -7,11 +7,12 @@ generator seeded by (base seed, step), so a resumed run repeats the straight
 one. The host data stream is a pure function of (base seed, step) too: the
 loader's shuffle is seeded per epoch, and the datasets' own random choices
 (caption, crop start, contact mix, erase flags) are re-seeded per group of
-steps, with the items loaded serially.
+steps, with the items loaded serially. On a curve-sorted packed store with
+the fps geometry wire the loop switches the banded kernels on
+(``_maybe_enable_banded``).
 
-Not ported yet: the device-resident corpus, the banded kernels' enabling,
-the device mesh and its prefetcher, the profiler trace, the pretrained
-scene-model load.
+Not ported yet: the device-resident corpus, the device mesh and its
+prefetcher, the profiler trace, the pretrained scene-model load.
 """
 from __future__ import annotations
 
@@ -104,6 +105,7 @@ class TrainLoop:
         self.save_every_step = int(tcfg.get("save_every_step", 10000))
         self.ckpt_dir = mkdir_if_not_exists(os.path.join(exp_dir, "ckpt"))
         self._base_seed = int(seed)
+        self._maybe_enable_banded()
 
         # serial item loading keeps the datasets' random choices a function
         # of (seed, step); see the module docstring
@@ -137,6 +139,33 @@ class TrainLoop:
         self.train_step = make_train_step(model, diffusion, self._sampler)
         # what the run measured, for the caller: one entry per logged window
         self.summary: Dict[str, Any] = {"device": str(device), "logged": []}
+
+    def _maybe_enable_banded(self) -> None:
+        """Enable the banded windowed-neighbourhood kernels when the data
+        supports them: curve-sorted packed store(s) plus the fps-only
+        geometry wire, so that every neighbourhood index is produced on the
+        device by the windowed kNN. Carried on the model (``use_banded`` ->
+        ``LevelGeometry.banded``), not process-global state. See
+        ``ops/cuda/banded.py``."""
+        ds = self.dataloader.dataset
+        dcfg = getattr(ds, "cfg", None)
+        if dcfg is None or not bool(dcfg.get("use_banded", True)):
+            return
+        if str(dcfg.get("geometry_wire", "full")) != "fps":
+            return
+        packed = getattr(ds, "_packed", None)
+        stores = (
+            list(packed.values()) if isinstance(packed, dict)
+            else ([packed] if packed is not None else [])
+        )
+        if stores and all(st.meta.get("morton") for st in stores):
+            curves = {st.meta.get("curve", "morton") for st in stores}
+            self.model.use_banded = True
+            logger.info(
+                "banded windowed-neighborhood kernels enabled "
+                f"({'/'.join(sorted(str(c) for c in curves))}-sorted packed "
+                "data, fps geometry wire)"
+            )
 
     def _groups(self, start_step: int) -> Iterator[Dict[str, Any]]:
         """The host stream from ``start_step`` on: collated (G*B)-item

@@ -13,16 +13,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    contact clouds) and on a near-tie cloud, plus a few shapes off those
    paths. FPS picks, kNN idx and dist, the gathered rows and the
    scatter-added rows (f32 and bf16) must be bit-equal, the scatter also
-   from one launch to the next. Times by CUDA events, beside the plain
-   version and, where one PyTorch call computes the same function
-   (``torch.gather``, ``index_add_``), beside that call; the bound is the
-   least time the card could take, from the bytes moved and the operations
-   done at these shapes;
-4. autograd: ``gather_rows(x, idx).backward(g)`` through the kernels on the
-   card equals the CPU's plain path bit for bit in float32;
+   from one launch to the next. The banded kernels (windowed kNN, gather and
+   scatter-add) likewise, on curve-sorted clouds with the static rank-1
+   starts and the adaptive rank-2 starts of real sorted FPS indices, and
+   with some indices put outside their window (zero rows, dropped
+   contributions). Times by CUDA events, beside the plain version and,
+   where one PyTorch call computes the same function (``torch.gather``,
+   ``index_add_``), beside that call; the bound is the least time the card
+   could take, from the bytes moved and the operations done at these shapes;
+4. autograd: ``gather_rows(x, idx).backward(g)`` and ``gather_banded(x,
+   idx, starts).backward(g)`` through the kernels on the card equal the
+   CPU's plain path bit for bit in float32;
 5. reference: a small float32 chain (full-width CMDM, 1024 points, 10 DDIM
    steps) and two float32 train steps on the card, through the kernels,
-   against the same on the CPU through the plain versions;
+   against the same on the CPU through the plain versions; then two banded
+   train steps on a curve-sorted cloud likewise;
 6. train: ``afford_motion_torch.train`` (the port's train entry) with the
    flagship CMDM ``trans_enc`` at full width from the seeded init, in the
    config's bf16, batch 32, 8192-point clouds, 196x263 motions, on the
@@ -33,10 +38,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 7. slice: ``afford_motion_torch.test`` (the port's test entry) from the
    checkpoint the train phase wrote, on one batch of 32 test items, once
    with DDIM-50 and once with DDPM-1000. x0 must be finite with shape
-   (32, 196, 263), and FPS, kNN and gather must have been launched.
+   (32, 196, 263), and FPS, kNN and gather must have been launched;
+8. banded train: a second tree, a copy of the first taken through
+   ``afford_motion_torch.prepare`` ``sort``, ``geometry`` and ``pack``; the
+   train entry with the same arguments as in 6 (nothing names bandedness:
+   the loop must switch it on and say so in its log), 8 steps and 4 resumed
+   as in 6. Per step the banded kNN must be launched 6 times, the banded
+   gather 7 and the banded scatter 7, and FPS, the full kNN, the row gather
+   and its scatter not at all;
+9. banded slice: one DDIM-50 chain through the test entry from that
+   checkpoint with ``model.use_banded=true`` on the sorted tree, once from
+   the cached FPS indices (no FPS launch) and once with the geometry cache
+   off (FPS and sort in the chain).
 
 The line before the last is a JSON object with, for each kernel, its
-launches over the driven paths (train, resumed train, both chains), its
+launches over the driven paths (every train run and chain above), its
 largest difference from the plain version, and its time, the plain
 version's, the bound and the library call's, each summed over the shapes of
 one pass of its path (one hierarchy and encoder forward; for the scatter
@@ -66,7 +82,20 @@ REPLACES = {
     "gather": ("afford_motion_torch/csrc/gather.cu", "afford_motion_tpu/ops/pallas/gather.py:95"),
     "scatter": ("afford_motion_torch/csrc/scatter.cu",
                 "afford_motion_tpu/ops/pallas/gather.py:112"),
+    "banded_knn": ("afford_motion_torch/csrc/banded_knn.cu",
+                   "afford_motion_tpu/ops/pallas/banded.py:234"),
+    "banded_gather": ("afford_motion_torch/csrc/banded_gather.cu",
+                      "afford_motion_tpu/ops/pallas/banded.py:312"),
+    "banded_scatter": ("afford_motion_torch/csrc/banded_scatter.cu",
+                       "afford_motion_tpu/ops/pallas/banded.py:340"),
 }
+# launches per train step (one hierarchy, encoder forward and backward) and
+# per chain (no backward) on each route; level 3's 128-point self kNN is
+# below both kNN kernels' range and takes the exact path
+PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
+              "banded_knn": 0, "banded_gather": 0, "banded_scatter": 0}
+BANDED_STEP = {"fps": 0, "knn": 0, "gather": 0, "scatter": 0,
+               "banded_knn": 6, "banded_gather": 7, "banded_scatter": 7}
 # published peaks of one H100 SXM: device memory, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -262,6 +291,134 @@ def phase_kernels(dev: torch.device) -> KernelReport:
     return rep
 
 
+def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
+    """The three banded kernels against their plain versions at the shapes
+    of one banded SceneMap hierarchy, encoder forward and backward."""
+    from afford_motion_torch.ops.cuda import banded
+    from afford_motion_torch.ops.cuda.fps import fps_cuda
+    from afford_motion_torch.ops.curves import curve_order
+    from afford_motion_torch.ops.pointops import knn as knn_exact
+
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    clouds = {
+        "sorted": rng.normal(size=(B, N_POINTS, 3)).astype(np.float32),
+        # 16^3 grid for 8192 points: duplicates and exactly tied distances
+        "near-tie": (rng.integers(0, 16, size=(B, N_POINTS, 3)) * 0.125).astype(np.float32),
+    }
+    w0 = 128  # configs/model/cmdm.yaml banded_window
+    for kind, cloud in clouds.items():
+        path = kind == "sorted"
+        curve = "morton" if path else "hilbert"
+        cloud = np.stack([c[curve_order(c, curve)] for c in cloud])
+        levels, fps = [torch.from_numpy(cloud).to(dev)], [None]
+        for n_out in (2048, 512, 128):
+            # the hierarchy's rule on a banded level: ascending FPS indices
+            idx = torch.sort(fps_cuda(levels[-1], n_out), dim=-1).values
+            fps.append(idx)
+            levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3)))
+        starts, knn_idx = {}, {}
+        for qi, si, k in ((0, 0, 8), (1, 0, 16), (1, 1, 16), (2, 1, 16), (2, 2, 16), (3, 2, 16)):
+            q, sup = levels[qi], levels[si]
+            m, n = q.shape[1], sup.shape[1]
+            size = banded.window_starts(m, n, banded.window_width(n, w0))[1]
+            # self levels: static rank-1 starts; cross levels: adaptive rank-2
+            # starts of the real sorted FPS indices
+            st = (banded._starts_tensor(m, n, w0, dev) if qi == si
+                  else banded.adaptive_down_starts(fps[qi], n, w0))
+            starts[(qi, si)] = st
+            label = (f"{kind} q{tuple(q.shape)} s{tuple(sup.shape)} k={k} S={size} "
+                     f"starts{tuple(st.shape)}")
+            got = banded.knn_banded(q, sup, k, st, w0)
+            rep.check("banded_knn", label, got, banded.knn_banded_plain(q, sup, k, st, size))
+            knn_idx[(qi, si)] = got[0]
+            if path:
+                # per query and window row: 3 differences, 3 products, 2 sums
+                # and the compare against the k-th key
+                rep.timed("banded_knn", label,
+                          lambda q=q, sup=sup, k=k, st=st: banded.knn_banded(q, sup, k, st, w0),
+                          lambda q=q, sup=sup, k=k, st=st, size=size:
+                          banded.knn_banded_plain(q, sup, k, st, size), 5,
+                          nbytes=B * ((m + n) * 12 + m * k * 8) + st.numel() * 4,
+                          flops=9.0 * B * m * size)
+        # the other rank of starts on each kind of call
+        q, sup = levels[1], levels[0]
+        st = banded._starts_tensor(2048, N_POINTS, w0, dev)
+        rep.check("banded_knn", f"{kind} down, static starts", banded.knn_banded(q, sup, 16, st, w0),
+                  banded.knn_banded_plain(q, sup, 16, st, 768))
+        st = banded._starts_tensor(2048, 2048, w0, dev).expand(B, -1).contiguous()
+        rep.check("banded_knn", f"{kind} self, rank-2 starts",
+                  banded.knn_banded(q, q, 16, st, w0), banded.knn_banded_plain(q, q, 16, st, 384))
+        # level 3's own neighbours come from the exact kNN (128 < 256); its
+        # gather still takes the banded route with the full window S = 128
+        knn_idx[(3, 3)] = knn_exact(levels[3], levels[3], 16)[0].contiguous()
+        starts[(3, 3)] = banded._starts_tensor(128, 128, w0, dev)
+        gathers = [((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67),
+                   ((2, 2), 259), ((3, 2), 131), ((3, 3), 515)]
+        for (qi, si), c in gathers:
+            idx, st = knn_idx[(qi, si)], starts[(qi, si)]
+            n_src = levels[si].shape[1]
+            m, k = idx.shape[1:]
+            size = banded.window_starts(m, n_src, banded.window_width(n_src, w0))[1]
+            if not banded.gather_supports(m, n_src, c, k, 4, w0):
+                raise AssertionError(f"banded gather would not take m={m} n={n_src} c={c}")
+            inside = (idx.long() - banded._per_row_starts(st, B)[:, :, None])
+            inside = (inside >= 0) & (inside < size)
+            if not bool(inside.all()):
+                raise AssertionError(f"{kind} {(qi, si)}: a kNN index lies outside its window")
+            # some indices moved anywhere in the cloud: outside the window they
+            # give zero rows and their contributions are dropped
+            moved = torch.where(torch.rand(idx.shape, device=dev, generator=gen) < 0.1,
+                                torch.randint(0, n_src, idx.shape, device=dev, dtype=torch.int32,
+                                              generator=gen), idx)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(B, n_src, c, device=dev, generator=gen).to(dtype)
+                g = torch.randn(B, m, k, c, device=dev, generator=gen).to(dtype)
+                label = (f"{kind} x({B},{n_src},{c}) idx{tuple(idx.shape)} S={size} "
+                         f"starts{tuple(st.shape)} {str(dtype)[6:]}")
+                for what, ii in (("", idx), (" out-of-window", moved)):
+                    rep.check("banded_gather", label + what, [banded.gather_banded(x, ii, st, w0)],
+                              [banded.gather_banded_plain(x, ii, st, size)])
+                    got = banded.scatter_banded(g, ii, st, n_src, size)
+                    rep.check("banded_scatter", label + what, [got],
+                              [banded.scatter_banded_plain(g, ii, st, n_src, size)])
+                    rep.check("banded_scatter", label + what + " again",
+                              [banded.scatter_banded(g, ii, st, n_src, size)], [got])
+                if size < n_src and bool(torch.equal(
+                        banded.gather_banded(x, moved, st, w0), banded.gather_banded(x, idx, st, w0))):
+                    raise AssertionError(f"{label}: no moved index left its window")
+                if not path:
+                    continue
+                on_path = dtype == torch.bfloat16
+                esize = x.element_size()
+                wide = idx.long().reshape(B, m * k, 1).expand(-1, -1, c)
+                mask = inside.reshape(B, m * k, 1).to(dtype)
+                rep.timed("banded_gather", label,
+                          lambda x=x, i=idx, st=st: banded.gather_banded(x, i, st, w0),
+                          lambda x=x, i=idx, st=st, size=size:
+                          banded.gather_banded_plain(x, i, st, size), 10, on_path,
+                          nbytes=B * (n_src * c * esize + m * k * 4 + m * k * c * esize)
+                          + st.numel() * 4, flops=0.0,
+                          library=lambda x=x, w=wide, mask=mask: torch.gather(x, 1, w) * mask)
+                flat = (idx.long() + n_src * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+
+                def index_add(g=g, flat=flat, n_src=n_src, c=c):
+                    out = torch.zeros((B * n_src, c), dtype=g.dtype, device=g.device)
+                    return out.index_add_(0, flat, g.reshape(-1, c))
+
+                rep.timed("banded_scatter", label,
+                          lambda g=g, i=idx, st=st, n=n_src, size=size:
+                          banded.scatter_banded(g, i, st, n, size),
+                          lambda g=g, i=idx, st=st, n=n_src, size=size:
+                          banded.scatter_banded_plain(g, i, st, n, size), 10, on_path,
+                          nbytes=B * (m * k * c * esize + m * k * 4 + n_src * c * esize)
+                          + st.numel() * 4, flops=1.0 * B * m * k * c, library=index_add)
+                del wide, mask, flat
+            del moved
+    log("  banded: kNN, gather and scatter bit-equal to their plain versions on the sorted and "
+        "the near-tie cloud, with rank-1 and rank-2 starts and with out-of-window indices")
+
+
 def phase_autograd(dev: torch.device) -> None:
     """backward through the kernels on the card == the CPU's plain path."""
     from afford_motion_torch.ops.cuda.gather import gather_rows
@@ -280,6 +437,29 @@ def phase_autograd(dev: torch.device) -> None:
         if not torch.equal(bits(a), bits(b)):
             raise AssertionError(f"autograd {what}: card differs from the CPU's plain path")
     log("autograd: gather_rows forward and backward on the card bit-equal to the CPU's plain path")
+
+    from afford_motion_torch.ops.cuda import banded
+
+    # indices near the diagonal, so most lie in their tile's window of 768
+    # rows and some do not; per-cloud starts
+    centre = (np.arange(512) * 4)[None, :, None]
+    idx = np.clip(centre + rng.integers(-500, 500, size=(4, 512, 16)), 0, 2047).astype(np.int32)
+    starts = np.sort(rng.integers(0, 11, size=(4, 4)) * 128, axis=1).astype(np.int32)
+    grads = []
+    for device in (torch.device("cpu"), dev):
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        out = banded.gather_banded(xt, torch.from_numpy(idx).to(device),
+                                   torch.from_numpy(starts).to(device), 128)
+        out.backward(torch.from_numpy(g).to(device))
+        grads.append((out.detach().cpu(), xt.grad.cpu()))
+    zero_rows = float((grads[0][0] == 0).all(dim=-1).float().mean())
+    if not 0.0 < zero_rows < 0.9:
+        raise AssertionError(f"autograd: {zero_rows:.2f} of the banded rows are out of window")
+    for a, b, what in zip(grads[0], grads[1], ("forward", "backward")):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"autograd banded {what}: card differs from the CPU's plain path")
+    log(f"autograd: gather_banded forward and backward on the card bit-equal to the CPU's plain "
+        f"path ({100 * zero_rows:.1f}% of the rows out of window)")
 
 
 def phase_reference(dev: torch.device) -> float:
@@ -323,31 +503,42 @@ def phase_reference(dev: torch.device) -> float:
     # most lr a step whatever its gradient's size, and by +-lr with a sign
     # that is rounding noise where the true gradient is 0 (biases in front of
     # a train-mode BatchNorm or a softmax), so the weights are held to
-    # 2 steps x 2 lr at most, and to 2e-6 for all but 2% of the entries
+    # 2 steps x 2 lr at most, and to 2e-6 for all but 2% of the entries.
+    # Once on the plain route, once banded on a curve-sorted cloud (FPS, sort
+    # and the windowed kNN in the step), each from the initial weights.
+    from afford_motion_torch.ops.curves import curve_order
+
     lr = 1e-4
     x = rng.standard_normal((lb, L, D)).astype(np.float32)
     ts = rng.integers(0, 1000, size=(2, lb))
     noises = rng.standard_normal((2, lb, L, D)).astype(np.float32)
-    losses, weights = [], []
-    for model, device in ((cpu_model, torch.device("cpu")), (gpu_model, dev)):
-        diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), device)
-        state = TrainState.create(model, lr=lr)
-        step = make_train_step(model, diffusion)
-        c = {k: torch.from_numpy(v).to(device) for k, v in cond.items()}
-        losses.append([float(step(state, torch.from_numpy(x).to(device), c, seed=i,
-                                  t=torch.from_numpy(ts[i]).to(device),
-                                  noise=torch.from_numpy(noises[i]).to(device))["loss"])
-                       for i in range(2)])
-        weights.append(torch.cat([p.detach().cpu().reshape(-1) for p in model.parameters()]))
-        model.eval()
-    diff = (weights[0] - weights[1]).abs()
-    far = float((diff > 2e-6).float().mean())
-    log(f"reference: 2 f32 train steps, card vs CPU: losses {losses[1]} vs {losses[0]}, "
-        f"weights max abs diff {diff.max().item():.3e}, {100 * far:.3f}% of entries beyond 2e-6")
-    rel = max(abs(a - b) / abs(a) for a, b in zip(losses[0], losses[1]))
-    if not (np.isfinite(losses[1]).all() and rel <= 1e-3 and diff.max().item() <= 4.004 * lr
-            and far <= 0.02):
-        raise AssertionError("card train steps disagree with the CPU's")
+    initial = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    sorted_cond = dict(cond, c_pc_xyz=np.stack(
+        [c[curve_order(c, "hilbert")] for c in cond["c_pc_xyz"]]))
+    for route, step_cond in (("plain", cond), ("banded", sorted_cond)):
+        losses, weights = [], []
+        for model, device in ((cpu_model, torch.device("cpu")), (gpu_model, dev)):
+            model.load_state_dict(initial, strict=True)
+            model.use_banded = route == "banded"
+            diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), device)
+            state = TrainState.create(model, lr=lr)
+            step = make_train_step(model, diffusion)
+            c = {k: torch.from_numpy(v).to(device) for k, v in step_cond.items()}
+            losses.append([float(step(state, torch.from_numpy(x).to(device), c, seed=i,
+                                      t=torch.from_numpy(ts[i]).to(device),
+                                      noise=torch.from_numpy(noises[i]).to(device))["loss"])
+                           for i in range(2)])
+            weights.append(torch.cat([p.detach().cpu().reshape(-1) for p in model.parameters()]))
+            model.eval()
+            model.use_banded = False
+        diff = (weights[0] - weights[1]).abs()
+        far = float((diff > 2e-6).float().mean())
+        log(f"reference: 2 f32 {route} train steps, card vs CPU: losses {losses[1]} vs {losses[0]}, "
+            f"weights max abs diff {diff.max().item():.3e}, {100 * far:.3f}% of entries beyond 2e-6")
+        rel = max(abs(a - b) / abs(a) for a, b in zip(losses[0], losses[1]))
+        if not (np.isfinite(losses[1]).all() and rel <= 1e-3 and diff.max().item() <= 4.004 * lr
+                and far <= 0.02):
+            raise AssertionError(f"card {route} train steps disagree with the CPU's")
     return err
 
 
@@ -370,6 +561,27 @@ def make_tree() -> dict:
     return {"data": data, "contacts": contacts, "exp": exp}
 
 
+def make_banded_tree(tree: dict) -> dict:
+    """A second tree beside the plain one: a copy of it taken through the
+    port's ``prepare`` stages ``sort`` (Hilbert order), ``geometry`` (on the
+    card, through the kernels) and ``pack``. The test items keep their names,
+    so the plain tree's stage-1 handoff serves both."""
+    from afford_motion_torch import prepare
+
+    data = WORK / "data_banded"
+    shutil.copytree(tree["data"], data)
+    for stage in ("sort", "geometry", "pack"):
+        t0 = time.monotonic()
+        prepare.main([stage, "--dataset", "H3D", "--out_dir", str(data), "--batch_size", str(B)])
+        log(f"prepare {stage}: {time.monotonic() - t0:.1f} s")
+    meta = json.loads((data / "H3D" / "packed" / "meta.json").read_text())
+    if not (meta["morton"] and meta["curve"] == "hilbert"
+            and "geo_sm1_fps_idx" in meta["fields"] and len(meta["bases"]) == 6 * B):
+        raise AssertionError(f"the packed store is not sorted, cached and whole: "
+                             f"{ {k: v for k, v in meta.items() if k != 'bases'} }")
+    return dict(tree, data=data, exp=WORK / "exp_banded")
+
+
 def base_args(tree: dict) -> list:
     """The flagship configuration of ``scripts/t2m_contact_motion/train_ddp.sh``
     on the synthetic tree; both entries read it."""
@@ -389,11 +601,23 @@ def reset(counters: dict) -> None:
         fn.launches = 0
 
 
-def phase_train(tree: dict, counters: dict) -> dict:
+def check_launches(name: str, counts: dict, per_pass: dict, passes: int, backward: bool) -> None:
+    """The launches of one driven path must be exactly ``passes`` times the
+    route's count per pass (the scatters only where there is a backward)."""
+    want = {k: v * passes * (backward or "scatter" not in k) for k, v in per_pass.items()}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+
+
+def phase_train(tree: dict, counters: dict, per_step: dict) -> dict:
     """8 full-width bf16 steps through the train entry, then 4 more resumed
-    from step 4; returns the launches of both runs."""
+    from step 4; returns the launches of both runs. ``per_step``: the
+    launches one step must make on this tree's route. Nothing in the
+    arguments names the route: the loop picks it from the tree."""
     from afford_motion_torch import train as entry
 
+    banded = per_step is BANDED_STEP
+    tag = "banded " if banded else ""
     train_args = base_args(tree) + [
         f"task.train.batch_size={B}", "task.train.save_every_step=4",
         "task.train.log_every_step=1", "task.train.max_steps=8",
@@ -405,6 +629,7 @@ def phase_train(tree: dict, counters: dict) -> dict:
                 f"exp_dir={tree['exp']}_resumed",
                 f"task.train.resume_ckpt={tree['exp'] / 'ckpt' / 'model000004.pt'}"], 4)}
     for name, (args, steps) in runs.items():
+        name = tag + name
         reset(counters)
         t0 = time.monotonic()
         summary = entry.main(args)
@@ -416,16 +641,20 @@ def phase_train(tree: dict, counters: dict) -> dict:
             f"launches {counts}")
         if len(logged) != steps or summary["step"] != 8 or not np.isfinite(losses).all():
             raise AssertionError(f"{name}: expected {steps} finite losses up to step 8")
-        if min(counts.values()) <= 0 or counts["scatter"] != 7 * steps:
-            raise AssertionError(f"{name}: launches {counts}; the scatter must be launched "
-                                 f"7 times in each of {steps} steps")
+        check_launches(name, counts, per_step, steps, backward=True)
+        exp_dir = Path(summary["last_ckpt"]).parents[1]
+        switched = "banded windowed-neighborhood kernels enabled" in (
+            exp_dir / "log" / "runtime.log").read_text()
+        if switched != banded:
+            raise AssertionError(f"{name}: the loop's log says banded={switched}")
         if not summary["last_ckpt"].endswith("model000008.pt") or not os.path.exists(
                 summary["last_ckpt"]):
             raise AssertionError(f"{name}: model000008.pt was not written")
         rest = [e["seconds"] / e["steps"] for e in logged[1:]]
         log(f"{name}: first step {logged[0]['seconds']:.3f} s (one-off set-up of the process "
             f"and the libraries included), then {np.mean(rest):.4f} s/step "
-            f"(min {min(rest):.4f}, max {max(rest):.4f}; data loading on the host included), "
+            f"(min {min(rest):.4f}, max {max(rest):.4f}; data loading on the host included: "
+            f"the slowest step loads a megabatch of {4 * B} items), "
             f"peak memory {summary['peak_memory_bytes'] / 2**30:.2f} GiB, entry {wall:.1f} s")
         for k in launches:
             launches[k] += counts[k]
@@ -433,24 +662,23 @@ def phase_train(tree: dict, counters: dict) -> dict:
     resumed = torch.load(Path(f"{tree['exp']}_resumed") / "ckpt" / "model000008.pt",
                          weights_only=True)
     diff = max((straight[k].double() - resumed[k].double()).abs().max().item() for k in straight)
-    log(f"resumed: largest difference from the straight run's weights and buffers at step 8: "
+    log(f"{tag}resumed: largest difference from the straight run's weights and buffers at step 8: "
         f"{diff:.3e} (limit {RESUME_LIMIT:.0e})")
     if not diff <= RESUME_LIMIT:
-        raise AssertionError(f"the resumed run differs from the straight one by {diff}")
+        raise AssertionError(f"the {tag}resumed run differs from the straight one by {diff}")
     return launches
 
 
-def phase_slice(tree: dict, counters: dict) -> dict:
-    """Both sampling chains through the test entry, from the checkpoint the
-    train phase wrote (the natsort-latest, ``model000008.pt``)."""
+def phase_slice(tree: dict, counters: dict, runs: dict) -> dict:
+    """Sampling chains through the test entry, from the checkpoint the train
+    phase wrote under the tree's ``exp`` (the natsort-latest,
+    ``model000008.pt``). ``runs``: name -> (extra arguments, the launches one
+    chain must make)."""
     from afford_motion_torch import test as entry
 
     base = base_args(tree)
-    sampled = [k for k in counters if k != "scatter"]  # no backward in a chain
     launches = {k: 0 for k in counters}
-    runs = {"ddim50": ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"],
-            "ddpm1000": ["task.test.sampler=ddpm"]}
-    for name, extra in runs.items():
+    for name, (extra, per_chain) in runs.items():
         reset(counters)
         out = Path(entry.main(base + extra))
         counts = {k: fn.launches for k, fn in counters.items()}
@@ -461,8 +689,7 @@ def phase_slice(tree: dict, counters: dict) -> dict:
             f"launches {counts}")
         if x0.shape != (B, L, D) or not np.isfinite(x0).all():
             raise AssertionError(f"{name}: bad x0 {x0.shape}")
-        if min(counts[k] for k in sampled) <= 0 or counts["scatter"] != 0:
-            raise AssertionError(f"{name}: a kernel of the path was never launched: {counts}")
+        check_launches(f"slice {name}", counts, per_chain, 1, backward=False)
         chain = timing["chains"][0]
         log(f"slice {name}: chain {chain['chain_s']:.3f} s (hierarchy + contact encoding "
             f"{chain['prepare_s']:.3f} s, {chain['steps']} denoiser steps "
@@ -477,7 +704,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
-    from afford_motion_torch.ops.cuda import build
+    from afford_motion_torch.ops.cuda import banded, build
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
@@ -500,14 +727,31 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     rep = phase_kernels(dev)
+    phase_kernels_banded(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
     counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
-                "scatter": scatter_add_rows}
+                "scatter": scatter_add_rows, "banded_knn": banded.knn_banded,
+                "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded}
     tree = make_tree()
-    launches = phase_train(tree, counters)
-    for name, n in phase_slice(tree, counters).items():
-        launches[name] += n
+    ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
+    phases = [
+        phase_train(tree, counters, PLAIN_STEP),
+        phase_slice(tree, counters, {"ddim50": (ddim, PLAIN_STEP),
+                                     "ddpm1000": (["task.test.sampler=ddpm"], PLAIN_STEP)}),
+    ]
+    banded_tree = make_banded_tree(tree)
+    phases += [
+        phase_train(banded_tree, counters, BANDED_STEP),
+        # the cached FPS indices serve the chain; with the cache off the chain
+        # runs FPS and the sort itself
+        phase_slice(banded_tree, counters, {
+            "banded ddim50": (ddim + ["model.use_banded=true"], BANDED_STEP),
+            "banded ddim50, no geometry cache": (
+                ddim + ["model.use_banded=true", "task.dataset.use_geometry_cache=false"],
+                dict(BANDED_STEP, fps=3))}),
+    ]
+    launches = {k: sum(phase[k] for phase in phases) for k in counters}
 
     kernels = []
     for name in REPLACES:

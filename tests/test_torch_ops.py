@@ -182,6 +182,8 @@ def test_port_imports_without_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for name in ('ops.cuda.banded', 'ops.curves', 'ops.morton', 'data.packed', 'prepare'):\n"
+        "    assert 'afford_motion_torch.' + name in sys.modules, name\n"
         "from afford_motion_torch.models.cmdm import CMDM\n"
         "from afford_motion_torch.diffusion import create_gaussian_diffusion\n"
         "from afford_motion_torch.train.sampling import make_sample_fn\n"

@@ -223,8 +223,8 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``use_banded``, ``fused_qkv``, ``trans_dec``,
-    and a packed dataset tree under the training wire format."""
+    not run some other way: ``fused_qkv`` and ``trans_dec``. ``use_banded``
+    and a packed dataset tree under the training wire format are ported."""
     from afford_motion_torch.data import create_dataset
     from afford_motion_torch.data.synthetic import make_synthetic_h3d
     from afford_motion_torch.models.cmdm import build_cmdm
@@ -238,17 +238,21 @@ def test_port_refuses_what_is_not_ported(tmp_path):
         cfg.model.input_feats = 263
         return cfg.model
 
-    assert isinstance(build_cmdm(model_cfg()), CMDM)
-    for override in ("model.use_banded=true", "model.fused_qkv=true", "model.arch=trans_dec"):
+    assert isinstance(build_cmdm(model_cfg()), CMDM) and not build_cmdm(model_cfg()).use_banded
+    banded = build_cmdm(model_cfg("model.use_banded=true", "model.banded_window=256",
+                                  "model.banded_adaptive=false"))
+    assert (banded.use_banded, banded.banded_window, banded.banded_adaptive) == (True, 256, False)
+    for override in ("model.fused_qkv=true", "model.arch=trans_dec"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_cmdm(model_cfg(override))
 
     make_synthetic_h3d(str(tmp_path), n_items=8, num_points=64, horizon_range=(40, 60))
     cfg = load_config(str(REPO / "configs"), base)
     assert len(create_dataset(cfg.task.dataset, "train")) > 0
+    # a store that cannot be opened is passed over for the live path
     (tmp_path / "H3D" / "packed").mkdir()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_dataset(cfg.task.dataset, "train")
+    train = create_dataset(cfg.task.dataset, "train")
+    assert train._packed is None and train[0]["c_pc_xyz"].shape == (64, 3)
     # the test split never reads the packed store
     cfg.task.test.contact_folder = str(tmp_path)
     assert len(create_dataset(cfg.task.dataset, "test", contact_folder=str(tmp_path))) > 0

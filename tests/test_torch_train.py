@@ -12,6 +12,15 @@ full step's loss 1e-5
 orders through ~40 layers, and XLA's scatter-add order under ``jnp.take``),
 parameters after one AdamW step 1e-6 (abs) and BatchNorm buffers 1e-5, three
 steps' losses 1e-4. Resume on the CPU is bit-exact.
+
+The banded slice has the same tests on curve-sorted clouds of the 2^-8 grid
+(512 points, batch 4: the windowed kNN with static and per-cloud starts, a
+full window, and the fallbacks): the JAX side builds its hierarchy with
+``banded.available`` patched to true (its Pallas kernels in interpret mode)
+and gathers with ``jnp.take``, which equals the windowed gather for in-window
+indices; the port goes the way the loop sends it, from the cached ``fps_idx``
+through its banded routing with ``AM_BANDED_DEBUG=1``, and backward through
+the banded scatter. Same tolerances.
 """
 import os
 
@@ -25,10 +34,12 @@ from afford_motion_tpu.diffusion import create_gaussian_diffusion as jax_diffusi
 from afford_motion_tpu.models.cmdm import CMDM as JaxCMDM
 from afford_motion_tpu.models.pointtransformer import PointNorm as JaxPointNorm
 from afford_motion_tpu.ops.hierarchy import build_point_hierarchy, geometry_to_arrays
+from afford_motion_tpu.ops.pallas import banded as jax_banded
 from afford_motion_tpu.train.state import TrainState as JaxTrainState
 from afford_motion_tpu.train.state import make_optimizer as jax_make_optimizer
 from afford_motion_tpu.utils.config import DictConfig
 from afford_motion_torch import test as test_entry
+from afford_motion_torch import prepare as port_prepare
 from afford_motion_torch import train as train_pkg
 from afford_motion_torch.data.synthetic import make_synthetic_h3d
 from afford_motion_torch.diffusion import create_gaussian_diffusion
@@ -40,6 +51,8 @@ from afford_motion_torch.diffusion.resample import (
 from afford_motion_torch.models.cmdm import CMDM
 from afford_motion_torch.models.layers import Dropout, set_dropout_generator
 from afford_motion_torch.models.pointtransformer import PointNorm
+from afford_motion_torch.ops.cuda import banded as torch_banded
+from afford_motion_torch.ops.curves import curve_order
 from afford_motion_torch.train.loop import make_train_step, step_seed
 from afford_motion_torch.train.state import TrainState, annealed_lr
 from afford_motion_torch.utils.convert import (
@@ -319,30 +332,36 @@ def _jax_step(jm, jd, state, x, cond, t, noise):
 @pytest.mark.parametrize("weight_decay, lr_anneal_steps", [(0.0, 0), (0.01, 10)],
                          ids=["config-default", "decay+anneal"])
 def test_train_steps_match_jax(setup, weight_decay, lr_anneal_steps):
+    _compare_train_steps(setup, setup["variables"], setup["jcond"], setup["tcond"], setup["x"],
+                         _torch_model(setup["variables"]), weight_decay, lr_anneal_steps)
+
+
+def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr_anneal_steps,
+                         first_loss_rtol=1e-5):
     """Three optimizer steps from the same weights on the same batch with
     injected t and noise. Step 1: loss rtol 1e-5, every gradient within 1e-3
     of its tensor's largest entry, every parameter after the AdamW update
     within 1e-6 and every BatchNorm buffer within 1e-5, grad_norm rtol 1e-4. Steps 2 and 3: loss
     1e-4 (the anneal makes their learning rates 0.9 and 0.8 of the first)."""
-    jm, variables, jcond = setup["jm"], setup["variables"], setup["jcond"]
+    jm = setup["jm"]
     lr = 1e-4  # the config's; Adam's first update is +-lr, so 1e-6 is 1% of it
     cfg = DictConfig({"steps": 1000})
     jd, td = jax_diffusion(cfg), create_gaussian_diffusion(cfg)
     jstate = JaxTrainState.create(
         params=variables["params"], batch_stats=variables["batch_stats"],
         tx=jax_make_optimizer(lr, weight_decay, lr_anneal_steps, params=variables["params"]))
-    jstep = jax.jit(lambda s, t, n: _jax_step(jm, jd, s, jnp.asarray(setup["x"]), jcond, t, n))
-
-    tm = _torch_model(variables)
+    jstep = jax.jit(lambda s, t, n: _jax_step(jm, jd, s, jnp.asarray(x), jcond, t, n))
     state = TrainState.create(tm, lr=lr, weight_decay=weight_decay,
                               lr_anneal_steps=lr_anneal_steps)
     train_step = make_train_step(tm, td)
     names = {id(p): k for k, p in tm.named_parameters()}
+    nb = x.shape[0]
     for i, (t, noise) in enumerate(zip(setup["ts"], setup["noises"])):
+        t, noise = t[:nb], noise[:nb]
         jstate, jloss, jgrads = jstep(jstate, jnp.asarray(t), jnp.asarray(noise))
-        m = train_step(state, torch.from_numpy(setup["x"]), setup["tcond"], seed=i,
+        m = train_step(state, torch.from_numpy(x), tcond, seed=i,
                        t=torch.from_numpy(t), noise=torch.from_numpy(noise))
-        np.testing.assert_allclose(float(m["loss"]), float(jloss), rtol=1e-5 if i == 0 else 1e-4)
+        np.testing.assert_allclose(float(m["loss"]), float(jloss), rtol=first_loss_rtol if i == 0 else 1e-4)
         if i > 0:
             continue
         assert float(m["mse"]) == float(m["loss"]) and state.step == 1 and tm.training
@@ -380,6 +399,72 @@ def test_train_steps_match_jax(setup, weight_decay, lr_anneal_steps):
         _assert_trees_close(after["batch_stats"], jax.device_get(jstate.batch_stats), atol=1e-5,
                             what="buffer after step")
     assert state.step == 3 == int(jstate.step)
+
+
+
+# -------------------------------------------------------- (d') the banded step
+NB = 512
+
+
+@pytest.fixture
+def banded_on(monkeypatch):
+    """``banded.available()`` true for the JAX side on the CPU, and the
+    port's containment check on; jit caches cleared around the patch."""
+    jax.clear_caches()
+    monkeypatch.setattr(jax_banded, "available", lambda: True)
+    monkeypatch.setenv("AM_BANDED_DEBUG", "1")
+    for name in ("AM_BANDED_WINDOW", "AM_BANDED_ADAPTIVE"):
+        monkeypatch.delenv(name, raising=False)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+def _count_calls(monkeypatch, module, names):
+    calls = {name: 0 for name in names}
+    for name in names:
+        def counting(*args, _real=getattr(module, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(module, name, counting)
+    return calls
+
+
+def test_banded_train_steps_match_jax(setup, banded_on, monkeypatch):
+    """The banded step at the size of ``test_train_steps_match_jax`` (batch
+    4, 512-point sorted clouds, levels 512/128/32/8: a windowed self kNN with
+    S = 384, a down kNN with per-cloud starts whose window is the whole
+    parent, a full-window gather at 128, fallbacks below): same weights,
+    batch, t and noise through both sides, three steps, to the same
+    tolerances, the first loss to 1e-6 (rel). (Larger clouds at this narrow width are no test of the route:
+    at 1024 to 2048 points the two frameworks' float32 gradients differ by
+    0.2 to 1.5% of a tensor's largest entry whichever gather the port takes,
+    while the port's two routes agree to 1e-6.)"""
+    rng = np.random.default_rng(13)
+    xyz = (rng.integers(-512, 512, size=(B, NB, 3)) / 256.0).astype(np.float32)
+    xyz = np.stack([p[curve_order(p, "hilbert")] for p in xyz])
+    levels = build_point_hierarchy(jnp.asarray(xyz), (1, 4, 4, 4), (8, 16, 16, 16),
+                                   with_up=False, banded=True, knn_method="exact")
+    assert levels[0].banded and levels[1].down_starts.shape == (B, NB // 512)  # per cloud and tile
+    arrays = {k: np.asarray(v) for k, v in setup["jcond"].items() if k != "levels_sm"}
+    arrays["c_pc_xyz"] = xyz
+    arrays["c_pc_contact"] = rng.uniform(size=(B, NB, 6)).astype(np.float32)
+    jcond = {k: jnp.asarray(v) for k, v in arrays.items()}
+    jcond["levels_sm"] = levels
+    # the port gets what the fps wire ships: the cloud and int16 FPS indices
+    tcond = {k: torch.tensor(v) for k, v in arrays.items()}
+    for li, lvl in enumerate(levels):
+        if lvl.fps_idx is not None:
+            tcond[f"geo_sm{li}_fps_idx"] = torch.tensor(np.asarray(lvl.fps_idx).astype(np.int16))
+    tm = _torch_model(setup["variables"])
+    tm.use_banded, tm.knn_exact = True, True
+    calls = _count_calls(monkeypatch, torch_banded,
+                         ["knn_banded_plain", "gather_banded_plain", "scatter_banded_plain"])
+    _compare_train_steps(setup, setup["variables"], jcond, tcond, setup["x"], tm, 0.0, 0,
+                         first_loss_rtol=1e-6)
+    # per step: self kNN at 512, down kNN 128 over 512; gathers of two
+    # levels' blocks and of the first TransitionDown, each with a backward
+    assert calls == {"knn_banded_plain": 6, "gather_banded_plain": 9, "scatter_banded_plain": 9}
 
 
 def test_annealed_lr_and_frozen_prefix():
@@ -552,6 +637,81 @@ def test_trained_checkpoint_loads_in_the_test_entry(tree, monkeypatch):
         "task.test.sampler=ddim"])
     z = np.load(os.path.join(out, "samples.npz"))
     assert z["sample"].shape == (2, 196, 263) and np.isfinite(z["sample"]).all()
+
+
+@pytest.fixture(scope="module")
+def banded_tree(tmp_path_factory):
+    """A curve-sorted, geometry-cached, packed tree of 512-point clouds
+    (levels 512/128/32/8: a windowed self kNN, a full-window down kNN and
+    the fallbacks), through the port's prepare stages on the CPU."""
+    root = tmp_path_factory.mktemp("h3d_banded")
+    make_synthetic_h3d(str(root / "data"), n_items=24, num_points=512, horizon_range=(40, 100))
+    for stage in ("sort", "geometry", "pack"):
+        port_prepare.main([stage, "--dataset", "H3D", "--out_dir", str(root / "data"),
+                           "--device", "cpu"])
+    pred = root / "contacts" / "H3D" / "pred_contact"
+    pred.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for name in (root / "data" / "H3D" / "test.txt").read_text().split():
+        np.save(pred / f"{name}-0.npy", rng.uniform(size=(1, 512, 6)).astype(np.float32))
+    return root
+
+
+def _banded_args(root, exp, *extra):
+    return [a for a in _entry_args(root, exp, *extra) if not a.startswith("task.dataset.num_points")
+            ] + ["task.dataset.num_points=512"]
+
+
+def test_banded_entry_trains_resumes_and_hands_off(banded_tree, monkeypatch):
+    """On a sorted, cached, packed tree the loop itself switches the banded
+    kernels on (nothing in the arguments names them) and says so in its log;
+    8 steps straight and 4 + 4 resumed end bit-equal; the test entry samples
+    from the checkpoint with ``model.use_banded=true``, once from the cached
+    FPS indices and once building the hierarchy (FPS + sort) in the chain."""
+    monkeypatch.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    monkeypatch.setenv("AM_BANDED_DEBUG", "1")
+    calls = _count_calls(monkeypatch, torch_banded,
+                         ["knn_banded_plain", "gather_banded_plain", "scatter_banded_plain"])
+    from afford_motion_torch.ops.cuda import fps as fps_mod
+    fps_calls = _count_calls(monkeypatch, fps_mod, ["fps_plain"])
+    tree = banded_tree
+    straight = train_pkg.main(_banded_args(tree, "straight", "task.train.max_steps=8"))
+    assert straight["step"] == 8 and all(np.isfinite(e["loss"]) for e in straight["logged"])
+    log = (tree / "straight" / "log" / "runtime.log").read_text()
+    assert "banded windowed-neighborhood kernels enabled (hilbert-sorted packed data" in log
+    assert "packed store: 24 items" in log
+    # per step: kNN 512 self and 128 over 512; gathers: level 0's block, the
+    # first TransitionDown, and level 1's block (S = n = 128); no FPS at all
+    assert calls == {"knn_banded_plain": 16, "gather_banded_plain": 24,
+                     "scatter_banded_plain": 24} and fps_calls == {"fps_plain": 0}
+    train_pkg.main(_banded_args(tree, "resumed", "task.train.max_steps=4"))
+    resumed = train_pkg.main(_banded_args(
+        tree, "resumed", "task.train.max_steps=8",
+        f"task.train.resume_ckpt={tree}/resumed/ckpt/model000004.pt"))
+    assert [e["step"] for e in resumed["logged"]] == [6, 8]
+    for name in ("model000004.pt", "model000008.pt", "train_state000008.pt"):
+        _same_file_tensors(tree / "straight" / "ckpt" / name, tree / "resumed" / "ckpt" / name)
+    # a loop on the same tree with the switch off stays on the row gather
+    for k in calls:
+        calls[k] = 0
+    train_pkg.main(_banded_args(tree, "off", "task.train.max_steps=2",
+                                "task.dataset.use_banded=false"))
+    assert not any(calls.values())
+    assert "kernels enabled" not in (tree / "off" / "log" / "runtime.log").read_text()
+
+    test_args = _banded_args(tree, "straight") + [
+        f"task.test.contact_folder={tree}/contacts", "task.test.batch_size=2",
+        "task.evaluator.eval_nbatch=1", "diffusion.timestep_respacing=ddim4",
+        "task.test.sampler=ddim", "model.use_banded=true"]
+    for extra, n_fps in (([], 0), (["task.dataset.use_geometry_cache=false"], 3)):
+        for counts in (calls, fps_calls):
+            for k in counts:
+                counts[k] = 0
+        out = test_entry.main(test_args + extra)
+        z = np.load(os.path.join(out, "samples.npz"))
+        assert z["sample"].shape == (2, 196, 263) and np.isfinite(z["sample"]).all()
+        assert calls == {"knn_banded_plain": 2, "gather_banded_plain": 3,
+                         "scatter_banded_plain": 0} and fps_calls == {"fps_plain": n_fps}
 
 
 def test_entries_raise_without_the_card(tree, monkeypatch):
