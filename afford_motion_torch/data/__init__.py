@@ -1,6 +1,6 @@
 """Host-side datasets of the port (copies of the jax-free modules of
-``afford_motion_tpu/data``). The HumanML3D family and the packed store are
-ported; the MotionX family is not yet."""
+``afford_motion_tpu/data``). The HumanML3D family, the packed store and, of
+the MotionX family, ``ContactMotionDataset`` are ported."""
 from .base import (
     BaseDataset,
     contact_to_dist,
@@ -14,6 +14,7 @@ from .transforms import make_default_transform
 
 # Register dataset classes on import (reference imports trigger the same).
 from . import humanml3d as _humanml3d  # noqa: F401
+from . import motionx as _motionx  # noqa: F401
 
 __all__ = [
     "BaseDataset",

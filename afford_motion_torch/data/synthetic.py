@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -23,7 +23,10 @@ def make_synthetic_motionx_set(
     n_joints: int = 22,
     horizon_range=(24, 60),
     seed: int = 0,
+    test_items: Optional[int] = None,
 ) -> None:
+    """``test_items``: how many of the last items form the test split (the
+    last quarter when None)."""
     rng = np.random.default_rng(seed)
     base = Path(root) / set_name
     (base / "contact_motion" / "motions").mkdir(parents=True, exist_ok=True)
@@ -52,14 +55,15 @@ def make_synthetic_motionx_set(
 
     (base / "contact_motion" / "anno.csv").write_text("\n".join(rows) + "\n")
     ids = list(range(n_items))
-    (base / "train.txt").write_text("\n".join(str(i) for i in ids[: n_items * 3 // 4]) + "\n")
-    (base / "test.txt").write_text("\n".join(str(i) for i in ids[n_items * 3 // 4:]) + "\n")
+    split = n_items * 3 // 4 if test_items is None else n_items - test_items
+    (base / "train.txt").write_text("\n".join(str(i) for i in ids[:split]) + "\n")
+    (base / "test.txt").write_text("\n".join(str(i) for i in ids[split:]) + "\n")
     (base / "all.txt").write_text("\n".join(str(i) for i in ids) + "\n")
     (base / "train_without_mirror.txt").write_text(
-        "\n".join(str(i) for i in ids[: n_items * 3 // 4]) + "\n"
+        "\n".join(str(i) for i in ids[:split]) + "\n"
     )
     (base / "test_without_mirror.txt").write_text(
-        "\n".join(str(i) for i in ids[n_items * 3 // 4:]) + "\n"
+        "\n".join(str(i) for i in ids[split:]) + "\n"
     )
 
 

@@ -16,16 +16,24 @@ on the attention weights, after the FFN activation and on both residual
 branches). It is active in train mode only and draws its masks from an
 explicit ``torch.Generator`` on the module's device, set for a whole model
 by :func:`set_dropout_generator`; the masks are torch's, not JAX's.
+
+With ``AM_FLASH_ATTN=1`` in the environment, attention on CUDA tensors goes
+through the fused kernel (``ops/cuda/attention.py``) wherever the weights'
+dropout is inactive, as the JAX package's flash path does on its device; the
+default is the float32-softmax :func:`_attention`.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.cuda.attention import attention_cuda
 
 
 def sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
@@ -148,6 +156,13 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
     return o.transpose(1, 2).reshape(B, Lq, -1)
 
 
+def _flash_enabled(t: torch.Tensor) -> bool:
+    """The fused-kernel switch: ``AM_FLASH_ATTN=1`` (read at call time) and
+    tensors on a CUDA device, as the JAX package's is its variable and its
+    device."""
+    return os.environ.get("AM_FLASH_ATTN", "0") == "1" and t.is_cuda
+
+
 class TorchMultiHeadAttention(nn.Module):
     """``torch.nn.MultiheadAttention``'s parameters (``in_proj_weight`` packs
     q, k, v; ``out_proj``), computed as three separate projections, as the
@@ -170,18 +185,33 @@ class TorchMultiHeadAttention(nn.Module):
         q = F.linear(query.to(dt), w[:D], b[:D])
         k = F.linear(key.to(dt), w[D:2 * D], b[D:2 * D])
         v = F.linear(value.to(dt), w[2 * D:], b[2 * D:])
-        return self.out_proj(_attention(q, k, v, self.num_heads, pad_mask, self.dropout))
+        use_flash = (
+            _flash_enabled(q)
+            and (not self.training or self.dropout.p == 0.0)
+            and (D // self.num_heads) % 8 == 0
+        )
+        if use_flash:
+            o = attention_cuda(q, k, v, self.num_heads, pad_mask)
+        else:
+            o = _attention(q, k, v, self.num_heads, pad_mask, self.dropout)
+        return self.out_proj(o)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer with torch's parameter names: self-attn, add,
-    norm1, linear1, GELU (tanh), linear2, add, norm2; dropout on both
-    residual branches and after the activation."""
+    norm1, linear1, activation, linear2, add, norm2; dropout on both
+    residual branches and after the activation. ``activation``: ``gelu``
+    (flax's tanh form, the CMDM's) or ``relu`` (the joints-to-SMPL-X
+    regressor's)."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 activation: str = "gelu"):
         super().__init__()
+        if activation not in ("gelu", "relu"):
+            raise ValueError(f"unknown activation {activation!r}")
         self.dtype = dtype
+        self.activation = activation
         self.self_attn = TorchMultiHeadAttention(d_model, num_heads, dtype, dropout)
         self.dropout = Dropout(dropout)
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
@@ -192,7 +222,9 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, pad_mask=None) -> torch.Tensor:
         x = x.to(self.dtype)
         x = self.norm1(x + self.dropout(self.self_attn(x, x, x, pad_mask)))
-        h = self.linear2(self.dropout(F.gelu(self.linear1(x), approximate="tanh")))
+        h = self.linear1(x)
+        h = F.relu(h) if self.activation == "relu" else F.gelu(h, approximate="tanh")
+        h = self.linear2(self.dropout(h))
         return self.norm2(x + self.dropout(h))
 
 
@@ -201,10 +233,11 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  dim_feedforward: int, dtype: torch.dtype = torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, activation: str = "gelu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dtype, dropout)
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, dtype, dropout,
+                                    activation)
             for _ in range(num_layers)
         )
 

@@ -9,7 +9,8 @@ the sources and flags, so an edited kernel is rebuilt and a stale library
 is never loaded. ``-fmad=false`` keeps nvcc from contracting ``a*b+c`` into
 an FMA anywhere; the distance kernels also spell their rounding out with
 ``__fmul_rn``/``__fadd_rn``, because their picks must be bit-equal to the
-plain PyTorch versions.
+plain PyTorch versions, and the attention kernel asks for its FMAs with
+``fmaf``.
 
 Every C entry point launches on the stream it is given, returns the
 ``cudaError_t`` of ``cudaGetLastError()`` right after the launch, and
@@ -29,7 +30,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("fps.cu", "knn.cu", "gather.cu", "scatter.cu", "banded_knn.cu", "banded_gather.cu",
-           "banded_scatter.cu")
+           "banded_scatter.cu", "nn1.cu", "attention.cu")
 HEADERS = ("segment_lists.cuh",)  # included by the sources; part of the library's hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -55,6 +56,10 @@ _SIGNATURES = {
     # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, counts, start, unsorted,
     #  sorted, out, stream)
     "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (points, verts, l, o, h, d2, idx, stream)
+    "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, stream)
+    "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P],
 }
 
 _lock = threading.Lock()

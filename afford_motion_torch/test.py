@@ -4,10 +4,11 @@
 
 Loads the natsort-latest ``model*.pt`` of ``<exp_dir>/ckpt`` with
 ``strict=True``, runs the sampling chain over the test split (a k-sample
-repeat takes the k-th pre-generated contact, ``c_pc_contact[:, k]``) and
-writes ``samples.npz`` (the generated motions and their case ids) and
-``timing.json`` to ``<eval_dir>/test-<ts>/``. The evaluators (``eval/``)
-are not ported yet, so no metrics are computed; the run says so in its log.
+repeat takes the k-th pre-generated contact, ``c_pc_contact[:, k]``), hands
+the samples to the task's evaluator (``eval/``) as ``sample_list`` /
+``k_samples_list``, and writes the evaluator's ``metrics.txt`` /
+``metrics.json`` and result files, ``samples.npz`` (the generated motions
+and their case ids) and ``timing.json`` to ``<eval_dir>/test-<ts>/``.
 It runs on ``cuda:<gpu>`` unless the caller names another device (the
 ``device=cpu`` override, or ``main(argv, device=...)``), and raises when the
 card is asked for and absent.
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from .data import create_dataset
+from .eval import create_evaluator
 from .models.base import create_model_and_diffusion
 from .models.conditioning import cond_to_device, host_prepare_cond
 from .models.text import create_text_encoder
@@ -75,9 +77,7 @@ def test(cfg: DictConfig, device: torch.device) -> str:
     logger.info(f"Load checkpoint from {ckpt}")
     timing["init_restore_s"] = time.monotonic() - t_start - timing["dataset_load_s"]
 
-    ev = cfg.task.evaluator
-    logger.info(f"[Test] the evaluator ({ev.name}) is not ported yet: generated "
-                "motions are written to samples.npz, no metrics are computed")
+    evaluator = create_evaluator(cfg.task, device=device)
     sample_fn = make_sample_fn(
         model, diffusion, clip_denoised=False,
         sampler=str(cfg.task.test.get("sampler", "ddpm")),
@@ -88,11 +88,9 @@ def test(cfg: DictConfig, device: torch.device) -> str:
     chain_idx = 0
 
     B = cfg.task.test.batch_size
-    k_samples = int(ev.get("k_samples", 0))
-    k_batches = set(range(int(ev.get("num_k_samples", 0)) // B)) if k_samples > 0 else set()
-    eval_nbatch = int(ev.get("eval_nbatch", 1))
-    samples, k_sample_rows, meta = [], [], {"info_index": [], "info_caption_index": [],
-                                          "c_text": [], "x_mask": []}
+    k_samples = evaluator.k_samples
+    k_batches = set(range(evaluator.num_k_samples // B)) if k_samples > 0 else set()
+    sample_list, k_samples_list = [], []
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t_loop = time.monotonic()
@@ -121,32 +119,40 @@ def test(cfg: DictConfig, device: torch.device) -> str:
             chain["chain_s"] = time.monotonic() - t_chain
             timing["chains"].append(chain)
             chain_idx += 1
-        samples.append(per_k[0])
-        if use_k:
-            k_sample_rows.append(np.stack(per_k, axis=1))
-        for key in meta:
-            meta[key].extend(list(data[key]))
+        # one entry per case, the batch's fields beside its sample
+        for bsi in range(shape[0]):
+            case = {key: data[key][bsi] for key in data}
+            sample_list.append({"sample": per_k[0][bsi], **case})
+            if use_k:
+                k_samples_list.append({"k_samples": np.stack([s[bsi] for s in per_k]), **case})
         timing["batches_s"].append(time.monotonic() - t_batch)
-        if i + 1 >= eval_nbatch:
+        if i + 1 >= evaluator.eval_nbatch:
             break
 
     timing["generation_loop_s"] = time.monotonic() - t_loop
-    timing["n_motions"] = int(sum(len(s) for s in samples))
+    timing["n_motions"] = len(timing["chains"]) * B
+    out = {"sample": np.stack([s["sample"] for s in sample_list]),
+           "x_mask": np.stack([s["x_mask"] for s in sample_list])}
+    for key in ("info_index", "info_caption_index", "info_set", "c_text"):
+        if sample_list and key in sample_list[0]:
+            out[key] = np.asarray([s[key] for s in sample_list])
+    if k_samples_list:
+        out["k_samples"] = np.stack([s["k_samples"] for s in k_samples_list])
+    np.savez(os.path.join(test_dir, "samples.npz"), **out)
+
+    t_eval = time.monotonic()
+    evaluator.evaluate(sample_list, k_samples_list, test_dir, test_dataloader)
+    evaluator.report(test_dir)
+    timing["evaluator_s"] = time.monotonic() - t_eval
+    timing["evaluator"] = dict(evaluator.timing)
     if device.type == "cuda":
         timing["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(device))
-    out = {"sample": np.concatenate(samples, axis=0),
-           "x_mask": np.stack(meta["x_mask"]),
-           "info_index": np.asarray(meta["info_index"]),
-           "info_caption_index": np.asarray(meta["info_caption_index"]),
-           "c_text": np.asarray(meta["c_text"])}
-    if k_sample_rows:
-        out["k_samples"] = np.concatenate(k_sample_rows, axis=0)
-    np.savez(os.path.join(test_dir, "samples.npz"), **out)
     timing["total_s"] = time.monotonic() - t_start
     with open(os.path.join(test_dir, "timing.json"), "w") as f:
         json.dump(timing, f, indent=1)
     logger.info(f"[Test] {timing['n_motions']} motions in "
-                f"{timing['generation_loop_s']:.2f}s; results in {test_dir}")
+                f"{timing['generation_loop_s']:.2f}s, evaluator {timing['evaluator_s']:.2f}s; "
+                f"results in {test_dir}")
     return test_dir
 
 

@@ -1,5 +1,6 @@
 """Weights between the JAX package and the port: the flax variable tree of a
-``trans_enc`` CMDM <-> the port's state_dict (the reference torch layout).
+``trans_enc`` CMDM, or of the joints-to-SMPL-X regressor, <-> the port's
+state_dict (the reference torch layout); and the SMPL-X body model's arrays.
 
 One table of (state_dict key, flax path, kind) entries drives both
 directions, so they are inverses by construction. Kinds: ``w`` a Dense
@@ -87,6 +88,17 @@ def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int]
                                   ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
 
 
+def regressor_entries(num_layers: int = 2) -> Iterator[Tuple[str, Path, str]]:
+    """Every (state_dict key, flax path, kind) of the joints-to-SMPL-X
+    regressor (``eval/joints_to_smplx.py``)."""
+    yield from _dense("input_layer.0", ("Dense_0",))
+    yield from _dense("input_layer.2", ("Dense_1",))
+    for i in range(num_layers):
+        yield from _encoder_layer(f"TransEncoder.layers.{i}",
+                                  ("TransformerEncoder_0", f"TransformerEncoderLayer_{i}"))
+    yield from _dense("output_layer", ("Dense_2",))
+
+
 def _get(tree: Dict, path: Path):
     for name in path:
         tree = tree[name]
@@ -99,13 +111,9 @@ def _put(tree: Dict, path: Path, value: np.ndarray) -> None:
     tree[path[-1]] = value
 
 
-def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
-                             blocks: Sequence[int]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of a ``trans_enc`` CMDM -> a
-    state_dict that :class:`afford_motion_torch.models.cmdm.CMDM` loads with
-    ``strict=True``, BatchNorm running stats included."""
+def _state_dict_from_jax(variables_np: Dict, entries) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
-    for key, path, kind in cmdm_entries(num_layers, blocks):
+    for key, path, kind in entries:
         if kind == "qkv_w":
             mha = _get(variables_np, path)
             v = np.concatenate([np.asarray(mha[f"Dense_{i}"]["kernel"], np.float32).T
@@ -123,15 +131,9 @@ def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
     return out
 
 
-def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
-                                  num_layers: Sequence[int], blocks: Sequence[int]) -> Dict:
-    """The inverse: a dict of tensors keyed like the state_dict (parameters,
-    buffers, or the gradients of the parameters) -> the flax tree
-    ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Keys that are
-    missing from ``tensors`` (e.g. buffers, when gradients are carried) are
-    left out of the tree."""
+def _jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], entries) -> Dict:
     tree: Dict = {}
-    for key, path, kind in cmdm_entries(num_layers, blocks):
+    for key, path, kind in entries:
         if key not in tensors:
             continue
         v = tensors[key].detach().cpu().float().numpy()
@@ -142,3 +144,47 @@ def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
         else:
             _put(tree, path, v.T if kind == "w" else v)
     return tree
+
+
+def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
+                             blocks: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a ``trans_enc`` CMDM -> a
+    state_dict that :class:`afford_motion_torch.models.cmdm.CMDM` loads with
+    ``strict=True``, BatchNorm running stats included."""
+    return _state_dict_from_jax(variables_np, cmdm_entries(num_layers, blocks))
+
+
+def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
+                                  num_layers: Sequence[int], blocks: Sequence[int]) -> Dict:
+    """The inverse: a dict of tensors keyed like the state_dict (parameters,
+    buffers, or the gradients of the parameters) -> the flax tree
+    ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Keys that are
+    missing from ``tensors`` (e.g. buffers, when gradients are carried) are
+    left out of the tree."""
+    return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks))
+
+
+def regressor_state_dict_from_jax(variables_np: Dict, *, num_layers: int = 2
+                                  ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params": ...}`` of the joints-to-SMPL-X regressor -> a
+    state_dict that ``JointsToSMPLXRegressor`` loads with ``strict=True``."""
+    return _state_dict_from_jax(variables_np, regressor_entries(num_layers))
+
+
+def regressor_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
+                                       num_layers: int = 2) -> Dict:
+    """The inverse: the regressor's state_dict -> ``{"params": ...}`` with
+    numpy leaves."""
+    return _jax_tree_from_state_dict(tensors, regressor_entries(num_layers))
+
+
+SMPLX_FIELDS = ("v_template", "shapedirs", "posedirs", "J_regressor", "lbs_weights", "parents",
+                "faces_arr")
+
+
+def smplx_model_from_arrays(arrays: Dict):
+    """The arrays of the JAX package's ``SMPLXModel`` (a dict of numpy
+    arrays under its field names) -> the port's ``SMPLXModel`` on the CPU."""
+    from ..eval.smplx_lbs import SMPLXModel
+
+    return SMPLXModel.from_numpy(**{name: np.asarray(arrays[name]) for name in SMPLX_FIELDS})

@@ -20,14 +20,27 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    contributions). Times by CUDA events, beside the plain version and,
    where one PyTorch call computes the same function (``torch.gather``,
    ``index_add_``), beside that call; the bound is the least time the card
-   could take, from the bytes moved and the operations done at these shapes;
+   could take, from the bytes moved and the operations done at these shapes,
+   at the card's peak rate for the inputs' type (bf16: the tensor cores').
+   FPS also at B = 1 (the single-cloud TPU kernel's case). The fused 1-NN
+   (``nn1``) at the scene protocol's shape (8192 scene points, 10475 body
+   vertices, 196 frames), on a cloud with duplicated and near-tie vertices
+   and at a vertex count that no tile divides: idx and d2 bit-equal to its
+   plain version, timed beside ``torch.cdist`` + ``argmin``. The fused
+   attention at the denoiser's shape (batch 32, 8 heads of 64, 326 tokens,
+   bf16, padded keys masked) and the regressor's (batch 16, 4 heads of 64,
+   196 frames, f32): within ATTN_ATOL of the largest ``|v|``, plus one bf16
+   ulp of the result for bf16, of its plain version; timed beside
+   ``F.scaled_dot_product_attention``;
 4. autograd: ``gather_rows(x, idx).backward(g)`` and ``gather_banded(x,
    idx, starts).backward(g)`` through the kernels on the card equal the
    CPU's plain path bit for bit in float32;
 5. reference: a small float32 chain (full-width CMDM, 1024 points, 10 DDIM
    steps) and two float32 train steps on the card, through the kernels,
    against the same on the CPU through the plain versions; then two banded
-   train steps on a curve-sorted cloud likewise;
+   train steps on a curve-sorted cloud likewise; then the evaluator's
+   ``physics_over_sequence`` and a short SMPL-X fit (10 refine steps) on the
+   card against the CPU's plain path, float32;
 6. train: ``afford_motion_torch.train`` (the port's train entry) with the
    flagship CMDM ``trans_enc`` at full width from the seeded init, in the
    config's bf16, batch 32, 8192-point clouds, 196x263 motions, on the
@@ -49,7 +62,22 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 9. banded slice: one DDIM-50 chain through the test entry from that
    checkpoint with ``model.use_banded=true`` on the sorted tree, once from
    the cached FPS indices (no FPS launch) and once with the geometry cache
-   off (FPS and sort in the chain).
+   off (FPS and sort in the chain);
+10. scene slice: the scene-protocol test path at full width. A synthetic
+   HUMANISE tree (8192-point scenes, 66-d joint motions of 40..196 frames, 36
+   test items) with seeded stage-1 ``pred_contact/{i:05d}.npy`` files, a
+   checkpoint of the seeded CMDM ``trans_enc`` (``data_repr=pos``, bf16), a
+   seeded joints-to-SMPL-X regressor file and a synthetic SMPL-X of the
+   official mesh size (10475 vertices, 20908 faces); then
+   ``afford_motion_torch.test task=contact_motion_gen model=cmdm
+   diffusion.steps=500`` with ``AM_FLASH_ATTN=1``: one batch of 32, two
+   DDPM-500 chains (``k_samples=2``), the batched fit (200 refine steps, 16
+   sequences a batch), LBS, SDF physics and APD. Samples must be finite with
+   shape (32, 196, 66), ``metrics.txt`` hold the four metrics, the pickles
+   carry 69-d params, ``nn1`` be launched once per sequence and the attention
+   once per layer of every denoiser step and of every regressor call. One
+   DDIM-50 chain with and one without ``AM_FLASH_ATTN`` give the denoiser
+   step's time each way.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -88,17 +116,32 @@ REPLACES = {
                       "afford_motion_tpu/ops/pallas/banded.py:312"),
     "banded_scatter": ("afford_motion_torch/csrc/banded_scatter.cu",
                        "afford_motion_tpu/ops/pallas/banded.py:340"),
+    "nn1": ("afford_motion_torch/csrc/nn1.cu", "afford_motion_tpu/ops/pallas/sdf.py:128"),
+    "attention": ("afford_motion_torch/csrc/attention.cu",
+                  "afford_motion_tpu/models/layers.py:122"),
 }
 # launches per train step (one hierarchy, encoder forward and backward) and
 # per chain (no backward) on each route; level 3's 128-point self kNN is
 # below both kNN kernels' range and takes the exact path
 PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
-              "banded_knn": 0, "banded_gather": 0, "banded_scatter": 0}
+              "banded_knn": 0, "banded_gather": 0, "banded_scatter": 0,
+              "nn1": 0, "attention": 0}
 BANDED_STEP = {"fps": 0, "knn": 0, "gather": 0, "scatter": 0,
-               "banded_knn": 6, "banded_gather": 7, "banded_scatter": 7}
-# published peaks of one H100 SXM: device memory, float32 outside the tensor cores
+               "banded_knn": 6, "banded_gather": 7, "banded_scatter": 7,
+               "nn1": 0, "attention": 0}
+# the scene protocol: SMPL-X's mesh, the denoiser's and the regressor's layers,
+# the evaluator's fit batch
+N_VERTS, N_FACES, D_POS = 10475, 20908, 66
+CMDM_LAYERS, REGRESSOR_LAYERS, FIT_BATCH = 5, 2, 16
+# fused attention against its plain version: this share of the largest |v|,
+# plus one bf16 ulp (2^-7 relative) of the result for bf16 inputs
+ATTN_ATOL = 1e-5
+# published peaks of one H100 SXM: device memory, float32 outside the tensor
+# cores, bf16 products with float32 sums on the tensor cores (dense). A bound
+# takes the rate the card has for the inputs' type, whatever the kernel uses.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # largest difference allowed between the resumed run's weights and the
 # straight run's: every kernel of the step is deterministic, so 0 is expected
 RESUME_LIMIT = 1e-6
@@ -130,10 +173,10 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def bound_ms(nbytes: float, flops: float):
-    """Least time for the work: (ms, which limit sets it)."""
-    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+def bound_ms(bytes_ms: float, ops_ms: float):
+    """Least time for the work, from the ms its bytes and its operations
+    need at the card's peaks: (ms, which limit sets it)."""
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 class KernelReport:
@@ -142,8 +185,9 @@ class KernelReport:
         self.ms = {k: 0.0 for k in REPLACES}
         self.plain_ms = {k: 0.0 for k in REPLACES}
         self.library_ms = {k: None for k in REPLACES}
-        self.bytes = {k: 0.0 for k in REPLACES}
-        self.flops = {k: 0.0 for k in REPLACES}
+        # ms at the card's peaks for the path shapes' bytes and operations
+        self.bytes_ms = {k: 0.0 for k in REPLACES}
+        self.ops_ms = {k: 0.0 for k in REPLACES}
 
     def check(self, name: str, label: str, got, want) -> None:
         for g, w in zip(got, want):
@@ -152,18 +196,32 @@ class KernelReport:
                 raise AssertionError(f"{name} {label}: kernel differs from plain (max {diff})")
             self.err[name] = max(self.err[name], (g.double() - w.double()).abs().max().item())
 
+    def check_close(self, name: str, label: str, got, want, atol: float, rtol: float) -> None:
+        """For a kernel whose sums run in another order than its plain
+        version's: every entry within ``atol + rtol * |plain|``."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} {label}: {got.shape} {got.dtype} from the kernel")
+        diff = (got.double() - want.double()).abs()
+        if not bool((diff <= atol + rtol * want.double().abs()).all()) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {label}: kernel differs from plain (max "
+                                 f"{diff.max().item():.3e}, limit {atol:.3e} + {rtol:.3e} |plain|)")
+        self.err[name] = max(self.err[name], diff.max().item())
+
     def timed(self, name, label, kernel, plain, reps, path_shape=True, *, nbytes, flops,
-              library=None):
+              library=None, peak=F32_FLOP_PER_S):
         """Time one shape. ``nbytes``: every input read once and every output
-        written once; ``flops``: the arithmetic the function needs."""
+        written once; ``flops``: the arithmetic the function needs; ``peak``:
+        the card's rate for operations on inputs of this type."""
         k_ms, p_ms = time_ms(kernel, reps), time_ms(plain, max(1, reps // 3))
         l_ms = None if library is None else time_ms(library, reps)
-        b_ms, by = bound_ms(nbytes, flops)
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
+        b_ms, by = bound_ms(bytes_ms, ops_ms)
         if path_shape:
             self.ms[name] += k_ms
             self.plain_ms[name] += p_ms
-            self.bytes[name] += nbytes
-            self.flops[name] += flops
+            self.bytes_ms[name] += bytes_ms
+            self.ops_ms[name] += ops_ms
             if l_ms is not None:
                 self.library_ms[name] = (self.library_ms[name] or 0.0) + l_ms
         lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
@@ -274,6 +332,14 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         rep.check("knn", f"off-path k={k}", knn_cuda(q, s, k), knn_plain(q, s, k))
     odd = cloud[:, :1000].contiguous()
     rep.check("fps", "off-path (32,1000,3)->250", [fps_cuda(odd, 250)], [fps_plain(odd, 250)])
+    # one cloud: what the TPU package's single-row FPS kernel computes
+    for kind, c in clouds.items():
+        one = c[:1].contiguous()
+        label = f"{kind} (1,{N_POINTS},3)->2048"
+        rep.check("fps", label, [fps_cuda(one, 2048)], [fps_plain(one, 2048)])
+        if kind == "random":
+            rep.timed("fps", label, lambda: fps_cuda(one, 2048), lambda: fps_plain(one, 2048), 5,
+                      False, nbytes=N_POINTS * 12 + 2048 * 4, flops=10.0 * 2048 * N_POINTS)
     idx = torch.randint(0, 1000, (B, 300, 5), device=dev, dtype=torch.int32, generator=gen)
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(B, 1000, 1, device=dev, generator=gen).to(dtype)
@@ -286,7 +352,7 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         g = torch.randn(2, 700, 3, 131, device=dev, generator=gen).to(dtype)
         rep.check("scatter", "off-path one destination", [scatter_add_rows(g, one, 9)],
                   [scatter_add_rows_plain(g, one, 9)])
-    log("  off-path checks: kNN k=3/32/64, FPS N=1000, gather and scatter C=1, "
+    log("  off-path checks: kNN k=3/32/64, FPS N=1000 and B=1, gather and scatter C=1, "
         "scatter onto one destination bit-equal")
     return rep
 
@@ -419,6 +485,103 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
         "the near-tie cloud, with rank-1 and rank-2 starts and with out-of-window indices")
 
 
+def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
+    """The scene slice's two kernels against their plain versions: the fused
+    1-NN at the protocol's shape, the fused attention at the denoiser's and
+    the regressor's."""
+    import torch.nn.functional as F
+
+    from afford_motion_torch.ops.cuda.attention import attention_cuda, attention_plain
+    from afford_motion_torch.ops.cuda.sdf import nn1_cuda, nn1_plain
+
+    rng = np.random.default_rng(SEED + 4)
+    points = torch.from_numpy((rng.normal(size=(N_POINTS, 3)) * 2).astype(np.float32)).to(dev)
+    verts = torch.from_numpy(rng.normal(size=(L, N_VERTS, 3)).astype(np.float32)).to(dev)
+    label = f"points({N_POINTS},3) verts({L},{N_VERTS},3)"
+    rep.check("nn1", label, nn1_cuda(points, verts), nn1_plain(points, verts))
+
+    def cdist_argmin():
+        out = []
+        for v in verts:
+            d = torch.cdist(points, v)
+            out.append((d.min(dim=1).values, d.argmin(dim=1)))
+        return out
+
+    # per point-vertex pair: 3 differences, 3 products, 2 sums (the compare
+    # that keeps the minimum is not counted as arithmetic)
+    rep.timed("nn1", label, lambda: nn1_cuda(points, verts), lambda: nn1_plain(points, verts), 3,
+              nbytes=(N_POINTS + L * N_VERTS) * 12 + L * N_POINTS * 8,
+              flops=8.0 * L * N_POINTS * N_VERTS, library=cdist_argmin)
+    # duplicated and near-tie vertices on a 16^3 grid, queries on the same
+    # grid; and a vertex count that the kernel's tile of 2048 does not divide,
+    # with queries off its tile of 512
+    grid_v = torch.from_numpy(
+        (rng.integers(0, 16, size=(4, N_VERTS, 3)) * 0.125).astype(np.float32)).to(dev)
+    grid_p = torch.from_numpy(
+        (rng.integers(0, 16, size=(N_POINTS, 3)) * 0.125).astype(np.float32)).to(dev)
+    grid_v[0, 9000] = grid_v[0, 17]   # an exact duplicate in a later tile
+    got = nn1_cuda(grid_p, grid_v)
+    rep.check("nn1", "near-tie grid", got, nn1_plain(grid_p, grid_v))
+    if float((got[0] == 0).float().mean()) < 0.5:
+        raise AssertionError("nn1 near-tie grid: too few exact hits for a tie test")
+    odd_p, odd_v = points[:1000].contiguous(), verts[:3, :4099].contiguous()
+    rep.check("nn1", "odd (1000 points, 4099 vertices)", nn1_cuda(odd_p, odd_v),
+              nn1_plain(odd_p, odd_v))
+    log("  nn1: idx and d2 bit-equal to the plain version at the protocol shape, on the "
+        "near-tie grid and at the odd sizes")
+    del verts, grid_v
+
+    # the denoiser's attention (time + text + 128 contact + 196 motion tokens,
+    # the motions' padded frames masked) and the regressor's
+    shapes = {"denoiser": (B, 1 + 1 + 128 + L, 8, torch.bfloat16, CMDM_LAYERS),
+              "regressor": (FIT_BATCH, L, 4, torch.float32, REGRESSOR_LAYERS)}
+    for what, (b, seq, heads, dtype, _) in shapes.items():
+        hd = 64
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, seq, heads * hd)).astype(np.float32))
+                   .to(dev).to(dtype) for _ in range(3))
+        lengths = rng.integers(40, L + 1, size=b)
+        pad = torch.from_numpy(np.arange(L)[None, :] >= lengths[:, None])
+        pad = torch.cat([torch.zeros((b, seq - L), dtype=torch.bool), pad], dim=1).to(dev)
+        label = f"{what} ({b},{seq},{heads}x{hd}) {str(dtype)[6:]}"
+        want = attention_plain(q, k, v, heads, pad)
+        atol = ATTN_ATOL * float(v.float().abs().max())
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        rep.check_close("attention", label, attention_cuda(q, k, v, heads, pad), want, atol, rtol)
+        rep.check_close("attention", label + " no mask", attention_cuda(q, k, v, heads),
+                        attention_plain(q, k, v, heads), atol, rtol)
+
+        def heads_first(x, b=b, heads=heads, hd=hd):
+            return x.reshape(b, -1, heads, hd).transpose(1, 2)
+
+        keep = ~pad[:, None, None, :]
+        size = q.element_size()
+        valid = float((~pad).sum())
+        # each valid query-key pair of a head: hd products and sums for the
+        # logit, hd for the weighted sum. bf16 inputs: the card's tensor-core
+        # rate, though this kernel's products run outside the tensor cores
+        rep.timed("attention", label, lambda: attention_cuda(q, k, v, heads, pad),
+                  lambda: attention_plain(q, k, v, heads, pad), 10,
+                  nbytes=4 * b * seq * heads * hd * size + b * seq,
+                  flops=4.0 * heads * hd * seq * valid,
+                  peak=BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S,
+                  library=lambda: F.scaled_dot_product_attention(
+                      heads_first(q), heads_first(k), heads_first(v), attn_mask=keep))
+    # off the path, checked but not timed: head dimensions below the kernel's
+    # 64 and a key length other than the queries'
+    for hd, dtype in ((8, torch.float32), (40, torch.bfloat16), (64, torch.float32)):
+        q = torch.from_numpy(rng.normal(size=(3, 70, 2 * hd)).astype(np.float32)).to(dev).to(dtype)
+        k, v = (torch.from_numpy(rng.normal(size=(3, 45, 2 * hd)).astype(np.float32)).to(dev)
+                .to(dtype) for _ in range(2))
+        pad = torch.from_numpy(np.arange(45)[None, :] >= np.array([[45], [30], [1]])).to(dev)
+        rep.check_close("attention", f"off-path hd={hd} {str(dtype)[6:]}",
+                        attention_cuda(q, k, v, 2, pad), attention_plain(q, k, v, 2, pad),
+                        ATTN_ATOL * float(v.float().abs().max()),
+                        2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    log(f"  attention: within {ATTN_ATOL:.0e} of the largest |v| (+ one bf16 ulp for bf16) of "
+        "the plain version at the denoiser's and the regressor's shapes, masked and not, and "
+        "at head dimensions 8, 40 and 64 with 45 keys for 70 queries")
+
+
 def phase_autograd(dev: torch.device) -> None:
     """backward through the kernels on the card == the CPU's plain path."""
     from afford_motion_torch.ops.cuda.gather import gather_rows
@@ -540,6 +703,63 @@ def phase_reference(dev: torch.device) -> float:
                 and far <= 0.02):
             raise AssertionError(f"card {route} train steps disagree with the CPU's")
     return err
+
+
+def phase_reference_scene(dev: torch.device) -> None:
+    """The evaluator's physics and a short SMPL-X fit, float32: the card
+    (through the kernels) against the CPU (through the plain versions).
+    Limits: per-frame non_collision within 2 points of the cloud (a sign dot
+    product at rounding level may fall either way) and contact equal; fitted
+    params within 1e-4 on all but 1% of the entries and within 2 lr a step
+    everywhere (Adam moves an entry by lr whatever its gradient's size, with a
+    sign that is noise where the gradient is)."""
+    from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXRegressor, make_refine_fn
+    from afford_motion_torch.eval.physics import physics_over_sequence
+    from afford_motion_torch.eval.smplx_lbs import SMPLXModel, params_to_verts_joints
+
+    rng = np.random.default_rng(SEED + 5)
+    cpu = torch.device("cpu")
+    body = SMPLXModel.synthetic(num_verts=2000, num_faces=4000)
+    n_pts, frames, lr, steps = 1024, 24, 0.02, 10
+    params = (rng.normal(size=(frames, 69)) * 0.3).astype(np.float32)
+    points = (rng.normal(size=(n_pts, 3)) * 0.4).astype(np.float32)
+    out = []
+    for device in (cpu, dev):
+        model = body.to(device)
+        verts, _ = params_to_verts_joints(model, torch.from_numpy(params).to(device))
+        nc, ct = physics_over_sequence(torch.from_numpy(points).to(device), verts,
+                                       model.faces_arr, kernel="pallas")
+        out.append((verts.cpu(), nc.cpu(), ct.cpu()))
+    verts_err = (out[0][0] - out[1][0]).abs().max().item()
+    nc_err = (out[0][1] - out[1][1]).abs().max().item()
+    log(f"reference: LBS ({frames},2000,3) card vs CPU max abs diff {verts_err:.3e}; "
+        f"physics_over_sequence non_collision max diff {nc_err:.3e} (mean "
+        f"{out[1][1].mean().item():.4f}), contact equal={torch.equal(out[0][2], out[1][2])}")
+    if not (verts_err <= 1e-5 and nc_err <= 2.0 / n_pts + 1e-7
+            and torch.equal(out[0][2], out[1][2])):
+        raise AssertionError("card physics disagrees with the CPU's")
+
+    torch.manual_seed(SEED)
+    regressor = JointsToSMPLXRegressor().eval()
+    joints = (rng.normal(size=(2, 32, 66)) * 0.5).astype(np.float32)
+    x_mask = np.zeros((2, 32), dtype=bool)
+    x_mask[1, 20:] = True
+    fitted = []
+    for device in (cpu, dev):
+        reg = JointsToSMPLXRegressor().to(device).eval()
+        reg.load_state_dict(regressor.state_dict())
+        j, m = torch.from_numpy(joints).to(device), torch.from_numpy(x_mask).to(device)
+        with torch.no_grad():
+            pred = reg(j, m)
+        fitted.append((pred.cpu(), make_refine_fn(body.to(device), lr, steps)(pred, j, m).cpu()))
+    pred_err = (fitted[0][0] - fitted[1][0])[~torch.from_numpy(x_mask)].abs().max().item()
+    diff = (fitted[0][1] - fitted[1][1]).abs()
+    far = float((diff > 1e-4).float().mean())
+    log(f"reference: regressor card vs CPU max abs diff {pred_err:.3e}; {steps} refine steps: "
+        f"max abs diff {diff.max().item():.3e}, {100 * far:.3f}% of entries beyond 1e-4")
+    if not (pred_err <= 1e-4 and diff.max().item() <= 2 * lr * steps and far <= 0.01
+            and bool(torch.isfinite(fitted[1][1]).all())):
+        raise AssertionError("card fit disagrees with the CPU's")
 
 
 def make_tree() -> dict:
@@ -700,14 +920,164 @@ def phase_slice(tree: dict, counters: dict, runs: dict) -> dict:
     return launches
 
 
+def make_scene_tree(dev: torch.device) -> dict:
+    """What the scene slice reads, all from the seed: a synthetic HUMANISE
+    tree (8192-point scenes, joint motions of 40..196 frames, 36 test items),
+    the stage-1 handoff ``HUMANISE/pred_contact/{i:05d}.npy`` (2 contact maps
+    per test item), a checkpoint of the full-width CMDM ``trans_enc`` for
+    66-d joint positions, and a joints-to-SMPL-X regressor file in the
+    reference's torch layout."""
+    from afford_motion_torch.data.synthetic import make_synthetic_motionx_set
+    from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXRegressor
+    from afford_motion_torch.models.base import create_model
+    from afford_motion_torch.train.checkpoint import save_ckpt
+    from afford_motion_torch.utils.config import load_config
+
+    data, contacts, exp = WORK / "scene_data", WORK / "scene_contacts", WORK / "scene_exp"
+    make_synthetic_motionx_set(str(data), "HUMANISE", n_items=40, num_points=N_POINTS,
+                               horizon_range=(40, L + 1), seed=SEED, test_items=36)
+    pred = contacts / "HUMANISE" / "pred_contact"
+    pred.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 6)
+    for i in (data / "HUMANISE" / "test.txt").read_text().split():
+        np.save(pred / f"{int(i):05d}.npy",
+                np.abs(rng.normal(size=(2, N_POINTS, 6))).astype(np.float32))
+    tree = {"data": data, "contacts": contacts, "exp": exp, "regressor": WORK / "regressor.pt"}
+    cfg = load_config("configs", scene_args(tree))
+    cfg.model.input_feats = D_POS
+    torch.manual_seed(SEED)
+    save_ckpt(create_model(cfg.model, dev), str(exp / "ckpt"), 0)
+    torch.save(JointsToSMPLXRegressor().state_dict(), tree["regressor"])
+    return tree
+
+
+def scene_args(tree: dict) -> list:
+    """``scripts/ts2m_contact_motion/test.sh`` on the synthetic HUMANISE tree:
+    one batch of 32, both of its contact maps sampled."""
+    return [
+        "task=contact_motion_gen", "model=cmdm", "diffusion.steps=500",
+        "task.dataset.sets=[HUMANISE]", f"task.dataset.data_dir={tree['data']}",
+        f"task.test.contact_folder={tree['contacts']}", f"exp_dir={tree['exp']}",
+        f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1",
+        "task.evaluator.k_samples=2", f"task.evaluator.num_k_samples={B}",
+        "task.evaluator.opt_steps=200", f"task.evaluator.fit_batch={FIT_BATCH}",
+        f"task.evaluator.joints_to_smplx_model_weights={tree['regressor']}", f"seed={SEED}",
+        f"text_encoder.table_path={WORK / 'no_table'}",
+        f"text_encoder.weights_dir={WORK / 'no_weights'}", "platform=jsonl",
+    ]
+
+
+def check_scene_outputs(out: Path) -> None:
+    """What the scene-protocol run wrote: finite samples of the expected
+    shape, the four metrics finite and in range, physics run for every
+    sequence (so the fitter was built), pickles with 69-d params."""
+    import pickle
+
+    z = np.load(out / "samples.npz")
+    if z["sample"].shape != (B, L, D_POS) or z["k_samples"].shape != (B, 2, L, D_POS) \
+            or not (np.isfinite(z["sample"]).all() and np.isfinite(z["k_samples"]).all()):
+        raise AssertionError(f"scene slice: bad samples {z['sample'].shape}")
+    metrics = dict(line.split(": ") for line in
+                   (out / "metrics.txt").read_text().splitlines())
+    per_case = json.loads((out / "metrics.json").read_text())
+    log(f"scene slice: samples {z['sample'].shape} finite, metrics {metrics}")
+    if list(metrics) != ["non_collision", "contact", "dist", "apd"] or not all(
+            np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"scene slice: metrics.txt holds {metrics}")
+    if not (0.0 <= float(metrics["non_collision"]) <= 1.0
+            and 0.0 <= float(metrics["contact"]) <= 1.0 and float(metrics["dist"]) <= 0.0
+            and float(metrics["apd"]) > 0.0):
+        raise AssertionError(f"scene slice: a metric is out of range: {metrics}")
+    # the fitter was built and physics ran for every sequence
+    if [len(per_case[k]) for k in ("non_collision", "contact", "apd")] != [B, B, B] \
+            or not 0 < len(per_case["dist"]) <= B:
+        raise AssertionError("scene slice: physics did not run for every sequence")
+    files = sorted((out / "joints").glob("*.pkl"))
+    payloads = [pickle.loads(f.read_bytes()) for f in files]
+    if len(files) != B or not all(
+            p["params"].shape == (L, 69) and np.isfinite(p["params"]).all()
+            and p["joints"].shape[1] == D_POS for p in payloads):
+        raise AssertionError("scene slice: joints/*.pkl lack finite 69-d params")
+
+
+def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
+    """The scene-protocol test path through the test entry, with the fused
+    attention on; then one DDIM-50 chain each way for the denoiser step's
+    time with and without it. Returns the launches of the protocol run."""
+    from afford_motion_torch import test as entry
+
+    env = {"AM_FLASH_ATTN": "1", "SMPLX_USE_SYNTHETIC": "1",
+           "SMPLX_SYNTHETIC_VERTS": str(N_VERTS), "SMPLX_SYNTHETIC_FACES": str(N_FACES)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.monotonic()
+        tree = make_scene_tree(dev)
+        log(f"scene slice: tree, checkpoint and regressor in {time.monotonic() - t0:.1f} s")
+        base = scene_args(tree)
+        reset(counters)
+        out = Path(entry.main(base))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        timing = json.loads((out / "timing.json").read_text())
+        chains = timing["chains"]
+        # two chains of one hierarchy each; the attention once per layer of
+        # each of the 500 denoiser steps of both chains and of the regressor's
+        # call on each fit batch; the 1-NN once per evaluated sequence
+        want = {k: 2 * v * ("scatter" not in k) for k, v in PLAIN_STEP.items()}
+        want["nn1"] = B
+        want["attention"] = (CMDM_LAYERS * 500 * len(chains)
+                             + REGRESSOR_LAYERS * -(-B // FIT_BATCH))
+        log(f"scene slice: launches {launches}")
+        if len(chains) != 2 or launches != want:
+            raise AssertionError(f"scene slice: {len(chains)} chains, launches {launches}, "
+                                 f"expected {want}")
+        check_scene_outputs(out)
+        ev = timing["evaluator"]
+        for c in chains:
+            log(f"scene slice: DDPM-500 chain {c['chain_s']:.3f} s (hierarchy + contact encoding "
+                f"{c['prepare_s']:.3f} s, {1e3 * c['loop_s'] / c['steps']:.3f} ms/step)")
+        log(f"scene slice: fit_s {ev['fit_s']:.3f} physics_s {ev['physics_s']:.3f} "
+            f"apd_s {ev['apd_s']:.3f} evaluator_s {timing['evaluator_s']:.3f} = "
+            f"{B / timing['evaluator_s']:.3f} sequences/s; dataset {timing['dataset_load_s']:.2f} "
+            f"s, peak memory {timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB")
+
+        # the denoiser step with and without the fused attention: a DDIM-50
+        # chain each way, no evaluator work
+        ddim = base + ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim",
+                       "task.evaluator.k_samples=0", "task.evaluator.eval_metrics=[]",
+                       "task.evaluator.save_results=false"]
+        for flash in ("1", "0", "1", "0"):
+            os.environ["AM_FLASH_ATTN"] = flash
+            reset(counters)
+            t = json.loads((Path(entry.main(ddim)) / "timing.json").read_text())["chains"][0]
+            counts = {k: fn.launches for k, fn in counters.items()}
+            want = {k: v * ("scatter" not in k) for k, v in PLAIN_STEP.items()}
+            want["attention"] = CMDM_LAYERS * 50 * (flash == "1")
+            if counts != want:
+                raise AssertionError(f"DDIM-50 AM_FLASH_ATTN={flash}: launches {counts}, "
+                                     f"expected {want}")
+            log(f"scene slice: DDIM-50 with AM_FLASH_ATTN={flash}: "
+                f"{1e3 * t['loop_s'] / t['steps']:.3f} ms per denoiser step "
+                f"(chain {t['chain_s']:.3f} s)")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from afford_motion_torch.ops.cuda import banded, build
+    from afford_motion_torch.ops.cuda.attention import attention_cuda
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
+    from afford_motion_torch.ops.cuda.sdf import nn1_cuda
 
     os.chdir(ROOT)  # the entries read ./configs, as the root train.py and test.py do
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -728,11 +1098,14 @@ def main() -> int:
 
     rep = phase_kernels(dev)
     phase_kernels_banded(dev, rep)
+    phase_kernels_scene(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
+    phase_reference_scene(dev)
     counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
                 "scatter": scatter_add_rows, "banded_knn": banded.knn_banded,
-                "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded}
+                "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded,
+                "nn1": nn1_cuda, "attention": attention_cuda}
     tree = make_tree()
     ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
     phases = [
@@ -750,12 +1123,13 @@ def main() -> int:
             "banded ddim50, no geometry cache": (
                 ddim + ["model.use_banded=true", "task.dataset.use_geometry_cache=false"],
                 dict(BANDED_STEP, fps=3))}),
+        phase_scene_slice(dev, counters),
     ]
     launches = {k: sum(phase[k] for phase in phases) for k in counters}
 
     kernels = []
     for name in REPLACES:
-        b_ms, by = bound_ms(rep.bytes[name], rep.flops[name])
+        b_ms, by = bound_ms(rep.bytes_ms[name], rep.ops_ms[name])
         kernels.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1], "launches": launches[name],

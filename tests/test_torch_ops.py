@@ -67,6 +67,28 @@ def test_fps_plain_matches_pallas_and_xla(kind):
     np.testing.assert_array_equal(got, np.asarray(jpo._batched_fps_xla(jnp.asarray(pts), 256)))
 
 
+@pytest.mark.parametrize("kind,n,m", [("dyadic", 512, 128), ("tie", 256, 64), ("random", 384, 96)])
+def test_fps_plain_at_one_cloud_matches_single_row_kernel(kind, n, m):
+    """``_fps_kernel`` (one cloud in the (3, N) layout; no caller in the JAX
+    package) computes what the batched kernel computes for B = 1: its
+    counterpart is the port's FPS given one cloud. The kernel runs in a
+    ``pallas_call`` of this test's own, in interpret mode."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    from afford_motion_tpu.ops.pallas.fps import _fps_kernel
+
+    pts = _cloud(kind, (1, n, 3), 14)
+    want = pl.pallas_call(functools.partial(_fps_kernel, m),
+                          out_shape=jax.ShapeDtypeStruct((1, m), jnp.int32),
+                          interpret=True)(jnp.asarray(pts[0].T))
+    got = fps_plain(torch.from_numpy(pts), m)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(fps_pallas(jnp.asarray(pts), m)))
+    np.testing.assert_array_equal(fps_cuda(torch.from_numpy(pts), m).numpy(), got.numpy())
+
+
 def test_fps_cuda_wrapper_routes_cpu_to_plain():
     pts = torch.from_numpy(_cloud("random", (2, 512, 3), 1))
     before = fps_cuda.launches
@@ -173,8 +195,9 @@ def test_interpolation_weights_match_jax():
 
 
 def test_port_imports_without_jax():
-    """Every port module and ``chip_smoke`` import, and a tiny CPU chain
-    runs, with no module of jax or of the JAX package loaded."""
+    """Every port module and ``chip_smoke`` import, and a tiny CPU chain and
+    the LBS and physics of the evaluator run, with no module of jax or of
+    the JAX package loaded."""
     code = (
         "import sys, pkgutil, importlib, torch\n"
         "import afford_motion_torch as p\n"
@@ -182,7 +205,9 @@ def test_port_imports_without_jax():
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "for name in ('ops.cuda.banded', 'ops.curves', 'ops.morton', 'data.packed', 'prepare'):\n"
+        "for name in ('ops.cuda.banded', 'ops.curves', 'ops.morton', 'data.packed', 'prepare',\n"
+        "             'ops.cuda.sdf', 'ops.cuda.attention', 'data.motionx', 'eval.smplx_lbs',\n"
+        "             'eval.joints_to_smplx', 'eval.physics', 'eval.evaluate'):\n"
         "    assert 'afford_motion_torch.' + name in sys.modules, name\n"
         "from afford_motion_torch.models.cmdm import CMDM\n"
         "from afford_motion_torch.diffusion import create_gaussian_diffusion\n"
@@ -197,6 +222,12 @@ def test_port_imports_without_jax():
         "        'text_emb': torch.randn(1, 1, 16), 'x_mask': torch.zeros(1, 10, dtype=torch.bool)}\n"
         "x0 = make_sample_fn(m, d, sampler='ddim')((1, 10, 12), cond)\n"
         "assert x0.shape == (1, 10, 12) and bool(torch.isfinite(x0).all())\n"
+        "from afford_motion_torch.eval.physics import physics_over_sequence\n"
+        "from afford_motion_torch.eval.smplx_lbs import SMPLXModel, params_to_verts_joints\n"
+        "body = SMPLXModel.synthetic(num_verts=32)\n"
+        "verts, _ = params_to_verts_joints(body, torch.randn(3, 69) * 0.3)\n"
+        "nc, ct = physics_over_sequence(torch.randn(128, 3), verts, body.faces_arr)\n"
+        "assert nc.shape == (3,) and bool(torch.isfinite(nc).all())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('afford_motion_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"

@@ -156,8 +156,9 @@ def test_chain_matches_jax(chain_setup, sampler):
 def test_entry_runs_without_jax(tmp_path):
     """``python -m afford_motion_torch.test`` on a tiny synthetic tree: the
     natsort-latest checkpoint is loaded strictly, the k-th pre-generated
-    contact is sliced, samples.npz and timing.json are written, and neither
-    jax nor the JAX package is ever imported. Without ``device=cpu`` the entry
+    contact is sliced, samples.npz, timing.json and the evaluator's
+    ``humanml/*.pkl`` files are written, and neither jax nor the JAX package
+    is ever imported. Without ``device=cpu`` the entry
     asks for the card and raises here, where there is none."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, runpy, sys
@@ -206,6 +207,8 @@ def test_entry_runs_without_jax(tmp_path):
         assert z["sample"].shape == (2, 196, 263) and np.isfinite(z["sample"]).all()
         assert z["k_samples"].shape == (2, 2, 196, 263)
         assert os.path.exists(os.path.join(out, "timing.json"))
+        assert len(os.listdir(os.path.join(out, "humanml"))) == 2
+        assert os.path.exists(os.path.join(out, "metrics.txt"))
         for m in pkgutil.walk_packages(afford_motion_torch.__path__, "afford_motion_torch."):
             if not m.name.endswith("__main__"):
                 importlib.import_module(m.name)
@@ -218,14 +221,22 @@ def test_entry_runs_without_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "not ported yet" in proc.stderr
+    assert "not ported yet" not in proc.stderr
 
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv`` and ``trans_dec``. ``use_banded``
-    and a packed dataset tree under the training wire format are ported."""
+    not run some other way: ``fused_qkv``, ``trans_dec``, the stage-1
+    evaluators, the in-process HumanML3D metrics and the other datasets of
+    the MotionX family. ``use_banded``, a packed dataset tree under the
+    training wire format, ``data_repr: pos`` with ``ContactMotionDataset`` and
+    the two stage-2 evaluators are ported."""
     from afford_motion_torch.data import create_dataset
+    from afford_motion_torch.eval import (
+        Text2MotionInSceneEvaluator,
+        Text2MotionInSceneHumanML3DEvaluator,
+        create_evaluator,
+    )
     from afford_motion_torch.data.synthetic import make_synthetic_h3d
     from afford_motion_torch.models.cmdm import build_cmdm
     from afford_motion_torch.utils.config import load_config
@@ -246,8 +257,23 @@ def test_port_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_cmdm(model_cfg(override))
 
+    # the scene protocol's configuration: 66-d joint positions
+    scene = load_config(str(REPO / "configs"), ["task=contact_motion_gen", "model=cmdm"])
+    scene.model.input_feats = 66
+    assert build_cmdm(scene.model).motion_adapter.in_features == 66
+    assert isinstance(create_evaluator(scene.task, device="cpu"), Text2MotionInSceneEvaluator)
+    for override in ("task.evaluator.name=ContactEvaluator",
+                     "task.evaluator.eval_metrics=['apd','fid']",
+                     "task.dataset.name=ContactMapDataset"):
+        cfg = load_config(str(REPO / "configs"),
+                          ["task=contact_motion_gen", "model=cmdm", override])
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            create_evaluator(cfg.task, device="cpu")
+            create_dataset(cfg.task.dataset, "test", contact_folder=str(tmp_path))
+
     make_synthetic_h3d(str(tmp_path), n_items=8, num_points=64, horizon_range=(40, 60))
     cfg = load_config(str(REPO / "configs"), base)
+    assert isinstance(create_evaluator(cfg.task, device="cpu"), Text2MotionInSceneHumanML3DEvaluator)
     assert len(create_dataset(cfg.task.dataset, "train")) > 0
     # a store that cannot be opened is passed over for the live path
     (tmp_path / "H3D" / "packed").mkdir()
