@@ -4,12 +4,26 @@ plain PyTorch version.
 Counterpart of the flash-attention path of
 ``afford_motion_tpu/models/layers.py`` (``_flash_attention``): masked
 scaled-dot-product attention over (B, L, heads * hd) projections, keys with
-``pad_mask`` True left out. Logits, softmax and the weighted sum are float32
-whatever the input type; the result is rounded to the input type once. The
-kernel's sums run in another order than the plain version's, so the two agree
-to a tolerance, not bit for bit: 1e-5 of the largest ``|v|`` for float32
-inputs, and for bfloat16 one more bf16 ulp of the result (2^-7 relative).
-A query whose keys are all masked has no defined result.
+``pad_mask`` True left out. Logits, softmax and sums are float32 whatever
+the input type; for bfloat16 inputs the softmax weights are rounded to
+bfloat16 before they weight v (as the TPU kernel's ``p.astype(v.dtype)`` and
+the einsum path ``_attention`` do), and the result is rounded to the input
+type once. The kernel's sums run in another order than the plain version's,
+and its bf16 weights are rounded before their normalisation, against the
+running maximum of each 64-key tile, so the two agree to a tolerance, not
+bit for bit (:data:`TOLERANCE`): every entry within ``atol * max |v| + rtol
+* |plain|``. float32: 1e-5 of the largest ``|v|``. bfloat16: 2^-9 of the
+largest ``|v|`` plus 2^-7 of ``|plain|`` (one bf16 ulp of the result). The
+bf16 figure is set from readings, between what a right kernel and a faulty
+one give: the kernel's order, emulated on the CPU
+(``tests/test_torch_attention.py``), needs at most 2^-11.3 of the largest
+``|v|`` beyond the ulp term at the denoiser's shape and at head dimensions
+8, 40 and 64, and the kernel on an H100 2^-11.2; one attended key left out,
+or the last tile of keys skipped, needs 2^-4.8 or more at the denoiser's
+shape. Whether the weights are rounded to bf16 moves
+the result by less than its own final rounding, so no elementwise tolerance
+tells a kernel that skips that rounding from one that does it. A query whose
+keys are all masked has no defined result.
 """
 from __future__ import annotations
 
@@ -20,12 +34,15 @@ import torch
 from . import build
 
 MAX_HEAD_DIM = 64   # the kernel's one instance; every attention in the repo has 64
+# (atol as a share of max |v|, rtol) of the kernel against attention_plain
+TOLERANCE = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2.0 ** -9, 2.0 ** -7)}
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                     pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Lq, D), k, v (B, Lk, D), pad_mask (B, Lk) bool (True = leave the
-    key out) -> (B, Lq, D) in q's type, all arithmetic in float32."""
+    key out) -> (B, Lq, D) in q's type. All arithmetic in float32; the
+    softmax weights are rounded to v's type before the weighted sum."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     hd = D // num_heads
@@ -35,7 +52,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * hd ** -0.5
     if pad_mask is not None:
         logits = logits.masked_fill(pad_mask[:, None, None, :], float("-inf"))
-    o = torch.matmul(torch.softmax(logits, dim=-1), vh)
+    o = torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype).float(), vh)
     return o.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
 
 
@@ -67,6 +84,10 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
     build.require_cuda(q, "attention_cuda")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("attention_cuda: q, k, v and pad_mask must be contiguous")
+    if q.dtype == torch.bfloat16 and ((D // num_heads) % 8 != 0
+                                      or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("attention_cuda: bfloat16 needs a head dimension that is a multiple of "
+                         "8 and 16-byte aligned q, k and v")
     out = torch.empty_like(q)
     hd = D // num_heads
     lib = build.library()

@@ -5,6 +5,9 @@ Counterpart of ``afford_motion_tpu/ops/pallas/fps.py`` (``fps_pallas``).
 Selection rule of both: pick index 0 first; the min-distance field starts at
 +inf; each step folds d = (dx*dx + dy*dy) + dz*dz into it and picks the
 first index of its maximum.
+
+The kernel spreads each cloud over a thread block cluster of
+:data:`CLUSTER` blocks of :data:`THREADS` threads.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import torch
 
 from . import build
 
-MAX_POINTS = 8192  # 1024 threads x 8 register-resident points (csrc/fps.cu)
+MAX_POINTS = 8192  # threads x blocks x register-resident points a thread (csrc/fps.cu)
+THREADS, CLUSTER = 256, 4   # a block, blocks a cloud (csrc/fps.cu kThreads, kCluster)
 
 
 def fps_plain(points: torch.Tensor, num_samples: int) -> torch.Tensor:

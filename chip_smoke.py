@@ -7,7 +7,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: nvcc builds the kernels of ``afford_motion_torch/csrc`` into
-   ``build/kernels``;
+   ``build/kernels``; the registers, spills and shared memory of the FPS and
+   attention kernels from the build log, and the count of tensor-core
+   instructions (HMMA / HGMMA) in the bf16 attention's SASS (``cuobjdump``);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the sampling and training paths give it (batch 32, 8192-point
    contact clouds) and on a near-tie cloud, plus a few shapes off those
@@ -22,16 +24,20 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``index_add_``), beside that call; the bound is the least time the card
    could take, from the bytes moved and the operations done at these shapes,
    at the card's peak rate for the inputs' type (bf16: the tensor cores').
-   FPS also at B = 1 (the single-cloud TPU kernel's case). The fused 1-NN
+   FPS also at B = 1 (the single-cloud TPU kernel's case) and at N = 1000
+   and 8191, with its time per pick. The fused 1-NN
    (``nn1``) at the scene protocol's shape (8192 scene points, 10475 body
    vertices, 196 frames), on a cloud with duplicated and near-tie vertices
    and at a vertex count that no tile divides: idx and d2 bit-equal to its
    plain version, timed beside ``torch.cdist`` + ``argmin``. The fused
    attention at the denoiser's shape (batch 32, 8 heads of 64, 326 tokens,
    bf16, padded keys masked) and the regressor's (batch 16, 4 heads of 64,
-   196 frames, f32): within ATTN_ATOL of the largest ``|v|``, plus one bf16
-   ulp of the result for bf16, of its plain version; timed beside
-   ``F.scaled_dot_product_attention``;
+   196 frames, f32), masked and not, and off the path at head dimensions 8,
+   40 and 64 with a masked tile of 64 keys: within the kernel's stated
+   tolerance of its plain version (``TOLERANCE`` in ops/cuda/attention.py:
+   1e-5 of the largest ``|v|`` for f32; 2^-9 of it plus one bf16 ulp of the
+   result for bf16, with the largest share of it any bf16 check needed);
+   timed beside ``F.scaled_dot_product_attention``;
 4. autograd: ``gather_rows(x, idx).backward(g)`` and ``gather_banded(x,
    idx, starts).backward(g)`` through the kernels on the card equal the
    CPU's plain path bit for bit in float32;
@@ -75,9 +81,9 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    sequences a batch), LBS, SDF physics and APD. Samples must be finite with
    shape (32, 196, 66), ``metrics.txt`` hold the four metrics, the pickles
    carry 69-d params, ``nn1`` be launched once per sequence and the attention
-   once per layer of every denoiser step and of every regressor call. One
-   DDIM-50 chain with and one without ``AM_FLASH_ATTN`` give the denoiser
-   step's time each way.
+   once per layer of every denoiser step and of every regressor call. Three
+   alternating pairs of DDIM-50 chains with and without ``AM_FLASH_ATTN``
+   give the denoiser step's time each way.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -133,9 +139,6 @@ BANDED_STEP = {"fps": 0, "knn": 0, "gather": 0, "scatter": 0,
 # the evaluator's fit batch
 N_VERTS, N_FACES, D_POS = 10475, 20908, 66
 CMDM_LAYERS, REGRESSOR_LAYERS, FIT_BATCH = 5, 2, 16
-# fused attention against its plain version: this share of the largest |v|,
-# plus one bf16 ulp (2^-7 relative) of the result for bf16 inputs
-ATTN_ATOL = 1e-5
 # published peaks of one H100 SXM: device memory, float32 outside the tensor
 # cores, bf16 products with float32 sums on the tensor cores (dense). A bound
 # takes the rate the card has for the inputs' type, whatever the kernel uses.
@@ -145,9 +148,9 @@ BF16_FLOP_PER_S = 989e12
 # largest difference allowed between the resumed run's weights and the
 # straight run's: every kernel of the step is deterministic, so 0 is expected
 RESUME_LIMIT = 1e-6
-# assumed least time of one block-wide argmax over 1024 threads (two levels
-# of five shuffle rounds and two barriers at ~1.7 GHz): FPS picks are
-# sequential, so picks x this is its latency floor, not bytes or operations
+# assumed least time of one pick (a field update and an argmax across the
+# block or cluster, with one barrier, at ~1.7 GHz): FPS picks are sequential,
+# so picks x this is its latency floor, not bytes or operations
 FPS_PICK_FLOOR_US = 0.25
 
 
@@ -188,6 +191,8 @@ class KernelReport:
         # ms at the card's peaks for the path shapes' bytes and operations
         self.bytes_ms = {k: 0.0 for k in REPLACES}
         self.ops_ms = {k: 0.0 for k in REPLACES}
+        # the largest atol (a share of max |v|) any bf16 attention check needed
+        self.attention_bf16_atol = 0.0
 
     def check(self, name: str, label: str, got, want) -> None:
         for g, w in zip(got, want):
@@ -212,7 +217,8 @@ class KernelReport:
               library=None, peak=F32_FLOP_PER_S):
         """Time one shape. ``nbytes``: every input read once and every output
         written once; ``flops``: the arithmetic the function needs; ``peak``:
-        the card's rate for operations on inputs of this type."""
+        the card's rate for operations on inputs of this type. Returns the
+        kernel's, the plain version's and the library call's ms."""
         k_ms, p_ms = time_ms(kernel, reps), time_ms(plain, max(1, reps // 3))
         l_ms = None if library is None else time_ms(library, reps)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
@@ -227,9 +233,60 @@ class KernelReport:
         lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
         log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
             f"bound {b_ms:.4f} ms ({by})")
+        return k_ms, p_ms, l_ms
+
+
+def kernel_usage(ptxas_log: str) -> dict:
+    """Registers, spills and shared memory of each kernel, from the build
+    log's ``-Xptxas -v`` lines: {kernel<template arguments>: line}."""
+    import re
+
+    usage, name, spill = {}, None, ""
+    for line in ptxas_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:   # _Z[N]: length-prefixed names (namespace, kernel), then I..E
+            rest, parts = re.sub(r"^_ZN?", "", entry.group(1)), []
+            while (m := re.match(r"(\d+)", rest)):
+                n = int(m.group(1))
+                parts.append(rest[m.end():m.end() + n])
+                rest = rest[m.end() + n:]
+            args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+            name = (parts[-1] if parts else entry.group(1)) + (
+                f"<{','.join(re.findall(r'(\d+)E', args.group(1)))}>" if args else "")
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name is not None:
+            usage[name] = line.split(":", 1)[1].strip() + "; " + spill
+            name = None
+    return usage
+
+
+def tensor_core_ops(lib_path: Path) -> str:
+    """How many HMMA / HGMMA instructions ``cuobjdump -sass`` finds in the
+    bf16 attention kernel of the built library, or why it was not checked."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return "not checked (no cuobjdump)"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+        elif current is not None and "attention_bf16" in current:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[op] = counts.get(op, 0) + 1
+                    break
+    if not counts:
+        raise AssertionError("the bf16 attention's SASS holds no tensor-core instruction")
+    return ", ".join(f"{n} {op}" for op, n in counts.items())
 
 
 def phase_kernels(dev: torch.device) -> KernelReport:
+    from afford_motion_torch.ops.cuda import fps as fps_mod
     from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
     from afford_motion_torch.ops.cuda.gather import (
         gather_rows,
@@ -321,8 +378,9 @@ def phase_kernels(dev: torch.device) -> KernelReport:
                 del g, got, flat
     picks = 2048 + 512 + 128
     log(f"  fps: {picks} dependent picks per hierarchy: latency floor {picks * FPS_PICK_FLOOR_US / 1e3:.3f} "
-        f"ms at an assumed {FPS_PICK_FLOOR_US} us per block-wide argmax; measured "
-        f"{1e3 * rep.ms['fps'] / picks:.3f} us per pick")
+        f"ms at an assumed {FPS_PICK_FLOOR_US} us per pick; measured "
+        f"{1e3 * rep.ms['fps'] / picks:.3f} us per pick ({fps_mod.THREADS} threads x "
+        f"{fps_mod.CLUSTER} blocks a cloud)")
     # off the sampling path, checked but not timed: the kNN's other
     # register-array sizes (k=3 is the 3-NN up-interpolation), an FPS cloud
     # that does not fill its block, a one-channel gather
@@ -330,8 +388,10 @@ def phase_kernels(dev: torch.device) -> KernelReport:
     for k in (3, 32, 64):
         q, s = cloud[:, :512].contiguous(), cloud[:, :2048].contiguous()
         rep.check("knn", f"off-path k={k}", knn_cuda(q, s, k), knn_plain(q, s, k))
-    odd = cloud[:, :1000].contiguous()
-    rep.check("fps", "off-path (32,1000,3)->250", [fps_cuda(odd, 250)], [fps_plain(odd, 250)])
+    for n in (1000, 8191):   # clouds that leave padding slots
+        odd = cloud[:, :n].contiguous()
+        rep.check("fps", f"off-path (32,{n},3)->{n // 4}", [fps_cuda(odd, n // 4)],
+                  [fps_plain(odd, n // 4)])
     # one cloud: what the TPU package's single-row FPS kernel computes
     for kind, c in clouds.items():
         one = c[:1].contiguous()
@@ -352,7 +412,7 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         g = torch.randn(2, 700, 3, 131, device=dev, generator=gen).to(dtype)
         rep.check("scatter", "off-path one destination", [scatter_add_rows(g, one, 9)],
                   [scatter_add_rows_plain(g, one, 9)])
-    log("  off-path checks: kNN k=3/32/64, FPS N=1000 and B=1, gather and scatter C=1, "
+    log("  off-path checks: kNN k=3/32/64, FPS N=1000/8191 and B=1, gather and scatter C=1, "
         "scatter onto one destination bit-equal")
     return rep
 
@@ -491,7 +551,7 @@ def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
     the regressor's."""
     import torch.nn.functional as F
 
-    from afford_motion_torch.ops.cuda.attention import attention_cuda, attention_plain
+    from afford_motion_torch.ops.cuda.attention import TOLERANCE, attention_cuda, attention_plain
     from afford_motion_torch.ops.cuda.sdf import nn1_cuda, nn1_plain
 
     rng = np.random.default_rng(SEED + 4)
@@ -543,12 +603,8 @@ def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
         pad = torch.from_numpy(np.arange(L)[None, :] >= lengths[:, None])
         pad = torch.cat([torch.zeros((b, seq - L), dtype=torch.bool), pad], dim=1).to(dev)
         label = f"{what} ({b},{seq},{heads}x{hd}) {str(dtype)[6:]}"
-        want = attention_plain(q, k, v, heads, pad)
-        atol = ATTN_ATOL * float(v.float().abs().max())
-        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
-        rep.check_close("attention", label, attention_cuda(q, k, v, heads, pad), want, atol, rtol)
-        rep.check_close("attention", label + " no mask", attention_cuda(q, k, v, heads),
-                        attention_plain(q, k, v, heads), atol, rtol)
+        check_attention(rep, label, q, k, v, heads, pad)
+        check_attention(rep, label + " no mask", q, k, v, heads, None)
 
         def heads_first(x, b=b, heads=heads, hd=hd):
             return x.reshape(b, -1, heads, hd).transpose(1, 2)
@@ -557,29 +613,60 @@ def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
         size = q.element_size()
         valid = float((~pad).sum())
         # each valid query-key pair of a head: hd products and sums for the
-        # logit, hd for the weighted sum. bf16 inputs: the card's tensor-core
-        # rate, though this kernel's products run outside the tensor cores
-        rep.timed("attention", label, lambda: attention_cuda(q, k, v, heads, pad),
-                  lambda: attention_plain(q, k, v, heads, pad), 10,
-                  nbytes=4 * b * seq * heads * hd * size + b * seq,
-                  flops=4.0 * heads * hd * seq * valid,
-                  peak=BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S,
-                  library=lambda: F.scaled_dot_product_attention(
-                      heads_first(q), heads_first(k), heads_first(v), attn_mask=keep))
+        # logit, hd for the weighted sum, at the card's rate for the type
+        k_ms, _, l_ms = rep.timed(
+            "attention", label, lambda: attention_cuda(q, k, v, heads, pad),
+            lambda: attention_plain(q, k, v, heads, pad), 10,
+            nbytes=4 * b * seq * heads * hd * size + b * seq, flops=4.0 * heads * hd * seq * valid,
+            peak=BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S,
+            library=lambda: F.scaled_dot_product_attention(
+                heads_first(q), heads_first(k), heads_first(v), attn_mask=keep))
+        log(f"  attention {what}: kernel / scaled_dot_product_attention = {k_ms / l_ms:.3f}; "
+            f"the library call's kernels: {sdpa_kernels(heads_first(q), heads_first(k), heads_first(v), keep)}")
     # off the path, checked but not timed: head dimensions below the kernel's
-    # 64 and a key length other than the queries'
-    for hd, dtype in ((8, torch.float32), (40, torch.bfloat16), (64, torch.float32)):
+    # 64, a key length other than the queries', a batch item with one attended
+    # key, and a whole tile of 64 keys masked between attended ones
+    for hd, dtype in ((8, torch.float32), (8, torch.bfloat16), (40, torch.bfloat16),
+                      (64, torch.float32), (64, torch.bfloat16)):
         q = torch.from_numpy(rng.normal(size=(3, 70, 2 * hd)).astype(np.float32)).to(dev).to(dtype)
-        k, v = (torch.from_numpy(rng.normal(size=(3, 45, 2 * hd)).astype(np.float32)).to(dev)
+        k, v = (torch.from_numpy(rng.normal(size=(3, 150, 2 * hd)).astype(np.float32)).to(dev)
                 .to(dtype) for _ in range(2))
-        pad = torch.from_numpy(np.arange(45)[None, :] >= np.array([[45], [30], [1]])).to(dev)
-        rep.check_close("attention", f"off-path hd={hd} {str(dtype)[6:]}",
-                        attention_cuda(q, k, v, 2, pad), attention_plain(q, k, v, 2, pad),
-                        ATTN_ATOL * float(v.float().abs().max()),
-                        2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
-    log(f"  attention: within {ATTN_ATOL:.0e} of the largest |v| (+ one bf16 ulp for bf16) of "
-        "the plain version at the denoiser's and the regressor's shapes, masked and not, and "
-        "at head dimensions 8, 40 and 64 with 45 keys for 70 queries")
+        pad = torch.from_numpy(np.arange(150)[None, :] >= np.array([[150], [100], [1]])).to(dev)
+        pad[:2, 64:128] = True
+        check_attention(rep, f"off-path hd={hd} {str(dtype)[6:]}", q, k, v, 2, pad)
+    atol = {str(t)[6:]: a for t, (a, _) in TOLERANCE.items()}
+    log(f"  attention: within {atol} of the largest |v| (+ one bf16 ulp of the result for "
+        "bf16) of the plain version at the denoiser's and the regressor's shapes, masked and "
+        "not, and at head dimensions 8, 40 and 64 with 150 keys for 70 queries, one "
+        "attended key, and a masked tile; the bf16 checks needed at most "
+        f"2^{np.log2(rep.attention_bf16_atol):.2f} of the largest |v| beyond the ulp term")
+
+
+def sdpa_kernels(q, k, v, keep) -> str:
+    """The CUDA kernels one ``scaled_dot_product_attention`` call launches
+    (which of its backends it took), from a profile of one call."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+    return "; ".join(n[:80] for n in names) or "none seen by the profiler"
+
+
+def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> None:
+    """The fused attention against its plain version, to the kernel's stated
+    tolerance for the inputs' type (``TOLERANCE`` in ops/cuda/attention.py)."""
+    from afford_motion_torch.ops.cuda.attention import TOLERANCE, attention_cuda, attention_plain
+
+    atol, rtol = TOLERANCE[q.dtype]
+    got, want = attention_cuda(q, k, v, heads, pad), attention_plain(q, k, v, heads, pad)
+    v_max = float(v.float().abs().max())
+    rep.check_close("attention", label, got, want, atol * v_max, rtol)
+    if q.dtype == torch.bfloat16:
+        excess = (got.float() - want.float()).abs() - rtol * want.float().abs()
+        rep.attention_bf16_atol = max(rep.attention_bf16_atol, float(excess.max()) / v_max)
 
 
 def phase_autograd(dev: torch.device) -> None:
@@ -1046,7 +1133,8 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
         ddim = base + ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim",
                        "task.evaluator.k_samples=0", "task.evaluator.eval_metrics=[]",
                        "task.evaluator.save_results=false"]
-        for flash in ("1", "0", "1", "0"):
+        steps_ms = {"1": [], "0": []}
+        for flash in ("1", "0") * 3:
             os.environ["AM_FLASH_ATTN"] = flash
             reset(counters)
             t = json.loads((Path(entry.main(ddim)) / "timing.json").read_text())["chains"][0]
@@ -1059,6 +1147,13 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
             log(f"scene slice: DDIM-50 with AM_FLASH_ATTN={flash}: "
                 f"{1e3 * t['loop_s'] / t['steps']:.3f} ms per denoiser step "
                 f"(chain {t['chain_s']:.3f} s)")
+            steps_ms[flash].append(1e3 * t["loop_s"] / t["steps"])
+        pairs = [a - b for a, b in zip(steps_ms["0"], steps_ms["1"])]
+        log(f"scene slice: DDIM-50 denoiser step, {len(pairs)} alternating pairs: fused "
+            f"attention {np.median(steps_ms['1']):.3f} ms (median; {min(steps_ms['1']):.3f}-"
+            f"{max(steps_ms['1']):.3f}) against {np.median(steps_ms['0']):.3f} "
+            f"({min(steps_ms['0']):.3f}-{max(steps_ms['0']):.3f}); without minus with, pair by "
+            f"pair: {', '.join(f'{d:.3f}' for d in pairs)} ms")
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1092,9 +1187,9 @@ def main() -> int:
     lib_path = build.build()
     build.library()
     log(f"build: {lib_path.name} in {time.monotonic() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "Function properties" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, usage in kernel_usage(lib_path.with_suffix(".log").read_text()).items():
+        log(f"  ptxas: {name}: {usage}")
+    log(f"  SASS of the bf16 attention: {tensor_core_ops(lib_path)}")
 
     rep = phase_kernels(dev)
     phase_kernels_banded(dev, rep)

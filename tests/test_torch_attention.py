@@ -5,13 +5,20 @@
 Inputs come from a seed with numpy; rows are compared where a query has at
 least one valid key (a fully masked row has no defined result on either
 side). Tolerances: against the JAX einsum path ``_attention`` in float32,
-1e-5 abs (float32 sums in other orders, values O(1)); in bfloat16 one bf16
-ulp of the largest value (the einsum path rounds its weights to bf16, the
-fused path keeps float32 accumulators and rounds once); against
+1e-5 abs (float32 sums in other orders, values O(1)); in bfloat16 (both
+round the softmax weights to bf16 before they weight v) one bf16 ulp of the
+result, but for the rare weight whose float32 value lies on a bf16 rounding
+boundary, where XLA's exp and torch's differ in the last bit; against
 ``_flash_attention`` with the library kernel replaced by its own reference
 ``mha_reference``, that substitution's 5e-2, as the JAX package's own test of
-the wiring uses.
+the wiring uses. The CUDA kernel's bf16 order (64-key tiles, online softmax,
+weights rounded to bf16 against the running maximum) is emulated here in
+torch and held to ``TOLERANCE``, the figure ``chip_smoke.py`` holds the
+kernel to on the card, with a margin of 2; the same emulation with a fault
+planted (an attended key left out, the last tile skipped) must break it.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,6 +74,132 @@ def test_attention_plain_bf16_matches_jax_einsum():
                                atol=2.0 ** -7 * np.abs(want).max())
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp of |x| (2^(e - 7) for 2^e <= |x| < 2^(e + 1))."""
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("b,lq,lk,heads,hd,masked", [
+    (2, 70, 70, 2, 64, True),
+    (2, 70, 70, 2, 64, False),
+    (2, 33, 50, 8, 64, True),
+    (2, 326, 326, 8, 64, True),    # the denoiser's width and length
+    (2, 70, 70, 4, 16, True),
+])
+def test_attention_plain_bf16_within_an_ulp_of_jax_einsum(b, lq, lk, heads, hd, masked):
+    q, k, v, pad = _qkv(6, b, lq, lk, heads * hd, masked)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jlayers._attention(jq, jk, jv, heads, jnp.asarray(pad), lambda x: x)
+                      .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = tattn.attention_plain(tq, tk, tv, heads, torch.from_numpy(pad)).float().numpy()
+    diff = np.abs(got - want)
+    ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    assert (diff > ulp).mean() <= 1e-3
+    # a weight that rounds the other way moves the result by at most its own
+    # bf16 ulp (2^-8 of it, which is at most 1) times |v|
+    assert (diff <= ulp + 2.0 ** -8 * np.abs(v).max()).all()
+
+
+def _tiled_bf16_attention(q, k, v, num_heads, pad_mask, tile=64, fault=None):
+    """The order of csrc/attention.cu's bf16 instance in torch: logits in
+    float32 pre-scaled by log2(e), tiles of 64 keys, a tile with no attended
+    key skipped, online softmax in base 2 against the running maximum, the
+    unnormalised weights rounded to bf16 before they weight v, the sums of
+    the unrounded weights in float32, one division and one rounding.
+    ``fault`` plants a kernel's fault: "first key" or "last key" leaves out
+    each item's first or last attended key, "last tile" skips the last tile."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    hd = D // num_heads
+    qh, kh, vh = (x.float().reshape(B, -1, num_heads, hd).transpose(1, 2) for x in (q, k, v))
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(math.log2(math.e),
+                                                                        dtype=torch.float32)
+    keep = torch.ones(B, Lk, dtype=torch.bool) if pad_mask is None else ~pad_mask
+    if fault in ("first key", "last key"):
+        order = keep.int() if fault == "first key" else keep.int().flip(1)
+        at = order.argmax(1) if fault == "first key" else Lk - 1 - order.argmax(1)
+        keep[torch.arange(B), at] = False
+    m = torch.full((B, num_heads, Lq, 1), -math.inf)
+    l = torch.zeros(B, num_heads, Lq, 1)
+    acc = torch.zeros(B, num_heads, Lq, hd)
+    bases = list(range(0, Lk, tile))
+    for base in bases[:-1] if fault == "last tile" else bases:
+        kt = keep[:, None, None, base:base + tile]
+        if not bool(kt.any()):
+            continue
+        s = torch.matmul(qh, kh[:, :, base:base + tile].transpose(-1, -2)) * scale
+        s = s.masked_fill(~kt, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.bfloat16().float(), vh[:, :, base:base + tile])
+        m = m_new
+    o = torch.where(l > 0, acc / l, torch.zeros(()))
+    return o.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
+
+
+def _denoiser_qkv(seed, masked):
+    """The denoiser's attention: 8 heads of 64, 326 tokens (time, text, 128
+    contact, 196 motion frames whose padding is masked)."""
+    rng = np.random.default_rng(seed)
+    b, seq, heads, hd = 2, 326, 8, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, seq, heads * hd)).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    pad = None
+    if masked:
+        frames = np.arange(196)[None, :] >= np.array([[60], [170]])
+        pad = torch.from_numpy(np.concatenate([np.zeros((b, seq - 196), bool), frames], 1))
+    return q, k, v, heads, pad
+
+
+def _off_path_qkv(seed, hd):
+    """chip_smoke.py's off-path shape: 70 queries, 150 keys, 2 heads; one item
+    with every key, one with a masked tile between attended keys, one with a
+    single attended key."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(3, 70, 2 * hd)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.normal(size=(3, 150, 2 * hd)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    pad = torch.from_numpy(np.arange(150)[None, :] >= np.array([[150], [100], [1]]))
+    pad[:2, 64:128] = True
+    return q, k, v, 2, pad
+
+
+def _excess(got, want, v):
+    """Largest difference beyond the bf16 tolerance's rtol term, as a share
+    of max |v|: the atol the pair needs."""
+    _, rtol = tattn.TOLERANCE[torch.bfloat16]
+    d = (got.float() - want.float()).abs() - rtol * want.float().abs()
+    return float(d.max() / v.float().abs().max())
+
+
+@pytest.mark.parametrize("case", ["denoiser masked", "denoiser", "hd=8", "hd=40", "hd=64"])
+def test_tiled_bf16_order_within_tolerance_of_plain(case):
+    q, k, v, heads, pad = (_off_path_qkv(7, int(case[3:])) if case.startswith("hd=")
+                           else _denoiser_qkv(7, case.endswith("masked")))
+    want = tattn.attention_plain(q, k, v, heads, pad)
+    got = _tiled_bf16_attention(q, k, v, heads, pad)
+    atol, _ = tattn.TOLERANCE[torch.bfloat16]
+    assert _excess(got, want, v) <= atol / 2
+    assert bool((got != want).any())   # the orders do differ
+
+
+@pytest.mark.parametrize("fault,masked", [("first key", True), ("first key", False),
+                                          ("last key", True), ("last key", False),
+                                          ("last tile", False)])
+def test_tiled_bf16_with_a_fault_breaks_tolerance(fault, masked):
+    """The tolerance catches a kernel that leaves out one attended key or the
+    last tile (326 = 5 x 64 + 6 keys), with a margin of 4."""
+    q, k, v, heads, pad = _denoiser_qkv(7, masked)
+    want = tattn.attention_plain(q, k, v, heads, pad)
+    got = _tiled_bf16_attention(q, k, v, heads, pad, fault=fault)
+    atol, _ = tattn.TOLERANCE[torch.bfloat16]
+    assert _excess(got, want, v) > 4 * atol
+
+
 def _reference_kernel(q, k, v, ab=None, segment_ids=None, *, sm_scale=1.0, **kw):
     from jax.experimental.pallas.ops.tpu import flash_attention as fa
 
@@ -99,6 +232,8 @@ def test_attention_cuda_wrapper_routes_cpu_to_plain():
     wide = torch.zeros(1, 4, 256)   # head dimension 128: above the kernel's one instance
     with pytest.raises(ValueError, match="at most 64"):
         tattn.attention_cuda(wide, wide, wide, 2)
+    odd = torch.zeros(1, 4, 24, dtype=torch.bfloat16)  # head dimension 12: the CPU takes it
+    assert tattn.attention_cuda(odd, odd, odd, 2).shape == odd.shape
 
 
 def test_flash_gate_conditions(monkeypatch):

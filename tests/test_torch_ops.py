@@ -30,6 +30,7 @@ from afford_motion_tpu.ops.pallas import knn as jknn
 from afford_motion_tpu.ops.pallas.fps import fps_pallas
 from afford_motion_tpu.ops.pallas.gather import gather_rows as jax_gather_rows
 from afford_motion_torch.ops import pointops as tpo
+from afford_motion_torch.ops.cuda import fps as tfps
 from afford_motion_torch.ops.cuda import knn as tknn
 from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
 from afford_motion_torch.ops.cuda.gather import gather_rows, gather_rows_plain
@@ -87,6 +88,84 @@ def test_fps_plain_at_one_cloud_matches_single_row_kernel(kind, n, m):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got.numpy(), np.asarray(fps_pallas(jnp.asarray(pts), m)))
     np.testing.assert_array_equal(fps_cuda(torch.from_numpy(pts), m).numpy(), got.numpy())
+
+
+def _two_stage_max(hi, lo, axis):
+    """The largest (hi, lo) pair along ``axis`` as two unsigned maxima: the
+    largest high word, then the largest low word of the entries holding it."""
+    top = hi.max(axis=axis, keepdims=True)
+    return np.squeeze(top, axis), np.where(hi == top, lo, np.uint32(0)).max(axis=axis)
+
+
+def _fps_packed_key_model(cloud, m):
+    """numpy statement of ``csrc/fps.cu`` on one (N, 3) cloud, ``threads`` a
+    block and ``cluster`` blocks a cloud: slot j of thread t in block r holds
+    point j * threads * cluster + r * threads + t; each thread keeps the first
+    largest field value of its slots; (value, index) becomes the key
+    (value bits << 32) | (0xFFFFFFFF - index), 0 for a thread with no point;
+    a warp takes the largest high word, then the largest low word among the
+    lanes that hold it (two ``redux.sync``), and the partials of all warps of
+    the cluster are reduced the same way."""
+    threads, cluster = tfps.THREADS, tfps.CLUSTER
+    n = len(cloud)
+    span = threads * cluster
+    idx = (np.arange(-(-tfps.MAX_POINTS // span))[:, None, None] * span
+           + np.arange(cluster)[None, :, None] * threads
+           + np.arange(threads)[None, None, :])                       # (slots, blocks, threads)
+    valid = idx < n
+    p = np.where(valid[..., None], cloud[np.minimum(idx, n - 1)], np.float32(0))
+    md = np.where(valid, np.float32(np.inf), np.float32(-1))
+    out = np.zeros(m, dtype=np.int32)
+    for step in range(1, m):
+        dx, dy, dz = (p[..., c] - cloud[out[step - 1], c] for c in range(3))
+        with np.errstate(over="ignore"):
+            md = np.minimum(md, (dx * dx + dy * dy) + dz * dz)
+        best_j = md.argmax(axis=0)[None]                                # first maximal slot
+        best = np.take_along_axis(md, best_j, 0)[0]
+        real = best >= 0
+        hi = np.where(real, best.view(np.uint32), np.uint32(0))
+        lo = np.where(real, np.uint32(0xFFFFFFFF)
+                      - np.take_along_axis(idx, best_j, 0)[0].astype(np.uint32), np.uint32(0))
+        largest = ((hi.astype(np.uint64) << np.uint64(32)) | lo).max()
+        hi, lo = _two_stage_max(hi.reshape(cluster, threads // 32, 32),
+                                lo.reshape(cluster, threads // 32, 32), 2)
+        hi, lo = _two_stage_max(hi.reshape(-1), lo.reshape(-1), 0)
+        assert int(hi) << 32 | int(lo) == int(largest)
+        out[step] = np.uint32(0xFFFFFFFF) - lo
+    return out
+
+
+def _fps_key_cloud(kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "near-tie":
+        # 2^-3 grid: duplicate points and exactly tied field values
+        return (rng.integers(0, 8, size=(2, 1024, 3)) * 0.125).astype(np.float32)
+    if kind == "inf":
+        # some points ~1e20 away: their distances overflow, so the field holds
+        # +inf for many points at once, tied
+        pts = (rng.integers(0, 8, size=(2, 1024, 3)) * 0.125).astype(np.float32)
+        far = rng.random(size=(2, 1024)) < 0.05
+        pts[far] = rng.choice([-1e20, 1e20, 3e19], size=(int(far.sum()), 3)).astype(np.float32)
+        return pts
+    n = int(kind.split("=")[1])   # one cloud whose size leaves padding slots
+    return (rng.integers(-512, 512, size=(1, n, 3)) / 256.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,m", [("near-tie", 200), ("inf", 200), ("N=1000", 250),
+                                    ("N=8191", 96)])
+def test_fps_packed_key_order_matches_first_index_rule(kind, m):
+    """The kernel's packed-key argmax picks what ``fps_plain``'s first-index
+    rule and the TPU kernel pick."""
+    pts = _fps_key_cloud(kind, 15)
+    want = fps_plain(torch.from_numpy(pts), m).numpy()
+    np.testing.assert_array_equal(want, np.asarray(fps_pallas(jnp.asarray(pts), m)))
+    if kind == "inf":   # after the first pick, the far points' field is +inf
+        delta = pts[0] - pts[0, 0]
+        with np.errstate(over="ignore"):
+            d = (delta[:, 0] * delta[:, 0] + delta[:, 1] * delta[:, 1]) + delta[:, 2] * delta[:, 2]
+        assert np.isinf(d).sum() > 1
+    for b in range(len(pts)):
+        np.testing.assert_array_equal(_fps_packed_key_model(pts[b], m), want[b])
 
 
 def test_fps_cuda_wrapper_routes_cpu_to_plain():
