@@ -29,7 +29,7 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.io import get_logger
 from ..utils.registry import EVALUATOR
-from .physics import compute_pairwise_distance, dist_to_obj, physics_over_sequence
+from .physics import compute_pairwise_distance, dist_to_obj, face_table, physics_over_sequence
 
 logger = get_logger()
 
@@ -224,6 +224,7 @@ class Text2MotionInSceneEvaluator(Eval):
         stream order."""
         dev = self.device
         faces = torch.as_tensor(np.asarray(self._fitter.faces), device=dev)
+        table = face_table(faces, self._fitter.body_model.num_vertices)
         kernel = str(self.cfg.get("sdf_kernel", "auto"))
         wants_frames = "non_collision" in self.eval_metrics or "contact" in self.eval_metrics
         deferred = []
@@ -236,14 +237,15 @@ class Text2MotionInSceneEvaluator(Eval):
             ncs = cts = d = None
             if wants_frames:
                 ncs, cts = physics_over_sequence(torch.as_tensor(xyz_np, device=dev), verts,
-                                                 faces, kernel=kernel)
+                                                 faces, kernel=kernel, table=table)
             if "dist" in self.eval_metrics and sample.get("info_obj_mask") is not None:
                 obj = xyz_np[np.asarray(sample["info_obj_mask"], dtype=bool)]
                 if obj.shape[0] > 0:
                     # last VALID frame (the padded stack's -1 is a pad frame)
                     anchor = 0 if str(sample["c_text"]).startswith("stand up") \
                         else int(valid.sum()) - 1
-                    d = dist_to_obj(torch.as_tensor(obj, device=dev), verts[anchor], faces)
+                    d = dist_to_obj(torch.as_tensor(obj, device=dev), verts[anchor], faces,
+                                    table)
             deferred.append((valid, ncs, cts, d))
 
         for valid, ncs, cts, d in deferred:

@@ -197,14 +197,18 @@ def chain_transforms(R: torch.Tensor, rel: torch.Tensor, parents: Tuple[int, ...
     """Per-joint local rigid transforms -> global transforms along the
     kinematic tree. R (..., J, 3, 3), rel (..., J, 3) -> (..., J, 4, 4).
     Level-batched: every joint at tree depth d composes with its (already
-    final) parent in one batched 4x4 product."""
+    final) parent in one batched 4x4 product. Joints are read by indexing,
+    whose gradient on a CUDA device is summed in a fixed order (a parent may
+    have several children at one depth); ``index_select``'s is summed with
+    float atomics, and the fit's result would vary from run to run."""
     T_local = _rigid_transform(R, rel)
     A = T_local
     dim = T_local.ndim - 3
+    lead = (slice(None),) * dim
     for idx, par in _tree_levels(tuple(parents)):
         idx_t = torch.as_tensor(idx, device=R.device)
         par_t = torch.as_tensor(par, device=R.device)
-        new = _matmul44(A.index_select(dim, par_t), T_local.index_select(dim, idx_t))
+        new = _matmul44(A[lead + (par_t,)], T_local[lead + (idx_t,)])
         A = A.index_copy(dim, idx_t, new)   # out of place: autograd-safe
     return A
 

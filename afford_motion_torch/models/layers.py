@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.attention import attention_cuda
+from ..ops.cuda.attention import MAX_HEAD_DIM, attention_cuda
 
 
 def sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
@@ -189,6 +189,7 @@ class TorchMultiHeadAttention(nn.Module):
             _flash_enabled(q)
             and (not self.training or self.dropout.p == 0.0)
             and (D // self.num_heads) % 8 == 0
+            and D // self.num_heads <= MAX_HEAD_DIM
         )
         if use_flash:
             o = attention_cuda(q, k, v, self.num_heads, pad_mask)

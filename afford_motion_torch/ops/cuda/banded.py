@@ -322,14 +322,36 @@ def _gather_forward(x: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
     stride = _check_starts(starts, B, M, x, "gather_banded")
     if x.device.type == "cpu":
         return gather_banded_plain(x, idx, starts, s)
+    out = launch_gather(x, idx, starts, stride, s, *gather_config(B, M, C, K, s, x.element_size()))
+    gather_banded.launches += 1
+    return out
+
+
+def gather_config(b: int, m: int, c: int, k: int, s: int, itemsize: int) -> Tuple[int, bool]:
+    """(blocks a tile, window in shared memory) of the gather kernel: the
+    window is staged when it fits beside the block's indices; a tile's 128
+    rows are split across blocks until the call has a block an SM (at
+    least 8 rows a block)."""
+    staged = s * c * itemsize + TQ * k * 4 <= build.SMEM_BYTES
+    parts, tiles = 1, b * (m // TQ)
+    while tiles * parts < build.SMS and parts < 16:
+        parts *= 2
+    return parts, staged
+
+
+def launch_gather(x: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor, stride: int, s: int,
+                  parts: int, staged: bool) -> torch.Tensor:
+    """One launch of the gather kernel with the given configuration (see
+    :func:`gather_config`); checks and counts are the caller's."""
+    B, N, C = x.shape
+    _, M, K = idx.shape
     out = torch.empty((B, M, K, C), dtype=x.dtype, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         code = lib.amt_gather_banded(x.data_ptr(), idx.data_ptr(), starts.data_ptr(), stride,
-                                     B, N, C, M, K, s, ELEM_BYTES[x.dtype], out.data_ptr(),
-                                     build.stream_of(x))
+                                     B, N, C, M, K, s, ELEM_BYTES[x.dtype], parts, int(staged),
+                                     out.data_ptr(), build.stream_of(x))
     build.check(code, "amt_gather_banded")
-    gather_banded.launches += 1
     return out
 
 

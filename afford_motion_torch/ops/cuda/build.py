@@ -38,21 +38,32 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the card the launch configurations are chosen for (an H100 SXM): its
+# streaming multiprocessors, and the dynamic shared memory a block may take
+# (227 KB) less 1 KB for a kernel's static shared memory
+SMS = 132
+SMEM_BYTES = 232448 - 1024
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # (xyz, b, n, m, out, stream)
     "amt_fps": [_P, _I, _I, _I, _P, _P],
-    # (query, support, b, m, n, k, idx, dist, stream)
-    "amt_knn_packed": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # (xyz, b, n, m, field, out, stream)
+    "amt_fps_streamed": [_P, _I, _I, _I, _P, _P, _P],
+    # (support, query, b, n, m, ssorted, sorder, scodes, qorder, qcodes, stream)
+    "amt_knn_order": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (query, qorder, qcodes, ssorted, sorder, scodes, b, m, n, k, threads, split, part_keys,
+    #  idx, dist, stream)
+    "amt_knn_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # (x, idx, b, n, c, m, k, elem_bytes, out, stream)
     "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # (g, idx, b, n, c, mk, elem_bytes, counts, start, unsorted, sorted, out, stream)
     "amt_scatter_add_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # (query, support, starts, starts_stride, b, m, n, s, k, idx, dist, stream)
     "amt_knn_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (x, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, out, stream)
-    "amt_gather_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # (x, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, parts, staged, out, stream)
+    "amt_gather_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, counts, start, unsorted,
     #  sorted, out, stream)
     "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],

@@ -7,7 +7,10 @@ Selection rule of both: pick index 0 first; the min-distance field starts at
 first index of its maximum.
 
 The kernel spreads each cloud over a thread block cluster of
-:data:`CLUSTER` blocks of :data:`THREADS` threads.
+:data:`CLUSTER` blocks of :data:`THREADS` threads. Clouds of at most
+:data:`RESIDENT_POINTS` points sit in registers and shared memory; larger
+ones take the kernel's streamed instance, which reads them from device
+memory and keeps the distance field in a scratch buffer.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from . import build
 
-MAX_POINTS = 8192  # threads x blocks x register-resident points a thread (csrc/fps.cu)
+RESIDENT_POINTS = 8192  # threads x blocks x register-resident points a thread (csrc/fps.cu)
 THREADS, CLUSTER = 256, 4   # a block, blocks a cloud (csrc/fps.cu kThreads, kCluster)
 
 
@@ -49,16 +52,21 @@ def fps_cuda(points: torch.Tensor, num_samples: int) -> torch.Tensor:
     if points.device.type == "cpu":
         return fps_plain(points, num_samples)
     build.require_cuda(points, "fps_cuda")
-    if N > MAX_POINTS:
-        raise ValueError(f"fps_cuda: N={N} > {MAX_POINTS}")
     if not points.is_contiguous():
         raise ValueError("fps_cuda: points must be contiguous")
     out = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
     lib = build.library()
     with torch.cuda.device(points.device):
-        code = lib.amt_fps(points.data_ptr(), B, N, num_samples, out.data_ptr(),
-                           build.stream_of(points))
-    build.check(code, "amt_fps")
+        if N <= RESIDENT_POINTS:
+            name = "amt_fps"
+            code = lib.amt_fps(points.data_ptr(), B, N, num_samples, out.data_ptr(),
+                               build.stream_of(points))
+        else:
+            name = "amt_fps_streamed"
+            field = torch.empty((B, N), dtype=torch.float32, device=points.device)
+            code = lib.amt_fps_streamed(points.data_ptr(), B, N, num_samples, field.data_ptr(),
+                                        out.data_ptr(), build.stream_of(points))
+    build.check(code, name)
     fps_cuda.launches += 1
     return out
 

@@ -60,6 +60,75 @@ def knn_plain(query: torch.Tensor, support: torch.Tensor, k: int,
     return torch.cat(idx_l, dim=1), torch.cat(dist_l, dim=1)
 
 
+CHUNK = 32  # support points a box (csrc/knn.cu kChunk)
+
+
+def launch_config(b: int, m: int, n: int, k: int):
+    """(threads a block, support parts) of the kernel for a call: one query
+    a thread; 1024 a block for 4096 queries or more over 2048 points or more
+    (512 for k > 16), 512 for 512 queries or more over 2048 points or more,
+    else 128; the support split in two until the call has a block for every
+    two SMs or a part would fall under 128 points. Chosen from the times of
+    every configuration at the path's shapes (``tools/kernel_ab.py --sweep``)."""
+    if m >= 4096 and n >= 2048 and k <= 16:
+        threads = 1024
+    else:
+        threads = 512 if m >= 512 and n >= 2048 else 128
+    blocks = b * -(-m // threads)
+    split = 1
+    while (blocks * split < build.SMS // 2 and n % (2 * split * CHUNK) == 0
+           and n // (2 * split) >= 128):
+        split *= 2
+    return threads, split
+
+
+def curve_order(query: torch.Tensor, support: torch.Tensor):
+    """Each cloud's support points and queries sorted by cell of a 16^3 grid
+    over the support's bounding box, the cells numbered along a Morton curve
+    (``amt_knn_order``): (qorder, qcells, ssorted, sorder, scells), the
+    orders and cells int32 in that order, ``ssorted`` the support's points
+    in it."""
+    B, M, _ = query.shape
+    N = support.shape[1]
+    dev = query.device
+    ssorted = torch.empty_like(support)
+    sorder, scells = (torch.empty((B, N), dtype=torch.int32, device=dev) for _ in range(2))
+    qorder, qcells = (torch.empty((B, M), dtype=torch.int32, device=dev) for _ in range(2))
+    lib = build.library()
+    with torch.cuda.device(dev):
+        code = lib.amt_knn_order(support.data_ptr(), query.data_ptr(), B, N, M,
+                                 ssorted.data_ptr(), sorder.data_ptr(), scells.data_ptr(),
+                                 qorder.data_ptr(), qcells.data_ptr(), build.stream_of(query))
+    build.check(code, "amt_knn_order")
+    return qorder, qcells, ssorted, sorder, scells
+
+
+def launch(query: torch.Tensor, support: torch.Tensor, k: int, threads: int, split: int,
+           order=None, visits: torch.Tensor | None = None):
+    """One launch of the kernel with the given configuration (see
+    :func:`launch_config`) and curve order (see :func:`curve_order`; made
+    here when not given); checks and counts are the caller's. ``visits``, a
+    one-element int64 tensor on the device, gains the 32-query x 32-point
+    chunks the kernel scanned (its share of the M*N pairs, for the record)."""
+    B, M, _ = query.shape
+    N = support.shape[1]
+    qorder, qcells, ssorted, sorder, scells = order or curve_order(query, support)
+    idx = torch.empty((B, M, k), dtype=torch.int32, device=query.device)
+    dist = torch.empty((B, M, k), dtype=torch.float32, device=query.device)
+    part_keys = (torch.empty((B, M, split, k), dtype=torch.int32, device=query.device)
+                 if split > 1 else None)
+    lib = build.library()
+    with torch.cuda.device(query.device):
+        code = lib.amt_knn_packed(
+            query.data_ptr(), qorder.data_ptr(), qcells.data_ptr(), ssorted.data_ptr(),
+            sorder.data_ptr(), scells.data_ptr(), B, M, N, k, threads, split,
+            None if part_keys is None else part_keys.data_ptr(), idx.data_ptr(),
+            dist.data_ptr(), None if visits is None else visits.data_ptr(),
+            build.stream_of(query))
+    build.check(code, "amt_knn_packed")
+    return idx, dist
+
+
 def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
     """(B, M, 3), (B, N, 3) f32 -> idx (B, M, k) int32, dist (B, M, k) f32
     (sqrt distances, the contract of ``ops.pointops.knn``). Launches the
@@ -79,16 +148,9 @@ def knn_cuda(query: torch.Tensor, support: torch.Tensor, k: int):
     build.require_cuda(query, "knn_cuda")
     if not (query.is_contiguous() and support.is_contiguous()):
         raise ValueError("knn_cuda: query and support must be contiguous")
-    idx = torch.empty((B, M, k), dtype=torch.int32, device=query.device)
-    dist = torch.empty((B, M, k), dtype=torch.float32, device=query.device)
-    lib = build.library()
-    with torch.cuda.device(query.device):
-        code = lib.amt_knn_packed(query.data_ptr(), support.data_ptr(), B, M, N, k,
-                                  idx.data_ptr(), dist.data_ptr(),
-                                  build.stream_of(query))
-    build.check(code, "amt_knn_packed")
+    out = launch(query, support, k, *launch_config(B, M, N, k))
     knn_cuda.launches += 1
-    return idx, dist
+    return out
 
 
 knn_cuda.launches = 0

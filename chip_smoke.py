@@ -13,19 +13,30 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the sampling and training paths give it (batch 32, 8192-point
    contact clouds) and on a near-tie cloud, plus a few shapes off those
-   paths. FPS picks, kNN idx and dist, the gathered rows and the
-   scatter-added rows (f32 and bf16) must be bit-equal, the scatter also
-   from one launch to the next. The banded kernels (windowed kNN, gather and
-   scatter-add) likewise, on curve-sorted clouds with the static rank-1
-   starts and the adaptive rank-2 starts of real sorted FPS indices, and
-   with some indices put outside their window (zero rows, dropped
-   contributions). Times by CUDA events, beside the plain version and,
-   where one PyTorch call computes the same function (``torch.gather``,
-   ``index_add_``), beside that call; the bound is the least time the card
-   could take, from the bytes moved and the operations done at these shapes,
-   at the card's peak rate for the inputs' type (bf16: the tensor cores').
-   FPS also at B = 1 (the single-cloud TPU kernel's case) and at N = 1000
-   and 8191, with its time per pick. The fused 1-NN
+   paths (the kNN also at other block sizes and splits of the cloud, k up to
+   64; the banded gather with its other instance and splits). FPS picks,
+   kNN idx and dist, the gathered rows and the scatter-added rows (f32 and
+   bf16) must be bit-equal, the scatter also from one launch to the next.
+   The banded kernels (windowed kNN, gather and scatter-add) likewise, on
+   curve-sorted clouds with the static rank-1 starts and the adaptive rank-2
+   starts of real sorted FPS indices, and with some indices put outside
+   their window (zero rows, dropped contributions). Times by CUDA events, the median of 5 blocks of
+   back-to-back calls (least and largest printed), each block queued behind
+   a device-side sleep so the card, not the host's launch rate, sets it;
+   beside the plain version and, where one PyTorch call computes the same
+   function (``torch.gather``, ``index_add_``), beside that call (for the
+   kNN, beside ``torch.cdist`` + ``torch.topk``, a yardstick that is not the
+   same function: exact distances, not packed keys); the bound is the least
+   time the card could take, from the bytes moved and the operations done at
+   these shapes, at the card's peak rate for the inputs' type (bf16: the
+   tensor cores'). The kNN skips pairs that cannot enter the k smallest, and
+   the skip is exact, so no count of pairs bounds every exact algorithm: its
+   bound is its bytes alone, and a device counter gives the share of pairs
+   it visits, beside the time of a dense scan's and of those pairs'
+   operations.
+   FPS also at B = 1 (the single-cloud TPU kernel's case), at N = 1000
+   and 8191, with its time per pick, and past 8192 points (its streamed
+   instance) at N = 16384 and 10000 on random and near-tie clouds. The fused 1-NN
    (``nn1``) at the scene protocol's shape (8192 scene points, 10475 body
    vertices, 196 frames), on a cloud with duplicated and near-tie vertices
    and at a vertex count that no tile divides: idx and d2 bit-equal to its
@@ -81,15 +92,17 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    sequences a batch), LBS, SDF physics and APD. Samples must be finite with
    shape (32, 196, 66), ``metrics.txt`` hold the four metrics, the pickles
    carry 69-d params, ``nn1`` be launched once per sequence and the attention
-   once per layer of every denoiser step and of every regressor call. Three
+   once per layer of every denoiser step and of every regressor call; a
+   second evaluator over the same samples must write a byte-identical
+   ``metrics.json``. Three
    alternating pairs of DDIM-50 chains with and without ``AM_FLASH_ATTN``
    give the denoiser step's time each way.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
 largest difference from the plain version, and its time, the plain
-version's, the bound and the library call's, each summed over the shapes of
-one pass of its path (one hierarchy and encoder forward; for the scatter
+version's, the bound and the library call's (and the kNN's yardstick's,
+under ``yardstick_ms``), each summed over the shapes of one pass of its path (one hierarchy and encoder forward; for the scatter
 one backward). The last line is ``{"ok": true, "device": {...}}``.
 Everything written at run time goes under ``build/`` in the checkout.
 """
@@ -126,6 +139,15 @@ REPLACES = {
     "attention": ("afford_motion_torch/csrc/attention.cu",
                   "afford_motion_tpu/models/layers.py:122"),
 }
+# the packed-kNN calls of one SceneMap hierarchy, (query level, support
+# level, k), level 0 the 8192-point cloud and each next one its FPS to
+# 2048, 512, 128 (the 128x128 level is below the kernel's range and takes
+# the exact path); the row gathers of its encoder, ((query level, support
+# level), channels): per level the TransitionDown group (3 + C_in) and the
+# block's packed xyz|k|v (3 + 2C), for planes 32/64/128/256
+KNN_CALLS = ((0, 0, 8), (1, 0, 16), (1, 1, 16), (2, 1, 16), (2, 2, 16), (3, 2, 16))
+GATHER_CALLS = (((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67), ((2, 2), 259),
+                ((3, 2), 131), ((3, 3), 515))
 # launches per train step (one hierarchy, encoder forward and backward) and
 # per chain (no backward) on each route; level 3's 128-point self kNN is
 # below both kNN kernels' range and takes the exact path
@@ -158,17 +180,39 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean ms per call by CUDA events, after one warm-up call."""
+# blocks of back-to-back calls a kernel's (and a library call's) time is the
+# median of; the plain versions, timed for the record only, take fewer
+TIME_BLOCKS, PLAIN_BLOCKS = 5, 3
+# cycles of torch.cuda._sleep a second: above any H100 clock, so a sleep
+# lasts at least as long as asked
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
+def time_ms(fn, reps: int, blocks: int = TIME_BLOCKS):
+    """ms per call by CUDA events: the median, least and largest over
+    ``blocks`` blocks of ``reps`` back-to-back calls, after a warm-up block.
+    Each block is queued behind a device-side sleep longer than the host
+    takes to queue it, so the calls run back to back on the card and a
+    short kernel is not timed at the host's launch rate (a function that
+    waits for the device inside still is)."""
     fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    queue_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    per_call = []
+    for _ in range(blocks):
+        torch.cuda._sleep(min(int(SLEEP_CYCLES_PER_S * (2 * queue_s + 1e-4)), 10 ** 8))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return float(np.median(per_call)), min(per_call), max(per_call)
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -188,6 +232,8 @@ class KernelReport:
         self.ms = {k: 0.0 for k in REPLACES}
         self.plain_ms = {k: 0.0 for k in REPLACES}
         self.library_ms = {k: None for k in REPLACES}
+        # a call that computes a related function (the kNN's cdist + topk)
+        self.yardstick_ms = {k: None for k in REPLACES}
         # ms at the card's peaks for the path shapes' bytes and operations
         self.bytes_ms = {k: 0.0 for k in REPLACES}
         self.ops_ms = {k: 0.0 for k in REPLACES}
@@ -214,13 +260,26 @@ class KernelReport:
         self.err[name] = max(self.err[name], diff.max().item())
 
     def timed(self, name, label, kernel, plain, reps, path_shape=True, *, nbytes, flops,
-              library=None, peak=F32_FLOP_PER_S):
+              library=None, peak=F32_FLOP_PER_S, yardstick=None):
         """Time one shape. ``nbytes``: every input read once and every output
         written once; ``flops``: the arithmetic the function needs; ``peak``:
-        the card's rate for operations on inputs of this type. Returns the
-        kernel's, the plain version's and the library call's ms."""
-        k_ms, p_ms = time_ms(kernel, reps), time_ms(plain, max(1, reps // 3))
-        l_ms = None if library is None else time_ms(library, reps)
+        the card's rate for operations on inputs of this type; ``yardstick``:
+        a call that computes a related function, timed one call a block.
+        Returns the kernel's, the plain version's and the library call's
+        median ms."""
+        (k_ms, k_lo, k_hi), (p_ms, _, _) = time_ms(kernel, reps), time_ms(
+            plain, max(1, reps // 3), PLAIN_BLOCKS)
+        l_ms, line = None, ""
+        for what, fn, calls, into in (("library", library, reps, self.library_ms),
+                                      ("yardstick", yardstick, 1, self.yardstick_ms)):
+            if fn is None:
+                continue
+            t = time_ms(fn, calls)
+            if what == "library":
+                l_ms = t[0]
+            if path_shape:
+                into[name] = (into[name] or 0.0) + t[0]
+            line += f", {what} {t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
         b_ms, by = bound_ms(bytes_ms, ops_ms)
         if path_shape:
@@ -228,11 +287,8 @@ class KernelReport:
             self.plain_ms[name] += p_ms
             self.bytes_ms[name] += bytes_ms
             self.ops_ms[name] += ops_ms
-            if l_ms is not None:
-                self.library_ms[name] = (self.library_ms[name] or 0.0) + l_ms
-        lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
-        log(f"  {name} {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
-            f"bound {b_ms:.4f} ms ({by})")
+        log(f"  {name} {label}: kernel {k_ms:.4f} ms (median of {TIME_BLOCKS} blocks; "
+            f"{k_lo:.4f}-{k_hi:.4f}), plain {p_ms:.4f} ms{line}, bound {b_ms:.4f} ms ({by})")
         return k_ms, p_ms, l_ms
 
 
@@ -250,9 +306,12 @@ def kernel_usage(ptxas_log: str) -> dict:
                 n = int(m.group(1))
                 parts.append(rest[m.end():m.end() + n])
                 rest = rest[m.end() + n:]
-            args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+            args = re.match(r"I((?:L[ib]\d+E|[a-z])+)E", rest)
+            types = {"t": "u16", "j": "u32", "f": "f32", "i": "i32"}
             name = (parts[-1] if parts else entry.group(1)) + (
-                f"<{','.join(re.findall(r'(\d+)E', args.group(1)))}>" if args else "")
+                "<" + ",".join(v or types.get(t, t) for v, t in
+                               re.findall(r"L[ib](\d+)E|([a-z])", args.group(1))) + ">"
+                if args else "")
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -285,6 +344,28 @@ def tensor_core_ops(lib_path: Path) -> str:
     return ", ".join(f"{n} {op}" for op, n in counts.items())
 
 
+def knn_ops_ms(pairs: int) -> str:
+    """The time of a kNN's arithmetic on ``pairs`` query-support pairs (3
+    differences, 3 products, 2 sums and the compare against the k-th key):
+    at the card's f32 peak, which counts an FMA as two operations, and at
+    the no-FMA floor of one FP32 instruction an operation (half that
+    rate), which the kernel's rounding contract imposes."""
+    t = 1e3 * 9.0 * pairs / F32_FLOP_PER_S
+    return f"{t:.4f} ms (no-FMA floor {2 * t:.4f} ms)"
+
+
+def cdist_topk(q: torch.Tensor, s: torch.Tensor, k: int):
+    """A yardstick for the packed kNN, not the same function: exact
+    difference-form distances (``torch.cdist`` without the matrix-product
+    expansion) and their k smallest, in query chunks that keep the distance
+    matrix under 1 GB."""
+    b, m, _ = q.shape
+    chunk = max(1, min(m, (1 << 30) // (b * s.shape[1] * 4)))
+    return [torch.topk(torch.cdist(q[:, lo:lo + chunk], s,
+                                   compute_mode="donot_use_mm_for_euclid_dist"),
+                       k, dim=-1, largest=False) for lo in range(0, m, chunk)]
+
+
 def phase_kernels(dev: torch.device) -> KernelReport:
     from afford_motion_torch.ops.cuda import fps as fps_mod
     from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
@@ -294,6 +375,7 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         scatter_add_rows,
         scatter_add_rows_plain,
     )
+    from afford_motion_torch.ops.cuda import knn as knn_mod
     from afford_motion_torch.ops.cuda.knn import knn_cuda, knn_plain
 
     rep = KernelReport()
@@ -321,27 +403,33 @@ def phase_kernels(dev: torch.device) -> KernelReport:
                       lambda p=parent, m=n_out: fps_plain(p, m), 5, path,
                       nbytes=B * (n_in * 12 + n_out * 4), flops=10.0 * B * n_out * n_in)
             levels.append(torch.gather(parent, 1, got.long()[..., None].expand(-1, -1, 3)))
-        # the packed-kNN calls of one SceneMap hierarchy (the 128x128 level
-        # is below the kernel's range and takes the exact path)
-        knn_idx = {}
-        for qi, si, k in ((0, 0, 8), (1, 0, 16), (1, 1, 16), (2, 1, 16), (2, 2, 16), (3, 2, 16)):
+        knn_idx, pairs, visited = {}, 0, 0
+        for qi, si, k in KNN_CALLS:
             q, s = levels[qi], levels[si]
             label = f"{kind} q{tuple(q.shape)} s{tuple(s.shape)} k={k}"
             got = knn_cuda(q, s, k)
             rep.check("knn", label, got, knn_plain(q, s, k))
-            # per query-support pair: 3 differences, 3 products, 2 sums and
-            # the compare against the k-th key
+            # bound: the bytes alone (the skip of pairs is exact, so no count
+            # of pairs bounds every exact algorithm)
             m, n = q.shape[1], s.shape[1]
             rep.timed("knn", label, lambda q=q, s=s, k=k: knn_cuda(q, s, k),
                       lambda q=q, s=s, k=k: knn_plain(q, s, k), 5, path,
-                      nbytes=B * ((m + n) * 12 + m * k * 8), flops=9.0 * B * m * n)
+                      nbytes=B * ((m + n) * 12 + m * k * 8), flops=0.0,
+                      yardstick=lambda q=q, s=s, k=k: cdist_topk(q, s, k))
+            # the pairs this kernel visits: chunks of 32 points scanned by
+            # warps of 32 queries (a second launch, with the counter on)
+            visits = torch.zeros(1, dtype=torch.int64, device=dev)
+            rep.check("knn", label + " with the visit counter",
+                      knn_mod.launch(q, s, k, *knn_mod.launch_config(B, m, n, k), visits=visits),
+                      got)
+            seen = int(visits.item()) * knn_mod.CHUNK * 32
+            log(f"    visits {seen / (B * m * n):.4f} of the {B * m * n} pairs; at 9 operations a "
+                f"pair {knn_ops_ms(B * m * n)} for a dense scan, {knn_ops_ms(seen)} for these")
+            pairs, visited = pairs + B * m * n, visited + seen
             knn_idx[(qi, si)] = got[0]
-        # the row gathers of the SceneMap encoder: per level, the
-        # TransitionDown group (3 + C_in channels) and the block's packed
-        # xyz|k|v (3 + 2C), for planes 32/64/128/256
-        gathers = [((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67),
-                   ((2, 2), 259), ((3, 2), 131), ((3, 3), 515)]
-        for (qi, si), c in gathers:
+        log(f"  knn a pass ({kind}): visits {visited / pairs:.4f} of the pairs; "
+            f"{knn_ops_ms(pairs)} for a dense scan, {knn_ops_ms(visited)} for the pairs visited")
+        for (qi, si), c in GATHER_CALLS:
             idx = knn_idx.get((qi, si))
             if idx is None:  # 128-point level: any in-range neighbours will do
                 idx = torch.randint(0, 128, (B, 128, 16), device=dev, dtype=torch.int32,
@@ -388,10 +476,29 @@ def phase_kernels(dev: torch.device) -> KernelReport:
     for k in (3, 32, 64):
         q, s = cloud[:, :512].contiguous(), cloud[:, :2048].contiguous()
         rep.check("knn", f"off-path k={k}", knn_cuda(q, s, k), knn_plain(q, s, k))
+    # other block sizes and splits of the cloud than the wrapper picks at
+    # these shapes (threads a block, parts of the cloud)
+    q, s = clouds["near-tie"][:, :512].contiguous(), clouds["near-tie"][:, :2048].contiguous()
+    for k, config in ((8, (1024, 1)), (16, (128, 16)), (8, (96, 4)), (32, (512, 2)),
+                      (64, (256, 2))):
+        rep.check("knn", f"off-path near-tie k={k} config {config}",
+                  knn_mod.launch(q, s, k, *config), knn_plain(q, s, k))
     for n in (1000, 8191):   # clouds that leave padding slots
         odd = cloud[:, :n].contiguous()
         rep.check("fps", f"off-path (32,{n},3)->{n // 4}", [fps_cuda(odd, n // 4)],
                   [fps_plain(odd, n // 4)])
+    # the streamed instance, past 8192 points: a power of two and a ragged
+    # size, random and near-tie (16^3 grid) clouds
+    for n in (16384, 10000):
+        for kind, big in (("random", rng.normal(size=(4, n, 3))),
+                          ("near-tie", rng.integers(0, 16, size=(4, n, 3)) * 0.125)):
+            big = torch.from_numpy(big.astype(np.float32)).to(dev)
+            label = f"streamed {kind} (4,{n},3)->{n // 8}"
+            rep.check("fps", label, [fps_cuda(big, n // 8)], [fps_plain(big, n // 8)])
+            if kind == "random" and n == 16384:
+                rep.timed("fps", label, lambda big=big, n=n: fps_cuda(big, n // 8),
+                          lambda big=big, n=n: fps_plain(big, n // 8), 3, False,
+                          nbytes=4 * (n * 12 + n // 8 * 4), flops=10.0 * 4 * n // 8 * n)
     # one cloud: what the TPU package's single-row FPS kernel computes
     for kind, c in clouds.items():
         one = c[:1].contiguous()
@@ -412,15 +519,15 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         g = torch.randn(2, 700, 3, 131, device=dev, generator=gen).to(dtype)
         rep.check("scatter", "off-path one destination", [scatter_add_rows(g, one, 9)],
                   [scatter_add_rows_plain(g, one, 9)])
-    log("  off-path checks: kNN k=3/32/64, FPS N=1000/8191 and B=1, gather and scatter C=1, "
-        "scatter onto one destination bit-equal")
+    log("  off-path checks: kNN k=3/32/64, FPS N=1000/8191, B=1 and N=10000/16384 (streamed), "
+        "gather and scatter C=1, scatter onto one destination bit-equal")
     return rep
 
 
 def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
     """The three banded kernels against their plain versions at the shapes
     of one banded SceneMap hierarchy, encoder forward and backward."""
-    from afford_motion_torch.ops.cuda import banded
+    from afford_motion_torch.ops.cuda import banded, build
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.curves import curve_order
     from afford_motion_torch.ops.pointops import knn as knn_exact
@@ -444,7 +551,7 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
             fps.append(idx)
             levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3)))
         starts, knn_idx = {}, {}
-        for qi, si, k in ((0, 0, 8), (1, 0, 16), (1, 1, 16), (2, 1, 16), (2, 2, 16), (3, 2, 16)):
+        for qi, si, k in KNN_CALLS:
             q, sup = levels[qi], levels[si]
             m, n = q.shape[1], sup.shape[1]
             size = banded.window_starts(m, n, banded.window_width(n, w0))[1]
@@ -479,9 +586,7 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
         # gather still takes the banded route with the full window S = 128
         knn_idx[(3, 3)] = knn_exact(levels[3], levels[3], 16)[0].contiguous()
         starts[(3, 3)] = banded._starts_tensor(128, 128, w0, dev)
-        gathers = [((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67),
-                   ((2, 2), 259), ((3, 2), 131), ((3, 3), 515)]
-        for (qi, si), c in gathers:
+        for (qi, si), c in GATHER_CALLS:
             idx, st = knn_idx[(qi, si)], starts[(qi, si)]
             n_src = levels[si].shape[1]
             m, k = idx.shape[1:]
@@ -513,6 +618,17 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
                 if size < n_src and bool(torch.equal(
                         banded.gather_banded(x, moved, st, w0), banded.gather_banded(x, idx, st, w0))):
                     raise AssertionError(f"{label}: no moved index left its window")
+                # the instance and split the wrapper did not pick at this shape
+                _, staged = banded.gather_config(B, m, c, k, size, x.element_size())
+                stride = 0 if st.ndim == 1 else st.shape[1]
+                window = size * c * x.element_size() + banded.TQ * k * 4
+                for parts, other in ((1, not staged), (16, not staged), (2, staged)):
+                    if other and window > build.SMEM_BYTES:
+                        continue
+                    rep.check("banded_gather",
+                              f"{label} out-of-window parts={parts} staged={other}",
+                              [banded.launch_gather(x, moved, st, stride, size, parts, other)],
+                              [banded.gather_banded_plain(x, moved, st, size)])
                 if not path:
                     continue
                 on_path = dtype == torch.bfloat16
@@ -1087,11 +1203,30 @@ def check_scene_outputs(out: Path) -> None:
         raise AssertionError("scene slice: joints/*.pkl lack finite 69-d params")
 
 
+def capture_evaluator(create, seen: dict):
+    """``create_evaluator`` that also records its arguments and what its
+    evaluator's ``evaluate`` was given (the samples and the dataloader), so
+    a second evaluator can be run over the same samples."""
+    def creating(*args, **kwargs):
+        evaluator = create(*args, **kwargs)
+        evaluate = evaluator.evaluate
+        seen.update(args=args, kwargs=kwargs)
+
+        def recording(sample_list, k_samples_list, save_dir, dataloader, **kw):
+            seen.update(samples=(sample_list, k_samples_list), dataloader=dataloader)
+            return evaluate(sample_list, k_samples_list, save_dir, dataloader, **kw)
+
+        evaluator.evaluate = recording
+        return evaluator
+    return creating
+
+
 def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
     """The scene-protocol test path through the test entry, with the fused
     attention on; then one DDIM-50 chain each way for the denoiser step's
     time with and without it. Returns the launches of the protocol run."""
     from afford_motion_torch import test as entry
+    from afford_motion_torch.eval import create_evaluator
 
     env = {"AM_FLASH_ATTN": "1", "SMPLX_USE_SYNTHETIC": "1",
            "SMPLX_SYNTHETIC_VERTS": str(N_VERTS), "SMPLX_SYNTHETIC_FACES": str(N_FACES)}
@@ -1102,9 +1237,14 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
         tree = make_scene_tree(dev)
         log(f"scene slice: tree, checkpoint and regressor in {time.monotonic() - t0:.1f} s")
         base = scene_args(tree)
-        reset(counters)
-        out = Path(entry.main(base))
-        launches = {k: fn.launches for k, fn in counters.items()}
+        seen = {}
+        entry.create_evaluator = capture_evaluator(create_evaluator, seen)
+        try:
+            reset(counters)
+            out = Path(entry.main(base))
+            launches = {k: fn.launches for k, fn in counters.items()}
+        finally:
+            entry.create_evaluator = create_evaluator
         timing = json.loads((out / "timing.json").read_text())
         chains = timing["chains"]
         # two chains of one hierarchy each; the attention once per layer of
@@ -1119,6 +1259,19 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
             raise AssertionError(f"scene slice: {len(chains)} chains, launches {launches}, "
                                  f"expected {want}")
         check_scene_outputs(out)
+        # a second evaluator over the same samples: metrics.json byte for byte
+        again = out / "evaluated_again"
+        again.mkdir()
+        t0 = time.monotonic()
+        second = create_evaluator(*seen["args"], **seen["kwargs"])
+        second.evaluate(*seen["samples"], str(again), seen["dataloader"])
+        second.report(str(again))
+        same = (again / "metrics.json").read_bytes() == (out / "metrics.json").read_bytes()
+        log(f"scene slice: a second evaluator run over the same samples "
+            f"({time.monotonic() - t0:.1f} s): metrics.json byte-identical={same}")
+        if not same:
+            raise AssertionError("scene slice: two evaluator runs over the same samples wrote "
+                                 "different metrics.json")
         ev = timing["evaluator"]
         for c in chains:
             log(f"scene slice: DDPM-500 chain {c['chain_s']:.3f} s (hierarchy + contact encoding "
@@ -1230,6 +1383,7 @@ def main() -> int:
             "replaces": REPLACES[name][1], "launches": launches[name],
             "max_abs_err": rep.err[name], "ms": rep.ms[name], "plain_ms": rep.plain_ms[name],
             "bound_ms": b_ms, "bound_by": by, "library_ms": rep.library_ms[name],
+            "yardstick_ms": rep.yardstick_ms[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

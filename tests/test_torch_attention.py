@@ -277,6 +277,32 @@ def test_flash_gate_conditions(monkeypatch):
     assert len(calls) == 2
 
 
+
+@pytest.mark.parametrize("hd,fused", [(64, True), (128, False)])
+def test_flash_gate_routes_wide_heads_to_einsum(hd, fused, monkeypatch):
+    """With the switch on, a head dimension above the kernel's 64 takes the
+    einsum path before any launch (the kernel would refuse it); 64 takes the
+    kernel's route."""
+    calls = []
+
+    def recording(q, k, v, num_heads, pad_mask=None):
+        calls.append(q.shape[-1] // num_heads)
+        return tattn.attention_plain(q, k, v, num_heads, pad_mask)
+
+    monkeypatch.setattr(tlayers, "attention_cuda", recording)
+    monkeypatch.setenv("AM_FLASH_ATTN", "1")
+    # CPU tensors: the switch stands in for the variable on a card
+    monkeypatch.setattr(tlayers, "_flash_enabled", lambda t: True)
+    x, _, _, pad = (torch.from_numpy(a) for a in _qkv(5, 2, 12, 12, 2 * hd))
+    torch.manual_seed(0)
+    mha = tlayers.TorchMultiHeadAttention(2 * hd, 2).eval()
+    got = mha(x, x, x, pad)
+    assert calls == ([hd] if fused else [])
+    monkeypatch.setattr(tlayers, "_flash_enabled", lambda t: False)
+    want = mha(x, x, x, pad)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=0, atol=1e-5)
+
+
 def test_encoder_layer_relu_matches_jax():
     """The regressor's encoder layer: ReLU in place of the CMDM's GELU."""
     from flax import linen as nn

@@ -367,3 +367,27 @@ def test_debug_containment_check_raises(monkeypatch):
         jb.gather_banded(jnp.asarray(x.numpy()), jnp.asarray(bad))
     monkeypatch.delenv("AM_BANDED_DEBUG")
     assert not tb.gather_banded(x, torch.from_numpy(bad))[0, 0, 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_config_at_the_scenemap_shapes(dtype):
+    """The gather kernel's launch at the seven banded gathers of one SceneMap
+    encoder (batch 32): a split of the 128-row tile into 1 to 16 blocks of at
+    least 8 rows, the split that gives a block an SM, and the window staged
+    in shared memory exactly when it fits beside the block's indices (f32
+    at the 259- and 515-channel levels does not)."""
+    from afford_motion_torch.ops.cuda import build
+
+    size = torch.tensor([], dtype=dtype).element_size()
+    shapes = [(8192, 8192, 67, 8), (2048, 8192, 35, 16), (2048, 2048, 131, 16),
+              (512, 2048, 67, 16), (512, 512, 259, 16), (128, 512, 131, 16), (128, 128, 515, 16)]
+    for m, n, c, k in shapes:
+        s = tb._window(m, n, 128)
+        parts, staged = tb.gather_config(32, m, c, k, s, size)
+        assert parts in (1, 2, 4, 8, 16) and 128 // parts >= 8
+        assert 32 * (m // tb.TQ) * parts >= build.SMS or parts == 16
+        assert parts == 1 or 32 * (m // tb.TQ) * parts // 2 < build.SMS
+        assert staged == (s * c * size + tb.TQ * k * 4 <= build.SMEM_BYTES)
+    if dtype == torch.float32:
+        assert not tb.gather_config(32, 512, 259, 16, 384, 4)[1]
+        assert not tb.gather_config(32, 128, 515, 16, 128, 4)[1]

@@ -105,11 +105,12 @@ def _fps_packed_key_model(cloud, m):
     (value bits << 32) | (0xFFFFFFFF - index), 0 for a thread with no point;
     a warp takes the largest high word, then the largest low word among the
     lanes that hold it (two ``redux.sync``), and the partials of all warps of
-    the cluster are reduced the same way."""
+    the cluster are reduced the same way. Both instances (register-resident
+    up to ``RESIDENT_POINTS``, streamed above) use these slots."""
     threads, cluster = tfps.THREADS, tfps.CLUSTER
     n = len(cloud)
     span = threads * cluster
-    idx = (np.arange(-(-tfps.MAX_POINTS // span))[:, None, None] * span
+    idx = (np.arange(-(-max(n, tfps.RESIDENT_POINTS) // span))[:, None, None] * span
            + np.arange(cluster)[None, :, None] * threads
            + np.arange(threads)[None, None, :])                       # (slots, blocks, threads)
     valid = idx < n
@@ -166,6 +167,26 @@ def test_fps_packed_key_order_matches_first_index_rule(kind, m):
         assert np.isinf(d).sum() > 1
     for b in range(len(pts)):
         np.testing.assert_array_equal(_fps_packed_key_model(pts[b], m), want[b])
+
+
+
+@pytest.mark.parametrize("kind", ["random", "near-tie"])
+def test_fps_beyond_the_resident_cloud(kind):
+    """Past 8192 points ``fps_cuda`` has no cap: on the CPU it takes
+    ``fps_plain``, and the key-order model of the streamed instance's slots
+    (10 a thread at N = 10,000) picks what ``fps_plain`` picks."""
+    rng = np.random.default_rng(16)
+    n = 10_000
+    assert n > tfps.RESIDENT_POINTS
+    if kind == "near-tie":
+        pts = (rng.integers(0, 8, size=(1, n, 3)) * 0.125).astype(np.float32)
+    else:
+        pts = rng.normal(size=(1, n, 3)).astype(np.float32)
+    before = fps_cuda.launches
+    got = fps_cuda(torch.from_numpy(pts), 48).numpy()
+    assert fps_cuda.launches == before
+    np.testing.assert_array_equal(got, fps_plain(torch.from_numpy(pts), 48).numpy())
+    np.testing.assert_array_equal(_fps_packed_key_model(pts[0], 48), got[0])
 
 
 def test_fps_cuda_wrapper_routes_cpu_to_plain():

@@ -16,6 +16,8 @@ distances 1e-5 abs on all but the entries whose sign dot product is at
 rounding level (at most 0.2% of the entries may differ), vertex normals 1e-5,
 per-frame metrics 2/O (two points changing side), ``dist_to_obj`` 1e-5.
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,6 +148,48 @@ def test_vertex_normals_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     batched = tphys.vertex_normals(torch.from_numpy(vs), torch.from_numpy(faces))
     np.testing.assert_array_equal(batched[0].numpy(), got.numpy())
+
+
+
+def _index_add_normals(verts, faces):
+    """The summation the port used before its incidence table: ``index_add_``
+    of the face normals, one corner column at a time."""
+    faces = faces.long()
+    fv = verts[..., faces, :]
+    e1 = fv[..., 1, :] - fv[..., 0, :]
+    e2 = fv[..., 2, :] - fv[..., 0, :]
+    e1 = e1 / (torch.linalg.norm(e1, dim=-1, keepdim=True) + 1e-12)
+    e2 = e2 / (torch.linalg.norm(e2, dim=-1, keepdim=True) + 1e-12)
+    fn = torch.linalg.cross(e1, e2, dim=-1)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn.index_add_(-2, faces[:, k], fn)
+    return vn / (torch.linalg.norm(vn, dim=-1, keepdim=True) + 1e-12)
+
+
+def test_vertex_normals_fixed_order():
+    """The incidence-table sum agrees with the ``index_add_`` one to 1e-6,
+    is bit-identical from call to call, and its table does not depend on the
+    order in which the incidence pairs come (faces with a repeated corner
+    and vertices in no face included)."""
+    _, vs, faces = _scene(21, 16, 3, 400)
+    faces[:5, 1] = faces[:5, 0]          # degenerate faces: a vertex named twice
+    faces[faces == 7] = 8                # vertex 7 in no face: a zero normal
+    v, f = torch.from_numpy(vs), torch.from_numpy(faces)
+    got = tphys.vertex_normals(v, f)
+    np.testing.assert_allclose(got.numpy(), _index_add_normals(v, f).numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(got, tphys.vertex_normals(v, f))
+    assert torch.equal(got, tphys.vertex_normals(v, f, tphys.face_table(f, 400)))
+    assert not got[:, 7].any()
+    vert_of = faces.reshape(-1).astype(np.int64)
+    face_of = np.arange(vert_of.size) // 3
+    table = tphys.incidence_table(vert_of, face_of, 400, len(faces))
+    perm = np.random.default_rng(3).permutation(vert_of.size)
+    np.testing.assert_array_equal(
+        tphys.incidence_table(vert_of[perm], face_of[perm], 400, len(faces)), table)
+    assert (np.diff(table, axis=1) >= 0).all()
+    assert table[7].tolist() == [len(faces)] * table.shape[1]
+    assert "index_add" not in inspect.getsource(tphys.vertex_normals)
 
 
 def _assert_sdf_close(got, want):
