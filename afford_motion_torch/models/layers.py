@@ -18,9 +18,12 @@ explicit ``torch.Generator`` on the module's device, set for a whole model
 by :func:`set_dropout_generator`; the masks are torch's, not JAX's.
 
 With ``AM_FLASH_ATTN=1`` in the environment, attention on CUDA tensors goes
-through the fused kernel (``ops/cuda/attention.py``) wherever the weights'
+through the fused kernels (``ops/cuda/attention.py``) wherever the weights'
 dropout is inactive, as the JAX package's flash path does on its device; the
-default is the float32-softmax :func:`_attention`.
+default is the float32-softmax :func:`_attention`. The fused route carries
+gradients (its backward is the library's, in kernels too), so a train step
+with ``model.dropout=0``, which reaches every Dropout here, differentiates
+through it.
 """
 from __future__ import annotations
 

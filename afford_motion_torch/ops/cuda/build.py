@@ -69,8 +69,12 @@ _SIGNATURES = {
     "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # (points, verts, l, o, h, d2, idx, stream)
     "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P],
-    # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, stream)
-    "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P],
+    # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, stream)
+    "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P],
+    # (q, k, v, o, dout, lse, mask, b, lq, lk, heads, hd, scale, elem_bytes, di, dq, dk, dv,
+    #  stream)
+    "amt_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                          _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

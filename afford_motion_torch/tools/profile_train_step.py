@@ -1,6 +1,6 @@
 """Where one full-width train step's time goes on the card:
 
-    python -m afford_motion_torch.tools.profile_train_step [out_dir] [--banded]
+    python -m afford_motion_torch.tools.profile_train_step [out_dir] [--banded | --flash]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -14,7 +14,13 @@ device's step, not the host's loading. With ``--banded`` it profiles the
 banded step instead, as the loop runs it on a curve-sorted packed store: the
 clouds are Hilbert-sorted, the batch carries each item's cached ascending
 ``fps_idx`` (so no FPS runs in the step) and the model has ``use_banded`` on;
-the table goes to ``profile_train_step_banded.txt``.
+the table goes to ``profile_train_step_banded.txt``. With ``--flash`` the model
+has dropout 0 and every step is taken twice, with ``AM_FLASH_ATTN=1`` (the
+fused attention's kernels, forward and backward) and ``0`` (the einsum
+route), in turns; besides the whole and the traced steps it times one
+layer's attention, forward and backward, at the step's shape each way with
+``chip_smoke.time_ms``, and sums the fused kernels' device time in the
+traced step; the table goes to ``profile_train_step_flash.txt``.
 """
 from __future__ import annotations
 
@@ -63,7 +69,57 @@ def _banded_batch(rng, dev):
     return cond
 
 
-def main(out_dir: str = "build/profile", banded: bool = False) -> None:
+def _attention_alone(smoke, model, x_mask, dev) -> list:
+    """One layer's attention at the step's shape (batch 32, 1 + 1 + 128 + 196
+    tokens, the motions' padding masked), forward and backward, fused and
+    einsum, by ``chip_smoke.time_ms``: lines of the table."""
+    from ..models import layers
+    from ..ops.cuda.attention import attention_cuda
+
+    mha = model.self_attn_layer.layers[0].self_attn
+    heads, width = mha.num_heads, mha.d_model
+    seq = 2 + 128 + L
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(B, seq, width, device=dev, generator=gen).bfloat16().requires_grad_(True)
+               for _ in range(3))
+    do = torch.randn(B, seq, width, device=dev, generator=gen).bfloat16()
+    pad = torch.cat([torch.zeros((B, seq - L), dtype=torch.bool, device=dev), x_mask], dim=1)
+    routes = {"fused": lambda: attention_cuda(q, k, v, heads, pad),
+              "einsum": lambda: layers._attention(q, k, v, heads, pad, mha.dropout)}
+    lines = [f"one layer's attention ({B},{seq},{heads}x{width // heads}) bf16, ms per call "
+             f"(chip_smoke.time_ms: median of {smoke.TIME_BLOCKS} blocks of 20 calls):"]
+    for name, fwd in routes.items():
+        with torch.no_grad():
+            f_ms = smoke.time_ms(fwd, 20)[0]
+        out = fwd()
+        b_ms = smoke.time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+                             20)[0]
+        lines.append(f"  {name}: forward {f_ms:.4f}, backward {b_ms:.4f}, both {f_ms + b_ms:.4f}; "
+                     f"x {len(model.self_attn_layer.layers)} layers a step: "
+                     f"{len(model.self_attn_layer.layers) * (f_ms + b_ms):.4f}")
+    return lines
+
+
+def _traced(step, state, x, cond, seed: int):
+    """One traced step: (wall ms, device ms, launches, [(ms, count, name)]).
+    Ranges the profiler marks as user annotations (the optimizer's step) are
+    left out: their device time is that of the kernels inside them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, traced_ms = _sync_time(lambda: step(state, x, cond, seed=seed))
+    events = [e for e in prof.key_averages() if e.device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    cuda = [e for e in events if "cuda" in str(e.device_type).lower()]
+    events = cuda or events
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    count = sum(e.count for e in events)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in events),
+                  key=lambda r: -r[0])
+    return traced_ms, total, count, rows
+
+
+def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -72,7 +128,7 @@ def main(out_dir: str = "build/profile", banded: bool = False) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.manual_seed(2023)
-    model = CMDM(motion_dim=D, dtype=torch.bfloat16, dropout=0.1).to(dev)
+    model = CMDM(motion_dim=D, dtype=torch.bfloat16, dropout=0.0 if flash else 0.1).to(dev)
     diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
     state = TrainState.create(model, lr=1e-4)
     step = make_train_step(model, diffusion)
@@ -90,6 +146,13 @@ def main(out_dir: str = "build/profile", banded: bool = False) -> None:
         "x_mask": torch.from_numpy(x_mask).to(dev),
     })
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    if flash:
+        text = "\n".join(_flash_table(model, step, state, x, cond, diffusion, dev))
+        print(text, flush=True)
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "profile_train_step_flash.txt").write_text(text + "\n")
+        return
     for i in range(3):
         step(state, x, cond, seed=i)
 
@@ -121,20 +184,11 @@ def main(out_dir: str = "build/profile", banded: bool = False) -> None:
     lines.append(f"  whole step: {min(whole):.3f} / {np.mean(whole):.3f} / {max(whole):.3f}")
 
     # (2) one traced step
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, traced_ms = _sync_time(lambda: step(state, x, cond, seed=300))
-    events = [e for e in prof.key_averages() if e.device_time_total > 0
-              and "cuda" in str(e.device_type).lower()]
-    if not events:
-        events = [e for e in prof.key_averages() if e.device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    count = sum(e.count for e in events)
+    traced_ms, total, count, rows = _traced(step, state, x, cond, 300)
     lines.append(f"traced step: {traced_ms:.3f} ms wall with the profiler on, "
                  f"{total:.3f} ms of device kernels in {count} launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:30]:
-        lines.append(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:110]}")
+    for ms, n, key in rows[:30]:
+        lines.append(f"  {ms:9.3f} ms  {n:5d}x  {key[:110]}")
     text = "\n".join(lines)
     print(text, flush=True)
     out = Path(out_dir)
@@ -143,6 +197,39 @@ def main(out_dir: str = "build/profile", banded: bool = False) -> None:
     (out / name).write_text(text + "\n")
 
 
+def _flash_table(model, step, state, x, cond, diffusion, dev) -> list:
+    """The --flash table: whole steps and traced steps with AM_FLASH_ATTN=1
+    and 0 in turns, and one layer's attention alone each way."""
+    from .kernel_ab import _smoke
+
+    smoke = _smoke()
+    for i in range(3):
+        for value in ("1", "0"):
+            with smoke.flash_switch(value):
+                step(state, x, cond, seed=i)
+    whole = {"1": [], "0": []}
+    for i in range(4):
+        for value in ("1", "0") if i % 2 == 0 else ("0", "1"):
+            with smoke.flash_switch(value):
+                whole[value].append(_sync_time(lambda: step(state, x, cond, seed=200 + i))[1])
+    lines = ["dropout 0; whole step, ms to a synchronize (4 steps each way, in turns: "
+             "min / mean / max):"]
+    for value, v in whole.items():
+        lines.append(f"  AM_FLASH_ATTN={value}: {min(v):.3f} / {np.mean(v):.3f} / {max(v):.3f}")
+    for value in ("1", "0", "1", "0"):
+        with smoke.flash_switch(value):
+            traced_ms, total, count, rows = _traced(step, state, x, cond, 300)
+        fused = [(ms, n, key) for ms, n, key in rows if "attention" in key and "_kernel" in key]
+        lines.append(f"traced step, AM_FLASH_ATTN={value}: {traced_ms:.3f} ms wall with the "
+                     f"profiler on, {total:.3f} ms of device kernels in {count} launches; the "
+                     f"fused attention's kernels {sum(r[0] for r in fused):.3f} ms")
+        for ms, n, key in fused:
+            lines.append(f"  {ms:9.3f} ms  {n:5d}x  {key[:110]}")
+    for ms, n, key in rows[:12]:   # the einsum route's largest kernels
+        lines.append(f"  einsum route: {ms:9.3f} ms  {n:5d}x  {key[:100]}")
+    return lines + _attention_alone(smoke, model, cond["x_mask"], dev)
+
+
 if __name__ == "__main__":
-    _args = [a for a in sys.argv[1:] if a != "--banded"]
-    main(*_args[:1], banded="--banded" in sys.argv[1:])
+    _args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    main(*_args[:1], banded="--banded" in sys.argv[1:], flash="--flash" in sys.argv[1:])

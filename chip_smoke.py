@@ -7,9 +7,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: nvcc builds the kernels of ``afford_motion_torch/csrc`` into
-   ``build/kernels``; the registers, spills and shared memory of the FPS and
-   attention kernels from the build log, and the count of tensor-core
-   instructions (HMMA / HGMMA) in the bf16 attention's SASS (``cuobjdump``);
+   ``build/kernels``; the registers, spills and shared memory of every
+   kernel from the build log, and the count of tensor-core instructions
+   (HMMA / HGMMA) in the SASS (``cuobjdump``) of the bf16 attention's
+   forward and of its two backward kernels;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the sampling and training paths give it (batch 32, 8192-point
    contact clouds) and on a near-tie cloud, plus a few shapes off those
@@ -48,7 +49,19 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    tolerance of its plain version (``TOLERANCE`` in ops/cuda/attention.py:
    1e-5 of the largest ``|v|`` for f32; 2^-9 of it plus one bf16 ulp of the
    result for bf16, with the largest share of it any bf16 check needed);
-   timed beside ``F.scaled_dot_product_attention``;
+   timed beside ``F.scaled_dot_product_attention``. The attention's backward
+   (the di pass, dK/dV and dQ) against ``attention_backward_plain`` on the
+   kernel forward's o and row statistics, to ``TOLERANCE_BWD`` (and for bf16
+   at most ``DV_DIFFER_SHARE`` of dv's entries differing at all): at the
+   train path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's
+   masks) in bf16 and f32, at the regressor's f32 shape, and off the path at
+   head dimensions 8, 40 and 64 with odd lengths, a masked tile of 64 keys
+   and an item with no attended key; two calls bit-identical; the forward's
+   o bit-identical with and without the statistics, which must match
+   ``attention_lse_plain`` (LSE_LIMIT). dK/dV (with the di pass) and dQ
+   timed at the train shape, each beside the gradient of
+   ``scaled_dot_product_attention`` with the same mask with respect to the
+   same inputs; the whole backward likewise;
 4. autograd: ``gather_rows(x, idx).backward(g)`` and ``gather_banded(x,
    idx, starts).backward(g)`` through the kernels on the card equal the
    CPU's plain path bit for bit in float32;
@@ -57,14 +70,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    against the same on the CPU through the plain versions; then two banded
    train steps on a curve-sorted cloud likewise; then the evaluator's
    ``physics_over_sequence`` and a short SMPL-X fit (10 refine steps) on the
-   card against the CPU's plain path, float32;
+   card against the CPU's plain path, float32; then one train step's
+   gradients of the flagship CMDM at full width (dropout 0, 4 items,
+   1024-point clouds) through the fused attention against the einsum route,
+   in bf16 and float32: every layer's ``in_proj_weight.grad`` non-zero and
+   within FLASH_GRAD_LIMIT, the forward and backward launched once a layer;
 6. train: ``afford_motion_torch.train`` (the port's train entry) with the
    flagship CMDM ``trans_enc`` at full width from the seeded init, in the
    config's bf16, batch 32, 8192-point clouds, 196x263 motions, on the
    synthetic HumanML3D tree: 8 steps with a checkpoint every 4, then 4 more
    steps resumed from ``model000004.pt``, whose weights must equal the
    straight run's within RESUME_LIMIT. Every loss must be finite, FPS, kNN
-   and gather launched, and the scatter launched 7 times per step;
+   and gather launched, and the scatter launched 7 times per step. Then
+   ``flash train``: the same with ``model.dropout=0`` and
+   ``AM_FLASH_ATTN=1``, where each step also launches the fused attention's
+   forward and backward once per layer (5 each), 8 steps and 4 resumed;
 7. slice: ``afford_motion_torch.test`` (the port's test entry) from the
    checkpoint the train phase wrote, on one batch of 32 test items, once
    with DDIM-50 and once with DDPM-1000. x0 must be finite with shape
@@ -108,6 +128,7 @@ Everything written at run time goes under ``build/`` in the checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -138,7 +159,19 @@ REPLACES = {
     "nn1": ("afford_motion_torch/csrc/nn1.cu", "afford_motion_tpu/ops/pallas/sdf.py:128"),
     "attention": ("afford_motion_torch/csrc/attention.cu",
                   "afford_motion_tpu/models/layers.py:122"),
+    # the library's backward kernels the JAX package's flash path reaches
+    # through its custom_vjp (afford_motion_tpu/models/layers.py:122)
+    "attention_bwd_dkv": ("afford_motion_torch/csrc/attention.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "attention_bwd_dq": ("afford_motion_torch/csrc/attention.cu",
+                         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
+# what the kernels line's numbers mean where a row's differ from the others'
+_WHOLE = ("launches: calls of attention_backward_cuda, each launching the di pass, dK/dV and "
+          "dQ; ms: {} by the profiler's device time; library_ms: the whole backward of "
+          "scaled_dot_product_attention (dq, dk and dv), against the sum of both rows' ms")
+NOTES = {"attention_bwd_dkv": _WHOLE.format("the di pass and dK/dV"),
+         "attention_bwd_dq": _WHOLE.format("dQ")}
 # the packed-kNN calls of one SceneMap hierarchy, (query level, support
 # level, k), level 0 the 8192-point cloud and each next one its FPS to
 # 2048, 512, 128 (the 128x128 level is below the kernel's range and takes
@@ -153,14 +186,17 @@ GATHER_CALLS = (((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67), ((2, 2)
 # below both kNN kernels' range and takes the exact path
 PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
               "banded_knn": 0, "banded_gather": 0, "banded_scatter": 0,
-              "nn1": 0, "attention": 0}
-BANDED_STEP = {"fps": 0, "knn": 0, "gather": 0, "scatter": 0,
-               "banded_knn": 6, "banded_gather": 7, "banded_scatter": 7,
-               "nn1": 0, "attention": 0}
+              "nn1": 0, "attention": 0, "attention_bwd_dkv": 0, "attention_bwd_dq": 0}
+BANDED_STEP = dict(PLAIN_STEP, fps=0, knn=0, gather=0, scatter=0, banded_knn=6, banded_gather=7,
+                   banded_scatter=7)
 # the scene protocol: SMPL-X's mesh, the denoiser's and the regressor's layers,
 # the evaluator's fit batch
 N_VERTS, N_FACES, D_POS = 10475, 20908, 66
 CMDM_LAYERS, REGRESSOR_LAYERS, FIT_BATCH = 5, 2, 16
+# a train step with dropout 0 and AM_FLASH_ATTN=1: the plain route, plus the
+# fused attention's forward and backward once per denoiser layer
+FLASH_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_dkv=CMDM_LAYERS,
+                  attention_bwd_dq=CMDM_LAYERS)
 # published peaks of one H100 SXM: device memory, float32 outside the tensor
 # cores, bf16 products with float32 sums on the tensor cores (dense). A bound
 # takes the rate the card has for the inputs' type, whatever the kernel uses.
@@ -170,6 +206,15 @@ BF16_FLOP_PER_S = 989e12
 # largest difference allowed between the resumed run's weights and the
 # straight run's: every kernel of the step is deterministic, so 0 is expected
 RESUME_LIMIT = 1e-6
+# the forward's row statistics against attention_lse_plain: a share of
+# max(1, the largest |lse|)
+LSE_LIMIT = 2.0 ** -13
+# one step's gradients through the fused attention against the einsum
+# route's, |fused - einsum| / |einsum| in the L2 norm, per layer's
+# in_proj_weight and over every parameter: set from readings on an H100
+# (2.2e-3 to 2.5e-3 in bf16, where the routes round in other places;
+# 1.5e-7 to 1.7e-7 in float32), about six times above them
+FLASH_GRAD_LIMIT = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-6}
 # assumed least time of one pick (a field update and an argmax across the
 # block or cluster, with one barrier, at ~1.7 GHz): FPS picks are sequential,
 # so picks x this is its latency floor, not bytes or operations
@@ -239,6 +284,8 @@ class KernelReport:
         self.ops_ms = {k: 0.0 for k in REPLACES}
         # the largest atol (a share of max |v|) any bf16 attention check needed
         self.attention_bf16_atol = 0.0
+        # the same for the backward (a share of each gradient's max |plain|)
+        self.attention_bwd_need = {"bf16": 0.0, "f32": 0.0}
 
     def check(self, name: str, label: str, got, want) -> None:
         for g, w in zip(got, want):
@@ -280,6 +327,14 @@ class KernelReport:
             if path_shape:
                 into[name] = (into[name] or 0.0) + t[0]
             line += f", {what} {t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+        self.record(name, label, k_ms, f"median of {TIME_BLOCKS} blocks; {k_lo:.4f}-{k_hi:.4f}",
+                    p_ms, path_shape, nbytes=nbytes, flops=flops, peak=peak, line=line)
+        return k_ms, p_ms, l_ms
+
+    def record(self, name, label, k_ms, how, p_ms, path_shape=True, *, nbytes, flops,
+               peak=F32_FLOP_PER_S, line=""):
+        """Enter one shape's kernel and plain ms (``how``: how the kernel's
+        was measured) beside its bound, as :meth:`timed` describes."""
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
         b_ms, by = bound_ms(bytes_ms, ops_ms)
         if path_shape:
@@ -287,9 +342,8 @@ class KernelReport:
             self.plain_ms[name] += p_ms
             self.bytes_ms[name] += bytes_ms
             self.ops_ms[name] += ops_ms
-        log(f"  {name} {label}: kernel {k_ms:.4f} ms (median of {TIME_BLOCKS} blocks; "
-            f"{k_lo:.4f}-{k_hi:.4f}), plain {p_ms:.4f} ms{line}, bound {b_ms:.4f} ms ({by})")
-        return k_ms, p_ms, l_ms
+        log(f"  {name} {label}: kernel {k_ms:.4f} ms ({how}), plain {p_ms:.4f} ms{line}, "
+            f"bound {b_ms:.4f} ms ({by})")
 
 
 def kernel_usage(ptxas_log: str) -> dict:
@@ -322,8 +376,9 @@ def kernel_usage(ptxas_log: str) -> dict:
 
 
 def tensor_core_ops(lib_path: Path) -> str:
-    """How many HMMA / HGMMA instructions ``cuobjdump -sass`` finds in the
-    bf16 attention kernel of the built library, or why it was not checked."""
+    """How many HMMA / HGMMA instructions ``cuobjdump -sass`` finds in each
+    bf16 attention kernel of the built library (the forward, dK/dV and dQ),
+    or why it was not checked."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -333,15 +388,21 @@ def tensor_core_ops(lib_path: Path) -> str:
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = line.split("Function :", 1)[1].strip()
-        elif current is not None and "attention_bf16" in current:
+            name = line.split("Function :", 1)[1].strip()
+            current = next((k for k in ("attention_bf16", "attention_bwd_dkv_bf16",
+                                        "attention_bwd_dq_bf16") if k in name), None)
+            if current is not None:
+                counts.setdefault(current, {})
+        elif current is not None:
             for op in ("HGMMA", "HMMA"):
                 if f" {op}." in line:
-                    counts[op] = counts.get(op, 0) + 1
+                    counts[current][op] = counts[current].get(op, 0) + 1
                     break
-    if not counts:
-        raise AssertionError("the bf16 attention's SASS holds no tensor-core instruction")
-    return ", ".join(f"{n} {op}" for op, n in counts.items())
+    if len(counts) != 3 or not all(counts.values()):
+        raise AssertionError(f"a bf16 attention kernel's SASS holds no tensor-core instruction: "
+                             f"{counts}")
+    return "; ".join(f"{k}: " + ", ".join(f"{n} {op}" for op, n in c.items())
+                     for k, c in counts.items())
 
 
 def knn_ops_ms(pairs: int) -> str:
@@ -771,6 +832,29 @@ def sdpa_kernels(q, k, v, keep) -> str:
     return "; ".join(n[:80] for n in names) or "none seen by the profiler"
 
 
+def device_ms(fn, reps: int, names) -> dict:
+    """ms per call of each kernel ``fn`` launches whose symbol holds one of
+    ``names``, from the profiler's device time over ``reps`` calls after a
+    warm-up call: {name: ms}. For kernels launched by one call, which CUDA
+    events cannot time apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {n: 0.0 for n in names}
+    for e in prof.key_averages():
+        for n in names:
+            if e.device_type.name == "CUDA" and n in e.key:
+                ms[n] += e.self_device_time_total / 1e3 / reps
+    if not all(ms.values()):
+        raise AssertionError(f"device_ms: the profiler saw no device time for some of {ms}")
+    return ms
+
+
 def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> None:
     """The fused attention against its plain version, to the kernel's stated
     tolerance for the inputs' type (``TOLERANCE`` in ops/cuda/attention.py)."""
@@ -783,6 +867,218 @@ def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> 
     if q.dtype == torch.bfloat16:
         excess = (got.float() - want.float()).abs() - rtol * want.float().abs()
         rep.attention_bf16_atol = max(rep.attention_bf16_atol, float(excess.max()) / v_max)
+
+
+def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
+    """The fused attention's backward kernels (the di pass, dK/dV, dQ)
+    against ``attention_backward_plain`` on the same inputs (the kernel
+    forward's o and statistics), to ``TOLERANCE_BWD``, and for bf16 at most
+    ``DV_DIFFER_SHARE`` of dv's entries differing at all; two calls
+    bit-identical; the forward's o bit-identical with and without the
+    statistics, which must match ``attention_lse_plain``. At the train
+    path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's masks) in
+    both instances, at the regressor's f32 shape, and off the path at head
+    dimensions 8, 40 and 64 with odd lengths, a masked tile of 64 keys and an
+    item with no attended key. Timed at the train shape: the whole backward
+    against the gradient of ``scaled_dot_product_attention`` with the same
+    mask, and dK/dV (with the di pass) and dQ each beside its bound, by the
+    profiler's device time."""
+    import torch.nn.functional as F
+
+    from afford_motion_torch.ops.cuda import attention as attn
+
+    rng = np.random.default_rng(SEED + 6)
+
+    def tensors(b, lq, lk, heads, hd, dtype):
+        return [torch.from_numpy(rng.normal(size=(b, n, heads * hd)).astype(np.float32)).to(dev)
+                .to(dtype) for n in (lq, lk, lk, lq)]
+
+    def check(label, q, k, v, do, heads, pad):
+        o0, _ = attn.attention_forward_cuda(q, k, v, heads, pad)
+        o, lse = attn.attention_forward_cuda(q, k, v, heads, pad, stats=True)
+        if not torch.equal(bits(o), bits(o0)):
+            raise AssertionError(f"attention {label}: o differs with the statistics written")
+        want_lse = attn.attention_lse_plain(q, k, heads, pad)
+        inf = torch.isinf(want_lse)
+        lse_err = float((lse - want_lse)[~inf].abs().max()) if bool((~inf).any()) else 0.0
+        if not (torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
+                and lse_err <= LSE_LIMIT * max(1.0, float(want_lse[~inf].abs().max()))):
+            raise AssertionError(f"attention {label}: statistics differ from the plain ones "
+                                 f"(max {lse_err:.3e})")
+        got = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
+        again = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
+            raise AssertionError(f"attention backward {label}: two calls differ")
+        want = attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad)
+        atol, rtol = attn.TOLERANCE_BWD[q.dtype]
+        need = attn.backward_excess(got, want, rtol)
+        differ = float((got[2] != want[2]).float().mean())
+        log(f"  attention backward {label}: needs {need:.3e} of the largest gradient entry "
+            f"beyond the rtol term (limit {atol:.3e}); {differ:.4f} of dv's entries differ; "
+            f"lse max diff {lse_err:.3e}")
+        if need > atol or (q.dtype == torch.bfloat16 and differ > attn.DV_DIFFER_SHARE):
+            raise AssertionError(f"attention backward {label}: kernel differs from plain")
+        if pad is not None and any(bool(g[pad].any()) for g in got[1:]):
+            raise AssertionError(f"attention backward {label}: a masked key has a gradient")
+        key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        rep.attention_bwd_need[key] = max(rep.attention_bwd_need[key], need)
+        for name, (g, w) in (("attention_bwd_dq", (got[0], want[0])),
+                             ("attention_bwd_dkv", (torch.cat(got[1:]), torch.cat(want[1:])))):
+            rep.err[name] = max(rep.err[name], (g.double() - w.double()).abs().max().item())
+        return o, lse
+
+    # the train path's attention (time + text + 128 contact + 196 motion
+    # tokens, the motions' padded frames masked) in both instances, and the
+    # regressor's shape in f32
+    shapes = {"train": (B, 1 + 1 + 128 + L, 8), "regressor": (FIT_BATCH, L, 4)}
+    for what, (b, seq, heads) in shapes.items():
+        hd = 64
+        lengths = rng.integers(40, L + 1, size=b)
+        pad = torch.from_numpy(np.arange(L)[None, :] >= lengths[:, None])
+        pad = torch.cat([torch.zeros((b, seq - L), dtype=torch.bool), pad], dim=1).to(dev)
+        for dtype in ((torch.bfloat16, torch.float32) if what == "train" else (torch.float32,)):
+            q, k, v, do = tensors(b, seq, seq, heads, hd, dtype)
+            label = f"{what} ({b},{seq},{heads}x{hd}) {str(dtype)[6:]}"
+            o, lse = check(label, q, k, v, do, heads, pad)
+            if what != "train":   # off every train path: the whole backward, logged
+                whole = time_ms(lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads,
+                                                                     pad), 10)
+                log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms "
+                    f"({whole[1]:.4f}-{whole[2]:.4f})")
+                continue
+            # timed: the whole backward by CUDA events, and each of its
+            # kernels by the profiler's device time over the same calls (one
+            # call launches the di pass, dK/dV and dQ); the dK/dV row takes
+            # the di pass, whose di the dQ row reads
+            on_path = dtype == torch.bfloat16
+            size = q.element_size()
+            tokens = b * seq * heads * hd   # entries of one (B, L, D) tensor
+            pairs = float(seq * (~pad).sum()) * heads   # attended query-key pairs
+            product = 2.0 * hd * pairs                  # one of the five products
+            peak = BF16_FLOP_PER_S if on_path else F32_FLOP_PER_S
+            stats = b * heads * seq * 4
+            qh, kh, vh = (x.reshape(b, seq, heads, hd).transpose(1, 2).detach()
+                          .requires_grad_(True) for x in (q, k, v))
+            doh = do.reshape(b, seq, heads, hd).transpose(1, 2)
+            out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=~pad[:, None, None, :])
+
+            def backward():
+                return attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
+
+            whole = time_ms(backward, 10)
+            split = device_ms(backward, 10, ("attention_di_kernel", "attention_bwd_dkv",
+                                             "attention_bwd_dq"))
+            plain = time_ms(lambda: attn.attention_backward_plain(q, k, v, o, do, lse, heads,
+                                                                  pad), 3, PLAIN_BLOCKS)
+            lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                          10)
+            # q, k, v, o, dO, lse read, dk, dv, di written; q, k, v, dO, lse,
+            # di read, dq written. The plain version and the library call
+            # compute the three gradients at once: their times stand in both
+            how = "profiler device time, mean of 10 calls"
+            for name, k_ms, nbytes, flops in (
+                    ("attention_bwd_dkv", split["attention_di_kernel"] + split["attention_bwd_dkv"],
+                     7 * tokens * size + 2 * stats, 4 * product),
+                    ("attention_bwd_dq", split["attention_bwd_dq"], 5 * tokens * size + 2 * stats,
+                     3 * product)):
+                rep.record(name, label, k_ms, how, plain[0], on_path, nbytes=nbytes, flops=flops,
+                           peak=peak, line=f", the whole backward's library call {lib[0]:.4f} ms")
+                if on_path:
+                    rep.library_ms[name] = lib[0]
+            b_ms, by = bound_ms(1e3 * (8 * tokens * size + stats) / HBM_BYTES_PER_S,
+                                1e3 * 5 * product / peak)
+            log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms ({whole[1]:.4f}-"
+                f"{whole[2]:.4f}; by the profiler di {split['attention_di_kernel']:.4f}, dK/dV "
+                f"{split['attention_bwd_dkv']:.4f}, dQ {split['attention_bwd_dq']:.4f}), the "
+                f"gradient of scaled_dot_product_attention {lib[0]:.4f} ms ({lib[1]:.4f}-"
+                f"{lib[2]:.4f}), kernels / library {whole[0] / lib[0]:.3f}, bound {b_ms:.4f} ms "
+                f"({by}: 5 products of {product / 1e9:.3f} GFLOP, "
+                f"{(8 * tokens * size + stats) / 1e6:.1f} MB)")
+            del out, qh, kh, vh, doh
+    # off the path, checked but not timed: head dimensions below 64, odd
+    # lengths (other key lengths than query lengths), a masked tile of 64 keys
+    # between attended ones, an item with one attended key and one with none
+    for hd, dtype in ((8, torch.float32), (8, torch.bfloat16), (40, torch.bfloat16),
+                      (40, torch.float32), (64, torch.float32), (64, torch.bfloat16)):
+        for lq, lk in ((70, 150), (133, 133)):
+            q, k, v, do = tensors(4, lq, lk, 2, hd, dtype)
+            pad = torch.from_numpy(np.arange(lk)[None, :] >= np.array([[lk], [lk - 3], [1], [0]]))
+            pad[:2, 64:128] = True
+            check(f"off-path hd={hd} Lq={lq} Lk={lk} {str(dtype)[6:]}", q, k, v, do, 2,
+                  pad.to(dev))
+    log(f"  attention backward: within TOLERANCE_BWD of the plain version at every shape, "
+        f"two calls bit-identical; the largest share needed: bf16 "
+        f"2^{np.log2(max(rep.attention_bwd_need['bf16'], 1e-30)):.2f}, f32 "
+        f"2^{np.log2(max(rep.attention_bwd_need['f32'], 1e-30)):.2f}")
+
+
+def phase_flash_grads(dev: torch.device, counters: dict) -> None:
+    """One train step's gradients through the fused attention against the
+    einsum route: the flagship CMDM at full width (dropout 0, from one seeded
+    init) on one batch (4 items, 1024-point clouds, padded motions), the
+    same t and noise, once with AM_FLASH_ATTN=1 and once with 0, in bf16 (the
+    train config's) and in float32. Every layer's in_proj_weight.grad must be
+    non-zero on the fused route and within FLASH_GRAD_LIMIT (relative, in
+    the L2 norm) of the einsum route's; the fused route must launch the
+    forward and the backward once per layer."""
+    from afford_motion_torch.diffusion import create_gaussian_diffusion
+    from afford_motion_torch.models.cmdm import CMDM
+    from afford_motion_torch.models.conditioning import add_hierarchies
+    from afford_motion_torch.utils.config import DictConfig
+
+    rng = np.random.default_rng(SEED + 7)
+    n, lb = 1024, 4
+    x_mask = np.arange(L)[None, :] >= np.array([[L], [150], [90], [40]])
+    cond = {
+        "c_pc_xyz": torch.from_numpy(rng.normal(size=(lb, n, 3)).astype(np.float32)).to(dev),
+        "c_pc_contact": torch.from_numpy(rng.uniform(size=(lb, n, 6)).astype(np.float32)).to(dev),
+        "text_emb": torch.from_numpy(rng.normal(size=(lb, 1, 512)).astype(np.float32)).to(dev),
+        "x_mask": torch.from_numpy(x_mask).to(dev),
+    }
+    x = torch.from_numpy(rng.normal(size=(lb, L, D)).astype(np.float32)).to(dev)
+    t = torch.from_numpy(rng.integers(0, 1000, size=lb)).to(dev)
+    noise = torch.from_numpy(rng.standard_normal((lb, L, D)).astype(np.float32)).to(dev)
+    diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        torch.manual_seed(SEED)
+        model = CMDM(motion_dim=D, dtype=dtype, dropout=0.0).to(dev)
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        runs = {}
+        for flash in ("1", "0"):
+            with flash_switch(flash):
+                model.load_state_dict(initial, strict=True)
+                model.train()
+                model.zero_grad(set_to_none=True)
+                reset(counters)
+                cond_h = add_hierarchies(model, cond)
+                loss = diffusion.training_losses(lambda x_t, ts: model(x_t, ts, cond_h), x, t,
+                                                 x_mask=cond_h["x_mask"], noise=noise)["loss"]
+                loss.mean().backward()
+                torch.cuda.synchronize()
+                counts = {k: counters[k].launches
+                          for k in ("attention", "attention_bwd_dkv", "attention_bwd_dq")}
+                want = CMDM_LAYERS * (flash == "1")
+                if any(c != want for c in counts.values()):
+                    raise AssertionError(f"flash grads AM_FLASH_ATTN={flash}: launches {counts}, "
+                                         f"expected {want} each")
+                runs[flash] = (float(loss.mean().detach()), [
+                    layer.self_attn.in_proj_weight.grad.clone()
+                    for layer in model.self_attn_layer.layers], torch.cat(
+                        [p.grad.reshape(-1) for p in model.parameters() if p.grad is not None]))
+        (loss_f, fused, all_f), (loss_e, einsum, all_e) = runs["1"], runs["0"]
+        rel = [float((f - e).norm() / e.norm()) for f, e in zip(fused, einsum)]
+        whole = float((all_f - all_e).norm() / all_e.norm())
+        limit = FLASH_GRAD_LIMIT[dtype]
+        log(f"flash grads {str(dtype)[6:]}: loss {loss_f:.6f} fused, {loss_e:.6f} einsum; "
+            f"in_proj_weight.grad per layer, |fused - einsum| / |einsum|: "
+            f"{', '.join(f'{r:.3e}' for r in rel)} (limit {limit:.0e}); norms "
+            f"{', '.join(f'{float(f.norm()):.3e}' for f in fused)}; every gradient: "
+            f"{whole:.3e}")
+        if not (all(float(f.norm()) > 0 for f in fused) and max(rel) <= limit
+                and whole <= limit):
+            raise AssertionError(f"flash grads {dtype}: the fused route's gradients differ "
+                                 f"from the einsum route's")
+        del model
 
 
 def phase_autograd(dev: torch.device) -> None:
@@ -1019,6 +1315,20 @@ def base_args(tree: dict) -> list:
     ]
 
 
+@contextlib.contextmanager
+def flash_switch(value: str):
+    """``AM_FLASH_ATTN`` set to ``value`` inside the block, restored after."""
+    saved = os.environ.get("AM_FLASH_ATTN")
+    os.environ["AM_FLASH_ATTN"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("AM_FLASH_ATTN", None)
+        else:
+            os.environ["AM_FLASH_ATTN"] = saved
+
+
 def reset(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
@@ -1032,16 +1342,17 @@ def check_launches(name: str, counts: dict, per_pass: dict, passes: int, backwar
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
 
-def phase_train(tree: dict, counters: dict, per_step: dict) -> dict:
+def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = ()) -> dict:
     """8 full-width bf16 steps through the train entry, then 4 more resumed
     from step 4; returns the launches of both runs. ``per_step``: the
-    launches one step must make on this tree's route. Nothing in the
-    arguments names the route: the loop picks it from the tree."""
+    launches one step must make on this tree's route; ``extra``: arguments
+    beyond the flagship's. Nothing in the arguments names the banded route:
+    the loop picks it from the tree."""
     from afford_motion_torch import train as entry
 
     banded = per_step is BANDED_STEP
-    tag = "banded " if banded else ""
-    train_args = base_args(tree) + [
+    tag = "banded " if banded else "flash " if per_step is FLASH_STEP else ""
+    train_args = base_args(tree) + list(extra) + [
         f"task.train.batch_size={B}", "task.train.save_every_step=4",
         "task.train.log_every_step=1", "task.train.max_steps=8",
         "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']",
@@ -1321,7 +1632,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from afford_motion_torch.ops.cuda import banded, build
-    from afford_motion_torch.ops.cuda.attention import attention_cuda
+    from afford_motion_torch.ops.cuda.attention import attention_backward_cuda, attention_cuda
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
@@ -1342,18 +1653,24 @@ def main() -> int:
     log(f"build: {lib_path.name} in {time.monotonic() - t0:.1f} s")
     for name, usage in kernel_usage(lib_path.with_suffix(".log").read_text()).items():
         log(f"  ptxas: {name}: {usage}")
-    log(f"  SASS of the bf16 attention: {tensor_core_ops(lib_path)}")
+    log(f"  SASS of the bf16 attention kernels: {tensor_core_ops(lib_path)}")
 
     rep = phase_kernels(dev)
     phase_kernels_banded(dev, rep)
     phase_kernels_scene(dev, rep)
+    phase_kernels_attention_bwd(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
     phase_reference_scene(dev)
+    # one wrapper call launches the di pass and both backward kernels: its
+    # count stands in both rows
     counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
                 "scatter": scatter_add_rows, "banded_knn": banded.knn_banded,
                 "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded,
-                "nn1": nn1_cuda, "attention": attention_cuda}
+                "nn1": nn1_cuda, "attention": attention_cuda,
+                "attention_bwd_dkv": attention_backward_cuda,
+                "attention_bwd_dq": attention_backward_cuda}
+    phase_flash_grads(dev, counters)
     tree = make_tree()
     ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
     phases = [
@@ -1361,6 +1678,11 @@ def main() -> int:
         phase_slice(tree, counters, {"ddim50": (ddim, PLAIN_STEP),
                                      "ddpm1000": (["task.test.sampler=ddpm"], PLAIN_STEP)}),
     ]
+    # training through the fused attention: dropout 0 and the switch on
+    # route every layer's attention, forward and backward, to the kernels
+    with flash_switch("1"):
+        phases.append(phase_train(dict(tree, exp=WORK / "exp_flash"), counters, FLASH_STEP,
+                                  ("model.dropout=0",)))
     banded_tree = make_banded_tree(tree)
     phases += [
         phase_train(banded_tree, counters, BANDED_STEP),
@@ -1383,7 +1705,7 @@ def main() -> int:
             "replaces": REPLACES[name][1], "launches": launches[name],
             "max_abs_err": rep.err[name], "ms": rep.ms[name], "plain_ms": rep.plain_ms[name],
             "bound_ms": b_ms, "bound_by": by, "library_ms": rep.library_ms[name],
-            "yardstick_ms": rep.yardstick_ms[name],
+            "yardstick_ms": rep.yardstick_ms[name], "note": NOTES.get(name),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
