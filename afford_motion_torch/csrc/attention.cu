@@ -46,12 +46,24 @@
 // through shared memory.
 //
 // Forward, f32: the regressor's parity surface, where no product may lose
-// bits to TF32.
-// One query a thread with its q row and f32 accumulator in registers; keys and
-// values stream through shared memory in tiles of 32 (16-byte broadcast
-// loads); online softmax, rescaled only when a key raises the running
-// maximum; a masked key is skipped by the whole block. Products use fmaf
-// explicitly: the library is built with -fmad=false for the distance kernels.
+// bits to TF32, so it stays on the FP32 units with explicit `fmaf` (the
+// library is built with -fmad=false for the distance kernels, so a plain
+// a*b+c would cost two instructions). A block per (32 queries by default, or
+// 8 or 16, head, batch item), a warp per 8 queries: at the regressor's
+// (16, 196, 4x64) that is 448 blocks, and the ragged last tile holds 4 of its
+// 32 rows live. Q sits in shared memory; K and V stream through it in tiles
+// of 32 keys, double-buffered by `cp.async` (16-byte copies where hd is a
+// multiple of 4 and the tensors are 16-byte aligned, else 4-byte ones). S is a
+// register-tiled micro-GEMM: lane (r, c) of a warp, r = lane / 16, computes
+// its 4 query rows against keys c and c + 16 from float4 reads (Q rows are
+// broadcast; K rows are 68 floats apart, so the eight rows a quarter-warp
+// reads sit in distinct banks). The online softmax runs per row across the 16
+// lanes that share it (maxima by shuffles; each lane keeps its share of the
+// row sum, rescaled with the row, and the shares are summed once at the end).
+// P goes through the warp's own rows of shared memory (no barrier), and each
+// lane owns 4 rows x 4 columns of O, summing P V over the tile's keys in
+// order. A tile whose keys are all masked is skipped and keys after the last
+// valid one are not loaded, as in bf16.
 //
 // Backward (`amt_attention_bwd`), as the library's VJP computes it: from the
 // saved row statistics (here the log-sum-exp lse), P = exp(s - lse) is
@@ -59,36 +71,60 @@
 //   dv = P^T do  (P rounded to the input type first),
 //   ds = (do v^T - di) * P * scale,
 //   dk = ds^T q,  dq = ds k  (ds rounded to the input type first),
-// all sums in f32, each result rounded once. Masked keys get zero rows. Three
-// launches: a di pass (one warp a row and head), then the library's split:
-// dK/dV, where a block owns a tile of keys of one (item, head) and walks the
-// query tiles in order, and dQ, where a block owns a tile of queries and walks
-// the key tiles, skipping tiles with no attended key as the forward does.
-// Every output element has one owner, so no float atomics: two runs give the
-// same bits. The bound: 5 products of 2 * B * heads * Lq * Lk * hd (S and dP
-// are recomputed, so the kernels do 7) and the q, k, v, o, do, lse bytes read
-// and dq, dk, dv written (85 MB at the denoiser's shape in bf16).
+// all sums in f32, each result rounded once. Masked keys get zero rows. The
+// bound: 5 products of 2 * B * heads * Lq * Lk * hd and the q, k, v, o, do,
+// lse bytes read and dq, dk, dv written (85 MB at the denoiser's shape in
+// bf16). No float atomics: two runs give the same bits.
 //
-// Backward, bf16: the forward's `mma.sync` fragments and swizzled `cp.async`
-// tiles. dK/dV: 4 warps own 16 keys each, K and V as A fragments in
-// registers; per 64-query tile, S^T = K Q^T and dP^T = V dO^T take Q and dO as
-// B operands by `ldmatrix`, P^T goes from the S^T fragments, rounded, into
-// dV += P^T dO, and dS^T into dK += dS^T Q, with dO and Q as B operands by
-// `ldmatrix.trans`. dQ: 4 warps own 16 queries each, Q and dO as A fragments;
-// per 64-key tile, S = Q K^T and dP = dO V^T, then dQ += dS K. K and V (dK/dV)
-// or Q and dO (dQ) are staged once through the second buffer of the stream,
-// which then double-buffers the tiles. A simple first kernel: one block per
-// 64 rows, no split of the walk, no `wgmma`.
+// Backward, bf16: one launch (after a memset of its counters), on the
+// forward's `mma.sync` fragments and swizzled `cp.async` tiles. Its blocks
+// do three kinds of work, which each block takes by a ticket it draws when it
+// starts (an integer atomic): first every di tile (64 rows of one item and
+// head, from o and dO), then every key tile's dK/dV, then every query tile's
+// dQ.
+//   dK/dV: a block owns 64 keys of one (item, head), 16 a warp, and walks the
+// 64-query tiles in order, Q and dO double-buffered. Per tile: S^T = K Q^T
+// and P^T from lse; dV += P^T dO with P^T rounded from the S^T fragments;
+// dP^T = V dO^T, dS^T = (dP^T - di) P^T scale; dK += dS^T Q with dS rounded.
+// K and V stay in shared memory and their A fragments are read at each use:
+// 168 registers, three blocks an SM. Fragments wholly past Lq (16 queries)
+// are skipped. The rounded dS^T goes out, through the warp's own rows of
+// shared memory (no barrier), to a bf16 scratch of 64 x 64 tiles, swizzled
+// as in shared memory, one per (item, head, query tile, key tile): 4
+// products, and dS^T rather than S and dP recomputed for dQ.
+//   dQ: a block owns 64 queries of one (item, head), 16 a warp, and sums dq
+// = dS K over the key tiles in order up to the last attended key, in f32
+// (A by `ldmatrix.trans` of the dS^T tile, B by `ldmatrix.trans` of K), the
+// tiles streamed through three stages of shared memory; the same order as
+// a dQ kernel that recomputes dS per key tile. Tiles with no attended key
+// (which have no dS^T) are skipped.
+//   The order is kept by counts in the scratch: di tiles count per (item,
+// head), and a dK/dV block waits (one thread spins on an acquire load)
+// until its (item, head) has all of them; every key tile counts each query
+// tile's dS^T out (one thread fences and adds after a barrier), and a dQ
+// block waits until its query tile has all of them. Why the waits make
+// progress: a block waits only on work whose ticket is lower (di before
+// dK/dV, dK/dV before dQ), drawn by a block that had already started and so
+// runs, and that block waits only on lower tickets still, down to the di
+// work, which waits on none. So a running block never waits on one that has
+// not started, whatever order the hardware dispatches blocks in and however
+// few fit on the card. Every gradient element has one writer and every sum a
+// fixed order: no float atomics, and two calls give the same bits.
 //
-// Backward, f32: no tensor cores, as in the forward. Tiles of 32 queries and
-// 32 keys in shared memory (rows padded to 65 floats), 256 threads: each
-// thread computes 4 of the tile's P and dS entries from full-length dot
-// products, then 8 output elements of the block's rows accumulate over the
-// tile, in a fixed order.
+// Backward, f32 (launched on no path): no tensor cores. The di pass (8
+// threads a row and head), then two kernels: dK/dV (a block a tile of 32
+// keys over the query tiles in order) and dQ (a block a tile of 32 queries
+// over the key tiles). Tiles of 32 queries and 32 keys in shared memory (rows
+// padded to 65 floats), 256 threads: each thread computes 4 of the tile's P
+// and dS entries from full-length dot products, then 8 output elements of
+// the block's rows accumulate over the tile, in a fixed order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace {
 
@@ -96,94 +132,250 @@ constexpr int kHD = 64;  // the largest head dimension; every attention in the r
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 // ----------------------------------------------------------------- float32
 
-constexpr int kThreads = 64;  // queries per block
-constexpr int kTK = 32;       // keys per shared-memory tile
+constexpr int kFK = 32;         // keys a tile
+constexpr int kFLd = kHD + 4;   // a Q or K row in shared memory: 16-byte aligned, 4 banks apart
+constexpr int kFPLd = kFK + 4;  // a row of P
+constexpr int kF32Rows = 32;    // queries a block unless the launch asks for 8 or 16
 
-__global__ void __launch_bounds__(kThreads)
+// rows x hd of a (.., stride) f32 matrix into a tile of `tile_rows` rows `ld`
+// floats apart by cp.async, zeros past `rows` and `hd`: 16-byte copies when
+// `vec` (hd a multiple of 4, 16-byte aligned rows), else 4-byte ones;
+// completes at the next cp.async.wait_all
+template <int NT>
+__device__ __forceinline__ void load_f32(float* tile, int ld, int tile_rows, const float* src,
+                                         size_t stride, int rows, int hd, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < tile_rows * (kHD / 4); i += NT) {
+      const int r = i / (kHD / 4), c = (i % (kHD / 4)) * 4;
+      const bool ok = r < rows && c < hd;
+      const float* g = ok ? src + r * stride + c : src;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_addr(tile + r * ld + c)),
+                   "l"(g), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < tile_rows * kHD; i += NT) {
+      const int r = i / kHD, d = i % kHD;
+      const bool ok = r < rows && d < hd;
+      const float* g = ok ? src + r * stride + d : src;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_addr(tile + r * ld + d)),
+                   "l"(g), "r"(ok ? 4 : 0)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// a block QB queries of one (item, head), 8 a warp; lane (r, c): rows
+// 4r..4r+3 of the warp's 8, keys c and c + 16 of each tile, O columns
+// 4c..4c+3
+template <int QB>
+__global__ void __launch_bounds__(QB * 4)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const unsigned char* __restrict__ mask, int lq,
-                     int lk, int heads, int hd, float scale, float* __restrict__ out,
+                     int lk, int heads, int hd, float scale, bool vec, float* __restrict__ out,
                      float* __restrict__ lse) {
-  __shared__ __align__(16) float sk[kTK][kHD];
-  __shared__ __align__(16) float sv[kTK][kHD];
-  __shared__ unsigned char smask[kTK];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < lq;
+  constexpr int kNT = QB * 4, kW = QB / 8;
+  __shared__ __align__(16) float sq[QB * kFLd];
+  __shared__ __align__(16) float sk[2][kFK * kFLd];
+  __shared__ __align__(16) float sv[2][kFK * kHD];
+  __shared__ __align__(16) float sp[QB * kFPLd];
+  __shared__ unsigned s_keep[2];  // a bit a key of the tile: 1 = attend
+  __shared__ int s_end[kW];
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QB;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane & 15, row0 = warp * 8 + (lane >> 4) * 4;
   const size_t width = static_cast<size_t>(heads) * hd;
-  const float* qrow = q + (static_cast<size_t>(b) * lq + (active ? qi : 0)) * width + h * hd;
+  const float* qb = q + (static_cast<size_t>(b) * lq + q0) * width + h * hd;
+  const float* kb = k + static_cast<size_t>(b) * lk * width + h * hd;
+  const float* vb = v + static_cast<size_t>(b) * lk * width + h * hd;
+  const unsigned char* mb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * lk;
+  float* ob = out + (static_cast<size_t>(b) * lq + q0) * width + h * hd;
+  const int q_rows = min(QB, lq - q0);
 
-  float qr[kHD], acc[kHD];
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) {
-    qr[d] = d < hd ? qrow[d] : 0.f;
-    acc[d] = 0.f;
+  // one past the last key that is attended: later keys are never loaded
+  int end = 0;
+  for (int j = threadIdx.x; j < lk; j += kNT) {
+    if (mb == nullptr || !mb[j]) end = j + 1;
   }
-  float m = -INFINITY, l = 0.f;
+  end = static_cast<int>(__reduce_max_sync(0xFFFFFFFFu, static_cast<unsigned>(end)));
+  if (lane == 0) s_end[warp] = end;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kW; ++w) end = max(end, s_end[w]);
+  const int tiles = (end + kFK - 1) / kFK;
+  if (tiles == 0) {  // no key attended: zero rows
+    for (int i = threadIdx.x; i < q_rows * hd; i += kNT) ob[(i / hd) * width + i % hd] = 0.f;
+    if (lse != nullptr) {
+      for (int i = threadIdx.x; i < q_rows; i += kNT) {
+        lse[(static_cast<size_t>(b) * heads + h) * lq + q0 + i] = INFINITY;
+      }
+    }
+    return;
+  }
+  load_f32<kNT>(sq, kFLd, QB, qb, width, q_rows, hd, vec);
+  load_f32<kNT>(sk[0], kFLd, kFK, kb, width, min(kFK, lk), hd, vec);
+  load_f32<kNT>(sv[0], kHD, kFK, vb, width, min(kFK, lk), hd, vec);
 
-  for (int base = 0; base < lk; base += kTK) {
-    const int cnt = min(kTK, lk - base);
+  const bool live = warp * 8 < q_rows;  // a warp whose rows all lie past Lq idles
+  float acc[4][4];                      // O: rows row0 + i, columns 4c + e
+  float m_run[4], l_run[4];             // the row maxima; this lane's share of the row sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, base = t * kFK;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (warp == 0) {
+      const int j = base + lane;
+      const unsigned bits = __ballot_sync(0xFFFFFFFFu, j < end && (mb == nullptr || !mb[j]));
+      if (lane == 0) s_keep[buf] = bits;
+    }
+    // tile t (and Q) is in shared memory, and every warp is done with tile
+    // t - 1, whose buffers the next loads take
     __syncthreads();
-    for (int i = threadIdx.x; i < kTK * kHD; i += kThreads) {
-      const int j = i / kHD, d = i % kHD;
-      float kk = 0.f, vv = 0.f;
-      if (j < cnt && d < hd) {
-        const size_t at = (static_cast<size_t>(b) * lk + base + j) * width + h * hd + d;
-        kk = k[at];
-        vv = v[at];
-      }
-      sk[j][d] = kk;
-      sv[j][d] = vv;
+    if (t + 1 < tiles) {
+      const int next = base + kFK;
+      load_f32<kNT>(sk[buf ^ 1], kFLd, kFK, kb + next * width, width, min(kFK, lk - next), hd,
+                    vec);
+      load_f32<kNT>(sv[buf ^ 1], kHD, kFK, vb + next * width, width, min(kFK, lk - next), hd,
+                    vec);
     }
-    if (threadIdx.x < kTK) {
-      const int j = threadIdx.x;
-      smask[j] = j < cnt && mask != nullptr
-                     ? mask[static_cast<size_t>(b) * lk + base + j] : 0;
+    const unsigned keep = s_keep[buf];
+    if (!live || keep == 0u) continue;
+
+    // S: 4 rows x keys c, c + 16, full-length dot products in order of d
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+    const float* kt = sk[buf];
+#pragma unroll
+    for (int d = 0; d < kHD; d += 4) {
+      float4 qv[4], kv[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(sq + (row0 + i) * kFLd + d);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        kv[jj] = *reinterpret_cast<const float4*>(kt + (c + 16 * jj) * kFLd + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
+        }
+      }
     }
-    __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      if (smask[j]) continue;  // the same for every thread of the block
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+
+    // online softmax over this tile, per row across its 16 lanes
 #pragma unroll
-      for (int d = 0; d < kHD; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&sk[j][d]);
-        s0 = fmaf(qr[d + 0], kk.x, s0);
-        s1 = fmaf(qr[d + 1], kk.y, s1);
-        s2 = fmaf(qr[d + 2], kk.z, s2);
-        s3 = fmaf(qr[d + 3], kk.w, s3);
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        s[i][jj] = (keep >> (c + 16 * jj)) & 1u ? s[i][jj] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][jj]);
       }
-      const float s = ((s0 + s1) + (s2 + s3)) * scale;
-      if (s > m) {
-        const float c = expf(m - s);  // 0 on the first key, where m is -inf
-        l *= c;
 #pragma unroll
-        for (int d = 0; d < kHD; ++d) acc[d] *= c;
-        m = s;
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, off));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // nothing attended yet
+      const float alpha = expf(m_run[i] - m_use);           // 0 on the first tile
+      m_run[i] = m_new;
+      const float p0 = expf(s[i][0] - m_use), p1 = expf(s[i][1] - m_use);
+      l_run[i] = l_run[i] * alpha + (p0 + p1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+      sp[(row0 + i) * kFPLd + c] = p0;
+      sp[(row0 + i) * kFPLd + c + 16] = p1;
+    }
+    __syncwarp();  // P of the warp's rows is in shared memory
+
+    // O += P V: the tile's keys in order
+    const float* vt = sv[buf];
+#pragma unroll
+    for (int j = 0; j < kFK; j += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(sp + (row0 + i) * kFPLd + j);
       }
-      const float p = expf(s - m);
-      l += p;
 #pragma unroll
-      for (int d = 0; d < kHD; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sv[j][d]);
-        acc[d + 0] = fmaf(p, vv.x, acc[d + 0]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv = *reinterpret_cast<const float4*>(vt + (j + jj) * kHD + 4 * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = lane_of(pv[i], jj);
+          acc[i][0] = fmaf(p, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(p, vv.y, acc[i][1]);
+          acc[i][2] = fmaf(p, vv.z, acc[i][2]);
+          acc[i][3] = fmaf(p, vv.w, acc[i][3]);
+        }
+      }
+    }
+    __syncwarp();  // done reading P before the next tile writes it
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = l_run[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l += __shfl_xor_sync(0xFFFFFFFFu, l, off);
+    const int row = row0 + i;
+    if (row >= q_rows) continue;
+    if (lse != nullptr && c == 0) {
+      lse[(static_cast<size_t>(b) * heads + h) * lq + q0 + row] =
+          l > 0.f ? m_run[i] + logf(l) : INFINITY;
+    }
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    float* orow = ob + row * width + 4 * c;
+    if (vec) {
+      if (4 * c < hd) {
+        *reinterpret_cast<float4*>(orow) =
+            make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (4 * c + e < hd) orow[e] = acc[i][e] * inv;
       }
     }
   }
-  if (!active) return;
-  if (lse != nullptr) {
-    lse[(static_cast<size_t>(b) * heads + h) * lq + qi] = l > 0.f ? m + logf(l) : INFINITY;
-  }
-  const float inv = l > 0.f ? 1.f / l : 0.f;
-  float* orow = out + (static_cast<size_t>(b) * lq + qi) * width + h * hd;
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) {
-    if (d < hd) orow[d] = acc[d] * inv;
-  }
+}
+
+template <int QB>
+int launch_f32(const float* q, const float* k, const float* v, const unsigned char* mask, int b,
+               int lq, int lk, int heads, int hd, float scale, float* out, float* lse,
+               cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = hd % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const dim3 grid((lq + QB - 1) / QB, heads, b);
+  attention_f32_kernel<QB><<<grid, QB * 4, 0, stream>>>(q, k, v, mask, lq, lk, heads, hd, scale,
+                                                        vec, out, lse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -------------------------------------------------------- bf16, tensor cores
@@ -198,10 +390,6 @@ constexpr int kChunks = kHD / 8;    // 16-byte chunks a row
 // element offset of (row, d) in a swizzled 64 x 64 bf16 tile
 __device__ __forceinline__ int swz(int row, int d) {
   return row * kHD + ((((d >> 3) ^ row) & 7) << 3) + (d & 7);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
@@ -263,14 +451,18 @@ __device__ __forceinline__ void load_a_rows(const bf16* tile, int row0, int lane
 }
 
 // acc (16 x 64, eight 16x8 fragments) += A (16 x 64 over hd) . T^T, T a
-// swizzled 64-row tile read as the B operand with its rows as columns
+// swizzled 64-row tile read as the B operand with its rows as columns. kTrim:
+// tile rows from `rows` on (16 at a time) are left out, their columns of acc
+// untouched (a branch in the products, which the untrimmed instance has not)
+template <bool kTrim = false>
 __device__ __forceinline__ void mma_a_bt(float (&acc)[8][4], const unsigned (&a)[4][4],
-                                         const bf16* tile, int lane) {
+                                         const bf16* tile, int lane, int rows = 64) {
   const int mi = lane >> 3;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
+      if (kTrim && 16 * jp >= rows) continue;
       const int row = 16 * jp + (lane & 7) + ((mi >> 1) << 3);
       unsigned r[4];
       ldmatrix_x4(smem_addr(tile + swz(row, (2 * kk + (mi & 1)) * 8)), r);
@@ -281,16 +473,44 @@ __device__ __forceinline__ void mma_a_bt(float (&acc)[8][4], const unsigned (&a)
 }
 
 // acc (16 x 64 over hd) += C (16 x 64, fragments rounded to bf16) . T, T a
-// swizzled 64-row tile read as the B operand by `ldmatrix.trans`
+// swizzled 64-row tile read as the B operand by `ldmatrix.trans`; kTrim: tile
+// rows from `rows` on (16 at a time) are left out
+template <bool kTrim = false>
 __device__ __forceinline__ void mma_c_t(float (&acc)[8][4], const float (&c)[8][4],
-                                        const bf16* tile, int lane) {
+                                        const bf16* tile, int lane, int rows = 64) {
   const int mi = lane >> 3;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
+    if (kTrim && 16 * kk >= rows) continue;
     const unsigned a[4] = {pack_bf16(c[2 * kk][0], c[2 * kk][1]),
                            pack_bf16(c[2 * kk][2], c[2 * kk][3]),
                            pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
                            pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      const int row = 16 * kk + (lane & 7) + ((mi & 1) << 3);
+      unsigned r[4];
+      ldmatrix_x4_trans(smem_addr(tile + swz(row, (2 * jp + (mi >> 1)) * 8)), r);
+      mma(acc[2 * jp], a, r[0], r[1]);
+      mma(acc[2 * jp + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// acc (16 x 64 over hd) += A . T, A the 16 x 64 transpose of columns
+// col0..col0 + 15 of the swizzled 64 x 64 tile `at` (its rows the product's
+// inner dimension, so A comes by `ldmatrix.trans` as well), T a swizzled
+// 64-row tile read as the B operand by `ldmatrix.trans`
+__device__ __forceinline__ void mma_at_t(float (&acc)[8][4], const bf16* at, int col0,
+                                         const bf16* tile, int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // matrix mi of the A fragment: columns col0 + 8 (mi & 1) of A's rows,
+    // inner rows 16 kk + 8 (mi >> 1) of `at`
+    unsigned a[4];
+    ldmatrix_x4_trans(
+        smem_addr(at + swz(16 * kk + (lane & 7) + ((mi >> 1) << 3), col0 + ((mi & 1) << 3))), a);
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
       const int row = 16 * kk + (lane & 7) + ((mi & 1) << 3);
@@ -481,38 +701,32 @@ int launch_bf16(const void* q, const void* k, const void* v, const unsigned char
                                                   scale_log2, oo, lse);
   return static_cast<int>(cudaGetLastError());
 }
+// --------------------------------------------------------- backward: float32
 
-// ------------------------------------------------------------ backward: di
+constexpr int kDiThreads = 256;  // 8 threads a (row, head)
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-constexpr int kDiThreads = 256;  // 8 warps, one (row, head) a warp
-
-// di[b, h, i] = sum_d o[b, i, h, d] * do[b, i, h, d] in f32, over the rounded o
-template <typename T>
+// the f32 backward's di[b, h, i] = sum_d o[b, i, h, d] * do[b, i, h, d]:
+// thread c of a (row, head)'s 8 takes entries 8c..8c+7, then the 8 sum by
+// shuffles
 __global__ void __launch_bounds__(kDiThreads)
-attention_di_kernel(const T* __restrict__ o, const T* __restrict__ dout, int b, int lq,
-                    int heads, int hd, float* __restrict__ di) {
-  const long long pair = static_cast<long long>(blockIdx.x) * (kDiThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (pair >= static_cast<long long>(b) * lq * heads) return;
-  const long long row = pair / heads;  // b * lq + i
-  const int h = static_cast<int>(pair % heads);
-  const size_t at = static_cast<size_t>(row) * heads * hd + static_cast<size_t>(h) * hd;
+attention_di_kernel(const float* __restrict__ o, const float* __restrict__ dout, long long pairs,
+                    int lq, int heads, int hd, float* __restrict__ di) {
+  const long long t = static_cast<long long>(blockIdx.x) * kDiThreads + threadIdx.x;
+  const long long pair = t >> 3;  // (b * lq + i) * heads + h
+  const int c = static_cast<int>(t & 7);
   float s = 0.f;
-  for (int d = lane; d < hd; d += 32) {
-    s = fmaf(to_float(o[at + d]), to_float(dout[at + d]), s);
+  if (pair < pairs) {
+    const size_t at = static_cast<size_t>(pair) * hd + c * 8;
+    for (int e = 0; e < 8 && c * 8 + e < hd; ++e) s = fmaf(o[at + e], dout[at + e], s);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, off);
-  if (lane == 0) {
-    const long long bi = row / lq, i = row % lq;
-    di[(static_cast<size_t>(bi) * heads + h) * lq + i] = s;
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 1);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 2);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 4);
+  if (pair < pairs && c == 0) {
+    const long long row = pair / heads, bi = row / lq, i = row % lq;
+    di[(static_cast<size_t>(bi) * heads + pair % heads) * lq + i] = s;
   }
 }
-
-// --------------------------------------------------------- backward: float32
 
 constexpr int kBT = 32;         // queries and keys a tile
 constexpr int kBThreads = 256;  // threads a block
@@ -707,42 +921,126 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t width, int row0, in
   }
 }
 
-// a block 64 keys of one (item, head), 16 a warp; the query tiles in order
-__global__ void __launch_bounds__(kTC, 2)
-attention_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ di,
-                              const unsigned char* __restrict__ mask, int lq, int lk, int heads,
-                              int hd, float scale_log2, float scale, bf16* __restrict__ dk,
-                              bf16* __restrict__ dv) {
-  // buffer 1 holds K and V until their fragments are in registers
-  __shared__ __align__(128) bf16 sq[2][kBQ * kHD];
-  __shared__ __align__(128) bf16 sdo[2][kBQ * kHD];
-  __shared__ float s_lse[2][kBQ];  // log2 units
-  __shared__ float s_di[2][kBQ];
+// one dS^T tile in the scratch: 64 keys x 64 queries, swizzled as in shared
+// memory, so that it goes out and comes back by plain 16-byte copies
+constexpr int kTile = kBK * kBQ;
 
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBK;
+// dynamic shared memory of the bf16 backward: the dK/dV work's Q and dO tiles
+// (two each), K, V, the warps' dS^T rows and two buffers of lse and di (57 KB:
+// three blocks an SM); the dQ work uses the first 48 KB
+constexpr int kBwdSmem =
+    (4 * kBQ * kHD + 3 * kBK * kHD) * static_cast<int>(sizeof(bf16)) + 4 * kBQ * 4;
+
+// what the bf16 backward's blocks share: the tensors, the shape, and the
+// counters of one call: sync[0] the ticket, then one count a (item, head)
+// of the di tiles done, then one a (item, head, query tile) of the key tiles
+// whose dS^T is out
+struct BwdArgs {
+  const bf16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  const unsigned char* mask;
+  int b, lq, lk, heads, hd;
+  float scale_log2, scale;
+  float* di;
+  bf16* ds;
+  int* sync;
+  bf16 *dq, *dk, *dv;
+};
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// the block's writes before this are seen by any block that reads `count`
+// past them (a barrier, then one thread's release: the pattern of CUTLASS's
+// semaphore)
+__device__ __forceinline__ void count_up(int* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1);
+  }
+}
+
+// waits until `count` reaches `target`; what the blocks that counted wrote
+// before is then seen
+__device__ __forceinline__ void wait_for(const int* count, int target) {
+  if (threadIdx.x == 0) {
+    while (load_acquire(count) < target) {
+    }
+  }
+  __syncthreads();
+}
+
+// di of query tile t of one (item, head): thread tid half a row (row tid / 2,
+// chunks 4 (tid & 1)..+3 of 8 entries) in order of d, the halves added
+__device__ void bwd_di(const BwdArgs& a, int bh, int t) {
+  const int b = bh / a.heads, h = bh % a.heads, q0 = t * kBQ, rows = min(kBQ, a.lq - q0);
+  const int row = threadIdx.x >> 1, chunk = (threadIdx.x & 1) * 4;
+  const size_t at =
+      (static_cast<size_t>(b) * a.lq + q0 + row) * a.heads * a.hd + static_cast<size_t>(h) * a.hd;
+  float s = 0.f;
+  if (row < rows) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = (chunk + i) * 8;
+      if (d >= a.hd) break;
+      const uint4 o4 = *reinterpret_cast<const uint4*>(a.o + at + d);
+      const uint4 g4 = *reinterpret_cast<const uint4*>(a.dout + at + d);
+      const bf16* x = reinterpret_cast<const bf16*>(&o4);
+      const bf16* y = reinterpret_cast<const bf16*>(&g4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = fmaf(__bfloat162float(x[e]), __bfloat162float(y[e]), s);
+    }
+  }
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 1);
+  if ((threadIdx.x & 1) == 0 && row < rows) a.di[static_cast<size_t>(bh) * a.lq + q0 + row] = s;
+  count_up(a.sync + 1 + bh);
+}
+
+// dK, dV of key tile kt of one (item, head), 16 keys a warp, walking the
+// query tiles in order, and each query tile's dS^T (rounded) out to the
+// scratch, tile (item, head, query tile, key tile), counted per query tile.
+// A key tile with no attended key writes zero dk, dv rows and no dS^T
+// (and still counts). K and V stay in shared memory and their A fragments
+// are read at each use, which leaves the registers (168) for three blocks an
+// SM.
+__device__ void bwd_dkv(const BwdArgs& a, int bh, int kt, unsigned char* smem) {
+  bf16(*sq)[kBQ * kHD] = reinterpret_cast<bf16(*)[kBQ * kHD]>(smem);  // two Q tiles
+  bf16(*sdo)[kBQ * kHD] = sq + 2;                                        // two dO tiles
+  bf16* sk = sdo[2];
+  bf16* sv = sk + kBK * kHD;
+  bf16* sds = sv + kBK * kHD;  // this tile's dS^T, rounded
+  float(*s_lse)[kBQ] = reinterpret_cast<float(*)[kBQ]>(sds + kTile);  // log2 units
+  float(*s_di)[kBQ] = s_lse + 2;
+
+  const int b = bh / a.heads, h = bh % a.heads, k0 = kt * kBK, lq = a.lq, lk = a.lk, hd = a.hd;
+  const int nkt = (lk + kBK - 1) / kBK, nqt = (lq + kBQ - 1) / kBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const size_t width = static_cast<size_t>(heads) * hd;
+  const int tid = threadIdx.x;
+  const size_t width = static_cast<size_t>(a.heads) * hd;
   const size_t head_off = static_cast<size_t>(h) * hd;
   const int k_rows = min(kBK, lk - k0);
-  const unsigned char* mb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * lk;
-  bf16* dkb = dk + (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  bf16* dvb = dv + (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  const bf16* qb = q + static_cast<size_t>(b) * lq * width + head_off;
-  const bf16* dob = dout + static_cast<size_t>(b) * lq * width + head_off;
-  const float* lse_b = lse + (static_cast<size_t>(b) * heads + h) * lq;
-  const float* di_b = di + (static_cast<size_t>(b) * heads + h) * lq;
+  const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
+  bf16* dkb = a.dk + (static_cast<size_t>(b) * lk + k0) * width + head_off;
+  bf16* dvb = a.dv + (static_cast<size_t>(b) * lk + k0) * width + head_off;
+  const bf16* qb = a.q + static_cast<size_t>(b) * lq * width + head_off;
+  const bf16* dob = a.dout + static_cast<size_t>(b) * lq * width + head_off;
+  const float* lse_b = a.lse + static_cast<size_t>(bh) * lq;
+  const float* di_b = a.di + static_cast<size_t>(bh) * lq;
+  int* done = a.sync + 1 + a.b * a.heads + static_cast<size_t>(bh) * nqt;
 
-  const int tid = threadIdx.x;
   int attended = 0;
   if (tid < kBK) attended = tid < k_rows && (mb == nullptr || !mb[k0 + tid]);
   if (!__syncthreads_or(attended)) {  // no key of the tile attended: zero rows
-    for (int i = threadIdx.x; i < k_rows * hd; i += kTC) {
+    for (int i = tid; i < k_rows * hd; i += kTC) {
       dkb[(i / hd) * width + i % hd] = __float2bfloat16_rn(0.f);
       dvb[(i / hd) * width + i % hd] = __float2bfloat16_rn(0.f);
     }
+    for (int t = tid; t < nqt; t += kTC) atomicAdd(done + t, 1);  // no dS^T to see
     return;
   }
   bool keep[2];  // this thread's key rows g and g + 8
@@ -751,99 +1049,136 @@ attention_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict
     const int key = k0 + warp * 16 + g + 8 * r;
     keep[r] = key < lk && (mb == nullptr || !mb[key]);
   }
-  load_tile(sq[1], k + (static_cast<size_t>(b) * lk + k0) * width + head_off, width, k_rows, hd);
-  load_tile(sdo[1], v + (static_cast<size_t>(b) * lk + k0) * width + head_off, width, k_rows, hd);
+  load_tile(sk, a.k + (static_cast<size_t>(b) * lk + k0) * width + head_off, width, k_rows, hd);
+  load_tile(sv, a.v + (static_cast<size_t>(b) * lk + k0) * width + head_off, width, k_rows, hd);
   load_tile(sq[0], qb, width, min(kBQ, lq), hd);
   load_tile(sdo[0], dob, width, min(kBQ, lq), hd);
-  if (threadIdx.x < kBQ) {
-    const int i = threadIdx.x;
-    s_lse[0][i] = i < lq ? lse_b[i] * kLog2e : INFINITY;
+  wait_for(a.sync + 1 + bh, nqt);  // every di tile of the (item, head) is out
+  if (tid < kBQ) {
+    s_lse[0][tid] = tid < lq ? lse_b[tid] * kLog2e : INFINITY;
   } else {
-    const int i = threadIdx.x - kBQ;
-    s_di[0][i] = i < lq ? di_b[i] : 0.f;
+    const int i = tid - kBQ;
+    s_di[0][i] = i < lq ? __ldcg(di_b + i) : 0.f;
   }
 
-  unsigned kf[4][4], vf[4][4];
+  unsigned kf[4][4], vf[4][4];  // A fragments of this warp's K and V rows, read at each use
   float adk[8][4], adv[8][4];
   zero(adk);
   zero(adv);
-  const int tiles = (lq + kBQ - 1) / kBQ;
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
+  for (int t = 0; t < nqt; ++t) {
+    const int buf = t & 1, q0 = t * kBQ, rows = min(kBQ, lq - q0);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();  // tile t is in shared memory; every warp is done with tile t - 1
-    if (t == 0) {
-      load_a_rows(sq[1], warp * 16, lane, kf);
-      load_a_rows(sdo[1], warp * 16, lane, vf);
-      __syncthreads();  // buffer 1 is free
+    if (t > 0 && tid == 0) {  // every warp's dS^T of tile t - 1 is out (count_up)
+      __threadfence();
+      atomicAdd(done + t - 1, 1);
     }
-    if (t + 1 < tiles) {
-      const int next = (t + 1) * kBQ, rows = min(kBQ, lq - next);
-      load_tile(sq[buf ^ 1], qb + next * width, width, rows, hd);
-      load_tile(sdo[buf ^ 1], dob + next * width, width, rows, hd);
-      if (threadIdx.x < kBQ) {
-        const int i = threadIdx.x;
-        s_lse[buf ^ 1][i] = i < rows ? lse_b[next + i] * kLog2e : INFINITY;
+    if (t + 1 < nqt) {
+      const int next = q0 + kBQ, next_rows = min(kBQ, lq - next);
+      load_tile(sq[buf ^ 1], qb + next * width, width, next_rows, hd);
+      load_tile(sdo[buf ^ 1], dob + next * width, width, next_rows, hd);
+      if (tid < kBQ) {
+        s_lse[buf ^ 1][tid] = tid < next_rows ? lse_b[next + tid] * kLog2e : INFINITY;
       } else {
-        const int i = threadIdx.x - kBQ;
-        s_di[buf ^ 1][i] = i < rows ? di_b[next + i] : 0.f;
+        const int i = tid - kBQ;
+        s_di[buf ^ 1][i] = i < next_rows ? __ldcg(di_b + next + i) : 0.f;
       }
     }
-    // S^T = K Q^T: this warp's 16 keys x 64 queries; P^T in f32
+    // S^T = K Q^T: this warp's 16 keys x the tile's queries; P^T in f32
     float st[8][4];
     zero(st);
-    mma_a_bt(st, kf, sq[buf], lane);
+    load_a_rows(sk, warp * 16, lane, kf);
+    if (rows == kBQ) {
+      mma_a_bt(st, kf, sq[buf], lane);
+    } else {  // the ragged last tile: fragments wholly past Lq are left out
+      mma_a_bt<true>(st, kf, sq[buf], lane, rows);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * tig + (e & 1);
-        st[j][e] = keep[e >> 1] ? exp2f(st[j][e] * scale_log2 - s_lse[buf][col]) : 0.f;
+        st[j][e] = keep[e >> 1] ? exp2f(st[j][e] * a.scale_log2 - s_lse[buf][col]) : 0.f;
       }
     }
-    mma_c_t(adv, st, sdo[buf], lane);  // dV += P^T dO, P rounded to bf16
+    // dV += P^T dO, P rounded to bf16
+    if (rows == kBQ) {
+      mma_c_t(adv, st, sdo[buf], lane);
+    } else {
+      mma_c_t<true>(adv, st, sdo[buf], lane, rows);
+    }
     // dP^T = V dO^T; dS^T = (dP^T - di) P^T scale
     float dpt[8][4];
     zero(dpt);
-    mma_a_bt(dpt, vf, sdo[buf], lane);
+    load_a_rows(sv, warp * 16, lane, vf);
+    if (rows == kBQ) {
+      mma_a_bt(dpt, vf, sdo[buf], lane);
+    } else {
+      mma_a_bt<true>(dpt, vf, sdo[buf], lane, rows);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * tig + (e & 1);
-        dpt[j][e] = (dpt[j][e] - s_di[buf][col]) * st[j][e] * scale;
+        dpt[j][e] = (dpt[j][e] - s_di[buf][col]) * st[j][e] * a.scale;
       }
     }
-    mma_c_t(adk, dpt, sq[buf], lane);  // dK += dS^T Q, dS rounded to bf16
+    // dK += dS^T Q, dS rounded to bf16
+    if (rows == kBQ) {
+      mma_c_t(adk, dpt, sq[buf], lane);
+    } else {
+      mma_c_t<true>(adk, dpt, sq[buf], lane, rows);
+    }
+    // dS^T, rounded, to the scratch by way of this warp's 16 rows of shared
+    // memory (16-byte rows; no block barrier)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        *reinterpret_cast<unsigned*>(sds + swz(warp * 16 + g + 8 * r, 8 * j + 2 * tig)) =
+            pack_bf16(dpt[j][2 * r], dpt[j][2 * r + 1]);
+      }
+    }
+    __syncwarp();
+    const int first = warp * 16 * kChunks;  // the warp's rows, as 16-byte chunks
+    uint4* out = reinterpret_cast<uint4*>(a.ds + ((static_cast<size_t>(bh) * nqt + t) * nkt + kt) *
+                                                     kTile);
+    for (int i = first + lane; i < first + 16 * kChunks; i += 32) {
+      out[i] = reinterpret_cast<const uint4*>(sds)[i];
+    }
   }
+  count_up(done + nqt - 1);
   store_rows(dkb, width, warp * 16, k_rows, hd, adk, g, tig);
   store_rows(dvb, width, warp * 16, k_rows, hd, adv, g, tig);
 }
 
-// a block 64 queries of one (item, head), 16 a warp; the key tiles up to
-// the last attended key, tiles with no attended key skipped
-__global__ void __launch_bounds__(kTC, 2)
-attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ di,
-                             const unsigned char* __restrict__ mask, int lq, int lk, int heads,
-                             int hd, float scale_log2, float scale, bf16* __restrict__ dq) {
-  // buffer 1 holds Q and dO until their fragments are in registers
-  __shared__ __align__(128) bf16 sk[2][kBK * kHD];
-  __shared__ __align__(128) bf16 sv[2][kBK * kHD];
-  __shared__ unsigned s_keep[2][2];
+// stages of the dQ work's stream of dS^T and K tiles
+constexpr int kDqStages = 3;
+static_assert(kDqStages * (kTile + kBK * kHD) * static_cast<int>(sizeof(bf16)) <= kBwdSmem,
+              "the dQ work's stages fit in the dK/dV work's shared memory");
+
+// dq of query tile t of one (item, head), 16 queries a warp: dS K over the
+// key tiles in order up to the last attended key, once every key tile has
+// counted its dS^T out; the dS^T tiles and K stream through shared memory in
+// kDqStages stages (the dS^T tiles mostly come from device memory); a tile
+// with no attended key (no dS^T) is skipped
+__device__ void bwd_dq(const BwdArgs& a, int bh, int t, unsigned char* smem) {
+  bf16(*sds)[kTile] = reinterpret_cast<bf16(*)[kTile]>(smem);
+  bf16(*sk)[kBK * kHD] = reinterpret_cast<bf16(*)[kBK * kHD]>(sds + kDqStages);
   __shared__ int s_end[kWarps];
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int b = bh / a.heads, h = bh % a.heads, q0 = t * kBQ, lq = a.lq, lk = a.lk, hd = a.hd;
+  const int nkt = (lk + kBK - 1) / kBK, nqt = (lq + kBQ - 1) / kBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const size_t width = static_cast<size_t>(heads) * hd;
+  const size_t width = static_cast<size_t>(a.heads) * hd;
   const size_t head_off = static_cast<size_t>(h) * hd;
   const int q_rows = min(kBQ, lq - q0);
-  const bf16* kb = k + static_cast<size_t>(b) * lk * width + head_off;
-  const bf16* vb = v + static_cast<size_t>(b) * lk * width + head_off;
-  const unsigned char* mb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * lk;
-  bf16* dqb = dq + (static_cast<size_t>(b) * lq + q0) * width + head_off;
+  const bf16* kb = a.k + static_cast<size_t>(b) * lk * width + head_off;
+  const bf16* dst = a.ds + (static_cast<size_t>(bh) * nqt + t) * nkt * kTile;
+  const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
+  bf16* dqb = a.dq + (static_cast<size_t>(b) * lq + q0) * width + head_off;
 
   int end = 0;  // one past the last attended key
   for (int j = threadIdx.x; j < lk; j += kTC) {
@@ -861,145 +1196,191 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     }
     return;
   }
-  const size_t qrow0 = (static_cast<size_t>(b) * lq + q0) * width + head_off;
-  load_tile(sk[1], q + qrow0, width, q_rows, hd);
-  load_tile(sv[1], dout + qrow0, width, q_rows, hd);
-  load_tile(sk[0], kb, width, min(kBK, lk), hd);
-  load_tile(sv[0], vb, width, min(kBK, lk), hd);
-  float lse2[2], di_r[2];  // this thread's query rows g and g + 8
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    const size_t at = (static_cast<size_t>(b) * heads + h) * lq + row;
-    lse2[r] = row < lq ? lse[at] * kLog2e : INFINITY;
-    di_r[r] = row < lq ? di[at] : 0.f;
-  }
-
-  unsigned qf[4][4], dof[4][4];
+  wait_for(a.sync + 1 + a.b * a.heads + static_cast<size_t>(bh) * nqt + t, nkt);
+  const auto fetch = [&](int kt, int buf) {  // dS^T tile kt (as written) and K tile kt
+    for (int i = threadIdx.x; i < kTile / 8; i += kTC) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(sds[buf] + 8 * i)),
+                   "l"(dst + kt * kTile + 8 * i)
+                   : "memory");
+    }
+    load_tile(sk[buf], kb + kt * kBK * width, width, min(kBK, lk - kt * kBK), hd);
+  };
+  for (int kt = 0; kt < kDqStages - 1 && kt < tiles; ++kt) fetch(kt, kt);
   float adq[8][4];
   zero(adq);
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1, base = t * kBK;
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    if (warp < 2) {
-      const int j = base + threadIdx.x;
-      const bool keep = j < end && (mb == nullptr || !mb[j]);
-      const unsigned bits = __ballot_sync(0xFFFFFFFFu, keep);
-      if (lane == 0) s_keep[buf][warp] = bits;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int stage = kt % kDqStages, j = kt * kBK + threadIdx.x;
+    if (kt + 1 < tiles) {  // one copy group a tile: all but the next one's done
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kDqStages - 2) : "memory");
+    } else {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
     }
-    __syncthreads();  // tile t is in shared memory; every warp is done with tile t - 1
-    if (t == 0) {
-      load_a_rows(sk[1], warp * 16, lane, qf);
-      load_a_rows(sv[1], warp * 16, lane, dof);
-      __syncthreads();  // buffer 1 is free
-    }
-    if (t + 1 < tiles) {
-      const int next = base + kBK;
-      load_tile(sk[buf ^ 1], kb + next * width, width, min(kBK, lk - next), hd);
-      load_tile(sv[buf ^ 1], vb + next * width, width, min(kBK, lk - next), hd);
-    }
-    const unsigned long long keep =
-        s_keep[buf][0] | (static_cast<unsigned long long>(s_keep[buf][1]) << 32);
-    if (keep == 0ull) continue;
-    // S = Q K^T, P in f32
-    float s[8][4];
-    zero(s);
-    mma_a_bt(s, qf, sk[buf], lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * tig + (e & 1);
-        s[j][e] = (keep >> col) & 1ull ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-      }
-    }
-    // dP = dO V^T; dS = (dP - di) P scale
-    float dp[8][4];
-    zero(dp);
-    mma_a_bt(dp, dof, sv[buf], lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = (dp[j][e] - di_r[e >> 1]) * s[j][e] * scale;
-    }
-    mma_c_t(adq, dp, sk[buf], lane);  // dQ += dS K, dS rounded to bf16
+    // tile kt is in shared memory; every warp is done with tile kt - 1,
+    // whose stage the next copy takes
+    const bool any = __syncthreads_or(threadIdx.x < kBK && j < end && (mb == nullptr || !mb[j]));
+    if (kt + kDqStages - 1 < tiles) fetch(kt + kDqStages - 1, (kt + kDqStages - 1) % kDqStages);
+    if (any && warp * 16 < q_rows) mma_at_t(adq, sds[stage], warp * 16, sk[stage], lane);
   }
   store_rows(dqb, width, warp * 16, q_rows, hd, adq, g, tig);
 }
 
-template <typename T>
+// the whole bf16 backward in one launch: each block draws a ticket and takes
+// the work it names, in ticket order every di tile, then every key tile's
+// dK/dV (which waits for its (item, head)'s di), then every query tile's dQ
+// (which waits for its dS^T from every key tile)
+__global__ void __launch_bounds__(kTC, 3) attention_bwd_bf16_kernel(const BwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(a.sync, 1);
+  __syncthreads();
+  const int ticket = s_ticket;
+  const int nkt = (a.lk + kBK - 1) / kBK, nqt = (a.lq + kBQ - 1) / kBQ;
+  const int n_di = a.b * a.heads * nqt, n_kv = a.b * a.heads * nkt;
+  if (ticket < n_di) {
+    bwd_di(a, ticket / nqt, ticket % nqt);
+  } else if (ticket < n_di + n_kv) {
+    bwd_dkv(a, (ticket - n_di) / nkt, (ticket - n_di) % nkt, smem);
+  } else {
+    bwd_dq(a, (ticket - n_di - n_kv) / nqt, (ticket - n_di - n_kv) % nqt, smem);
+  }
+}
+
+// the backward's scratch: di (B, heads, Lq) f32 from byte 0; for bf16 then
+// the counters (BwdArgs::sync) and the dS^T tiles (B, heads, query tiles,
+// key tiles)
+struct BwdScratch {
+  size_t sync, n_sync, ds, bytes;
+};
+
+BwdScratch bwd_scratch(int b, int lq, int lk, int heads, int elem_bytes) {
+  const auto up = [](size_t x) { return (x + 127) / 128 * 128; };
+  const size_t bh = static_cast<size_t>(b) * heads, nqt = (lq + kBQ - 1) / kBQ;
+  BwdScratch s{};
+  s.sync = up(bh * lq * sizeof(float));
+  if (elem_bytes != 2) {
+    s.bytes = s.sync;
+    return s;
+  }
+  s.n_sync = 1 + bh + bh * nqt;
+  s.ds = up(s.sync + s.n_sync * sizeof(int));
+  s.bytes = s.ds + bh * nqt * ((lk + kBK - 1) / kBK) * kTile * sizeof(bf16);
+  return s;
+}
+
 int launch_di(const void* o, const void* dout, int b, int lq, int heads, int hd, float* di,
               cudaStream_t stream) {
-  const long long blocks =
-      (static_cast<long long>(b) * lq * heads + kDiThreads / 32 - 1) / (kDiThreads / 32);
+  const long long pairs = static_cast<long long>(b) * lq * heads;
+  const long long blocks = (pairs * 8 + kDiThreads - 1) / kDiThreads;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  attention_di_kernel<T><<<static_cast<unsigned>(blocks), kDiThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), b, lq, heads, hd, di);
+  attention_di_kernel<<<static_cast<unsigned>(blocks), kDiThreads, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), pairs, lq, heads, hd, di);
   return static_cast<int>(cudaGetLastError());
 }
+
+// lets the bf16 backward take kBwdSmem of dynamic shared memory, once a
+// device and process: the call is not free, and every backward launches it
+cudaError_t allow_bwd_smem() {
+  static std::mutex lock;
+  static std::set<int> done;
+  int device = 0;
+  const cudaError_t got = cudaGetDevice(&device);
+  if (got != cudaSuccess) return got;
+  const std::lock_guard<std::mutex> hold(lock);
+  if (done.count(device) != 0) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      attention_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  if (e == cudaSuccess) done.insert(device);
+  return e;
+}
+
+bool valid_shape(int b, int lq, int lk, int heads, int hd, int elem_bytes) {
+  return b > 0 && b <= 65535 && heads > 0 && heads <= 65535 && lq > 0 && lk > 0 && hd > 0 &&
+         hd <= kHD && (elem_bytes == 4 || elem_bytes == 2);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // q (B, Lq, heads*hd), k, v (B, Lk, heads*hd), mask (B, Lk) bytes or null,
 // out (B, Lq, heads*hd); elem_bytes 4 = f32, 2 = bf16; lse (B, heads, Lq) f32
-// or null
-extern "C" int amt_attention(const void* q, const void* k, const void* v,
-                             const unsigned char* mask, int b, int lq, int lk, int heads, int hd,
-                             float scale, int elem_bytes, void* out, float* lse, void* stream) {
-  if (b <= 0 || b > 65535 || heads <= 0 || heads > 65535 || lq <= 0 || lk <= 0 || hd <= 0 ||
-      hd > kHD || (elem_bytes != 4 && elem_bytes != 2)) {
+// or null; config: 0 for the default launch, or for f32 the queries a block
+// (8, 16 or 32)
+extern "C" int amt_attention_config(const void* q, const void* k, const void* v,
+                                    const unsigned char* mask, int b, int lq, int lk, int heads,
+                                    int hd, float scale, int elem_bytes, void* out, float* lse,
+                                    int config, void* stream) {
+  if (!valid_shape(b, lq, lk, heads, hd, elem_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2) {
+    if (config != 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16(q, k, v, mask, b, lq, lk, heads, hd, scale, out, lse, st);
   }
-  const dim3 grid((lq + kThreads - 1) / kThreads, heads, b);
-  attention_f32_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      mask, lq, lk, heads, hd, scale, static_cast<float*>(out), lse);
-  return static_cast<int>(cudaGetLastError());
+  const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
+              *vv = static_cast<const float*>(v);
+  float* oo = static_cast<float*>(out);
+  switch (config == 0 ? kF32Rows : config) {
+    case 8: return launch_f32<8>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, st);
+    case 16: return launch_f32<16>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, st);
+    case 32: return launch_f32<32>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int amt_attention(const void* q, const void* k, const void* v,
+                             const unsigned char* mask, int b, int lq, int lk, int heads, int hd,
+                             float scale, int elem_bytes, void* out, float* lse, void* stream) {
+  return amt_attention_config(q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, 0,
+                              stream);
+}
+
+// bytes of scratch amt_attention_bwd needs
+extern "C" long long amt_attention_bwd_scratch(int b, int lq, int lk, int heads, int elem_bytes) {
+  return static_cast<long long>(bwd_scratch(b, lq, lk, heads, elem_bytes).bytes);
 }
 
 // The backward of amt_attention: q, o, dout, dq (B, Lq, heads*hd), k, v, dk,
 // dv (B, Lk, heads*hd), lse (B, heads, Lq) f32 from the forward, mask (B, Lk)
-// bytes or null, di (B, heads, Lq) f32 scratch. Three launches in order: the
-// di pass, dK/dV and dQ (both read the di the first wrote).
+// bytes or null, scratch of amt_attention_bwd_scratch bytes (16-byte
+// aligned). bf16: a memset of the counters and one kernel; f32: the di
+// pass, dK/dV, then dQ.
 extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, const float* lse, const unsigned char* mask,
                                  int b, int lq, int lk, int heads, int hd, float scale,
-                                 int elem_bytes, float* di, void* dq, void* dk, void* dv,
+                                 int elem_bytes, void* scratch, void* dq, void* dk, void* dv,
                                  void* stream) {
-  if (b <= 0 || b > 65535 || heads <= 0 || heads > 65535 || lq <= 0 || lk <= 0 || hd <= 0 ||
-      hd > kHD || (elem_bytes != 4 && elem_bytes != 2)) {
+  if (!valid_shape(b, lq, lk, heads, hd, elem_bytes) || !aligned16(scratch)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  const bool bf = elem_bytes == 2;
-  if (bf) {
-    const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-    if (hd % 8 != 0 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(dout) ||
-        !aligned(dq) || !aligned(dk) || !aligned(dv)) {
+  float* di = static_cast<float*>(scratch);
+  if (elem_bytes == 2) {
+    const long long nkt = (lk + kBK - 1) / kBK, nqt = (lq + kBQ - 1) / kBQ;
+    const long long blocks = static_cast<long long>(b) * heads * (2 * nqt + nkt);
+    if (hd % 8 != 0 || blocks > 0x7FFFFFFFLL || !aligned16(q) || !aligned16(k) ||
+        !aligned16(v) || !aligned16(o) || !aligned16(dout) || !aligned16(dq) ||
+        !aligned16(dk) || !aligned16(dv)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-  }
-  int code = bf ? launch_di<bf16>(o, dout, b, lq, heads, hd, di, st)
-                : launch_di<float>(o, dout, b, lq, heads, hd, di, st);
-  if (code != 0) return code;
-  if (bf) {
-    const float scale_log2 = scale * kLog2e;
-    const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k),
-               *vv = static_cast<const bf16*>(v), *dd = static_cast<const bf16*>(dout);
-    attention_bwd_dkv_bf16_kernel<<<dim3((lk + kBK - 1) / kBK, heads, b), kTC, 0, st>>>(
-        qq, kk, vv, dd, lse, di, mask, lq, lk, heads, hd, scale_log2, scale,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv));
-    code = static_cast<int>(cudaGetLastError());
-    if (code != 0) return code;
-    attention_bwd_dq_bf16_kernel<<<dim3((lq + kBQ - 1) / kBQ, heads, b), kTC, 0, st>>>(
-        qq, kk, vv, dd, lse, di, mask, lq, lk, heads, hd, scale_log2, scale,
-        static_cast<bf16*>(dq));
+    const BwdScratch at = bwd_scratch(b, lq, lk, heads, elem_bytes);
+    unsigned char* base = static_cast<unsigned char*>(scratch);
+    const BwdArgs args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+                       static_cast<const bf16*>(dout), lse, mask, b, lq, lk, heads, hd,
+                       scale * kLog2e, scale, di, reinterpret_cast<bf16*>(base + at.ds),
+                       reinterpret_cast<int*>(base + at.sync), static_cast<bf16*>(dq),
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv)};
+    cudaError_t e = cudaMemsetAsync(args.sync, 0, at.n_sync * sizeof(int), st);
+    if (e == cudaSuccess) e = allow_bwd_smem();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attention_bwd_bf16_kernel<<<static_cast<unsigned>(blocks), kTC, kBwdSmem, st>>>(args);
     return static_cast<int>(cudaGetLastError());
   }
+  int code = launch_di(o, dout, b, lq, heads, hd, di, st);
+  if (code != 0) return code;
   const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
               *vv = static_cast<const float*>(v), *dd = static_cast<const float*>(dout);
   attention_bwd_dkv_f32_kernel<<<dim3((lk + kBT - 1) / kBT, heads, b), kBThreads, 0, st>>>(

@@ -30,15 +30,21 @@ H100 2^-11.2; one attended key left out, or the last tile of keys skipped,
 needs 2^-4.8 or more at the denoiser's shape. Whether the weights are
 rounded to bf16 moves the result by less than its own final rounding, so no
 elementwise tolerance tells a kernel that skips that rounding from one that
-does it. A query whose keys are all masked gets a zero row from both (the
-JAX package leaves that case undefined).
+does it. The f32 kernel (the regressor's) sums over tiles of 32 keys with
+the online softmax in base e; its order, emulated, needs at most 2^-22.5 of
+the largest ``|v|`` at the regressor's shape and at head dimensions 8, 40 and
+64, and the last tile of keys skipped 4.5e-2 or more. A query whose keys are
+all masked gets a zero row from both (the JAX package leaves that case
+undefined).
 
 Backward. ``di = sum(o * do)`` over the rounded output; ``dv = P^T do`` with
 P rounded to the input type first; ``ds = (do v^T - di) * P * scale``;
 ``dk = ds^T q`` and ``dq = ds k`` with ds rounded to the input type first;
 sums in float32, each gradient rounded once. Masked keys get zero gradients.
-The kernels sum over tiles of 64 (bf16) or 32 (f32) rows in order, so they
-agree with the plain version to :data:`TOLERANCE_BWD`: every entry of each
+The kernels sum over tiles of 64 (bf16) or 32 (f32) rows in order (bf16: one
+launch, whose dK/dV work walks each key tile's query tiles and writes the
+rounded dS^T, and whose dQ work sums dS K over the key tiles in order), so
+they agree with the plain version to :data:`TOLERANCE_BWD`: every entry of each
 gradient within ``atol * max |plain gradient| + rtol * |plain|``
 (:func:`backward_excess` gives the atol a pair needs). float32: 1e-5 of the
 largest entry. bfloat16: 2^-9 of it plus one bf16 ulp of the result. Both
@@ -46,8 +52,9 @@ set from readings, between what a right kernel and a faulty one give: the
 kernels' order, emulated on the CPU (``tests/test_torch_attention_bwd.py``),
 needs at most 2^-11.4 (bf16) and 2^-20.3 (f32) of the largest entry at the
 denoiser's shape and at head dimensions 8, 40 and 64, and the kernels on an
-H100 2^-10.8 and 2^-19.3; a key tile skipped, di left out or the mask
-missing in the backward needs 2^-1.3 or more. Whether P is rounded to bf16
+H100 2^-10.8 and 2^-18.8; a key tile skipped, di left out, the mask
+missing in the backward, or a key tile's dq part left out or added twice
+needs 2^-1.5 or more. Whether P is rounded to bf16
 before dV moves dv by less than its own final rounding (2^-9.5 of the
 largest entry, inside the ulp term), so no elementwise limit tells a kernel
 that skips that rounding from one that does it. The share of dv's entries
@@ -75,6 +82,9 @@ TOLERANCE_BWD = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2.0 ** -9, 2.0 ** 
 # bf16: the largest share of dv's entries that may differ from the plain
 # version's at all (see the module docstring)
 DV_DIFFER_SHARE = 2.0 ** -5
+# the f32 forward's launch configurations besides the default (0), for sweeps
+# (tools/kernel_ab.py): queries a block
+F32_ROWS = (8, 16, 32)
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -195,11 +205,14 @@ def _check_cuda(tensors, q, num_heads, name) -> None:
 
 
 def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                           pad_mask: Optional[torch.Tensor] = None, stats: bool = False):
+                           pad_mask: Optional[torch.Tensor] = None, stats: bool = False, *,
+                           config: int = 0):
     """(o, lse): :func:`attention_plain`'s o and, with ``stats``,
     :func:`attention_lse_plain`'s statistics (else None), not differentiable.
     Launches the kernel for CUDA tensors; CPU tensors take the plain
-    versions. The kernel's o is the same with and without ``stats``."""
+    versions. The kernel's o is the same with and without ``stats``.
+    ``config``: 0 for the default launch, or for float32 one of
+    :data:`F32_ROWS` (queries a block)."""
     _check_qkv(q, k, v, num_heads, pad_mask, "attention_cuda")
     if q.device.type == "cpu":
         lse = attention_lse_plain(q, k, num_heads, pad_mask) if stats else None
@@ -211,12 +224,12 @@ def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nu
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=q.device) if stats else None
     lib = build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if pad_mask is None else pad_mask.data_ptr(), B, Lq, k.shape[1], num_heads, hd,
+            hd ** -0.5, q.element_size(), out.data_ptr(), None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
-        code = lib.amt_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 None if pad_mask is None else pad_mask.data_ptr(), B, Lq,
-                                 k.shape[1], num_heads, hd, hd ** -0.5, q.element_size(),
-                                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                                 build.stream_of(q))
+        code = (lib.amt_attention_config(*args, config, build.stream_of(q)) if config
+                else lib.amt_attention(*args, build.stream_of(q)))
     build.check(code, "amt_attention")
     attention_cuda.launches += 1
     return out, lse
@@ -264,8 +277,9 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
                             do: torch.Tensor, lse: torch.Tensor, num_heads: int,
                             pad_mask: Optional[torch.Tensor] = None):
     """Same contract as :func:`attention_backward_plain`. Launches the
-    kernels for CUDA tensors (the di pass, dK/dV, then dQ; one count for
-    the three); CPU tensors take the plain version."""
+    kernels for CUDA tensors (bf16: one kernel for dq, dk and dv after a
+    memset of its counters; float32: the di pass, dK/dV, then dQ; one count
+    a call); CPU tensors take the plain version."""
     _check_qkv(q, k, v, num_heads, pad_mask, "attention_backward_cuda")
     B, Lq, D = q.shape
     Lk = k.shape[1]
@@ -281,15 +295,18 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, o, do, lse, num_heads, pad_mask)
     _check_cuda(tensors, q, num_heads, "attention_backward_cuda")
-    di = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    # di, and for bf16 the kernel's counters and the dS^T tiles its dK/dV
+    # work hands its dQ work
+    scratch = torch.empty(lib.amt_attention_bwd_scratch(B, Lq, Lk, num_heads, q.element_size()),
+                          dtype=torch.uint8, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     hd = D // num_heads
-    lib = build.library()
     with torch.cuda.device(q.device):
         code = lib.amt_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), None if pad_mask is None else pad_mask.data_ptr(), B, Lq, Lk,
-            num_heads, hd, hd ** -0.5, q.element_size(), di.data_ptr(), dq.data_ptr(),
+            num_heads, hd, hd ** -0.5, q.element_size(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), build.stream_of(q))
     build.check(code, "amt_attention_bwd")
     attention_backward_cuda.launches += 1

@@ -71,10 +71,19 @@ _SIGNATURES = {
     "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P],
     # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, stream)
     "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P],
-    # (q, k, v, o, dout, lse, mask, b, lq, lk, heads, hd, scale, elem_bytes, di, dq, dk, dv,
-    #  stream)
+    # the same with a launch configuration before the stream
+    "amt_attention_config": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P,
+                             _I, _P],
+    # (q, k, v, o, dout, lse, mask, b, lq, lk, heads, hd, scale, elem_bytes, scratch, dq, dk,
+    #  dv, stream)
     "amt_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
                           _P, _P, _P, _P, _P],
+}
+# entry points that return something other than a CUDA error code:
+# {name: (argtypes, restype)}
+_SIZES = {
+    # (b, lq, lk, heads, elem_bytes) -> bytes of amt_attention_bwd's scratch
+    "amt_attention_bwd_scratch": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()
@@ -145,6 +154,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             lib.amt_error_string.argtypes = [ctypes.c_int]
             lib.amt_error_string.restype = ctypes.c_char_p
             _lib = lib

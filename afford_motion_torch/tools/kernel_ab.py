@@ -2,7 +2,8 @@
 training and sampling paths (batch 32, 8192-point clouds), for one or more
 checkouts of the repo in turn, on one card:
 
-    python afford_motion_torch/tools/kernel_ab.py --kernel knn|banded_gather \
+    python afford_motion_torch/tools/kernel_ab.py \
+        --kernel knn|banded_gather|attention_f32|attention_bwd \
         [--sweep] [--out DIR] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
@@ -13,12 +14,16 @@ versions on one card. The shapes (``KNN_CALLS``, ``GATHER_CALLS``), the
 timer (``time_ms``: the median, least and largest of 5 blocks of
 back-to-back calls by CUDA events) and the bit comparison are those of this
 checkout's ``chip_smoke.py``, whatever the root. Per shape: the result held
-bit-equal to the plain version, then the kernel's ms per call. ``--sweep``
-also times, for the roots whose wrappers expose them, every launch
-configuration of the kernel (kNN: threads a block, parts of the cloud;
-banded gather: blocks a tile, window staged or not). Prints the card's name
-and power limit first; writes everything to ``DIR/kernel_ab.txt`` (default
-``build/profile``).
+bit-equal to the plain version (the attention: within ``TOLERANCE`` or
+``TOLERANCE_BWD`` of it), then the kernel's ms per call. The attention's
+shapes are the regressor's f32 forward (16, 196, 4x64) and the train path's
+bf16 backward (32, 326, 8x64), with the padded frames masked, each beside
+``scaled_dot_product_attention`` (its forward, or its whole backward).
+``--sweep`` also times, for the roots whose wrappers expose them, every launch
+configuration of the kernel (kNN: threads a block, parts of the cloud; banded
+gather: blocks a tile, window staged or not; the f32 attention: queries a
+block; the bf16 backward has one). Prints the card's name and power limit
+first; writes everything to ``DIR/kernel_ab.txt`` (default ``build/profile``).
 """
 from __future__ import annotations
 
@@ -149,7 +154,107 @@ def _banded_gather(smoke, rng, sweep):
     return rows
 
 
-KERNELS = {"knn": _knn, "banded_gather": _banded_gather}
+def _masked_qkv(smoke, rng, b, seq, heads, dtype, n=3):
+    """``n`` (b, seq, heads*64) tensors on the card and the key padding mask
+    of motions of 40..196 frames at the end of ``seq`` tokens, as
+    ``chip_smoke.py`` makes them."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    x = [torch.from_numpy(rng.normal(size=(b, seq, heads * 64)).astype("float32")).to(dev)
+         .to(dtype) for _ in range(n)]
+    lengths = rng.integers(40, smoke.L + 1, size=b)
+    pad = torch.from_numpy(smoke.np.arange(smoke.L)[None, :] >= lengths[:, None])
+    pad = torch.cat([torch.zeros((b, seq - smoke.L), dtype=torch.bool), pad], dim=1).to(dev)
+    return x, pad
+
+
+def _within(got, want, atol, rtol, what):
+    """Every entry within ``atol + rtol |want|``, as chip_smoke.py checks."""
+    if not bool(((got.double() - want.double()).abs()
+                 <= atol + rtol * want.double().abs()).all()):
+        raise AssertionError(f"{what}: kernel differs from plain")
+
+
+def _checked(fn, check, smoke, reps):
+    """A configuration of the sweep: its time if its result passes ``check``,
+    else why not."""
+    try:
+        check(fn())
+    except (AssertionError, RuntimeError, ValueError) as e:
+        return [f"FAILED: {e}"]
+    return smoke.time_ms(fn, reps)
+
+
+def _attention_f32(smoke, rng, sweep):
+    """The regressor's f32 attention forward (chip_smoke.py's FIT_BATCH
+    sequences of L frames, 4 heads of 64)."""
+    import torch
+    import torch.nn.functional as F
+
+    from afford_motion_torch.ops.cuda import attention as attn
+
+    b, heads = smoke.FIT_BATCH, 4
+    (q, k, v), pad = _masked_qkv(smoke, rng, b, smoke.L, heads, torch.float32)
+    atol = attn.TOLERANCE[torch.float32][0] * float(v.abs().max())
+    want = attn.attention_plain(q, k, v, heads, pad)
+
+    def check(got):
+        _within(got, want, atol, 0.0, "attention_f32")
+
+    rows = {}
+    fwd = lambda: attn.attention_forward_cuda(q, k, v, heads, pad)[0]   # noqa: E731
+    label = f"attention_f32 ({b},{smoke.L},{heads}x64)"
+    rows[label] = _checked(fwd, check, smoke, 10)
+
+    def heads_first(x):
+        return x.reshape(b, -1, heads, 64).transpose(1, 2)
+
+    rows[f"  scaled_dot_product_attention ({b},{smoke.L},{heads}x64)"] = smoke.time_ms(
+        lambda: F.scaled_dot_product_attention(heads_first(q), heads_first(k), heads_first(v),
+                                               attn_mask=~pad[:, None, None, :]), 10)
+    if sweep and hasattr(attn, "F32_ROWS"):
+        for n in attn.F32_ROWS:
+            rows[f"  sweep attention_f32 queries a block {n}"] = _checked(
+                lambda n=n: attn.attention_forward_cuda(q, k, v, heads, pad, config=n)[0],
+                check, smoke, 10)
+    return rows
+
+
+def _attention_bwd(smoke, rng, sweep):
+    """The train path's bf16 attention backward (batch B, 326 tokens, 8
+    heads of 64, the CMDM's masks), all three gradients. It has one launch
+    configuration, so ``sweep`` adds nothing."""
+    import torch
+    import torch.nn.functional as F
+
+    from afford_motion_torch.ops.cuda import attention as attn
+
+    b, seq, heads = smoke.B, 1 + 1 + 128 + smoke.L, 8
+    (q, k, v, do), pad = _masked_qkv(smoke, rng, b, seq, heads, torch.bfloat16, 4)
+    o, lse = attn.attention_forward_cuda(q, k, v, heads, pad, stats=True)
+    want = attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad)
+    atol, rtol = attn.TOLERANCE_BWD[torch.bfloat16]
+
+    def check(got):
+        if attn.backward_excess(got, want, rtol) > atol:
+            raise AssertionError("attention_bwd: kernel differs from plain")
+
+    rows = {}
+    label = f"attention_bwd ({b},{seq},{heads}x64)"
+    rows[label] = _checked(lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad),
+                           check, smoke, 10)
+    qh, kh, vh = (x.reshape(b, seq, heads, 64).transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=~pad[:, None, None, :])
+    doh = do.reshape(b, seq, heads, 64).transpose(1, 2)
+    rows[f"  gradient of scaled_dot_product_attention ({b},{seq},{heads}x64)"] = smoke.time_ms(
+        lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), 10)
+    return rows
+
+
+KERNELS = {"knn": _knn, "banded_gather": _banded_gather, "attention_f32": _attention_f32,
+           "attention_bwd": _attention_bwd}
 
 
 def worker(root: str, kernel: str, sweep: bool) -> dict:
@@ -241,8 +346,8 @@ def _table(roots, runs, kernel) -> list:
             cells.append("-" if v is None else (f"{v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f})"
                                                 if isinstance(v[0], float) else str(v)))
         lines.append(f"{label}: " + " | ".join(cells))
-    sums = [sum(v[0] for label, v in run.items() if label.startswith(kernel + " "))
-            for run in runs]
+    sums = [sum(v[0] for label, v in run.items()
+                if label.startswith(kernel + " ") and isinstance(v[0], float)) for run in runs]
     lines.append(f"{kernel} a pass (sum of medians): " + " | ".join(f"{s:.4f}" for s in sums))
     return lines
 

@@ -10,7 +10,7 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``build/kernels``; the registers, spills and shared memory of every
    kernel from the build log, and the count of tensor-core instructions
    (HMMA / HGMMA) in the SASS (``cuobjdump``) of the bf16 attention's
-   forward and of its two backward kernels;
+   forward and of its backward kernel;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the sampling and training paths give it (batch 32, 8192-point
    contact clouds) and on a near-tie cloud, plus a few shapes off those
@@ -49,19 +49,20 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    tolerance of its plain version (``TOLERANCE`` in ops/cuda/attention.py:
    1e-5 of the largest ``|v|`` for f32; 2^-9 of it plus one bf16 ulp of the
    result for bf16, with the largest share of it any bf16 check needed);
-   timed beside ``F.scaled_dot_product_attention``. The attention's backward
-   (the di pass, dK/dV and dQ) against ``attention_backward_plain`` on the
-   kernel forward's o and row statistics, to ``TOLERANCE_BWD`` (and for bf16
+   timed beside ``F.scaled_dot_product_attention``, with the kernels that
+   call launched. The attention's backward (bf16: one kernel for dq, dk and
+   dv; f32: the di pass, dK/dV and dQ) against ``attention_backward_plain``
+   on the kernel forward's o and row statistics, to ``TOLERANCE_BWD`` (and for bf16
    at most ``DV_DIFFER_SHARE`` of dv's entries differing at all): at the
    train path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's
    masks) in bf16 and f32, at the regressor's f32 shape, and off the path at
    head dimensions 8, 40 and 64 with odd lengths, a masked tile of 64 keys
    and an item with no attended key; two calls bit-identical; the forward's
    o bit-identical with and without the statistics, which must match
-   ``attention_lse_plain`` (LSE_LIMIT). dK/dV (with the di pass) and dQ
-   timed at the train shape, each beside the gradient of
+   ``attention_lse_plain`` (LSE_LIMIT); and at 1100 keys (18 key tiles).
+   The whole backward timed at the train shape beside the gradient of
    ``scaled_dot_product_attention`` with the same mask with respect to the
-   same inputs; the whole backward likewise;
+   same inputs, and split by kernel by the profiler's device time;
 4. autograd: ``gather_rows(x, idx).backward(g)`` and ``gather_banded(x,
    idx, starts).backward(g)`` through the kernels on the card equal the
    CPU's plain path bit for bit in float32;
@@ -167,11 +168,11 @@ REPLACES = {
                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 # what the kernels line's numbers mean where a row's differ from the others'
-_WHOLE = ("launches: calls of attention_backward_cuda, each launching the di pass, dK/dV and "
-          "dQ; ms: {} by the profiler's device time; library_ms: the whole backward of "
-          "scaled_dot_product_attention (dq, dk and dv), against the sum of both rows' ms")
-NOTES = {"attention_bwd_dkv": _WHOLE.format("the di pass and dK/dV"),
-         "attention_bwd_dq": _WHOLE.format("dQ")}
+_WHOLE = ("both backward rows read one kernel, which computes dq, dk and dv: launches are "
+          "calls of attention_backward_cuda, each launching it once; ms, bound_ms, plain_ms and "
+          "library_ms (the whole backward of scaled_dot_product_attention) are the whole "
+          "backward's, the same in both rows, not to be added")
+NOTES = {"attention_bwd_dkv": _WHOLE, "attention_bwd_dq": _WHOLE}
 # the packed-kNN calls of one SceneMap hierarchy, (query level, support
 # level, k), level 0 the 8192-point cloud and each next one its FPS to
 # 2048, 512, 128 (the 128x128 level is below the kernel's range and takes
@@ -377,8 +378,8 @@ def kernel_usage(ptxas_log: str) -> dict:
 
 def tensor_core_ops(lib_path: Path) -> str:
     """How many HMMA / HGMMA instructions ``cuobjdump -sass`` finds in each
-    bf16 attention kernel of the built library (the forward, dK/dV and dQ),
-    or why it was not checked."""
+    bf16 attention kernel of the built library (the forward and the
+    backward), or why it was not checked."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -389,8 +390,8 @@ def tensor_core_ops(lib_path: Path) -> str:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            current = next((k for k in ("attention_bf16", "attention_bwd_dkv_bf16",
-                                        "attention_bwd_dq_bf16") if k in name), None)
+            current = next((k for k in ("attention_bf16", "attention_bwd_bf16") if k in name),
+                           None)
             if current is not None:
                 counts.setdefault(current, {})
         elif current is not None:
@@ -398,7 +399,7 @@ def tensor_core_ops(lib_path: Path) -> str:
                 if f" {op}." in line:
                     counts[current][op] = counts[current].get(op, 0) + 1
                     break
-    if len(counts) != 3 or not all(counts.values()):
+    if len(counts) != 2 or not all(counts.values()):
         raise AssertionError(f"a bf16 attention kernel's SASS holds no tensor-core instruction: "
                              f"{counts}")
     return "; ".join(f"{k}: " + ", ".join(f"{n} {op}" for op, n in c.items())
@@ -870,19 +871,20 @@ def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> 
 
 
 def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
-    """The fused attention's backward kernels (the di pass, dK/dV, dQ)
-    against ``attention_backward_plain`` on the same inputs (the kernel
-    forward's o and statistics), to ``TOLERANCE_BWD``, and for bf16 at most
+    """The fused attention's backward kernels (bf16: one kernel for dq, dk
+    and dv; f32: the di pass, dK/dV, dQ) against
+    ``attention_backward_plain`` on the same inputs (the kernel forward's o
+    and statistics), to ``TOLERANCE_BWD``, and for bf16 at most
     ``DV_DIFFER_SHARE`` of dv's entries differing at all; two calls
     bit-identical; the forward's o bit-identical with and without the
     statistics, which must match ``attention_lse_plain``. At the train
     path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's masks) in
     both instances, at the regressor's f32 shape, and off the path at head
     dimensions 8, 40 and 64 with odd lengths, a masked tile of 64 keys and an
-    item with no attended key. Timed at the train shape: the whole backward
-    against the gradient of ``scaled_dot_product_attention`` with the same
-    mask, and dK/dV (with the di pass) and dQ each beside its bound, by the
-    profiler's device time."""
+    item with no attended key, and in bf16 at 1100 keys. Timed at the train
+    shape: the whole backward against the gradient of
+    ``scaled_dot_product_attention`` with the same mask and beside its bound,
+    split by kernel by the profiler's device time."""
     import torch.nn.functional as F
 
     from afford_motion_torch.ops.cuda import attention as attn
@@ -946,10 +948,11 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                 log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms "
                     f"({whole[1]:.4f}-{whole[2]:.4f})")
                 continue
-            # timed: the whole backward by CUDA events, and each of its
-            # kernels by the profiler's device time over the same calls (one
-            # call launches the di pass, dK/dV and dQ); the dK/dV row takes
-            # the di pass, whose di the dQ row reads
+            # timed: the whole backward by CUDA events, and split by kernel by
+            # the profiler's device time over the same calls. bf16 is one
+            # kernel for dq, dk and dv, so both rows take the whole backward;
+            # f32 (off the path) launches the di pass, dK/dV and dQ, and the
+            # dK/dV row takes the di pass, whose di the dQ row reads
             on_path = dtype == torch.bfloat16
             size = q.element_size()
             tokens = b * seq * heads * hd   # entries of one (B, L, D) tensor
@@ -966,21 +969,28 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                 return attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
 
             whole = time_ms(backward, 10)
-            split = device_ms(backward, 10, ("attention_di_kernel", "attention_bwd_dkv",
-                                             "attention_bwd_dq"))
+            split = device_ms(backward, 10, ("attention_bwd_bf16",) if on_path else (
+                "attention_di_kernel", "attention_bwd_dkv", "attention_bwd_dq"))
             plain = time_ms(lambda: attn.attention_backward_plain(q, k, v, o, do, lse, heads,
                                                                   pad), 3, PLAIN_BLOCKS)
             lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
                           10)
-            # q, k, v, o, dO, lse read, dk, dv, di written; q, k, v, dO, lse,
-            # di read, dq written. The plain version and the library call
+            # the whole: q, k, v, o, dO, lse read, dq, dk, dv written. dK/dV:
+            # q, k, v, o, dO, lse read, dk, dv, di written; dQ: q, k, v, dO,
+            # lse, di read, dq written. The plain version and the library call
             # compute the three gradients at once: their times stand in both
-            how = "profiler device time, mean of 10 calls"
-            for name, k_ms, nbytes, flops in (
-                    ("attention_bwd_dkv", split["attention_di_kernel"] + split["attention_bwd_dkv"],
-                     7 * tokens * size + 2 * stats, 4 * product),
-                    ("attention_bwd_dq", split["attention_bwd_dq"], 5 * tokens * size + 2 * stats,
-                     3 * product)):
+            if on_path:
+                how = f"the whole backward, median of {TIME_BLOCKS} blocks"
+                parts = [(name, whole[0], 8 * tokens * size + stats, 5 * product)
+                         for name in ("attention_bwd_dkv", "attention_bwd_dq")]
+            else:
+                how = "profiler device time, mean of 10 calls"
+                parts = [("attention_bwd_dkv",
+                          split["attention_di_kernel"] + split["attention_bwd_dkv"],
+                          7 * tokens * size + 2 * stats, 4 * product),
+                         ("attention_bwd_dq", split["attention_bwd_dq"],
+                          5 * tokens * size + 2 * stats, 3 * product)]
+            for name, k_ms, nbytes, flops in parts:
                 rep.record(name, label, k_ms, how, plain[0], on_path, nbytes=nbytes, flops=flops,
                            peak=peak, line=f", the whole backward's library call {lib[0]:.4f} ms")
                 if on_path:
@@ -988,8 +998,8 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
             b_ms, by = bound_ms(1e3 * (8 * tokens * size + stats) / HBM_BYTES_PER_S,
                                 1e3 * 5 * product / peak)
             log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms ({whole[1]:.4f}-"
-                f"{whole[2]:.4f}; by the profiler di {split['attention_di_kernel']:.4f}, dK/dV "
-                f"{split['attention_bwd_dkv']:.4f}, dQ {split['attention_bwd_dq']:.4f}), the "
+                f"{whole[2]:.4f}; by the profiler "
+                + ", ".join(f"{n[10:]} {t:.4f}" for n, t in split.items()) + "), the "
                 f"gradient of scaled_dot_product_attention {lib[0]:.4f} ms ({lib[1]:.4f}-"
                 f"{lib[2]:.4f}), kernels / library {whole[0] / lib[0]:.3f}, bound {b_ms:.4f} ms "
                 f"({by}: 5 products of {product / 1e9:.3f} GFLOP, "
@@ -1006,6 +1016,11 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
             pad[:2, 64:128] = True
             check(f"off-path hd={hd} Lq={lq} Lk={lk} {str(dtype)[6:]}", q, k, v, do, 2,
                   pad.to(dev))
+    # bf16 at 1100 keys (18 key tiles), a masked stretch across tiles
+    q, k, v, do = tensors(3, 100, 1100, 2, 64, torch.bfloat16)
+    pad = torch.from_numpy(np.arange(1100)[None, :] >= np.array([[1100], [1000], [300]]))
+    pad[:2, 448:640] = True
+    check("off-path hd=64 Lq=100 Lk=1100 bfloat16", q, k, v, do, 2, pad.to(dev))
     log(f"  attention backward: within TOLERANCE_BWD of the plain version at every shape, "
         f"two calls bit-identical; the largest share needed: bf16 "
         f"2^{np.log2(max(rep.attention_bwd_need['bf16'], 1e-30)):.2f}, f32 "

@@ -15,7 +15,9 @@ the wiring uses. The CUDA kernel's bf16 order (64-key tiles, online softmax,
 weights rounded to bf16 against the running maximum) is emulated here in
 torch and held to ``TOLERANCE``, the figure ``chip_smoke.py`` holds the
 kernel to on the card, with a margin of 2; the same emulation with a fault
-planted (an attended key left out, the last tile skipped) must break it.
+planted (an attended key left out, the last tile skipped) must break it. So
+is the f32 instance's order (32-key tiles, an online softmax in base e), to
+half of ``TOLERANCE[float32]``, with the last tile skipped breaking it.
 """
 import math
 
@@ -198,6 +200,87 @@ def test_tiled_bf16_with_a_fault_breaks_tolerance(fault, masked):
     got = _tiled_bf16_attention(q, k, v, heads, pad, fault=fault)
     atol, _ = tattn.TOLERANCE[torch.bfloat16]
     assert _excess(got, want, v) > 4 * atol
+
+
+def _tiled_f32_attention(q, k, v, num_heads, pad_mask, tile=32, fault=None):
+    """The order of csrc/attention.cu's f32 instance in torch: tiles of 32
+    keys, a tile with no attended key skipped (and none past the last
+    attended key), logits scaled after the dot product, an online softmax in
+    base e against the running maximum (the sums and O rescaled once a tile),
+    P V summed over the tile's keys, one division at the end. ``fault``:
+    "last tile" skips the last tile of keys."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    hd = D // num_heads
+    qh, kh, vh = (x.reshape(B, -1, num_heads, hd).transpose(1, 2) for x in (q, k, v))
+    keep = torch.ones(B, Lk, dtype=torch.bool) if pad_mask is None else ~pad_mask
+    m = torch.full((B, num_heads, Lq, 1), -math.inf)
+    l = torch.zeros(B, num_heads, Lq, 1)
+    acc = torch.zeros(B, num_heads, Lq, hd)
+    bases = list(range(0, Lk, tile))
+    for base in bases[:-1] if fault == "last tile" else bases:
+        kt = keep[:, None, None, base:base + tile]
+        if not bool(kt.any()):
+            continue
+        s = torch.matmul(qh, kh[:, :, base:base + tile].transpose(-1, -2)) * hd ** -0.5
+        s = s.masked_fill(~kt, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vh[:, :, base:base + tile])
+        m = m_new
+    o = torch.where(l > 0, acc / l, torch.zeros(()))
+    return o.transpose(1, 2).reshape(B, Lq, D)
+
+
+def _regressor_qkv(seed):
+    """The regressor's attention: 4 heads of 64 over 196 frames, the padded
+    frames masked (batch 2 here; 16 on the path)."""
+    rng = np.random.default_rng(seed)
+    b, seq, heads, hd = 2, 196, 4, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, seq, heads * hd)).astype(np.float32))
+               for _ in range(3))
+    pad = torch.from_numpy(np.arange(seq)[None, :] >= np.array([[seq], [70]]))
+    return q, k, v, heads, pad
+
+
+def _f32_case(case):
+    if case == "regressor":
+        return _regressor_qkv(8)
+    q, k, v, heads, pad = _off_path_qkv(8, int(case[3:]))
+    return q.float(), k.float(), v.float(), heads, pad
+
+
+def _f32_excess(got, want, v):
+    """Largest difference as a share of max |v|: the atol the pair needs
+    (float32's rtol is 0)."""
+    return float((got - want).abs().max() / v.abs().max())
+
+
+@pytest.mark.parametrize("case", ["regressor", "hd=8", "hd=40", "hd=64"])
+def test_tiled_f32_order_within_half_tolerance_of_plain(case):
+    """The f32 kernel's order, emulated, meets half of ``TOLERANCE[float32]``
+    at the regressor's shape and at chip_smoke.py's off-path shapes (70
+    queries, 150 keys, a masked 64-key stretch, one item with one key)."""
+    q, k, v, heads, pad = _f32_case(case)
+    want = tattn.attention_plain(q, k, v, heads, pad)
+    got = _tiled_f32_attention(q, k, v, heads, pad)
+    atol, _ = tattn.TOLERANCE[torch.float32]
+    assert _f32_excess(got, want, v) <= atol / 2
+    assert bool((got != want).any())   # the orders do differ
+
+
+@pytest.mark.parametrize("case", ["regressor", "hd=64"])
+def test_tiled_f32_with_the_last_tile_skipped_breaks_tolerance(case):
+    """The f32 tolerance catches a kernel that skips the last tile of keys
+    (196 = 6 x 32 + 4 keys at the regressor's shape), by more than 4 times."""
+    q, k, v, heads, pad = _f32_case(case)
+    want = tattn.attention_plain(q, k, v, heads, pad)
+    got = _tiled_f32_attention(q, k, v, heads, pad, fault="last tile")
+    atol, _ = tattn.TOLERANCE[torch.float32]
+    assert _f32_excess(got, want, v) > 4 * atol
 
 
 def _reference_kernel(q, k, v, ab=None, segment_ids=None, *, sm_scale=1.0, **kw):

@@ -20,9 +20,10 @@ The CUDA kernels' order (tiles of 64 (bf16) or 32 (f32) rows summed in order,
 P from the log-sum-exp in base 2 for bf16) is emulated here in torch and
 held to half of ``TOLERANCE_BWD``, the figure ``chip_smoke.py`` holds the
 kernels to on the card; the same emulation with a fault planted (a key tile
-skipped, di left out, the mask missing in the backward) must need more than 4
-times it. P left unrounded before dV stays inside any elementwise limit; the
-share of dv entries that differ from the plain version's tells it apart
+skipped, di left out, the mask missing in the backward, a key tile's dq part
+left out of the ordered dq sum or added twice) must need more than 4 times
+it. P left unrounded before dV stays inside any elementwise limit; the share
+of dv entries that differ from the plain version's tells it apart
 (``DV_DIFFER_SHARE``).
 """
 import math
@@ -192,14 +193,18 @@ def _kernel_lse(q, k, heads, pad):
 
 
 def _kernel_backward(q, k, v, o, do, lse, heads, pad, fault=None):
-    """csrc/attention.cu's backward order in torch: di over the rounded o;
-    dK/dV walks the query tiles of each key tile in order, dQ the key tiles
-    of each query row, tiles with no attended key skipped; each tile's
-    products summed in f32, operands rounded to the type where the kernel
-    rounds them; bf16 takes P as exp2 of base-2 logits less lse log2(e).
-    ``fault`` plants a kernel's fault: "skip tile" leaves out the first key
-    tile, "no di" takes di as 0, "no mask" attends masked keys in the
-    backward, "P unrounded" feeds dV the float32 P."""
+    """csrc/attention.cu's backward order in torch: di over the rounded o
+    (bf16: computed in the dK/dV kernel's walk from its staged o and dO
+    tiles; f32: by the di pass); dK/dV walks the query tiles of each key tile
+    in order; dQ sums each key tile's part, dS K with dS rounded to the type
+    (bf16: the dS^T tiles dK/dV wrote), over the key tiles in order into
+    f32; tiles with no attended key skipped; each tile's products summed in
+    f32, operands rounded to the type where the kernel rounds them; bf16
+    takes P as exp2 of base-2 logits less lse log2(e). ``fault`` plants a
+    kernel's fault: "skip tile" leaves out the first key tile, "no di" takes
+    di as 0, "no mask" attends masked keys in the backward, "P unrounded"
+    feeds dV the float32 P, "dq tile dropped" leaves the first key tile's
+    part out of dq, "dq tile twice" adds it twice."""
     b, lq, d = q.shape
     lk = k.shape[1]
     hd = d // heads
@@ -239,7 +244,12 @@ def _kernel_backward(q, k, v, o, do, lse, heads, pad, fault=None):
         p = torch.where(keep[:, None, None, k0:k1],
                         probs(torch.matmul(qh, kt.transpose(-1, -2)), lse[..., None]), 0.0)
         ds = (torch.matmul(doh, vt.transpose(-1, -2)) - di) * p * scale
-        dq += torch.matmul(rnd(ds), kt)
+        part = torch.matmul(rnd(ds), kt)
+        first = k0 == tiles[0][0]
+        if not (fault == "dq tile dropped" and first):
+            dq += part
+        if fault == "dq tile twice" and first:
+            dq += part
 
     def back(x, n):
         return x.transpose(1, 2).reshape(b, n, d).to(dt)
@@ -295,6 +305,7 @@ def test_kernel_order_within_half_tolerance(case, dtype):
     ("skip tile", "denoiser"), ("skip tile", "hd=40"),
     ("no di", "denoiser"), ("no di", "denoiser no mask"),
     ("no mask", "denoiser"), ("no mask", "hd=8"),
+    ("dq tile dropped", "denoiser"), ("dq tile twice", "hd=40"),
 ])
 def test_kernel_order_with_a_fault_breaks_tolerance(fault, case, dtype):
     q, k, v, o, do, heads, pad = _case(case, dtype)
