@@ -17,107 +17,44 @@
 // order of csrc/scatter.cu: where a destination collects from two tiles the
 // association differs. No one-hot is built and no product is computed.
 //
-// Design: as csrc/scatter.cu, a segment reduce by destination without float
-// atomics (training must repeat bit for bit). segment_lists.cuh gives every
-// destination the ascending list of its positions, with the out-of-window
-// positions left out; one warp per destination row walks the list, lanes
-// over channels, and keeps a tile partial that is folded into the total
-// when the tile changes (positions ascend, so tiles do). bf16 rows are read
-// as bf16, summed in float32 and rounded once at the end.
+// Design: ordered_scatter.cuh, keeping the positions whose index lies in
+// their tile's window: the positions grouped stably by their destination's
+// range of 128 rows, then by destination, with no atomics in device memory
+// and nothing to clear; then one warp a destination walks its list, which
+// ascends by position and so by tile, lanes over channels, a tile partial
+// folded into the total when the tile changes. Rows nobody points at come
+// out zero. bf16 rows are read as bf16, summed in float32 and rounded once
+// at the end.
 //
 // What bounds it on the H100: bytes. g is read once, the output written
-// once; index and list traffic is 4 bytes per position against C * 2..4.
-#include "segment_lists.cuh"
+// once; the lists cost a few reads and writes of 4 bytes a position against
+// C * 2..4 bytes of g.
+#include "ordered_scatter.cuh"
 
 namespace {
-
 constexpr int kTileQueries = 128;  // TQ of the window policy
-
-// keeps the positions whose index lies in their tile's window
-struct InWindow {
-  const int* starts;
-  int starts_stride;
-  int tile_positions;  // 128 * K
-  int s;
-  __device__ bool operator()(long long b, int local_pos, int dest) const {
-    const int rel = dest - starts[b * starts_stride + local_pos / tile_positions];
-    return rel >= 0 && rel < s;
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_banded_kernel(const T* __restrict__ g, const int* __restrict__ start,
-                     const int* __restrict__ end, const int* __restrict__ sorted, int n, int c,
-                     int mk, int tile_positions, long long rows, T* __restrict__ out) {
-  const long long row = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int lo = start[row], hi = end[row];
-  const int first = static_cast<int>(row / n) * mk;  // the cloud's first flat position
-  T* dst = out + row * c;
-  for (int ch0 = 0; ch0 < c; ch0 += 32 * kAcc) {
-    float total[kAcc], part[kAcc];
-#pragma unroll
-    for (int u = 0; u < kAcc; ++u) total[u] = part[u] = 0.0f;
-    int tile = -1;
-    for (int t = lo; t < hi; ++t) {
-      const int p = sorted[t];
-      const int p_tile = (p - first) / tile_positions;
-      if (p_tile != tile) {
-#pragma unroll
-        for (int u = 0; u < kAcc; ++u) {
-          total[u] = __fadd_rn(total[u], part[u]);
-          part[u] = 0.0f;
-        }
-        tile = p_tile;
-      }
-      const T* src = g + static_cast<long long>(p) * c;
-#pragma unroll
-      for (int u = 0; u < kAcc; ++u) {
-        const int ch = ch0 + u * 32 + lane;
-        if (ch < c) part[u] = __fadd_rn(part[u], load_f32(src + ch));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kAcc; ++u) {
-      const int ch = ch0 + u * 32 + lane;
-      if (ch < c) store_f32(dst + ch, __fadd_rn(total[u], part[u]));
-    }
-  }
-}
-
 }  // namespace
 
 // g (b, m * k, c) and out (b, n, c) in float32 (elem_bytes 4) or bfloat16
 // (2); idx (b, m * k) int32; starts int32, (m / 128,) with starts_stride 0 or
-// (b, m / 128) with starts_stride m / 128, each in [0, n - s]. Scratch, all
-// int32: counts and start (b * n each), unsorted and sorted (b * m * k each);
-// their contents on entry do not matter.
+// (b, m / 128) with starts_stride m / 128; m * k < 2^24 and n <= 131072. The
+// sums' launch configuration: passes (channel passes of ceil(c / passes)
+// channels, at most 32 * wide), wide (channels a lane, 1 to 4) and budget
+// (0 or 1: see sums_kernel in ordered_scatter.cuh). scratch:
+// amt_scatter_scratch(b, n, m * k) int32 entries whose contents on entry do
+// not matter.
 extern "C" int amt_scatter_banded(const void* g, const int* idx, const int* starts,
                                   int starts_stride, int b, int n, int c, int m, int k, int s,
-                                  int elem_bytes, int* counts, int* start, int* unsorted,
-                                  int* sorted, void* out, void* stream) {
-  if (b <= 0 || n <= 0 || c <= 0 || m <= 0 || m % kTileQueries != 0 || k <= 0 || s <= 0 ||
-      s > n || (elem_bytes != 4 && elem_bytes != 2) ||
-      (starts_stride != 0 && starts_stride != m / kTileQueries)) {
+                                  int elem_bytes, int passes, int wide, int budget,
+                                  int* scratch, void* out, void* stream) {
+  if (m <= 0 || m % kTileQueries != 0 || k <= 0 || s <= 0 || s > n ||
+      (starts_stride != 0 && starts_stride != m / kTileQueries) || passes < 1 || passes > c ||
+      static_cast<long long>(m) * k > kPosMask) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int mk = m * k;
-  const int tile_positions = kTileQueries * k;
-  const long long rows = static_cast<long long>(b) * n;
-  auto st = static_cast<cudaStream_t>(stream);
-  const InWindow keep{starts, starts_stride, tile_positions, s};
-  const cudaError_t err = build_lists(idx, b, n, mk, counts, start, unsorted, sorted, keep, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (elem_bytes == 4) {
-    reduce_banded_kernel<float><<<blocks_for(rows, kWarpsPerBlock), kThreads, 0, st>>>(
-        static_cast<const float*>(g), start, counts, sorted, n, c, mk, tile_positions, rows,
-        static_cast<float*>(out));
-  } else {
-    reduce_banded_kernel<__nv_bfloat16><<<blocks_for(rows, kWarpsPerBlock), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g), start, counts, sorted, n, c, mk, tile_positions,
-        rows, static_cast<__nv_bfloat16*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int tp = kTileQueries * k;
+  return static_cast<int>(ordered_scatter<true>(g, idx, b, n, c, m * k, elem_bytes,
+                                                (c + passes - 1) / passes, wide, budget,
+                                                InWindow{starts, starts_stride, tp, s}, tp,
+                                                scratch, out, static_cast<cudaStream_t>(stream)));
 }

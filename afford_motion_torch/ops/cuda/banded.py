@@ -35,7 +35,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import build
-from .gather import ELEM_BYTES, check_rows, ordered_segment_sum
+from .gather import (ELEM_BYTES, check_rows, check_scatter_shape, ordered_segment_sum,
+                     scatter_config, scratch)
 from .knn import IDX_BITS, IDX_MASK
 
 TQ = 128  # query rows per tile (all level sizes are multiples of 128)
@@ -355,6 +356,23 @@ def launch_gather(x: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor, stri
     return out
 
 
+def launch_scatter(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor, stride: int, n: int,
+                   s: int, passes: int, wide: int, budget: int) -> torch.Tensor:
+    """One call of the banded scatter kernels with the given configuration
+    of the sums (see :func:`gather.scatter_config`); checks and counts are
+    the caller's."""
+    B, M, K, C = g.shape
+    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
+    work = scratch(g, n)
+    with torch.cuda.device(g.device):
+        code = build.library().amt_scatter_banded(
+            g.data_ptr(), idx.data_ptr(), starts.data_ptr(), stride, B, n, C, M, K, s,
+            ELEM_BYTES[g.dtype], passes, wide, budget, work.data_ptr(), out.data_ptr(),
+            build.stream_of(g))
+    build.check(code, "amt_scatter_banded")
+    return out
+
+
 def scatter_banded(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor, n: int,
                    s: int) -> torch.Tensor:
     """(B, M, K, C) f32|bf16, (B, M, K) int32, starts, window size ``s`` ->
@@ -369,18 +387,8 @@ def scatter_banded(g: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor, n: 
     stride = _check_starts(starts, B, M, g, "scatter_banded")
     if g.device.type == "cpu":
         return scatter_banded_plain(g, idx, starts, n, s)
-    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
-    # scratch: counts / cursors and slice starts per destination, the
-    # positions grouped by destination before and after the sort
-    per_dest = torch.empty((2, B, n), dtype=torch.int32, device=g.device)
-    per_pos = torch.empty((2, B, M * K), dtype=torch.int32, device=g.device)
-    lib = build.library()
-    with torch.cuda.device(g.device):
-        code = lib.amt_scatter_banded(
-            g.data_ptr(), idx.data_ptr(), starts.data_ptr(), stride, B, n, C, M, K, s,
-            ELEM_BYTES[g.dtype], per_dest[0].data_ptr(), per_dest[1].data_ptr(),
-            per_pos[0].data_ptr(), per_pos[1].data_ptr(), out.data_ptr(), build.stream_of(g))
-    build.check(code, "amt_scatter_banded")
+    check_scatter_shape("scatter_banded", g, n)
+    out = launch_scatter(g, idx, starts, stride, n, s, *scatter_config(C, banded=True))
     scatter_banded.launches += 1
     return out
 

@@ -31,7 +31,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("fps.cu", "knn.cu", "gather.cu", "scatter.cu", "banded_knn.cu", "banded_gather.cu",
            "banded_scatter.cu", "nn1.cu", "attention.cu")
-HEADERS = ("segment_lists.cuh",)  # included by the sources; part of the library's hash
+HEADERS = ("ordered_scatter.cuh",)  # included by the sources; part of the library's hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,15 +58,15 @@ _SIGNATURES = {
     "amt_knn_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # (x, idx, b, n, c, m, k, elem_bytes, out, stream)
     "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # (g, idx, b, n, c, mk, elem_bytes, counts, start, unsorted, sorted, out, stream)
-    "amt_scatter_add_rows": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (g, idx, b, n, c, mk, elem_bytes, passes, wide, budget, scratch, out, stream)
+    "amt_scatter_add_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (query, support, starts, starts_stride, b, m, n, s, k, idx, dist, stream)
     "amt_knn_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (x, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, parts, staged, out, stream)
     "amt_gather_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, counts, start, unsorted,
-    #  sorted, out, stream)
-    "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, passes, wide, budget, scratch,
+    #  out, stream)
+    "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (points, verts, l, o, h, d2, idx, stream)
     "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P],
     # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, stream)
@@ -84,6 +84,8 @@ _SIGNATURES = {
 _SIZES = {
     # (b, lq, lk, heads, elem_bytes) -> bytes of amt_attention_bwd's scratch
     "amt_attention_bwd_scratch": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    # (b, n, mk) -> int32 entries of amt_scatter_add_rows' and amt_scatter_banded's scratch
+    "amt_scatter_scratch": ([_I, _I, _I], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()

@@ -10,11 +10,15 @@ deterministic and the two agree bit for bit.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import build
 
 ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# destinations a cloud the scatter kernels take (1024 ranges of 128)
+SCATTER_MAX_N = 131072
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -90,6 +94,54 @@ def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_config(c: int, banded: bool = False) -> Tuple[int, int, int]:
+    """(passes, wide, budget) of the scatter kernels' sums
+    (``csrc/ordered_scatter.cuh``), from ``tools/kernel_ab.py --sweep`` at
+    the SceneMap's shapes: one warp a destination takes the channels in
+    passes of equal width; ``wide``, the channels a lane takes (1 to 4); the
+    registers budgeted for 8 blocks an SM (1) or as the compiler allocates
+    them (0). The row gather's: passes of at most 128 channels, 4 a lane,
+    the compiler's registers. The banded gather's, whose sums also fold tile
+    partials: passes of at most 96 channels, the fewest a lane, the
+    budget."""
+    passes = -(-c // (96 if banded else 128))
+    wide = -(-(-(-c // passes)) // 32) if banded else 4
+    return passes, wide, int(banded)
+
+
+def scratch(g: torch.Tensor, n: int) -> torch.Tensor:
+    """The int32 scratch of a scatter kernel's call: the counts and offsets
+    of the grouping by range and the positions grouped, then listed by
+    destination."""
+    B, M, K, _ = g.shape
+    return torch.empty(build.library().amt_scatter_scratch(B, n, M * K), dtype=torch.int32,
+                       device=g.device)
+
+
+def check_scatter_shape(name: str, g: torch.Tensor, n: int) -> None:
+    """The shapes the scatter kernels take (on the card)."""
+    positions = g.shape[1] * g.shape[2]
+    if positions >= 1 << 24 or n > SCATTER_MAX_N or g.shape[0] > 65535:
+        raise ValueError(f"{name}: the kernel takes fewer than 2^24 positions, at most "
+                         f"{SCATTER_MAX_N} destinations and 65535 clouds, got {positions}, {n} "
+                         f"and {g.shape[0]}")
+
+
+def launch_scatter(g: torch.Tensor, idx: torch.Tensor, n: int, passes: int, wide: int,
+                   budget: int) -> torch.Tensor:
+    """One call of the scatter kernels with the given configuration of the
+    sums (see :func:`scatter_config`); checks and counts are the caller's."""
+    B, M, K, C = g.shape
+    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
+    work = scratch(g, n)
+    with torch.cuda.device(g.device):
+        code = build.library().amt_scatter_add_rows(
+            g.data_ptr(), idx.data_ptr(), B, n, C, M * K, ELEM_BYTES[g.dtype], passes, wide,
+            budget, work.data_ptr(), out.data_ptr(), build.stream_of(g))
+    build.check(code, "amt_scatter_add_rows")
+    return out
+
+
 def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """(B, M, K, C) f32|bf16, (B, M, K) int32 in [0, n) -> (B, n, C): the
     ordered scatter-add (see :func:`scatter_add_rows_plain`). Launches the
@@ -100,19 +152,8 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor
                          f"idx {tuple(idx.shape)}")
     if g.device.type == "cpu":
         return scatter_add_rows_plain(g, idx, n)
-    B, M, K, C = g.shape
-    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
-    # scratch: counts / cursors and slice starts per destination, the
-    # positions grouped by destination before and after the sort
-    per_dest = torch.empty((2, B, n), dtype=torch.int32, device=g.device)
-    per_pos = torch.empty((2, B, M * K), dtype=torch.int32, device=g.device)
-    lib = build.library()
-    with torch.cuda.device(g.device):
-        code = lib.amt_scatter_add_rows(
-            g.data_ptr(), idx.data_ptr(), B, n, C, M * K, ELEM_BYTES[g.dtype],
-            per_dest[0].data_ptr(), per_dest[1].data_ptr(), per_pos[0].data_ptr(),
-            per_pos[1].data_ptr(), out.data_ptr(), build.stream_of(g))
-    build.check(code, "amt_scatter_add_rows")
+    check_scatter_shape("scatter_add_rows", g, n)
+    out = launch_scatter(g, idx, n, *scatter_config(g.shape[-1]))
     scatter_add_rows.launches += 1
     return out
 

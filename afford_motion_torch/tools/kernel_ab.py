@@ -3,7 +3,7 @@ training and sampling paths (batch 32, 8192-point clouds), for one or more
 checkouts of the repo in turn, on one card:
 
     python afford_motion_torch/tools/kernel_ab.py \
-        --kernel knn|banded_gather|attention_f32|attention_bwd \
+        --kernel knn|banded_gather|scatter|banded_scatter|attention_f32|attention_bwd \
         [--sweep] [--out DIR] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
@@ -15,14 +15,19 @@ timer (``time_ms``: the median, least and largest of 5 blocks of
 back-to-back calls by CUDA events) and the bit comparison are those of this
 checkout's ``chip_smoke.py``, whatever the root. Per shape: the result held
 bit-equal to the plain version (the attention: within ``TOLERANCE`` or
-``TOLERANCE_BWD`` of it), then the kernel's ms per call. The attention's
+``TOLERANCE_BWD`` of it), then the kernel's ms per call. The scatter-adds
+(the row gather's #4 and the banded gather's #7) run at the gathers' shapes
+in bf16, the path's type, whose rows make the pass's sum, and in f32 beside
+them; each also gives the profiler's device time per kernel of one bf16
+call, and #4 the largest and mean in-degree of each shape. The attention's
 shapes are the regressor's f32 forward (16, 196, 4x64) and the train path's
 bf16 backward (32, 326, 8x64), with the padded frames masked, each beside
 ``scaled_dot_product_attention`` (its forward, or its whole backward).
 ``--sweep`` also times, for the roots whose wrappers expose them, every launch
 configuration of the kernel (kNN: threads a block, parts of the cloud; banded
 gather: blocks a tile, window staged or not; the f32 attention: queries a
-block; the bf16 backward has one). Prints the card's name and power limit
+block; the bf16 backward has one; the scatters' sums: channel passes,
+channels a lane and the register budget). Prints the card's name and power limit
 first; writes everything to ``DIR/kernel_ab.txt`` (default ``build/profile``).
 """
 from __future__ import annotations
@@ -106,18 +111,36 @@ def _knn(smoke, rng, sweep):
     return rows
 
 
-def _banded_gather(smoke, rng, sweep):
-    """The banded gathers of one banded SceneMap encoder on a sorted pyramid,
-    bf16."""
+def _plain_indices(smoke, rng):
+    """The packed kNN's indices of one SceneMap hierarchy on an FPS pyramid,
+    as ``chip_smoke.py``'s kernel phase makes them (level 3's 128 points
+    below the kernel's range: random in-range neighbours): (levels, {(query
+    level, support level): idx})."""
+    import torch
+
+    from afford_motion_torch.ops.cuda import knn
+
+    b, dev = smoke.B, torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    levels, _ = _pyramid(rng.normal(size=(b, smoke.N_POINTS, 3)).astype("float32"), False)
+    idx = {(qi, si): knn.knn_cuda(levels[qi], levels[si], k)[0] for qi, si, k in smoke.KNN_CALLS}
+    idx[(3, 3)] = torch.randint(0, 128, (b, 128, 16), device=dev, dtype=torch.int32,
+                                generator=gen)
+    return levels, idx
+
+
+def _banded_indices(smoke, rng):
+    """The banded kNN's indices of one banded SceneMap hierarchy on a sorted
+    pyramid, with their starts (static on self levels, adaptive across):
+    (levels, {(query level, support level): idx}, {...: starts})."""
     import numpy as np
     import torch
 
-    from afford_motion_torch.ops.cuda import banded, build
+    from afford_motion_torch.ops.cuda import banded
     from afford_motion_torch.ops.curves import curve_order
     from afford_motion_torch.ops.pointops import knn as knn_exact
 
     b, w0, dev = smoke.B, 128, torch.device("cuda:0")
-    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
     cloud = rng.normal(size=(b, smoke.N_POINTS, 3)).astype(np.float32)
     levels, fps = _pyramid(np.stack([c[curve_order(c, "morton")] for c in cloud]), True)
     knn_idx, starts = {}, {}
@@ -129,6 +152,19 @@ def _banded_gather(smoke, rng, sweep):
         knn_idx[(qi, si)], starts[(qi, si)] = banded.knn_banded(q, sup, k, st, w0)[0], st
     knn_idx[(3, 3)] = knn_exact(levels[3], levels[3], 16)[0].contiguous()
     starts[(3, 3)] = banded._starts_tensor(128, 128, w0, dev)
+    return levels, knn_idx, starts
+
+
+def _banded_gather(smoke, rng, sweep):
+    """The banded gathers of one banded SceneMap encoder on a sorted pyramid,
+    bf16."""
+    import torch
+
+    from afford_motion_torch.ops.cuda import banded, build
+
+    b, w0, dev = smoke.B, 128, torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    levels, knn_idx, starts = _banded_indices(smoke, rng)
     rows = {}
     for (qi, si), c in smoke.GATHER_CALLS:
         idx, st = knn_idx[(qi, si)], starts[(qi, si)]
@@ -151,6 +187,106 @@ def _banded_gather(smoke, rng, sweep):
                         want, 10)
             rows[f"  policy banded_gather m{m} c{c}"] = list(
                 banded.gather_config(b, m, c, k, size, 2))
+    return rows
+
+
+def _device_split(fn, reps=10) -> str:
+    """The device time of each kernel (and memset) one call of ``fn``
+    launches, by the profiler: 'name ms, ...'."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            name = re.search(r"(\w*kernel\w*|[Mm]emset)", e.key)
+            name = name.group(1) if name else e.key[:40]
+            split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items()) or "no device time seen"
+
+
+def _scatter(smoke, rng, sweep):
+    """The scatter-adds (#4) of one SceneMap encoder's backward on an FPS
+    pyramid, bf16 (the path) and f32 beside it; per shape the largest and
+    the mean in-degree, and the profiler's split of one call by kernel."""
+    import torch
+
+    from afford_motion_torch.ops.cuda import gather
+
+    b, dev = smoke.B, torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
+    levels, idx = _plain_indices(smoke, rng)
+    rows = {}
+    for (qi, si), c in smoke.GATHER_CALLS:
+        ii = idx[(qi, si)]
+        n, (m, k) = levels[si].shape[1], ii.shape[1:]
+        deg = torch.stack([torch.bincount(ii[i].reshape(-1).long(), minlength=n)
+                           for i in range(b)])
+        rows[f"  in-degree m{m} n{n} k{k}"] = [f"max {int(deg.max())}, "
+                                               f"mean {float(deg.float().mean()):.2f}"]
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.randn(b, m, k, c, device=dev, generator=gen).to(dtype)
+            want = [gather.scatter_add_rows_plain(g, ii, n)]
+            call = lambda g=g: [gather.scatter_add_rows(g, ii, n)]   # noqa: E731
+            _equal(smoke, call(), want, f"scatter {m}/{n}x{c} {dtype}")
+            tag = "scatter" if dtype == torch.bfloat16 else "  f32 scatter"
+            rows[f"{tag} m{m} n{n} c{c} k{k}"] = smoke.time_ms(call, 10)
+            if dtype == torch.bfloat16:
+                rows[f"  split scatter m{m} c{c}"] = [_device_split(call)]
+            if sweep and dtype == torch.bfloat16 and hasattr(gather, "scatter_config"):
+                policy = gather.scatter_config(c)
+                configs = {smoke.scatter_passes(c, f, w, o) for f in (1, 2) for w in (2, 3, 4)
+                           for o in (0, 1)}
+                for cfg in sorted(configs | {policy}):
+                    rows[f"  sweep {tag.strip()} m{m} c{c} (passes, wide, budget) {cfg}"] = (
+                        _checked_time(smoke, lambda cfg=cfg, g=g: [
+                            gather.launch_scatter(g, ii, n, *cfg)], want, 10))
+                rows[f"  policy scatter m{m} c{c}"] = list(policy)
+    return rows
+
+
+def _banded_scatter(smoke, rng, sweep):
+    """The banded scatter-adds (#7) of one banded SceneMap encoder's
+    backward on a sorted pyramid, bf16 (the path) and f32 beside it."""
+    import torch
+
+    from afford_motion_torch.ops.cuda import banded
+
+    b, w0, dev = smoke.B, 128, torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 2)
+    levels, knn_idx, starts = _banded_indices(smoke, rng)
+    rows = {}
+    for (qi, si), c in smoke.GATHER_CALLS:
+        idx, st = knn_idx[(qi, si)], starts[(qi, si)]
+        n, (m, k) = levels[si].shape[1], idx.shape[1:]
+        size = banded._window(m, n, w0)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.randn(b, m, k, c, device=dev, generator=gen).to(dtype)
+            want = [banded.scatter_banded_plain(g, idx, st, n, size)]
+            call = lambda g=g: [banded.scatter_banded(g, idx, st, n, size)]   # noqa: E731
+            _equal(smoke, call(), want, f"banded_scatter {m}/{n}x{c} {dtype}")
+            tag = "banded_scatter" if dtype == torch.bfloat16 else "  f32 banded_scatter"
+            rows[f"{tag} m{m} n{n} c{c} k{k} S{size}"] = smoke.time_ms(call, 10)
+            if dtype == torch.bfloat16:
+                rows[f"  split banded_scatter m{m} c{c}"] = [_device_split(call)]
+            if sweep and dtype == torch.bfloat16 and hasattr(banded, "scatter_config"):
+                stride = 0 if st.ndim == 1 else st.shape[1]
+                policy = banded.scatter_config(c, banded=True)
+                configs = {smoke.scatter_passes(c, f, w, o) for f in (1, 2) for w in (2, 3, 4)
+                           for o in (0, 1)}
+                for cfg in sorted(configs | {policy}):
+                    rows[f"  sweep {tag.strip()} m{m} c{c} (passes, wide, budget) {cfg}"] = (
+                        _checked_time(smoke, lambda cfg=cfg, g=g: [
+                            banded.launch_scatter(g, idx, st, stride, n, size, *cfg)], want, 10))
+                rows[f"  policy banded_scatter m{m} c{c}"] = list(policy)
     return rows
 
 
@@ -253,7 +389,8 @@ def _attention_bwd(smoke, rng, sweep):
     return rows
 
 
-KERNELS = {"knn": _knn, "banded_gather": _banded_gather, "attention_f32": _attention_f32,
+KERNELS = {"knn": _knn, "banded_gather": _banded_gather, "scatter": _scatter,
+           "banded_scatter": _banded_scatter, "attention_f32": _attention_f32,
            "attention_bwd": _attention_bwd}
 
 

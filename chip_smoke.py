@@ -21,7 +21,11 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    The banded kernels (windowed kNN, gather and scatter-add) likewise, on
    curve-sorted clouds with the static rank-1 starts and the adaptive rank-2
    starts of real sorted FPS indices, and with some indices put outside
-   their window (zero rows, dropped contributions). Times by CUDA events, the median of 5 blocks of
+   their window (zero rows, dropped contributions). Both scatters also at
+   every launch configuration of their sums (``SCATTER_CONFIGS``), the
+   banded one on non-monotone starts, a 192-position hub, 6144 positions on
+   one destination and C = 1, the plain one with C = 1 and every position
+   on one destination; the largest in-degree of each shape is logged. Times by CUDA events, the median of 5 blocks of
    back-to-back calls (least and largest printed), each block queued behind
    a device-side sleep so the card, not the host's launch rate, sets it;
    beside the plain version and, where one PyTorch call computes the same
@@ -62,7 +66,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``attention_lse_plain`` (LSE_LIMIT); and at 1100 keys (18 key tiles).
    The whole backward timed at the train shape beside the gradient of
    ``scaled_dot_product_attention`` with the same mask with respect to the
-   same inputs, and split by kernel by the profiler's device time;
+   same inputs, and split by kernel by the profiler's device time where the
+   profiler sees it (logged only);
 4. autograd: ``gather_rows(x, idx).backward(g)`` and ``gather_banded(x,
    idx, starts).backward(g)`` through the kernels on the card equal the
    CPU's plain path bit for bit in float32;
@@ -190,6 +195,20 @@ PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
               "nn1": 0, "attention": 0, "attention_bwd_dkv": 0, "attention_bwd_dq": 0}
 BANDED_STEP = dict(PLAIN_STEP, fps=0, knn=0, gather=0, scatter=0, banded_knn=6, banded_gather=7,
                    banded_scatter=7)
+# launch configurations of the two scatter kernels' sums checked against
+# their plain versions beside the wrappers' own: (a factor on the fewest
+# channel passes, channels a lane, registers budgeted), every instance of
+# csrc/ordered_scatter.cuh's sums_kernel
+SCATTER_CONFIGS = ((1, 1, 1), (1, 2, 0), (1, 3, 1), (1, 4, 0), (2, 4, 1), (3, 2, 0), (1, 1, 0),
+                   (1, 2, 1), (1, 3, 0), (1, 4, 1))
+
+
+def scatter_passes(c: int, factor: int, wide: int, budget: int) -> tuple:
+    """(passes, wide, budget): ``factor`` times the fewest channel passes of
+    at most 32 * wide channels, at most c."""
+    return min(c, factor * -(-c // (32 * wide))), wide, budget
+
+
 # the scene protocol: SMPL-X's mesh, the denoiser's and the regressor's layers,
 # the evaluator's fit batch
 N_VERTS, N_FACES, D_POS = 10475, 20908, 66
@@ -430,6 +449,7 @@ def cdist_topk(q: torch.Tensor, s: torch.Tensor, k: int):
 
 def phase_kernels(dev: torch.device) -> KernelReport:
     from afford_motion_torch.ops.cuda import fps as fps_mod
+    from afford_motion_torch.ops.cuda import gather as gather_mod
     from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
     from afford_motion_torch.ops.cuda.gather import (
         gather_rows,
@@ -497,6 +517,10 @@ def phase_kernels(dev: torch.device) -> KernelReport:
                 idx = torch.randint(0, 128, (B, 128, 16), device=dev, dtype=torch.int32,
                                     generator=gen)
             n_src = levels[si].shape[1]
+            degree = torch.stack([torch.bincount(i.reshape(-1).long(), minlength=n_src)
+                                  for i in idx])
+            log(f"  {kind} scatter in-degree ({B},{n_src}) <- idx{tuple(idx.shape)}: largest "
+                f"{int(degree.max())}, mean {float(degree.float().mean()):.2f}")
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(B, n_src, c, device=dev, generator=gen).to(dtype)
                 label = f"{kind} x({B},{n_src},{c}) idx{tuple(idx.shape)} {str(dtype)[6:]}"
@@ -513,8 +537,15 @@ def phase_kernels(dev: torch.device) -> KernelReport:
                 # the backward of this gather: g has the gathered rows' shape
                 g = torch.randn(B, m, k, c, device=dev, generator=gen).to(dtype)
                 got = scatter_add_rows(g, idx, n_src)
-                rep.check("scatter", label, [got], [scatter_add_rows_plain(g, idx, n_src)])
+                want = scatter_add_rows_plain(g, idx, n_src)
+                rep.check("scatter", label, [got], [want])
                 rep.check("scatter", label + " again", [scatter_add_rows(g, idx, n_src)], [got])
+                # every launch configuration of the reduce
+                for config in SCATTER_CONFIGS:
+                    cfg = scatter_passes(c, *config)
+                    rep.check("scatter", f"{label} (passes, wide, budget) {cfg}",
+                              [gather_mod.launch_scatter(g, idx, n_src, *cfg)], [want])
+                del want
                 flat = (idx.long() + n_src * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
 
                 def index_add(g=g, flat=flat, n_src=n_src, c=c):
@@ -576,9 +607,9 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         g = torch.randn(B, 300, 5, 1, device=dev, generator=gen).to(dtype)
         rep.check("scatter", "off-path C=1", [scatter_add_rows(g, idx, 1000)],
                   [scatter_add_rows_plain(g, idx, 1000)])
-        # every position on one destination: a slice as long as the table
-        one = torch.full((2, 700, 3), 5, device=dev, dtype=torch.int32)
-        g = torch.randn(2, 700, 3, 131, device=dev, generator=gen).to(dtype)
+        # every position on one destination: a list as long as the table
+        one = torch.full((2, 1500, 3), 5, device=dev, dtype=torch.int32)
+        g = torch.randn(2, 1500, 3, 131, device=dev, generator=gen).to(dtype)
         rep.check("scatter", "off-path one destination", [scatter_add_rows(g, one, 9)],
                   [scatter_add_rows_plain(g, one, 9)])
     log("  off-path checks: kNN k=3/32/64, FPS N=1000/8191, B=1 and N=10000/16384 (streamed), "
@@ -669,20 +700,26 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
                 g = torch.randn(B, m, k, c, device=dev, generator=gen).to(dtype)
                 label = (f"{kind} x({B},{n_src},{c}) idx{tuple(idx.shape)} S={size} "
                          f"starts{tuple(st.shape)} {str(dtype)[6:]}")
+                stride = 0 if st.ndim == 1 else st.shape[1]
                 for what, ii in (("", idx), (" out-of-window", moved)):
                     rep.check("banded_gather", label + what, [banded.gather_banded(x, ii, st, w0)],
                               [banded.gather_banded_plain(x, ii, st, size)])
                     got = banded.scatter_banded(g, ii, st, n_src, size)
-                    rep.check("banded_scatter", label + what, [got],
-                              [banded.scatter_banded_plain(g, ii, st, n_src, size)])
+                    want = banded.scatter_banded_plain(g, ii, st, n_src, size)
+                    rep.check("banded_scatter", label + what, [got], [want])
                     rep.check("banded_scatter", label + what + " again",
                               [banded.scatter_banded(g, ii, st, n_src, size)], [got])
+                    for config in SCATTER_CONFIGS:
+                        cfg = scatter_passes(c, *config)
+                        rep.check("banded_scatter", f"{label}{what} (passes, wide, budget) {cfg}",
+                                  [banded.launch_scatter(g, ii, st, stride, n_src, size, *cfg)],
+                                  [want])
+                    del want
                 if size < n_src and bool(torch.equal(
                         banded.gather_banded(x, moved, st, w0), banded.gather_banded(x, idx, st, w0))):
                     raise AssertionError(f"{label}: no moved index left its window")
                 # the instance and split the wrapper did not pick at this shape
                 _, staged = banded.gather_config(B, m, c, k, size, x.element_size())
-                stride = 0 if st.ndim == 1 else st.shape[1]
                 window = size * c * x.element_size() + banded.TQ * k * 4
                 for parts, other in ((1, not staged), (16, not staged), (2, staged)):
                     if other and window > build.SMEM_BYTES:
@@ -719,8 +756,68 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
                           + st.numel() * 4, flops=1.0 * B * m * k * c, library=index_add)
                 del wide, mask, flat
             del moved
+    check_banded_scatter_cases(dev, rep, gen)
     log("  banded: kNN, gather and scatter bit-equal to their plain versions on the sorted and "
         "the near-tie cloud, with rank-1 and rank-2 starts and with out-of-window indices")
+
+
+def check_banded_scatter_cases(dev: torch.device, rep: KernelReport, gen) -> None:
+    """The banded scatter off the kNN's indices, at the path's (1, 0) and
+    (0, 0) shapes: non-monotone rank-2 starts; a hub destination that 192
+    positions of three tiles hit; one destination that 6144 positions hit,
+    and a range whose 6144 positions go to two destinations; one channel.
+    A tenth of the indices anywhere in the cloud (out of their windows).
+    Each bit-equal to the plain version in bf16 and f32, and again."""
+    from afford_motion_torch.ops.cuda import banded
+
+    def check(label, idx, st, n, c):
+        m, k = idx.shape[1:]
+        size = banded._window(m, n, 128)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.randn(B, m, k, c, device=dev, generator=gen).to(dtype)
+            got = banded.scatter_banded(g, idx, st, n, size)
+            rep.check("banded_scatter", f"{label} {str(dtype)[6:]}", [got],
+                      [banded.scatter_banded_plain(g, idx, st, n, size)])
+            rep.check("banded_scatter", f"{label} {str(dtype)[6:]} again",
+                      [banded.scatter_banded(g, idx, st, n, size)], [got])
+
+    def inside(st, m, k, size):
+        """Indices drawn inside each tile's window, and a tenth anywhere."""
+        rel = torch.randint(0, size, (B, m, k), device=dev, generator=gen)
+        idx = banded._per_row_starts(st, B)[:, :, None] + rel
+        moved = torch.rand(idx.shape, device=dev, generator=gen) < 0.1
+        anywhere = torch.randint(0, N_POINTS, idx.shape, device=dev, generator=gen)
+        return torch.where(moved, anywhere, idx).to(torch.int32).contiguous()
+
+    m, k = 2048, 16                         # (1, 0): 16 tiles, S = 768
+    size = banded._window(m, N_POINTS, 128)
+    tiles = m // banded.TQ
+    st = torch.randint(0, (N_POINTS - size) // 128 + 1, (B, tiles), device=dev,
+                       generator=gen) * 128
+    st = st.to(torch.int32).contiguous()    # random per tile: not monotone
+    if bool((st[:, 1:] >= st[:, :-1]).all()):
+        raise AssertionError("the random starts came out monotone")
+    check("non-monotone starts (1,0) C=35", inside(st, m, k, size), st, N_POINTS, 35)
+    check("non-monotone starts (1,0) C=1", inside(st, m, k, size), st, N_POINTS, 1)
+    # three tiles whose windows hold destination 5000: 64 positions each hit it
+    st = st.clone()
+    st[:, 2:5] = 4608
+    idx = inside(st, m, k, size).clone()
+    for t in range(2, 5):
+        idx[:, t * banded.TQ:t * banded.TQ + 64, 0] = 5000
+    check("hub of 192 positions over 3 tiles (1,0) C=35", idx, st, N_POINTS, 35)
+    # all 6144 positions of those tiles on it
+    idx[:, 2 * banded.TQ:5 * banded.TQ, :] = 5000
+    check("one destination over 6144 positions (1,0) C=35", idx, st, N_POINTS, 35)
+    # the same positions spread over two destinations of one range
+    idx[:, 2 * banded.TQ:5 * banded.TQ, 8:] = 5001
+    check("a range of 6144 positions on two destinations (1,0) C=35", idx, st, N_POINTS, 35)
+    m, k = N_POINTS, 8                      # (0, 0): 64 tiles, S = 384, static starts
+    st = banded._starts_tensor(m, N_POINTS, 128, dev)
+    check("static starts (0,0) C=1", inside(st, m, k, banded._window(m, N_POINTS, 128)), st,
+          N_POINTS, 1)
+    log("  banded scatter: non-monotone starts, a hub of 192 positions, 6144 positions on one "
+        "and on two destinations, C=1 bit-equal")
 
 
 def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
@@ -833,11 +930,13 @@ def sdpa_kernels(q, k, v, keep) -> str:
     return "; ".join(n[:80] for n in names) or "none seen by the profiler"
 
 
-def device_ms(fn, reps: int, names) -> dict:
+def device_ms(fn, reps: int, names) -> dict | None:
     """ms per call of each kernel ``fn`` launches whose symbol holds one of
     ``names``, from the profiler's device time over ``reps`` calls after a
     warm-up call: {name: ms}. For kernels launched by one call, which CUDA
-    events cannot time apart."""
+    events cannot time apart. None where the profiler saw no device time for
+    one of them: it does not see the card on every machine, so a split taken
+    here is a log line and never a check."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -851,9 +950,7 @@ def device_ms(fn, reps: int, names) -> dict:
         for n in names:
             if e.device_type.name == "CUDA" and n in e.key:
                 ms[n] += e.self_device_time_total / 1e3 / reps
-    if not all(ms.values()):
-        raise AssertionError(f"device_ms: the profiler saw no device time for some of {ms}")
-    return ms
+    return ms if all(ms.values()) else None
 
 
 def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> None:
@@ -884,7 +981,8 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
     item with no attended key, and in bf16 at 1100 keys. Timed at the train
     shape: the whole backward against the gradient of
     ``scaled_dot_product_attention`` with the same mask and beside its bound,
-    split by kernel by the profiler's device time."""
+    split by kernel by the profiler's device time where it sees the kernels
+    (:func:`device_ms`)."""
     import torch.nn.functional as F
 
     from afford_motion_torch.ops.cuda import attention as attn
@@ -949,10 +1047,11 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                     f"({whole[1]:.4f}-{whole[2]:.4f})")
                 continue
             # timed: the whole backward by CUDA events, and split by kernel by
-            # the profiler's device time over the same calls. bf16 is one
-            # kernel for dq, dk and dv, so both rows take the whole backward;
-            # f32 (off the path) launches the di pass, dK/dV and dQ, and the
-            # dK/dV row takes the di pass, whose di the dQ row reads
+            # the profiler's device time over the same calls where it sees
+            # them. bf16 is one kernel for dq, dk and dv, so both rows take
+            # the whole backward; f32 (off the path) launches the di pass,
+            # dK/dV and dQ, and the dK/dV row takes the di pass, whose di the
+            # dQ row reads
             on_path = dtype == torch.bfloat16
             size = q.element_size()
             tokens = b * seq * heads * hd   # entries of one (B, L, D) tensor
@@ -983,6 +1082,8 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                 how = f"the whole backward, median of {TIME_BLOCKS} blocks"
                 parts = [(name, whole[0], 8 * tokens * size + stats, 5 * product)
                          for name in ("attention_bwd_dkv", "attention_bwd_dq")]
+            elif split is None:
+                parts = []
             else:
                 how = "profiler device time, mean of 10 calls"
                 parts = [("attention_bwd_dkv",
@@ -999,7 +1100,8 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                                 1e3 * 5 * product / peak)
             log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms ({whole[1]:.4f}-"
                 f"{whole[2]:.4f}; by the profiler "
-                + ", ".join(f"{n[10:]} {t:.4f}" for n, t in split.items()) + "), the "
+                + (", ".join(f"{n[10:]} {t:.4f}" for n, t in split.items()) if split
+                   else "not measured: it saw no device time") + "), the "
                 f"gradient of scaled_dot_product_attention {lib[0]:.4f} ms ({lib[1]:.4f}-"
                 f"{lib[2]:.4f}), kernels / library {whole[0] / lib[0]:.3f}, bound {b_ms:.4f} ms "
                 f"({by}: 5 products of {product / 1e9:.3f} GFLOP, "

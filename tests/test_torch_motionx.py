@@ -20,9 +20,11 @@ from afford_motion_torch.utils.config import load_config
 N_POINTS, K = 64, 2
 
 
-@pytest.fixture(scope="module")
-def tree(tmp_path_factory):
-    root = tmp_path_factory.mktemp("motionx")
+@pytest.fixture
+def tree(tmp_path):
+    """A fresh tree for every test: the statistics file that a dataset
+    writes (and the test-phase test deletes) is never shared."""
+    root = tmp_path / "motionx"
     data, contacts = root / "data", root / "contacts"
     rng = np.random.default_rng(0)
     for k, name in enumerate(("HUMANISE", "PROX")):
@@ -76,17 +78,20 @@ def test_test_phase_items_equal_jax(tree):
         assert (a["info_obj_mask"] is None) == (a["info_set"] == "PROX")
         sets.add(a["info_set"])
     assert sets == {"HUMANISE", "PROX"}
-    batch = next(iter(tds.get_dataloader(batch_size=2, shuffle=False, drop_last=True)))
-    jbatch = next(iter(jds.get_dataloader(batch_size=2, shuffle=False, drop_last=True)))
+    # each loader read to its end, so its prefetch thread has finished: a
+    # thread left blocked mid-epoch would go on drawing captions from the
+    # global random stream while the next test seeds and shuffles with it
+    batch = list(tds.get_dataloader(batch_size=2, shuffle=False, drop_last=True))[0]
+    jbatch = list(jds.get_dataloader(batch_size=2, shuffle=False, drop_last=True))[0]
     assert batch["x"].shape == (2, 196, 66) and sorted(batch) == sorted(jbatch)
 
 
 def test_train_phase_items_equal_jax(tree):
     argv = _args(tree)
     tcfg, jcfg = load_config("configs", argv), jax_load_config("configs", argv)
-    random.seed(3)
+    random.seed(3), np.random.seed(3)
     tds = create_dataset(tcfg.task.dataset, "train")
-    random.seed(3)
+    random.seed(3), np.random.seed(3)
     jds = jax_create_dataset(jcfg.task.dataset, "train")
     assert tds.indices == jds.indices and len(tds) > 6
     for i in range(4):
