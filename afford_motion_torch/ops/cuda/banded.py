@@ -258,15 +258,67 @@ def knn_banded(query: torch.Tensor, support: torch.Tensor, k: int,
     build.require_cuda(query, "knn_banded")
     if not (query.is_contiguous() and support.is_contiguous()):
         raise ValueError("knn_banded: query and support must be contiguous")
+    out = launch_knn(query, support, k, starts, stride, s, *knn_config(B, M, s, k))
+    knn_banded.launches += 1
+    return out
+
+
+KNN_CAP = 8  # queue entries a query (csrc/banded_knn.cu kCap)
+
+
+def knn_smem_bytes(s: int, k: int, queries: int, groups: int) -> int:
+    """Dynamic shared memory of a banded kNN block (``csrc/banded_knn.cu``
+    ``smem_bytes``): its tile's window (12 bytes a row) and the queues, or
+    the groups' k-lists where those are larger."""
+    threads = queries * groups
+    scan = s * 12 + 4 * KNN_CAP * threads
+    return max(scan, 4 * k * threads if groups > 1 else 0)
+
+
+def knn_configs(s: int, k: int) -> List[Tuple[int, int]]:
+    """Every (queries, groups) the banded kNN kernel takes for a window of
+    ``s`` rows and ``k`` neighbours: 32, 64 or 128 of a tile's queries a
+    block over 1-16 parts of a multiple of 16 rows (a warp votes once every
+    16), at most 1024 threads (512 for k > 16), a block's shared memory
+    within the card's."""
+    return [(q, g) for q in (32, 64, TQ) for g in (1, 2, 4, 8, 16)
+            if s % (16 * g) == 0 and q * g <= (1024 if k <= 16 else 512)
+            and knn_smem_bytes(s, k, q, g) <= build.SMEM_BYTES]
+
+
+def knn_config(b: int, m: int, s: int, k: int) -> Tuple[int, int]:
+    """(queries, groups) of the banded kNN kernel: a tile's 128 queries a
+    block, its window split into parts until the call has 2048 warps or a
+    part would fall under 64 rows; then blocks of fewer queries until the
+    call has a block an SM. Chosen from the times of every configuration at
+    the path's shapes (``tools/kernel_ab.py --sweep``)."""
+    tiles, groups, queries = b * (m // TQ), 1, TQ
+    limit = 1024 if k <= 16 else 512
+    while tiles * 4 * groups < 2048 and s // (2 * groups) >= 64 and TQ * 2 * groups <= limit:
+        groups *= 2
+    while tiles * (TQ // queries) < build.SMS and queries > 32:
+        queries //= 2
+    return queries, groups
+
+
+def launch_knn(query: torch.Tensor, support: torch.Tensor, k: int, starts: torch.Tensor,
+               stride: int, s: int, queries: int, groups: int,
+               flushes: Optional[torch.Tensor] = None):
+    """One launch of the banded kNN kernel with the given configuration (see
+    :func:`knn_config`); checks and counts are the caller's. ``flushes``, a
+    one-element int64 tensor on the device, gains the queue merges the warps
+    took (for the record of the selection's share of the work)."""
+    B, M, _ = query.shape
+    N = support.shape[1]
     idx = torch.empty((B, M, k), dtype=torch.int32, device=query.device)
     dist = torch.empty((B, M, k), dtype=torch.float32, device=query.device)
     lib = build.library()
     with torch.cuda.device(query.device):
         code = lib.amt_knn_banded(query.data_ptr(), support.data_ptr(), starts.data_ptr(),
-                                  stride, B, M, N, s, k, idx.data_ptr(), dist.data_ptr(),
+                                  stride, B, M, N, s, k, queries, groups, idx.data_ptr(),
+                                  dist.data_ptr(), None if flushes is None else flushes.data_ptr(),
                                   build.stream_of(query))
     build.check(code, "amt_knn_banded")
-    knn_banded.launches += 1
     return idx, dist
 
 

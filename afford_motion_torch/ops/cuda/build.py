@@ -56,12 +56,13 @@ _SIGNATURES = {
     # (query, qorder, qcodes, ssorted, sorder, scodes, b, m, n, k, threads, split, part_keys,
     #  idx, dist, stream)
     "amt_knn_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # (x, idx, b, n, c, m, k, elem_bytes, out, stream)
-    "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # (x, idx, b, n, c, m, k, elem_bytes, mode, wide, span, out, stream)
+    "amt_gather_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # (g, idx, b, n, c, mk, elem_bytes, passes, wide, budget, scratch, out, stream)
     "amt_scatter_add_rows": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (query, support, starts, starts_stride, b, m, n, s, k, idx, dist, stream)
-    "amt_knn_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (query, support, starts, starts_stride, b, m, n, s, k, queries, groups, idx, dist,
+    #  flushes, stream)
+    "amt_knn_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # (x, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, parts, staged, out, stream)
     "amt_gather_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, passes, wide, budget, scratch,

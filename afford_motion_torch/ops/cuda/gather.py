@@ -77,19 +77,50 @@ def check_rows(x: torch.Tensor, idx: torch.Tensor, name: str, x_ndim: int) -> No
         raise ValueError(f"{name}: the rows and idx must be contiguous")
 
 
-def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    check_rows(x, idx, "gather_rows", 3)
-    if x.device.type == "cpu":
-        return gather_rows_plain(x, idx)
+# the gather kernel's launch configurations (``csrc/gather.cu``): (mode,
+# wide, span), mode 0 / 1 / 2 a lane's 16-byte chunks 1, 2 or 4 at a time,
+# wide a chunk inside one source row read as aligned 16-byte words (1) or
+# word by word (0), span the output rows a warp copies at a time
+GATHER_CONFIGS = tuple((mode, wide, span) for mode in (0, 1, 2) for wide in (0, 1)
+                       for span in (8, 16, 32, 64, 128))
+
+
+def gather_config(rows: int, c: int, itemsize: int) -> Tuple[int, int, int]:
+    """(mode, wide, span) of the gather kernel for ``rows`` output rows of
+    ``c`` words of ``itemsize`` bytes, from ``tools/kernel_ab.py --sweep`` at
+    the SceneMap's shapes. bf16: rows of 512 bytes or more, and calls of
+    fewer than 2^17 rows, one chunk a lane at a time, read wide, spans of 16
+    rows; the others 4 chunks at a time, word by word, spans of 64. f32:
+    spans of 16, rows of 1 KB or more 4 chunks at a time read wide, the
+    others 2, word by word."""
+    if itemsize == 4:
+        return (2, 1, 16) if c * itemsize >= 1024 else (1, 0, 16)
+    if c * itemsize >= 512 or rows < 1 << 17:
+        return 0, 1, 16
+    return 2, 0, 64
+
+
+def launch_gather(x: torch.Tensor, idx: torch.Tensor, mode: int, wide: int,
+                  span: int) -> torch.Tensor:
+    """One launch of the gather kernel with the given configuration (see
+    :func:`gather_config`); checks and counts are the caller's."""
     B, N, C = x.shape
     _, M, K = idx.shape
     out = torch.empty((B, M, K, C), dtype=x.dtype, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         code = lib.amt_gather_rows(x.data_ptr(), idx.data_ptr(), B, N, C, M, K,
-                                   ELEM_BYTES[x.dtype], out.data_ptr(),
+                                   ELEM_BYTES[x.dtype], mode, wide, span, out.data_ptr(),
                                    build.stream_of(x))
     build.check(code, "amt_gather_rows")
+    return out
+
+
+def _gather_forward(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    check_rows(x, idx, "gather_rows", 3)
+    if x.device.type == "cpu":
+        return gather_rows_plain(x, idx)
+    out = launch_gather(x, idx, *gather_config(idx.numel(), x.shape[2], x.element_size()))
     gather_rows.launches += 1
     return out
 

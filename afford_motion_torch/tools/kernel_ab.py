@@ -2,9 +2,11 @@
 training and sampling paths (batch 32, 8192-point clouds), for one or more
 checkouts of the repo in turn, on one card:
 
-    python afford_motion_torch/tools/kernel_ab.py \
-        --kernel knn|banded_gather|scatter|banded_scatter|attention_f32|attention_bwd \
+    python afford_motion_torch/tools/kernel_ab.py --kernel KERNEL \
         [--sweep] [--out DIR] ROOT [ROOT ...]
+
+KERNEL is one of knn, gather, banded_knn, banded_gather, scatter,
+banded_scatter, attention_f32, attention_bwd.
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into ``build/``); each is measured in its own
@@ -23,11 +25,15 @@ call, and #4 the largest and mean in-degree of each shape. The attention's
 shapes are the regressor's f32 forward (16, 196, 4x64) and the train path's
 bf16 backward (32, 326, 8x64), with the padded frames masked, each beside
 ``scaled_dot_product_attention`` (its forward, or its whole backward).
-``--sweep`` also times, for the roots whose wrappers expose them, every launch
-configuration of the kernel (kNN: threads a block, parts of the cloud; banded
-gather: blocks a tile, window staged or not; the f32 attention: queries a
-block; the bf16 backward has one; the scatters' sums: channel passes,
-channels a lane and the register budget). Prints the card's name and power limit
+The row gather (#3) runs at the gathers' shapes in bf16 and f32, each
+beside ``torch.gather``; the banded kNN (#5) at the kNN's shapes on a sorted
+pyramid, with the queue merges a warp took. ``--sweep`` also times, for the
+roots whose wrappers expose them, every launch configuration of the kernel
+(kNN: threads a block, parts of the cloud; row gather: chunks a lane at a
+time, wide loads, span; banded kNN: queries a block and parts of the
+window; banded gather: blocks a tile, window staged or not; the f32
+attention: queries a block; the bf16 backward has one; the scatters' sums:
+channel passes, channels a lane and the register budget). Prints the card's name and power limit
 first; writes everything to ``DIR/kernel_ab.txt`` (default ``build/profile``).
 """
 from __future__ import annotations
@@ -187,6 +193,84 @@ def _banded_gather(smoke, rng, sweep):
                         want, 10)
             rows[f"  policy banded_gather m{m} c{c}"] = list(
                 banded.gather_config(b, m, c, k, size, 2))
+    return rows
+
+
+def _gather(smoke, rng, sweep):
+    """The row gathers (#3) of one SceneMap encoder on an FPS pyramid, bf16
+    (the path) and f32 beside it, each beside ``torch.gather``."""
+    import torch
+
+    from afford_motion_torch.ops.cuda import gather
+
+    b, dev = smoke.B, torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 4)
+    levels, idx = _plain_indices(smoke, rng)
+    rows = {}
+    for (qi, si), c in smoke.GATHER_CALLS:
+        ii = idx[(qi, si)]
+        n, (m, k) = levels[si].shape[1], ii.shape[1:]
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(b, n, c, device=dev, generator=gen).to(dtype)
+            want = [gather.gather_rows_plain(x, ii)]
+            call = lambda x=x: [gather.gather_rows(x, ii)]   # noqa: E731
+            _equal(smoke, call(), want, f"gather {m}/{n}x{c} {dtype}")
+            tag = "gather" if dtype == torch.bfloat16 else "  f32 gather"
+            rows[f"{tag} m{m} n{n} c{c} k{k}"] = smoke.time_ms(call, 10)
+            wide = ii.long().reshape(b, m * k, 1).expand(-1, -1, c)
+            rows[f"  torch.gather {str(dtype)[6:]} m{m} n{n} c{c} k{k}"] = smoke.time_ms(
+                lambda x=x, w=wide: torch.gather(x, 1, w), 10)
+            if sweep and hasattr(gather, "gather_config"):
+                for cfg in gather.GATHER_CONFIGS:
+                    label = f"  sweep {tag.strip()} m{m} c{c} (mode, wide, span) {cfg}"
+                    rows[label] = _checked_time(
+                        smoke, lambda cfg=cfg, x=x: [gather.launch_gather(x, ii, *cfg)], want, 10)
+                rows[f"  policy {tag.strip()} m{m} c{c}"] = list(
+                    gather.gather_config(ii.numel(), c, x.element_size()))
+    return rows
+
+
+def _banded_knn(smoke, rng, sweep):
+    """The banded kNN (#5) of one banded SceneMap hierarchy on a sorted
+    pyramid (static starts on self levels, adaptive across); per shape the
+    queue merges a warp took (the selection's share of the work)."""
+    import numpy as np
+    import torch
+
+    from afford_motion_torch.ops.cuda import banded
+    from afford_motion_torch.ops.curves import curve_order
+
+    b, w0, dev = smoke.B, 128, torch.device("cuda:0")
+    cloud = rng.normal(size=(b, smoke.N_POINTS, 3)).astype(np.float32)
+    levels, fps = _pyramid(np.stack([c[curve_order(c, "morton")] for c in cloud]), True)
+    rows = {}
+    for qi, si, k in smoke.KNN_CALLS:
+        q, sup = levels[qi], levels[si]
+        m, n = q.shape[1], sup.shape[1]
+        st = (banded._starts_tensor(m, n, w0, dev) if qi == si
+              else banded.adaptive_down_starts(fps[qi], n, w0))
+        size = banded._window(m, n, w0)
+        want = banded.knn_banded_plain(q, sup, k, st, size)
+        call = lambda q=q, sup=sup, k=k, st=st: banded.knn_banded(q, sup, k, st, w0)  # noqa: E731
+        _equal(smoke, call(), want, f"banded_knn {m}/{n} k{k}")
+        rows[f"banded_knn q{m} s{n} k{k} S{size}"] = smoke.time_ms(call, 5)
+        if not hasattr(banded, "knn_config"):
+            continue
+        stride = 0 if st.ndim == 1 else st.shape[1]
+        policy = banded.knn_config(b, m, size, k)
+        flushes = torch.zeros(1, dtype=torch.int64, device=dev)
+        _equal(smoke, banded.launch_knn(q, sup, k, st, stride, size, *policy, flushes=flushes),
+               want, "banded_knn with the flush counter")
+        warps = b * m // 32 * policy[1]
+        rows[f"  flushes banded_knn q{m} s{n}"] = [
+            f"{int(flushes.item()) / warps:.2f} a warp over {size // policy[1]} rows, "
+            f"policy {policy}"]
+        if sweep:
+            for cfg in banded.knn_configs(size, k):
+                rows[f"  sweep banded_knn q{m} s{n} k{k} (queries, groups) {cfg}"] = _checked_time(
+                    smoke, lambda cfg=cfg, q=q, sup=sup, k=k, st=st: banded.launch_knn(
+                        q, sup, k, st, stride, size, *cfg), want, 5)
+            rows[f"  policy banded_knn q{m} s{n}"] = list(policy)
     return rows
 
 
@@ -389,7 +473,8 @@ def _attention_bwd(smoke, rng, sweep):
     return rows
 
 
-KERNELS = {"knn": _knn, "banded_gather": _banded_gather, "scatter": _scatter,
+KERNELS = {"knn": _knn, "gather": _gather, "banded_knn": _banded_knn,
+           "banded_gather": _banded_gather, "scatter": _scatter,
            "banded_scatter": _banded_scatter, "attention_f32": _attention_f32,
            "attention_bwd": _attention_bwd}
 

@@ -25,8 +25,15 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    every launch configuration of their sums (``SCATTER_CONFIGS``), the
    banded one on non-monotone starts, a 192-position hub, 6144 positions on
    one destination and C = 1, the plain one with C = 1 and every position
-   on one destination; the largest in-degree of each shape is logged. Times by CUDA events, the median of 5 blocks of
-   back-to-back calls (least and largest printed), each block queued behind
+   on one destination; the largest in-degree of each shape is logged. The
+   row gather also in every launch configuration (``GATHER_CONFIGS``) at
+   every shape, at C = 1, with a total that is not a multiple of 16 bytes
+   and with an ``x`` one word past an aligned address, with a log line per
+   shape of its time over ``torch.gather``'s; the banded kNN also in every
+   launch configuration (``banded.knn_configs``) at every shape, at k = 63
+   and on rank-2 starts drawn per cloud and tile (not monotone). Times by
+   CUDA events, the median of 5 blocks of back-to-back calls (least and
+   largest printed), each block queued behind
    a device-side sleep so the card, not the host's launch rate, sets it;
    beside the plain version and, where one PyTorch call computes the same
    function (``torch.gather``, ``index_add_``), beside that call (for the
@@ -527,12 +534,17 @@ def phase_kernels(dev: torch.device) -> KernelReport:
                 on_path = path and dtype == torch.bfloat16
                 m, k = idx.shape[1:]
                 size = x.element_size()
-                rep.check("gather", label, [gather_rows(x, idx)], [gather_rows_plain(x, idx)])
+                want = gather_rows_plain(x, idx)
+                rep.check("gather", label, [gather_rows(x, idx)], [want])
+                check_gather_configs(rep, label, x, idx, want)
+                del want
                 wide = idx.long().reshape(B, m * k, 1).expand(-1, -1, c)
-                rep.timed("gather", label, lambda x=x, i=idx: gather_rows(x, i),
-                          lambda x=x, i=idx: gather_rows_plain(x, i), 10, on_path,
-                          nbytes=B * (n_src * c * size + m * k * 4 + m * k * c * size), flops=0.0,
-                          library=lambda x=x, w=wide: torch.gather(x, 1, w))
+                k_ms, _, l_ms = rep.timed(
+                    "gather", label, lambda x=x, i=idx: gather_rows(x, i),
+                    lambda x=x, i=idx: gather_rows_plain(x, i), 10, on_path,
+                    nbytes=B * (n_src * c * size + m * k * 4 + m * k * c * size), flops=0.0,
+                    library=lambda x=x, w=wide: torch.gather(x, 1, w))
+                log(f"    gather {label}: kernel / torch.gather {k_ms / l_ms:.3f}")
                 del wide
                 # the backward of this gather: g has the gathered rows' shape
                 g = torch.randn(B, m, k, c, device=dev, generator=gen).to(dtype)
@@ -603,7 +615,26 @@ def phase_kernels(dev: torch.device) -> KernelReport:
     idx = torch.randint(0, 1000, (B, 300, 5), device=dev, dtype=torch.int32, generator=gen)
     for dtype in (torch.bfloat16, torch.float32):
         x = torch.randn(B, 1000, 1, device=dev, generator=gen).to(dtype)
-        rep.check("gather", "off-path C=1", [gather_rows(x, idx)], [gather_rows_plain(x, idx)])
+        want = gather_rows_plain(x, idx)
+        rep.check("gather", "off-path C=1", [gather_rows(x, idx)], [want])
+        check_gather_configs(rep, "off-path C=1", x, idx, want)
+        # a total that is not a multiple of 16 bytes, and an x one word past
+        # an aligned address (a view at an offset)
+        ragged = torch.randint(0, 1000, (3, 299, 5), device=dev, dtype=torch.int32,
+                               generator=gen)
+        x = torch.randn(3, 1000, 35, device=dev, generator=gen).to(dtype)
+        if (ragged.numel() * 35 * x.element_size()) % 16 == 0:
+            raise AssertionError("the ragged gather case ends on a 16-byte boundary")
+        want = gather_rows_plain(x, ragged)
+        rep.check("gather", "off-path ragged end", [gather_rows(x, ragged)], [want])
+        check_gather_configs(rep, "off-path ragged end", x, ragged, want)
+        flat = torch.randn(B * 1000 * 35 + 1, device=dev, generator=gen).to(dtype)
+        x = flat[1:].view(B, 1000, 35)
+        if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+            raise AssertionError("the offset view lies on a 16-byte boundary")
+        want = gather_rows_plain(x, idx)
+        rep.check("gather", "off-path x at an offset", [gather_rows(x, idx)], [want])
+        check_gather_configs(rep, "off-path x at an offset", x, idx, want)
         g = torch.randn(B, 300, 5, 1, device=dev, generator=gen).to(dtype)
         rep.check("scatter", "off-path C=1", [scatter_add_rows(g, idx, 1000)],
                   [scatter_add_rows_plain(g, idx, 1000)])
@@ -613,8 +644,20 @@ def phase_kernels(dev: torch.device) -> KernelReport:
         rep.check("scatter", "off-path one destination", [scatter_add_rows(g, one, 9)],
                   [scatter_add_rows_plain(g, one, 9)])
     log("  off-path checks: kNN k=3/32/64, FPS N=1000/8191, B=1 and N=10000/16384 (streamed), "
-        "gather and scatter C=1, scatter onto one destination bit-equal")
+        "gather and scatter C=1, the gather with a ragged end and an x at an offset in every "
+        "launch configuration, scatter onto one destination bit-equal")
     return rep
+
+
+def check_gather_configs(rep: KernelReport, label: str, x, idx, want) -> None:
+    """The row gather in every launch configuration the wrapper might pick
+    (``gather.GATHER_CONFIGS``: chunks a lane at a time, wide loads, span),
+    bit-equal to the plain version."""
+    from afford_motion_torch.ops.cuda import gather as gather_mod
+
+    for cfg in gather_mod.GATHER_CONFIGS:
+        rep.check("gather", f"{label} (mode, wide, span) {cfg}",
+                  [gather_mod.launch_gather(x, idx, *cfg)], [want])
 
 
 def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
@@ -656,7 +699,7 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
             label = (f"{kind} q{tuple(q.shape)} s{tuple(sup.shape)} k={k} S={size} "
                      f"starts{tuple(st.shape)}")
             got = banded.knn_banded(q, sup, k, st, w0)
-            rep.check("banded_knn", label, got, banded.knn_banded_plain(q, sup, k, st, size))
+            check_banded_knn(rep, label, q, sup, k, st, size, got)
             knn_idx[(qi, si)] = got[0]
             if path:
                 # per query and window row: 3 differences, 3 products, 2 sums
@@ -667,14 +710,32 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
                           banded.knn_banded_plain(q, sup, k, st, size), 5,
                           nbytes=B * ((m + n) * 12 + m * k * 8) + st.numel() * 4,
                           flops=9.0 * B * m * size)
-        # the other rank of starts on each kind of call
+        # the other rank of starts on each kind of call; k = 63, the largest
+        # the kernel takes; rank-2 starts drawn per cloud and tile, not
+        # monotone; each in every launch configuration
         q, sup = levels[1], levels[0]
         st = banded._starts_tensor(2048, N_POINTS, w0, dev)
-        rep.check("banded_knn", f"{kind} down, static starts", banded.knn_banded(q, sup, 16, st, w0),
-                  banded.knn_banded_plain(q, sup, 16, st, 768))
+        check_banded_knn(rep, f"{kind} down, static starts", q, sup, 16, st, 768,
+                         banded.knn_banded(q, sup, 16, st, w0))
         st = banded._starts_tensor(2048, 2048, w0, dev).expand(B, -1).contiguous()
-        rep.check("banded_knn", f"{kind} self, rank-2 starts",
-                  banded.knn_banded(q, q, 16, st, w0), banded.knn_banded_plain(q, q, 16, st, 384))
+        check_banded_knn(rep, f"{kind} self, rank-2 starts", q, q, 16, st, 384,
+                         banded.knn_banded(q, q, 16, st, w0))
+        for (qi, si), st in ((1, 0), starts[(1, 0)]), ((1, 1), starts[(1, 1)]):
+            q, sup = levels[qi], levels[si]
+            size = banded._window(q.shape[1], sup.shape[1], w0)
+            check_banded_knn(rep, f"{kind} q{tuple(q.shape)} s{tuple(sup.shape)} k=63", q, sup,
+                             63, st, size, banded.knn_banded(q, sup, 63, st, w0))
+        for qi, si, k in ((0, 0, 8), (1, 0, 16), (3, 2, 16)):
+            q, sup = levels[qi], levels[si]
+            m, n = q.shape[1], sup.shape[1]
+            size = banded._window(m, n, w0)
+            st = (torch.randint(0, (n - size) // 128 + 1, (B, m // banded.TQ), device=dev,
+                                generator=gen) * 128).to(torch.int32)
+            if m // banded.TQ > 1 and bool((st[:, 1:] >= st[:, :-1]).all()):
+                raise AssertionError("the random starts came out monotone")
+            check_banded_knn(rep, f"{kind} q{tuple(q.shape)} s{tuple(sup.shape)} k={k} "
+                             "non-monotone starts", q, sup, k, st, size,
+                             banded.knn_banded(q, sup, k, st, w0))
         # level 3's own neighbours come from the exact kNN (128 < 256); its
         # gather still takes the banded route with the full window S = 128
         knn_idx[(3, 3)] = knn_exact(levels[3], levels[3], 16)[0].contiguous()
@@ -758,7 +819,23 @@ def phase_kernels_banded(dev: torch.device, rep: KernelReport) -> None:
             del moved
     check_banded_scatter_cases(dev, rep, gen)
     log("  banded: kNN, gather and scatter bit-equal to their plain versions on the sorted and "
-        "the near-tie cloud, with rank-1 and rank-2 starts and with out-of-window indices")
+        "the near-tie cloud, with rank-1 and rank-2 starts and with out-of-window indices; the "
+        "kNN also at k=63 and on non-monotone starts, in every launch configuration")
+
+
+def check_banded_knn(rep: KernelReport, label: str, q, sup, k: int, st, size: int, got) -> None:
+    """The banded kNN's result ``got`` (from the wrapper) and the kernel in
+    every launch configuration it takes at this window and k
+    (``banded.knn_configs``: queries a block and parts of the window), idx
+    and dist bit-equal to the plain version."""
+    from afford_motion_torch.ops.cuda import banded
+
+    want = banded.knn_banded_plain(q, sup, k, st, size)
+    rep.check("banded_knn", label, got, want)
+    stride = 0 if st.ndim == 1 else st.shape[1]
+    for cfg in banded.knn_configs(size, k):
+        rep.check("banded_knn", f"{label} (queries, groups) {cfg}",
+                  banded.launch_knn(q, sup, k, st, stride, size, *cfg), want)
 
 
 def check_banded_scatter_cases(dev: torch.device, rep: KernelReport, gen) -> None:
