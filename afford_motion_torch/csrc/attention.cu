@@ -111,13 +111,32 @@
 // few fit on the card. Every gradient element has one writer and every sum a
 // fixed order: no float atomics, and two calls give the same bits.
 //
-// Backward, f32 (launched on no path): no tensor cores. The di pass (8
-// threads a row and head), then two kernels: dK/dV (a block a tile of 32
-// keys over the query tiles in order) and dQ (a block a tile of 32 queries
-// over the key tiles). Tiles of 32 queries and 32 keys in shared memory (rows
-// padded to 65 floats), 256 threads: each thread computes 4 of the tile's P
-// and dS entries from full-length dot products, then 8 output elements of
-// the block's rows accumulate over the tile, in a fixed order.
+// Backward, f32 (the f32 flash train step's; a parity surface, so no TF32:
+// FP32 units and explicit `fmaf`): 5 products over the attended pairs
+// (1.2e10 operations at the train step's (32, 326, 8x64) with its masks, 0.18
+// ms at the H100's 67 TFLOP/s) against 0.03 ms of bytes, so the design keeps
+// the FP32 units fed. A block per key tile of 64 keys (256 threads) walks its
+// query tiles of 32 in order, Q and dO double-buffered
+// by `cp.async` (16-byte copies where hd is a multiple of 4 and the tensors
+// 16-byte aligned, else 4-byte ones), K and V transposed once into shared
+// memory. Per query tile, S = Q K^T and dP = dO V^T are register-tiled
+// micro-GEMMs (a thread 4 keys x 2 queries; a 16-byte load of K^T or
+// V^T feeds 8 FMAs, one of a Q or dO row 4), P = exp2(s scale log2 e -
+// lse log2 e) and dS = (dP - di) P scale come from them once, go to shared
+// memory, and dV += P^T dO, dK += dS^T Q sum over the tile's queries in
+// order (a thread 4 keys x 4 dimensions, 8 FMAs a 16-byte load); a warp
+// whose 32 keys are none attended leaves them out. di = sum o dO of the
+// next tile is loaded during the products and summed after (4 threads a
+// row). dS also goes out to a scratch, (item, head, key tile, Lq, 64) f32,
+// which the dQ work reads: a block per 64 queries (4 x 4 a thread) sums dS
+// K over the key tiles in order up to the last attended key (tiles with no
+// attended key skipped), the dS and K tiles streamed through three stages,
+// so S and dS are computed once per (query tile, key tile). The dQ work
+// comes in the same launch (a memset of its counters first): each block
+// draws a ticket, every dK/dV tile's before every dQ block's, and a dQ block
+// waits until every key tile counted its dS out, as in bf16. No float
+// atomics: every element has one writer and every sum a fixed order, and
+// two calls give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
@@ -149,7 +168,8 @@ constexpr int kF32Rows = 32;    // queries a block unless the launch asks for 8 
 // completes at the next cp.async.wait_all
 template <int NT>
 __device__ __forceinline__ void load_f32(float* tile, int ld, int tile_rows, const float* src,
-                                         size_t stride, int rows, int hd, bool vec) {
+                                         size_t stride, int rows, int hd, bool vec,
+                                         bool commit = true) {
   if (vec) {
     for (int i = threadIdx.x; i < tile_rows * (kHD / 4); i += NT) {
       const int r = i / (kHD / 4), c = (i % (kHD / 4)) * 4;
@@ -171,7 +191,7 @@ __device__ __forceinline__ void load_f32(float* tile, int ld, int tile_rows, con
                    : "memory");
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  if (commit) asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float lane_of(const float4& x, int e) {
@@ -701,206 +721,6 @@ int launch_bf16(const void* q, const void* k, const void* v, const unsigned char
                                                   scale_log2, oo, lse);
   return static_cast<int>(cudaGetLastError());
 }
-// --------------------------------------------------------- backward: float32
-
-constexpr int kDiThreads = 256;  // 8 threads a (row, head)
-
-// the f32 backward's di[b, h, i] = sum_d o[b, i, h, d] * do[b, i, h, d]:
-// thread c of a (row, head)'s 8 takes entries 8c..8c+7, then the 8 sum by
-// shuffles
-__global__ void __launch_bounds__(kDiThreads)
-attention_di_kernel(const float* __restrict__ o, const float* __restrict__ dout, long long pairs,
-                    int lq, int heads, int hd, float* __restrict__ di) {
-  const long long t = static_cast<long long>(blockIdx.x) * kDiThreads + threadIdx.x;
-  const long long pair = t >> 3;  // (b * lq + i) * heads + h
-  const int c = static_cast<int>(t & 7);
-  float s = 0.f;
-  if (pair < pairs) {
-    const size_t at = static_cast<size_t>(pair) * hd + c * 8;
-    for (int e = 0; e < 8 && c * 8 + e < hd; ++e) s = fmaf(o[at + e], dout[at + e], s);
-  }
-  s += __shfl_xor_sync(0xFFFFFFFFu, s, 1);
-  s += __shfl_xor_sync(0xFFFFFFFFu, s, 2);
-  s += __shfl_xor_sync(0xFFFFFFFFu, s, 4);
-  if (pair < pairs && c == 0) {
-    const long long row = pair / heads, bi = row / lq, i = row % lq;
-    di[(static_cast<size_t>(bi) * heads + pair % heads) * lq + i] = s;
-  }
-}
-
-constexpr int kBT = 32;         // queries and keys a tile
-constexpr int kBThreads = 256;  // threads a block
-constexpr int kRow = kHD + 1;   // padded row: the dot products' rows sit in distinct banks
-
-// rows x hd of a (.., stride) f32 matrix into a kBT x kRow tile, zeros past
-// `rows` and `hd`
-__device__ __forceinline__ void load_rows_f32(float (*tile)[kRow], const float* src,
-                                              size_t stride, int rows, int hd) {
-  for (int i = threadIdx.x; i < kBT * kHD; i += kBThreads) {
-    const int r = i / kHD, d = i % kHD;
-    tile[r][d] = r < rows && d < hd ? src[r * stride + d] : 0.f;
-  }
-}
-
-// P and dS of a 32 x 32 tile (rows queries, columns keys): thread t takes
-// query t % 32 and keys t / 32 + 8p; full-length dot products in order
-__device__ __forceinline__ void scores_f32(const float (*sq)[kRow], const float (*sdo)[kRow],
-                                           const float (*sk)[kRow], const float (*sv)[kRow],
-                                           const float* s_lse, const float* s_di,
-                                           const unsigned char* s_keep, float scale,
-                                           float (*sp)[kBT + 1], float (*sds)[kBT + 1]) {
-  const int i = threadIdx.x % kBT, j0 = threadIdx.x / kBT;
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-  for (int d = 0; d < kHD; ++d) {
-    const float qd = sq[i][d], dod = sdo[i][d];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      s[p] = fmaf(qd, sk[j0 + 8 * p][d], s[p]);
-      dp[p] = fmaf(dod, sv[j0 + 8 * p][d], dp[p]);
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int j = j0 + 8 * p;
-    const float pr = s_keep[j] ? expf(s[p] * scale - s_lse[i]) : 0.f;
-    sp[i][j] = pr;
-    sds[i][j] = (dp[p] - s_di[i]) * pr * scale;
-  }
-}
-
-// a block a tile of 32 keys of one (item, head); the query tiles in order
-__global__ void __launch_bounds__(kBThreads)
-attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ di,
-                             const unsigned char* __restrict__ mask, int lq, int lk, int heads,
-                             int hd, float scale, float* __restrict__ dk, float* __restrict__ dv) {
-  __shared__ float sq[kBT][kRow], sdo[kBT][kRow], sk[kBT][kRow], sv[kBT][kRow];
-  __shared__ float sp[kBT][kBT + 1], sds[kBT][kBT + 1];
-  __shared__ float s_lse[kBT], s_di[kBT];
-  __shared__ unsigned char s_keep[kBT];
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBT;
-  const size_t width = static_cast<size_t>(heads) * hd;
-  const size_t head_off = static_cast<size_t>(h) * hd;
-  const int k_rows = min(kBT, lk - k0);
-  const size_t krow0 = (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  const int tid = threadIdx.x;
-  int keep = 0;
-  if (tid < kBT) {
-    keep = tid < k_rows && (mask == nullptr || !mask[static_cast<size_t>(b) * lk + k0 + tid]);
-    s_keep[tid] = static_cast<unsigned char>(keep);
-  }
-  const int d = threadIdx.x % kHD, jr = threadIdx.x / kHD;  // keys jr + 4r
-  if (!__syncthreads_or(keep)) {  // no key of the tile attended: zero rows
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int j = jr + 4 * r;
-      if (j < k_rows && d < hd) {
-        dk[krow0 + j * width + d] = 0.f;
-        dv[krow0 + j * width + d] = 0.f;
-      }
-    }
-    return;
-  }
-  load_rows_f32(sk, k + krow0, width, k_rows, hd);
-  load_rows_f32(sv, v + krow0, width, k_rows, hd);
-  float adk[8], adv[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) adk[r] = adv[r] = 0.f;
-  const float* lse_b = lse + (static_cast<size_t>(b) * heads + h) * lq;
-  const float* di_b = di + (static_cast<size_t>(b) * heads + h) * lq;
-  for (int i0 = 0; i0 < lq; i0 += kBT) {
-    const int q_rows = min(kBT, lq - i0);
-    const size_t qrow0 = (static_cast<size_t>(b) * lq + i0) * width + head_off;
-    __syncthreads();  // the last tile's readers are done
-    load_rows_f32(sq, q + qrow0, width, q_rows, hd);
-    load_rows_f32(sdo, dout + qrow0, width, q_rows, hd);
-    if (threadIdx.x < kBT) {
-      const int i = threadIdx.x;
-      s_lse[i] = i < q_rows ? lse_b[i0 + i] : INFINITY;
-      s_di[i] = i < q_rows ? di_b[i0 + i] : 0.f;
-    }
-    __syncthreads();
-    scores_f32(sq, sdo, sk, sv, s_lse, s_di, s_keep, scale, sp, sds);
-    __syncthreads();
-    for (int i = 0; i < kBT; ++i) {
-      const float qd = sq[i][d], dod = sdo[i][d];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        adv[r] = fmaf(sp[i][jr + 4 * r], dod, adv[r]);
-        adk[r] = fmaf(sds[i][jr + 4 * r], qd, adk[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int j = jr + 4 * r;
-    if (j < k_rows && d < hd) {
-      dk[krow0 + j * width + d] = adk[r];
-      dv[krow0 + j * width + d] = adv[r];
-    }
-  }
-}
-
-// a block a tile of 32 queries of one (item, head); the key tiles in order,
-// tiles with no attended key skipped
-__global__ void __launch_bounds__(kBThreads)
-attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ di,
-                            const unsigned char* __restrict__ mask, int lq, int lk, int heads,
-                            int hd, float scale, float* __restrict__ dq) {
-  __shared__ float sq[kBT][kRow], sdo[kBT][kRow], sk[kBT][kRow], sv[kBT][kRow];
-  __shared__ float sp[kBT][kBT + 1], sds[kBT][kBT + 1];
-  __shared__ float s_lse[kBT], s_di[kBT];
-  __shared__ unsigned char s_keep[kBT];
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kBT;
-  const size_t width = static_cast<size_t>(heads) * hd;
-  const size_t head_off = static_cast<size_t>(h) * hd;
-  const int q_rows = min(kBT, lq - i0);
-  const size_t qrow0 = (static_cast<size_t>(b) * lq + i0) * width + head_off;
-  load_rows_f32(sq, q + qrow0, width, q_rows, hd);
-  load_rows_f32(sdo, dout + qrow0, width, q_rows, hd);
-  if (threadIdx.x < kBT) {
-    const int i = threadIdx.x;
-    const size_t at = (static_cast<size_t>(b) * heads + h) * lq + i0 + i;
-    s_lse[i] = i < q_rows ? lse[at] : INFINITY;
-    s_di[i] = i < q_rows ? di[at] : 0.f;
-  }
-  const int d = threadIdx.x % kHD, ir = threadIdx.x / kHD;  // queries ir + 4r
-  float adq[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) adq[r] = 0.f;
-  for (int k0 = 0; k0 < lk; k0 += kBT) {
-    const int k_rows = min(kBT, lk - k0);
-    __syncthreads();  // the last tile's readers are done
-    const int tid = threadIdx.x;
-    int keep = 0;
-    if (tid < kBT) {
-      keep = tid < k_rows && (mask == nullptr || !mask[static_cast<size_t>(b) * lk + k0 + tid]);
-      s_keep[tid] = static_cast<unsigned char>(keep);
-    }
-    if (!__syncthreads_or(keep)) continue;  // the same for the whole block
-    const size_t krow0 = (static_cast<size_t>(b) * lk + k0) * width + head_off;
-    load_rows_f32(sk, k + krow0, width, k_rows, hd);
-    load_rows_f32(sv, v + krow0, width, k_rows, hd);
-    __syncthreads();
-    scores_f32(sq, sdo, sk, sv, s_lse, s_di, s_keep, scale, sp, sds);
-    __syncthreads();
-    for (int j = 0; j < kBT; ++j) {
-      const float kd = sk[j][d];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) adq[r] = fmaf(sds[ir + 4 * r][j], kd, adq[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = ir + 4 * r;
-    if (i < q_rows && d < hd) dq[qrow0 + i * width + d] = adq[r];
-  }
-}
-
 // ------------------------------------------------ backward: bf16, tensor cores
 
 // a warp's 16 rows x hd of fragments, rounded to bf16, to rows row0.. of a
@@ -1246,52 +1066,525 @@ __global__ void __launch_bounds__(kTC, 3) attention_bwd_bf16_kernel(const BwdArg
   }
 }
 
-// the backward's scratch: di (B, heads, Lq) f32 from byte 0; for bf16 then
+// --------------------------------------------------------- backward: float32
+
+constexpr int kFBThreads = 256;  // threads a block
+constexpr int kFBK = 64;         // keys a tile, of the dK/dV work and of the dQ work's walk
+constexpr int kTLd = kFBK + 4;   // a row (one dimension) of K^T or V^T: 16-byte aligned
+constexpr int kRLd = kHD + 4;    // a row of Q, dO or dS in shared memory: rows 4 banks apart
+constexpr int kFDq = 64;         // queries a block of the dQ work
+constexpr int kFDqStages = 3;    // stages of the dQ work's stream of dS and K tiles
+constexpr int kFQT = 32;         // queries a tile of the dK/dV work's walk
+
+// what the f32 backward's blocks share: the tensors, the shape, the dS tiles
+// (B * heads, key tiles, Lq, 64) the dK/dV work writes and the dQ work
+// reads, and the counters: sync[0] the ticket, then one a (item, head,
+// query tile) of the key tiles whose dS is out
+struct BwdF32Args {
+  const float *q, *k, *v, *o, *dout, *lse;
+  const unsigned char* mask;
+  int b, lq, lk, heads, hd;
+  float scale, scale_log2;  // hd^-1/2, and times log2(e)
+  bool vec;  // hd a multiple of 4 and every tensor 16-byte aligned
+  float* ds;
+  int* sync;
+  float *dq, *dk, *dv;
+};
+
+// dynamic shared memory of the f32 backward: the dK/dV work's K^T and V^T,
+// two Q and two dO tiles, P and dS, two buffers of lse and di (86 KB), or
+// the dQ work's stages (99 KB), whichever is larger: two blocks an SM
+constexpr int f32_bwd_smem() {
+  constexpr int dkv = (2 * kHD * kTLd + 4 * kFQT * kRLd + 2 * kFQT * kFBK + 4 * kFQT) * 4;
+  constexpr int dq = kFDqStages * (kFDq * kRLd + kFBK * kHD) * 4;
+  return dkv > dq ? dkv : dq;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// rows x hd of a (.., stride) f32 matrix (keys) into its transpose in
+// shared memory, dimension d at t[d * kTLd], zeros past `rows` and `hd`.
+// Lane j of a warp takes key j (4 dimensions a load), so the stores of a
+// warp fall in 32 distinct banks.
+__device__ __forceinline__ void fill_transposed(float* t, const float* src, size_t stride,
+                                                int rows, int hd, bool vec) {
+  for (int i = threadIdx.x; i < kFBK * (kHD / 4); i += kFBThreads) {
+    const int j = i % kFBK, d = (i / kFBK) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (j < rows && d < hd) {
+      if (vec) {
+        const float4 w = *reinterpret_cast<const float4*>(src + j * stride + d);
+        x[0] = w.x, x[1] = w.y, x[2] = w.z, x[3] = w.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = d + e < hd ? src[j * stride + d + e] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[(d + e) * kTLd + j] = x[e];
+  }
+}
+
+// the row statistics of one query tile: thread tid of the first 4 kFQT takes
+// dimensions 16 (tid & 3) .. + 15 of row tid / 4 of o and dO (loaded here,
+// summed by stats_finish, so that the loads overlap the work between)
+struct StatRow {
+  float o[16], g[16], lse;
+};
+
+__device__ __forceinline__ void stats_load(StatRow& r, const BwdF32Args& a, const float* ob,
+                                           const float* gb, const float* lse_b, int q0, int rows,
+                                           size_t width) {
+  const int row = threadIdx.x >> 2, d0 = (threadIdx.x & 3) * 16;
+  const bool live = row < rows;
+  const float* op = ob + (q0 + row) * width + d0;
+  const float* gp = gb + (q0 + row) * width + d0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int d = d0 + 4 * m;
+    if (live && a.vec && d < a.hd) {
+      const float4 x = ld4(op + 4 * m), y = ld4(gp + 4 * m);
+      r.o[4 * m] = x.x, r.o[4 * m + 1] = x.y, r.o[4 * m + 2] = x.z, r.o[4 * m + 3] = x.w;
+      r.g[4 * m] = y.x, r.g[4 * m + 1] = y.y, r.g[4 * m + 2] = y.z, r.g[4 * m + 3] = y.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = live && !a.vec && d + e < a.hd;
+        r.o[4 * m + e] = ok ? op[4 * m + e] : 0.f;
+        r.g[4 * m + e] = ok ? gp[4 * m + e] : 0.f;
+      }
+    }
+  }
+  r.lse = live ? lse_b[q0 + row] : INFINITY;
+}
+
+// di = sum_d o * dO of the row: each of its 4 threads sums its 16 entries in
+// order of d, then (s0 + s1) + (s2 + s3); lse log2(e) and di into shared
+// memory
+__device__ __forceinline__ void stats_finish(const StatRow& r, float* s_lse, float* s_di) {
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s = fmaf(r.o[e], r.g[e], s);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 1);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 2);
+  if ((threadIdx.x & 3) == 0) {
+    s_lse[threadIdx.x >> 2] = r.lse * kLog2e;
+    s_di[threadIdx.x >> 2] = s;
+  }
+}
+
+// dK, dV of key tile kt of one (item, head), walking its query tiles of kFQT
+// in order, and each query tile's dS out to a.ds (counted per query tile).
+// Warp w covers keys 32 (w & 1) .. +31 and lane l keys
+// 32 (w & 1) + 4 (l & 7) .. +3: for S, P, dP and dS it takes 2 of the
+// warp's 8 queries from (w >> 1) 8, l >> 3 + 4r (register
+// tiles, dot products over d in order; a 16-byte load of K^T or V^T is one
+// 128-byte line for the warp, and its Q and dO rows, 68 floats apart, sit
+// in distinct banks); for dK and dV dimensions 16 (w >> 1) + 4 (l >> 3) ..
+// +3, summed over the tile's queries in order from P and dS in shared
+// memory. A key tile with no attended key writes zero rows and no dS (and
+// still counts); a warp whose 32 keys are none attended writes zero dS and
+// leaves its products out.
+__device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
+  constexpr int kQPT = kFQT / 16;
+  float* skt = smem;  // K^T, V^T: 64 dimensions x kTLd
+  float* svt = skt + kHD * kTLd;
+  float(*sq)[kFQT * kRLd] = reinterpret_cast<float(*)[kFQT * kRLd]>(svt + kHD * kTLd);  // two
+  float(*sdo)[kFQT * kRLd] = sq + 2;                                                    // two
+  float* sp = sdo[2];  // P: kFQT queries x 64 keys
+  float* sds = sp + kFQT * kFBK;
+  float(*s_lse)[kFQT] = reinterpret_cast<float(*)[kFQT]>(sds + kFQT * kFBK);
+  float(*s_di)[kFQT] = s_lse + 2;
+
+  const int b = bh / a.heads, h = bh % a.heads, k0 = kt * kFBK, lq = a.lq, lk = a.lk, hd = a.hd;
+  const int nkt = (lk + kFBK - 1) / kFBK, nqt = (lq + kFQT - 1) / kFQT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int key0 = 32 * (warp & 1) + 4 * (lane & 7);       // this thread's 4 keys
+  const int row0 = (warp >> 1) * 4 * kQPT + (lane >> 3);   // its queries row0 + 4r
+  const int dim0 = 16 * (warp >> 1) + 4 * (lane >> 3);     // its 4 dimensions of dK, dV
+  const size_t width = static_cast<size_t>(a.heads) * hd;
+  const size_t head_off = static_cast<size_t>(h) * hd;
+  const int k_rows = min(kFBK, lk - k0);
+  const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
+  float* dkb = a.dk + (static_cast<size_t>(b) * lk + k0) * width + head_off;
+  float* dvb = a.dv + (static_cast<size_t>(b) * lk + k0) * width + head_off;
+  const float* qb = a.q + static_cast<size_t>(b) * lq * width + head_off;
+  const float* dob = a.dout + static_cast<size_t>(b) * lq * width + head_off;
+  const float* ob = a.o + static_cast<size_t>(b) * lq * width + head_off;
+  const float* lse_b = a.lse + static_cast<size_t>(bh) * lq;
+  float* dsb = a.ds + (static_cast<size_t>(bh) * nkt + kt) * lq * kFBK;
+  int* done = a.sync + 1 + static_cast<size_t>(bh) * nqt;
+
+  int attended = 0;
+  if (tid < kFBK) attended = tid < k_rows && (mb == nullptr || !mb[k0 + tid]);
+  if (!__syncthreads_or(attended)) {  // no key of the tile attended: zero rows
+    for (int i = tid; i < k_rows * hd; i += kFBThreads) {
+      dkb[(i / hd) * width + i % hd] = 0.f;
+      dvb[(i / hd) * width + i % hd] = 0.f;
+    }
+    for (int t = tid; t < nqt; t += kFBThreads) atomicAdd(done + t, 1);  // no dS to see
+    return;
+  }
+  bool keep[4];  // this thread's keys
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int key = k0 + key0 + c;
+    keep[c] = key < lk && (mb == nullptr || !mb[key]);
+  }
+  // any of the warp's 32 keys attended (the same keys in both products)
+  const bool half = __any_sync(0xFFFFFFFFu, keep[0] || keep[1] || keep[2] || keep[3]);
+  load_f32<kFBThreads>(sq[0], kRLd, kFQT, qb, width, min(kFQT, lq), hd, a.vec, false);
+  load_f32<kFBThreads>(sdo[0], kRLd, kFQT, dob, width, min(kFQT, lq), hd, a.vec);
+  fill_transposed(skt, a.k + (static_cast<size_t>(b) * lk + k0) * width + head_off, width,
+                  k_rows, hd, a.vec);
+  fill_transposed(svt, a.v + (static_cast<size_t>(b) * lk + k0) * width + head_off, width,
+                  k_rows, hd, a.vec);
+  StatRow next;
+  if (tid < 4 * kFQT) {
+    stats_load(next, a, ob, dob, lse_b, 0, min(kFQT, lq), width);
+    stats_finish(next, s_lse[0], s_di[0]);
+  }
+
+  float adk[4][4], adv[4][4];  // keys key0 + c, dimensions dim0 + e
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.f;
+  }
+  for (int t = 0; t < nqt; ++t) {
+    const int buf = t & 1, q0 = t * kFQT, rows = min(kFQT, lq - q0);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    // tile t and its statistics are in shared memory; every thread is done
+    // with tile t - 1, whose buffers the next loads take
+    __syncthreads();
+    if (t > 0 && tid == 0) {  // every thread's dS of tile t - 1 is out
+      __threadfence();
+      atomicAdd(done + t - 1, 1);
+    }
+    const bool more = t + 1 < nqt;
+    if (more) {
+      const int nq0 = q0 + kFQT, nrows = min(kFQT, lq - nq0);
+      load_f32<kFBThreads>(sq[buf ^ 1], kRLd, kFQT, qb + nq0 * width, width, nrows, hd, a.vec,
+                           false);
+      load_f32<kFBThreads>(sdo[buf ^ 1], kRLd, kFQT, dob + nq0 * width, width, nrows, hd, a.vec);
+      if (tid < 4 * kFQT) stats_load(next, a, ob, dob, lse_b, nq0, nrows, width);
+    }
+    // S = Q K^T and dP = dO V^T for this thread's queries and keys; P, dS
+    float s[kQPT][4], dp[kQPT][4];
+    // rows past Lq, and keys none attended, are left out of the products
+    const bool live = half && row0 < rows;
+    if (!half) {
+#pragma unroll
+      for (int r = 0; r < kQPT; ++r) {
+        const int row = row0 + 4 * r;
+        if (row < rows) {
+          *reinterpret_cast<float4*>(dsb + (q0 + row) * kFBK + key0) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < kQPT; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+      }
+      const float* qrow = sq[buf] + row0 * kRLd;
+      const float* grow = sdo[buf] + row0 * kRLd;
+#pragma unroll 2
+      for (int d = 0; d < kHD; d += 4) {
+        float4 kv[4], qv[kQPT];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) kv[e] = ld4(skt + (d + e) * kTLd + key0);
+#pragma unroll
+        for (int r = 0; r < kQPT; ++r) qv[r] = ld4(qrow + 4 * r * kRLd + d);
+#pragma unroll
+        for (int r = 0; r < kQPT; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = lane_of(qv[r], e);
+            s[r][0] = fmaf(x, kv[e].x, s[r][0]);
+            s[r][1] = fmaf(x, kv[e].y, s[r][1]);
+            s[r][2] = fmaf(x, kv[e].z, s[r][2]);
+            s[r][3] = fmaf(x, kv[e].w, s[r][3]);
+          }
+        }
+      }
+#pragma unroll 2
+      for (int d = 0; d < kHD; d += 4) {
+        float4 vv[4], gv[kQPT];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) vv[e] = ld4(svt + (d + e) * kTLd + key0);
+#pragma unroll
+        for (int r = 0; r < kQPT; ++r) gv[r] = ld4(grow + 4 * r * kRLd + d);
+#pragma unroll
+        for (int r = 0; r < kQPT; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = lane_of(gv[r], e);
+            dp[r][0] = fmaf(x, vv[e].x, dp[r][0]);
+            dp[r][1] = fmaf(x, vv[e].y, dp[r][1]);
+            dp[r][2] = fmaf(x, vv[e].z, dp[r][2]);
+            dp[r][3] = fmaf(x, vv[e].w, dp[r][3]);
+          }
+        }
+      }
+      // P = exp2(s scale log2(e) - lse log2(e)) on attended keys; dS = (dP -
+      // di) P scale; both to shared memory, dS of the rows before Lq also to
+      // a.ds
+#pragma unroll
+      for (int r = 0; r < kQPT; ++r) {
+        const int row = row0 + 4 * r;
+        const float lse = s_lse[buf][row], di = s_di[buf][row];
+        float p[4], g[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          p[c] = keep[c] ? exp2f(s[r][c] * a.scale_log2 - lse) : 0.f;
+          g[c] = (dp[r][c] - di) * p[c] * a.scale;
+        }
+        const float4 p4 = make_float4(p[0], p[1], p[2], p[3]);
+        const float4 g4 = make_float4(g[0], g[1], g[2], g[3]);
+        *reinterpret_cast<float4*>(sp + row * kFBK + key0) = p4;
+        *reinterpret_cast<float4*>(sds + row * kFBK + key0) = g4;
+        if (row < rows) *reinterpret_cast<float4*>(dsb + (q0 + row) * kFBK + key0) = g4;
+      }
+    }
+    if (more && tid < 4 * kFQT) stats_finish(next, s_lse[buf ^ 1], s_di[buf ^ 1]);
+    __syncthreads();  // P and dS of the tile are in shared memory
+    // dV += P^T dO, dK += dS^T Q over the tile's queries in order
+#pragma unroll 4
+    for (int i = 0; i < (half ? rows : 0); ++i) {
+      const float4 pv = ld4(sp + i * kFBK + key0), gv = ld4(sdo[buf] + i * kRLd + dim0);
+      const float4 sv = ld4(sds + i * kFBK + key0), qv = ld4(sq[buf] + i * kRLd + dim0);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pc = lane_of(pv, c), sc = lane_of(sv, c);
+        adv[c][0] = fmaf(pc, gv.x, adv[c][0]);
+        adv[c][1] = fmaf(pc, gv.y, adv[c][1]);
+        adv[c][2] = fmaf(pc, gv.z, adv[c][2]);
+        adv[c][3] = fmaf(pc, gv.w, adv[c][3]);
+        adk[c][0] = fmaf(sc, qv.x, adk[c][0]);
+        adk[c][1] = fmaf(sc, qv.y, adk[c][1]);
+        adk[c][2] = fmaf(sc, qv.z, adk[c][2]);
+        adk[c][3] = fmaf(sc, qv.w, adk[c][3]);
+      }
+    }
+  }
+  __syncthreads();  // the last tile's dS is out
+  if (tid == 0) {
+    __threadfence();
+    atomicAdd(done + nqt - 1, 1);
+  }
+  const int d = dim0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int key = key0 + c;
+    if (key >= k_rows || d >= hd) continue;
+    float* pk = dkb + key * width + d;
+    float* pv = dvb + key * width + d;
+    if (a.vec) {
+      *reinterpret_cast<float4*>(pk) = make_float4(adk[c][0], adk[c][1], adk[c][2], adk[c][3]);
+      *reinterpret_cast<float4*>(pv) = make_float4(adv[c][0], adv[c][1], adv[c][2], adv[c][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (d + e < hd) {
+          pk[e] = adk[c][e];
+          pv[e] = adv[c][e];
+        }
+      }
+    }
+  }
+}
+
+// dq of queries q0 = qd kFDq .. + kFDq - 1 of one (item, head): dS K over the
+// key tiles in order up to the last attended key, tiles with no attended key
+// (no dS) skipped; the dS tiles (rows 68 floats apart) and K stream through
+// shared memory in kFDqStages stages. Warp w covers dimensions 32 (w & 1)
+// .. +31, lane l dimensions 32 (w & 1) + 4 (l & 7) .. +3 of queries
+// (w >> 1) 16 + l >> 3 + 4r, summed over each tile's keys in order. It
+// first waits until every key tile counted the dS of the last
+// query tile of kFQT (the dK/dV work's) that holds its queries: each key tile
+// counts its query tiles in order.
+__device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
+  constexpr int kQPT = kFDq / 16, kStage = kFDq * kRLd + kFBK * kHD;
+  __shared__ int s_end[kFBThreads / 32];
+  const int b = bh / a.heads, h = bh % a.heads, q0 = qd * kFDq, lq = a.lq, lk = a.lk, hd = a.hd;
+  const int nkt = (lk + kFBK - 1) / kFBK, nqt = (lq + kFQT - 1) / kFQT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int dim0 = 32 * (warp & 1) + 4 * (lane & 7);       // this thread's 4 dimensions
+  const int row0 = (warp >> 1) * 4 * kQPT + (lane >> 3);   // its queries row0 + 4r
+  const size_t width = static_cast<size_t>(a.heads) * hd;
+  const size_t head_off = static_cast<size_t>(h) * hd;
+  const int q_rows = min(kFDq, lq - q0);
+  const float* kb = a.k + static_cast<size_t>(b) * lk * width + head_off;
+  const float* dsb = a.ds + static_cast<size_t>(bh) * nkt * lq * kFBK;
+  const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
+  float* dqb = a.dq + (static_cast<size_t>(b) * lq + q0) * width + head_off;
+
+  int end = 0;  // one past the last attended key
+  for (int j = tid; j < lk; j += kFBThreads) {
+    if (mb == nullptr || !mb[j]) end = j + 1;
+  }
+  end = static_cast<int>(__reduce_max_sync(0xFFFFFFFFu, static_cast<unsigned>(end)));
+  if (lane == 0) s_end[warp] = end;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kFBThreads / 32; ++w) end = max(end, s_end[w]);
+  const int tiles = (end + kFBK - 1) / kFBK;
+  if (tiles == 0) {  // no key attended: zero rows
+    for (int i = tid; i < q_rows * hd; i += kFBThreads) dqb[(i / hd) * width + i % hd] = 0.f;
+    return;
+  }
+  wait_for(a.sync + 1 + static_cast<size_t>(bh) * nqt + min(nqt - 1, (q0 + q_rows - 1) / kFQT),
+           nkt);
+  const auto fetch = [&](int kt, int stage) {  // the dS tile (rows before Lq) and K tile kt
+    float* s = smem + stage * kStage;
+    load_f32<kFBThreads>(s, kRLd, kFDq, dsb + (static_cast<size_t>(kt) * lq + q0) * kFBK, kFBK,
+                         q_rows, kFBK, true, false);
+    load_f32<kFBThreads>(s + kFDq * kRLd, kHD, kFBK, kb + kt * kFBK * width, width,
+                         min(kFBK, lk - kt * kFBK), hd, a.vec);
+  };
+  for (int kt = 0; kt < kFDqStages - 1 && kt < tiles; ++kt) fetch(kt, kt);
+  float adq[kQPT][4];
+#pragma unroll
+  for (int r = 0; r < kQPT; ++r) adq[r][0] = adq[r][1] = adq[r][2] = adq[r][3] = 0.f;
+  const bool live = row0 < q_rows;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int stage = kt % kFDqStages, j = kt * kFBK + tid;
+    if (kt + 1 < tiles) {  // one copy group a tile: all but the next one's done
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kFDqStages - 2) : "memory");
+    } else {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+    // tile kt is in shared memory; every thread is done with tile kt - 1,
+    // whose stage the next copy takes
+    const bool any =
+        __syncthreads_or(tid < kFBK && j < lk && (mb == nullptr || !mb[j]));
+    if (kt + kFDqStages - 1 < tiles) fetch(kt + kFDqStages - 1, (kt + kFDqStages - 1) % kFDqStages);
+    if (!any || !live) continue;
+    const float* sd = smem + stage * kStage + row0 * kRLd;
+    const float* sk = smem + stage * kStage + kFDq * kRLd + dim0;
+    // the keys up to the last attended one, in steps of 4 (the rest have dS 0)
+    const int keys = min(kFBK, (end - kt * kFBK + 3) & ~3);
+#pragma unroll 2
+    for (int jj = 0; jj < keys; jj += 4) {
+      float4 kv[4], dv[kQPT];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kv[e] = ld4(sk + (jj + e) * kHD);
+#pragma unroll
+      for (int r = 0; r < kQPT; ++r) dv[r] = ld4(sd + 4 * r * kRLd + jj);
+#pragma unroll
+      for (int r = 0; r < kQPT; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = lane_of(dv[r], e);
+          adq[r][0] = fmaf(x, kv[e].x, adq[r][0]);
+          adq[r][1] = fmaf(x, kv[e].y, adq[r][1]);
+          adq[r][2] = fmaf(x, kv[e].z, adq[r][2]);
+          adq[r][3] = fmaf(x, kv[e].w, adq[r][3]);
+        }
+      }
+    }
+  }
+  const int d = dim0;
+#pragma unroll
+  for (int r = 0; r < kQPT; ++r) {
+    const int row = row0 + 4 * r;
+    if (row >= q_rows || d >= hd) continue;
+    float* pq = dqb + row * width + d;
+    if (a.vec) {
+      *reinterpret_cast<float4*>(pq) = make_float4(adq[r][0], adq[r][1], adq[r][2], adq[r][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (d + e < hd) pq[e] = adq[r][e];
+      }
+    }
+  }
+}
+
+// the whole f32 backward in one launch: each block draws a ticket, every
+// key tile's dK/dV first, then every block of kFDq queries' dQ (which waits
+// for its dS from every key tile; a dQ block waits only on dK/dV work of a
+// lower ticket, drawn by a block that had started, so every wait ends)
+__global__ void __launch_bounds__(kFBThreads, 2) attention_bwd_f32_kernel(const BwdF32Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nkt = (a.lk + kFBK - 1) / kFBK, nqd = (a.lq + kFDq - 1) / kFDq;
+  const int n_kv = a.b * a.heads * nkt;
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(a.sync, 1);
+  __syncthreads();
+  const int work = s_ticket;
+  float* fsmem = reinterpret_cast<float*>(smem);
+  if (work < n_kv) {
+    bwd_f32_dkv(a, work / nkt, work % nkt, fsmem);
+  } else {
+    bwd_f32_dq(a, (work - n_kv) / nqd, (work - n_kv) % nqd, fsmem);
+  }
+}
+
+// the backward's scratch. bf16: di (B, heads, Lq) f32 from byte 0, then
 // the counters (BwdArgs::sync) and the dS^T tiles (B, heads, query tiles,
-// key tiles)
+// key tiles). f32: the counters (BwdF32Args::sync, as many as 32 queries a
+// tile take), then the dS tiles (B * heads, key tiles of 64, Lq, 64)
 struct BwdScratch {
   size_t sync, n_sync, ds, bytes;
 };
 
 BwdScratch bwd_scratch(int b, int lq, int lk, int heads, int elem_bytes) {
   const auto up = [](size_t x) { return (x + 127) / 128 * 128; };
-  const size_t bh = static_cast<size_t>(b) * heads, nqt = (lq + kBQ - 1) / kBQ;
+  const size_t bh = static_cast<size_t>(b) * heads;
   BwdScratch s{};
-  s.sync = up(bh * lq * sizeof(float));
   if (elem_bytes != 2) {
-    s.bytes = s.sync;
+    s.n_sync = 1 + bh * ((lq + 31) / 32);
+    s.ds = up(s.n_sync * sizeof(int));
+    s.bytes = s.ds + bh * ((lk + kFBK - 1) / kFBK) * lq * kFBK * sizeof(float);
     return s;
   }
+  const size_t nqt = (lq + kBQ - 1) / kBQ;
+  s.sync = up(bh * lq * sizeof(float));
   s.n_sync = 1 + bh + bh * nqt;
   s.ds = up(s.sync + s.n_sync * sizeof(int));
   s.bytes = s.ds + bh * nqt * ((lk + kBK - 1) / kBK) * kTile * sizeof(bf16);
   return s;
 }
 
-int launch_di(const void* o, const void* dout, int b, int lq, int heads, int hd, float* di,
-              cudaStream_t stream) {
-  const long long pairs = static_cast<long long>(b) * lq * heads;
-  const long long blocks = (pairs * 8 + kDiThreads - 1) / kDiThreads;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  attention_di_kernel<<<static_cast<unsigned>(blocks), kDiThreads, 0, stream>>>(
-      static_cast<const float*>(o), static_cast<const float*>(dout), pairs, lq, heads, hd, di);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// lets the bf16 backward take kBwdSmem of dynamic shared memory, once a
-// device and process: the call is not free, and every backward launches it
-cudaError_t allow_bwd_smem() {
+// lets a kernel take `bytes` of dynamic shared memory, once a device, kernel
+// and process: the call is not free, and every backward launches one
+cudaError_t allow_smem(const void* kernel, int bytes) {
   static std::mutex lock;
-  static std::set<int> done;
+  static std::set<std::pair<int, const void*>> done;
   int device = 0;
   const cudaError_t got = cudaGetDevice(&device);
   if (got != cudaSuccess) return got;
   const std::lock_guard<std::mutex> hold(lock);
-  if (done.count(device) != 0) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
-  if (e == cudaSuccess) done.insert(device);
+  if (done.count({device, kernel}) != 0) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done.insert({device, kernel});
   return e;
+}
+
+// the f32 backward: a memset of the counters, then one launch
+cudaError_t launch_bwd_f32(BwdF32Args a, const BwdScratch& at, unsigned char* base,
+                           cudaStream_t st) {
+  const long long nkt = (a.lk + kFBK - 1) / kFBK, nqt = (a.lq + kFQT - 1) / kFQT;
+  const long long nqd = (a.lq + kFDq - 1) / kFDq;
+  const long long n_kv = static_cast<long long>(a.b) * a.heads * nkt;
+  const long long n_q = static_cast<long long>(a.b) * a.heads * nqd;
+  if (n_kv + n_q > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  constexpr int smem = f32_bwd_smem();
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(attention_bwd_f32_kernel), smem);
+  if (e != cudaSuccess) return e;
+  a.ds = reinterpret_cast<float*>(base + at.ds);
+  a.sync = reinterpret_cast<int*>(base + at.sync);
+  e = cudaMemsetAsync(a.sync, 0, (1 + static_cast<size_t>(a.b) * a.heads * nqt) * sizeof(int), st);
+  if (e != cudaSuccess) return e;
+  attention_bwd_f32_kernel<<<static_cast<unsigned>(n_kv + n_q), kFBThreads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 bool valid_shape(int b, int lq, int lk, int heads, int hd, int elem_bytes) {
@@ -1345,8 +1638,7 @@ extern "C" long long amt_attention_bwd_scratch(int b, int lq, int lk, int heads,
 // The backward of amt_attention: q, o, dout, dq (B, Lq, heads*hd), k, v, dk,
 // dv (B, Lk, heads*hd), lse (B, heads, Lq) f32 from the forward, mask (B, Lk)
 // bytes or null, scratch of amt_attention_bwd_scratch bytes (16-byte
-// aligned). bf16: a memset of the counters and one kernel; f32: the di
-// pass, dK/dV, then dQ.
+// aligned). A memset of the counters and one kernel, bf16 or f32.
 extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, const float* lse, const unsigned char* mask,
                                  int b, int lq, int lk, int heads, int hd, float scale,
@@ -1356,7 +1648,8 @@ extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, co
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  float* di = static_cast<float*>(scratch);
+  const BwdScratch at = bwd_scratch(b, lq, lk, heads, elem_bytes);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
   if (elem_bytes == 2) {
     const long long nkt = (lk + kBK - 1) / kBK, nqt = (lq + kBQ - 1) / kBQ;
     const long long blocks = static_cast<long long>(b) * heads * (2 * nqt + nkt);
@@ -1365,30 +1658,27 @@ extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, co
         !aligned16(dk) || !aligned16(dv)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const BwdScratch at = bwd_scratch(b, lq, lk, heads, elem_bytes);
-    unsigned char* base = static_cast<unsigned char*>(scratch);
     const BwdArgs args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
                        static_cast<const bf16*>(dout), lse, mask, b, lq, lk, heads, hd,
-                       scale * kLog2e, scale, di, reinterpret_cast<bf16*>(base + at.ds),
+                       scale * kLog2e, scale, static_cast<float*>(scratch),
+                       reinterpret_cast<bf16*>(base + at.ds),
                        reinterpret_cast<int*>(base + at.sync), static_cast<bf16*>(dq),
                        static_cast<bf16*>(dk), static_cast<bf16*>(dv)};
     cudaError_t e = cudaMemsetAsync(args.sync, 0, at.n_sync * sizeof(int), st);
-    if (e == cudaSuccess) e = allow_bwd_smem();
+    if (e == cudaSuccess) {
+      e = allow_smem(reinterpret_cast<const void*>(attention_bwd_bf16_kernel), kBwdSmem);
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     attention_bwd_bf16_kernel<<<static_cast<unsigned>(blocks), kTC, kBwdSmem, st>>>(args);
     return static_cast<int>(cudaGetLastError());
   }
-  int code = launch_di(o, dout, b, lq, heads, hd, di, st);
-  if (code != 0) return code;
-  const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
-              *vv = static_cast<const float*>(v), *dd = static_cast<const float*>(dout);
-  attention_bwd_dkv_f32_kernel<<<dim3((lk + kBT - 1) / kBT, heads, b), kBThreads, 0, st>>>(
-      qq, kk, vv, dd, lse, di, mask, lq, lk, heads, hd, scale, static_cast<float*>(dk),
-      static_cast<float*>(dv));
-  code = static_cast<int>(cudaGetLastError());
-  if (code != 0) return code;
-  attention_bwd_dq_f32_kernel<<<dim3((lq + kBT - 1) / kBT, heads, b), kBThreads, 0, st>>>(
-      qq, kk, vv, dd, lse, di, mask, lq, lk, heads, hd, scale, static_cast<float*>(dq));
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
+                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
+  const BwdF32Args args{static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<const float*>(o),
+                        static_cast<const float*>(dout), lse, mask, b, lq, lk, heads, hd, scale,
+                        scale * kLog2e, vec, nullptr, nullptr, static_cast<float*>(dq),
+                        static_cast<float*>(dk), static_cast<float*>(dv)};
+  return static_cast<int>(launch_bwd_f32(args, at, base, st));
 }

@@ -41,18 +41,19 @@ Backward. ``di = sum(o * do)`` over the rounded output; ``dv = P^T do`` with
 P rounded to the input type first; ``ds = (do v^T - di) * P * scale``;
 ``dk = ds^T q`` and ``dq = ds k`` with ds rounded to the input type first;
 sums in float32, each gradient rounded once. Masked keys get zero gradients.
-The kernels sum over tiles of 64 (bf16) or 32 (f32) rows in order (bf16: one
-launch, whose dK/dV work walks each key tile's query tiles and writes the
-rounded dS^T, and whose dQ work sums dS K over the key tiles in order), so
-they agree with the plain version to :data:`TOLERANCE_BWD`: every entry of each
+Each instance is one launch, whose dK/dV work walks each key tile's query
+tiles (bf16 64 rows, f32 32) and writes the dS^T (bf16, rounded) or dS (f32)
+tiles, and whose dQ work sums dS K over the key tiles of 64 in order, so the
+kernels agree with the plain version to :data:`TOLERANCE_BWD`: every entry of each
 gradient within ``atol * max |plain gradient| + rtol * |plain|``
 (:func:`backward_excess` gives the atol a pair needs). float32: 1e-5 of the
 largest entry. bfloat16: 2^-9 of it plus one bf16 ulp of the result. Both
 set from readings, between what a right kernel and a faulty one give: the
-kernels' order, emulated on the CPU (``tests/test_torch_attention_bwd.py``),
-needs at most 2^-11.4 (bf16) and 2^-20.3 (f32) of the largest entry at the
-denoiser's shape and at head dimensions 8, 40 and 64, and the kernels on an
-H100 2^-10.8 and 2^-18.8; a key tile skipped, di left out, the mask
+kernels' order, emulated on the CPU (``tests/test_torch_attention_bwd.py``,
+and for f32 ``tests/test_torch_attention_bwd_f32_design.py``), needs at most
+2^-11.4 (bf16) and 2^-19.1 (f32) of the largest entry at the denoiser's
+shape and at head dimensions 8, 40 and 64, and the kernels on an H100
+2^-10.8 and 2^-18.2; a key tile skipped, di left out, the mask
 missing in the backward, or a key tile's dq part left out or added twice
 needs 2^-1.5 or more. Whether P is rounded to bf16
 before dV moves dv by less than its own final rounding (2^-9.5 of the
@@ -278,8 +279,10 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
                             pad_mask: Optional[torch.Tensor] = None):
     """Same contract as :func:`attention_backward_plain`. Launches the
     kernels for CUDA tensors (bf16: one kernel for dq, dk and dv after a
-    memset of its counters; float32: the di pass, dK/dV, then dQ; one count
-    a call); CPU tensors take the plain version."""
+    memset of its counters; float32: one kernel, dK/dV then dQ by ticket,
+    after a memset of its counters; one count a call, and one on
+    :data:`backward_bf16` or :data:`backward_f32`); CPU tensors take the
+    plain version."""
     _check_qkv(q, k, v, num_heads, pad_mask, "attention_backward_cuda")
     B, Lq, D = q.shape
     Lk = k.shape[1]
@@ -296,8 +299,8 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
         return attention_backward_plain(q, k, v, o, do, lse, num_heads, pad_mask)
     _check_cuda(tensors, q, num_heads, "attention_backward_cuda")
     lib = build.library()
-    # di, and for bf16 the kernel's counters and the dS^T tiles its dK/dV
-    # work hands its dQ work
+    # bf16: di, the kernel's counters and the dS^T tiles its dK/dV work hands
+    # its dQ work; f32: the counters and the dS tiles
     scratch = torch.empty(lib.amt_attention_bwd_scratch(B, Lq, Lk, num_heads, q.element_size()),
                           dtype=torch.uint8, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -310,7 +313,19 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
             dk.data_ptr(), dv.data_ptr(), build.stream_of(q))
     build.check(code, "amt_attention_bwd")
     attention_backward_cuda.launches += 1
+    (backward_f32 if q.dtype == torch.float32 else backward_bf16).launches += 1
     return dq, dk, dv
 
 
+class LaunchCount:
+    """A count of one kernel instance's launches (``launches``, as on the
+    wrappers), where one wrapper launches more than one instance."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 attention_backward_cuda.launches = 0
+# attention_backward_cuda's launches by instance
+backward_bf16 = LaunchCount()
+backward_f32 = LaunchCount()

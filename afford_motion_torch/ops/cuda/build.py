@@ -68,8 +68,8 @@ _SIGNATURES = {
     # (g, idx, starts, starts_stride, b, n, c, m, k, s, elem_bytes, passes, wide, budget, scratch,
     #  out, stream)
     "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (points, verts, l, o, h, d2, idx, stream)
-    "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # (points, verts, l, o, h, scratch, d2, idx, visits, stream)
+    "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, stream)
     "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P],
     # the same with a launch configuration before the stream
@@ -87,6 +87,8 @@ _SIZES = {
     "amt_attention_bwd_scratch": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     # (b, n, mk) -> int32 entries of amt_scatter_add_rows' and amt_scatter_banded's scratch
     "amt_scatter_scratch": ([_I, _I, _I], ctypes.c_longlong),
+    # (l, o, h) -> bytes of amt_nn1's scratch
+    "amt_nn1_scratch": ([_I, _I, _I], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()

@@ -8,8 +8,13 @@ form ``((dx*dx + dy*dy) + dz*dz)`` with every step rounded (no FMA), and an
 exact tie goes to the smallest vertex index. Inputs must be NaN-free. Any
 O, H and L are taken: the kernel masks its ragged tiles, so the TPU kernel's
 ``supports`` predicate (queries tile by 128) has no counterpart here.
+The kernel visits the vertices in groups of 32 sorted by cell and skips a
+group whose box cannot hold a vertex as near as the best found (exactly:
+see ``csrc/nn1.cu``); ``tests/test_torch_nn1_design.py`` models that order.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -42,8 +47,16 @@ def nn1_plain(points: torch.Tensor, verts_seq: torch.Tensor, chunk: int = 2048):
 
 def nn1_cuda(points: torch.Tensor, verts_seq: torch.Tensor):
     """points (O, 3) f32, verts_seq (L, H, 3) f32 -> d2 (L, O) f32,
-    idx (L, O) int32. Launches the kernel for CUDA tensors; CPU tensors take
+    idx (L, O) int32. Launches the kernels for CUDA tensors; CPU tensors take
     :func:`nn1_plain`."""
+    return nn1_launch(points, verts_seq)
+
+
+def nn1_launch(points: torch.Tensor, verts_seq: torch.Tensor,
+               visits: Optional[torch.Tensor] = None):
+    """:func:`nn1_cuda`, and with ``visits``, a (1,) int64 CUDA tensor, the
+    vertex-query pairs the kernel evaluated added to it (the share of pairs
+    it visits, for the record)."""
     if points.ndim != 2 or points.shape[-1] != 3 or points.dtype != torch.float32:
         raise ValueError(f"nn1_cuda: points must be (O, 3) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
@@ -61,12 +74,20 @@ def nn1_cuda(points: torch.Tensor, verts_seq: torch.Tensor):
     build.require_cuda(points, "nn1_cuda")
     if not (points.is_contiguous() and verts_seq.is_contiguous()):
         raise ValueError("nn1_cuda: points and verts_seq must be contiguous")
+    if L > 65535:
+        raise ValueError(f"nn1_cuda: {L} frames; the kernel takes at most 65535")
+    if visits is not None and (visits.dtype != torch.int64 or tuple(visits.shape) != (1,)
+                               or visits.device != points.device):
+        raise ValueError("nn1_cuda: visits must be a (1,) int64 tensor on the points' device")
+    lib = build.library()
+    scratch = torch.empty(lib.amt_nn1_scratch(L, O, H), dtype=torch.uint8, device=points.device)
     d2 = torch.empty((L, O), dtype=torch.float32, device=points.device)
     idx = torch.empty((L, O), dtype=torch.int32, device=points.device)
-    lib = build.library()
     with torch.cuda.device(points.device):
-        code = lib.amt_nn1(points.data_ptr(), verts_seq.data_ptr(), L, O, H,
-                           d2.data_ptr(), idx.data_ptr(), build.stream_of(points))
+        code = lib.amt_nn1(points.data_ptr(), verts_seq.data_ptr(), L, O, H, scratch.data_ptr(),
+                           d2.data_ptr(), idx.data_ptr(),
+                           None if visits is None else visits.data_ptr(),
+                           build.stream_of(points))
     build.check(code, "amt_nn1")
     nn1_cuda.launches += 1
     return d2, idx

@@ -6,7 +6,8 @@ checkouts of the repo in turn, on one card:
         [--sweep] [--out DIR] ROOT [ROOT ...]
 
 KERNEL is one of knn, gather, banded_knn, banded_gather, scatter,
-banded_scatter, attention_f32, attention_bwd.
+banded_scatter, attention_f32, attention_bwd (``--dtype bfloat16`` or
+``float32``), nn1, scene.
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into ``build/``); each is measured in its own
@@ -23,8 +24,15 @@ in bf16, the path's type, whose rows make the pass's sum, and in f32 beside
 them; each also gives the profiler's device time per kernel of one bf16
 call, and #4 the largest and mean in-degree of each shape. The attention's
 shapes are the regressor's f32 forward (16, 196, 4x64) and the train path's
-bf16 backward (32, 326, 8x64), with the padded frames masked, each beside
-``scaled_dot_product_attention`` (its forward, or its whole backward).
+backward (32, 326, 8x64) in bf16 or f32, with the padded frames masked, each
+beside ``scaled_dot_product_attention`` (its forward, or its whole
+backward). The 1-NN runs one 196-frame sequence against 8192 scene points
+on ``chip_smoke.nn1_cloud``'s clouds a and b, with the share of pairs it
+evaluates. ``scene`` runs the root's own ``chip_smoke.phase_scene_slice``
+once (the scene-protocol test path at full width: two DDPM-500 chains of
+32 with the fused attention, the SMPL-X fit, LBS, SDF physics with the
+1-NN, APD, with the root's launch checks) and gives the evaluator's times
+in seconds from its ``timing.json``.
 The row gather (#3) runs at the gathers' shapes in bf16 and f32, each
 beside ``torch.gather``; the banded kNN (#5) at the kNN's shapes on a sorted
 pyramid, with the queue merges a warp took. ``--sweep`` also times, for the
@@ -32,7 +40,7 @@ roots whose wrappers expose them, every launch configuration of the kernel
 (kNN: threads a block, parts of the cloud; row gather: chunks a lane at a
 time, wide loads, span; banded kNN: queries a block and parts of the
 window; banded gather: blocks a tile, window staged or not; the f32
-attention: queries a block; the bf16 backward has one; the scatters' sums:
+attention: queries a block; the backward and the 1-NN have one; the scatters' sums:
 channel passes, channels a lane and the register budget). Prints the card's name and power limit
 first; writes everything to ``DIR/kernel_ab.txt`` (default ``build/profile``).
 """
@@ -441,54 +449,139 @@ def _attention_f32(smoke, rng, sweep):
     return rows
 
 
-def _attention_bwd(smoke, rng, sweep):
-    """The train path's bf16 attention backward (batch B, 326 tokens, 8
-    heads of 64, the CMDM's masks), all three gradients. It has one launch
-    configuration, so ``sweep`` adds nothing."""
+def _attention_bwd(smoke, rng, sweep, dtype="bfloat16"):
+    """The train path's attention backward (batch B, 326 tokens, 8 heads of
+    64, the CMDM's masks) in ``dtype``, all three gradients, beside the
+    whole backward of ``scaled_dot_product_attention``; in float32 also at
+    the regressor's shape (16, 196, 4x64). It has one launch configuration
+    in each type, so ``sweep`` adds nothing."""
     import torch
     import torch.nn.functional as F
 
     from afford_motion_torch.ops.cuda import attention as attn
 
+    dt = getattr(torch, dtype)
     b, seq, heads = smoke.B, 1 + 1 + 128 + smoke.L, 8
-    (q, k, v, do), pad = _masked_qkv(smoke, rng, b, seq, heads, torch.bfloat16, 4)
+    (q, k, v, do), pad = _masked_qkv(smoke, rng, b, seq, heads, dt, 4)
     o, lse = attn.attention_forward_cuda(q, k, v, heads, pad, stats=True)
     want = attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad)
-    atol, rtol = attn.TOLERANCE_BWD[torch.bfloat16]
+    atol, rtol = attn.TOLERANCE_BWD[dt]
 
     def check(got):
         if attn.backward_excess(got, want, rtol) > atol:
             raise AssertionError("attention_bwd: kernel differs from plain")
+        again = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("attention_bwd: two calls differ")
 
     rows = {}
-    label = f"attention_bwd ({b},{seq},{heads}x64)"
+    label = f"attention_bwd ({b},{seq},{heads}x64) {dtype}"
     rows[label] = _checked(lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad),
                            check, smoke, 10)
     qh, kh, vh = (x.reshape(b, seq, heads, 64).transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=~pad[:, None, None, :])
     doh = do.reshape(b, seq, heads, 64).transpose(1, 2)
-    rows[f"  gradient of scaled_dot_product_attention ({b},{seq},{heads}x64)"] = smoke.time_ms(
-        lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), 10)
+    rows[f"  gradient of scaled_dot_product_attention ({b},{seq},{heads}x64) {dtype}"] = \
+        smoke.time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), 10)
+    if dt == torch.float32:   # the regressor's shape, masked
+        rb, rheads = smoke.FIT_BATCH, 4
+        (rq, rk, rv, rdo), rpad = _masked_qkv(smoke, rng, rb, smoke.L, rheads, dt, 4)
+        ro, rlse = attn.attention_forward_cuda(rq, rk, rv, rheads, rpad, stats=True)
+        rwant = attn.attention_backward_plain(rq, rk, rv, ro, rdo, rlse, rheads, rpad)
+
+        def rcheck(got):
+            if attn.backward_excess(got, rwant, rtol) > atol:
+                raise AssertionError("attention_bwd regressor: kernel differs from plain")
+
+        rows[f"  attention_bwd regressor ({rb},{smoke.L},{rheads}x64) {dtype}"] = _checked(
+            lambda: attn.attention_backward_cuda(rq, rk, rv, ro, rdo, rlse, rheads, rpad), rcheck,
+            smoke, 10)
     return rows
+
+
+def _nn1(smoke, rng, sweep):
+    """The 1-NN (#8) of one 196-frame sequence against the 8192 scene
+    points, on ``chip_smoke.nn1_cloud``'s clouds a (points N(0, 2^2),
+    vertices N(0, 1)) and b (a body in a room), bit-equal to its plain
+    version, with the share of the pairs it evaluates where the root's
+    wrapper counts them. It has one launch configuration, so ``sweep`` adds
+    nothing."""
+    import torch
+
+    from afford_motion_torch.ops.cuda import sdf
+
+    dev = torch.device("cuda:0")
+    rows = {}
+    for kind in ("a", "b"):
+        points, verts = (torch.from_numpy(x).to(dev) for x in smoke.nn1_cloud(kind, rng))
+        want = sdf.nn1_plain(points, verts)
+        label = f"nn1 {kind} ({points.shape[0]}, {verts.shape[0]}x{verts.shape[1]})"
+        rows[label] = _checked_time(smoke, lambda: sdf.nn1_cuda(points, verts), want, 5)
+        if hasattr(sdf, "nn1_launch"):
+            visits = torch.zeros(1, dtype=torch.int64, device=dev)
+            sdf.nn1_launch(points, verts, visits)
+            pairs = points.shape[0] * verts.shape[0] * verts.shape[1]
+            rows[f"  pairs evaluated {kind}, share"] = [f"{float(visits[0]) / pairs:.5f}"]
+        del points, verts, want
+    return rows
+
+
+# the kernels the scene slice launches; the others' counts must stay 0
+SCENE_COUNTED = {"fps": ("fps", "fps_cuda"), "knn": ("knn", "knn_cuda"),
+                 "gather": ("gather", "gather_rows"), "nn1": ("sdf", "nn1_cuda"),
+                 "attention": ("attention", "attention_cuda")}
+
+
+def _scene(smoke, rng, sweep, root):
+    """The scene slice of ``root``'s own ``chip_smoke.py`` (its entries and
+    launch checks are the root's), from a fresh work tree; returns its
+    evaluator's ``fit_s``, ``physics_s``, ``apd_s`` and ``evaluator_s``
+    (one run each, in seconds). ``rng`` and ``sweep`` are not used: the
+    slice makes its data from its own seed and has no configurations."""
+    import importlib
+    import os
+    import shutil
+    import types
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("root_chip_smoke", Path(root) / "chip_smoke.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    os.chdir(root)   # the entries read ./configs
+    shutil.rmtree(own.WORK, ignore_errors=True)   # a fresh tree, as chip_smoke.py starts with
+    counters = {}
+    for name in own.PLAIN_STEP:
+        module, fn = SCENE_COUNTED.get(name, (None, None))
+        counters[name] = (getattr(importlib.import_module(f"afford_motion_torch.ops.cuda.{module}"),
+                                  fn) if module else types.SimpleNamespace(launches=0))
+    out, log = [], own.log
+    own.log = lambda msg: (out.append(msg), log(msg))[1]
+    own.phase_scene_slice(torch.device("cuda:0"), counters)
+    words = next(m for m in out if m.startswith("scene slice: fit_s")).split()
+    return {f"{k} (scene slice, s)": [float(words[words.index(k) + 1])] * 3
+            for k in ("fit_s", "physics_s", "apd_s", "evaluator_s")}
 
 
 KERNELS = {"knn": _knn, "gather": _gather, "banded_knn": _banded_knn,
            "banded_gather": _banded_gather, "scatter": _scatter,
            "banded_scatter": _banded_scatter, "attention_f32": _attention_f32,
-           "attention_bwd": _attention_bwd}
+           "attention_bwd": _attention_bwd, "nn1": _nn1, "scene": _scene}
 
 
-def worker(root: str, kernel: str, sweep: bool) -> dict:
-    """Measure ``kernel`` of the checkout at ``root``; returns {row label:
-    [median, lo, hi]}."""
+def worker(root: str, kernel: str, sweep: bool, dtype: str = "bfloat16") -> dict:
+    """Measure ``kernel`` of the checkout at ``root`` (``dtype``: the
+    attention backward's type); returns {row label: [median, lo, hi]}."""
     smoke = _smoke()
+    root = str(Path(root).resolve())
     sys.path.insert(0, root)
     from afford_motion_torch.ops.cuda import build
 
     assert Path(build.__file__).resolve().is_relative_to(Path(root).resolve())
     build.library()
-    return KERNELS[kernel](smoke, smoke.np.random.default_rng(smoke.SEED), sweep)
+    extra = {"attention_bwd": {"dtype": dtype}, "scene": {"root": root}}.get(kernel, {})
+    return KERNELS[kernel](smoke, smoke.np.random.default_rng(smoke.SEED), sweep, **extra)
 
 
 def main(argv=None) -> int:
@@ -496,34 +589,46 @@ def main(argv=None) -> int:
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--kernel", required=True, choices=sorted(KERNELS))
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                    help="the attention backward's type")
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--sass", default="", help="write the SASS of the kernels whose mangled "
                     "name holds this text, from the first root's library, to DIR")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.roots[0], args.kernel, args.sweep)))
+        print(json.dumps(worker(args.roots[0], args.kernel, args.sweep, args.dtype)))
         return 0
     if args.sass:
         _write_sass(args.roots[0], args.sass, Path(args.out))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    clocks = [_clocks()]
     runs, code, failure = [], 0, ""
     for root in args.roots:
-        proc = subprocess.run([sys.executable, __file__, "--worker", "--kernel", args.kernel, root]
-                              + ["--sweep"] * args.sweep, capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--worker", "--kernel", args.kernel,
+                               "--dtype", args.dtype, root] + ["--sweep"] * args.sweep,
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             code = proc.returncode
             failure = f"{root} failed:\n{proc.stdout[-4000:]}{proc.stderr[-8000:]}"
             break
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    text = "\n".join([card] + _table(args.roots, runs, args.kernel)
-                     + ([failure] if failure else []))
+    clocks.append(_clocks())
+    text = "\n".join([card, "clocks before and after: " + " | ".join(clocks)]
+                     + _table(args.roots, runs, args.kernel) + ([failure] if failure else []))
     print(text)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "kernel_ab.txt").write_text(text + "\n")
     return code
+
+
+def _clocks() -> str:
+    """The card's SM clock, its largest, temperature and power draw now."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+                           "power.draw", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
 
 
 def _write_sass(root: str, pattern: str, out: Path) -> None:
@@ -568,6 +673,8 @@ def _table(roots, runs, kernel) -> list:
             cells.append("-" if v is None else (f"{v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f})"
                                                 if isinstance(v[0], float) else str(v)))
         lines.append(f"{label}: " + " | ".join(cells))
+    if not any(label.startswith(kernel + " ") for run in runs for label in run):
+        return lines
     sums = [sum(v[0] for label, v in run.items()
                 if label.startswith(kernel + " ") and isinstance(v[0], float)) for run in runs]
     lines.append(f"{kernel} a pass (sum of medians): " + " | ".join(f"{s:.4f}" for s in sums))

@@ -1,6 +1,7 @@
 """Where one full-width train step's time goes on the card:
 
     python -m afford_motion_torch.tools.profile_train_step [out_dir] [--banded | --flash]
+        [--dtype bfloat16 | float32]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -20,12 +21,16 @@ fused attention's kernels, forward and backward) and ``0`` (the einsum
 route), in turns; besides the whole and the traced steps it times one
 layer's attention, forward and backward, at the step's shape each way with
 ``chip_smoke.time_ms``, and sums the fused kernels' device time in the
-traced step; the table goes to ``profile_train_step_flash.txt``.
+traced step; the table goes to ``profile_train_step_flash.txt``. ``--dtype
+float32`` builds the model in float32 (the config's reference-parity dtype)
+instead of the train config's bf16; with ``--flash`` that routes every layer
+through the f32 forward and backward kernels, and the table goes to
+``profile_train_step_flash_float32.txt``.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
-import sys
 import time
 from pathlib import Path
 
@@ -71,8 +76,9 @@ def _banded_batch(rng, dev):
 
 def _attention_alone(smoke, model, x_mask, dev) -> list:
     """One layer's attention at the step's shape (batch 32, 1 + 1 + 128 + 196
-    tokens, the motions' padding masked), forward and backward, fused and
-    einsum, by ``chip_smoke.time_ms``: lines of the table."""
+    tokens, the motions' padding masked) in the model's type, forward and
+    backward, fused and einsum, by ``chip_smoke.time_ms``: lines of the
+    table."""
     from ..models import layers
     from ..ops.cuda.attention import attention_cuda
 
@@ -80,13 +86,15 @@ def _attention_alone(smoke, model, x_mask, dev) -> list:
     heads, width = mha.num_heads, mha.d_model
     seq = 2 + 128 + L
     gen = torch.Generator(device=dev).manual_seed(7)
-    q, k, v = (torch.randn(B, seq, width, device=dev, generator=gen).bfloat16().requires_grad_(True)
-               for _ in range(3))
-    do = torch.randn(B, seq, width, device=dev, generator=gen).bfloat16()
+    dtype = model.dtype
+    q, k, v = (torch.randn(B, seq, width, device=dev, generator=gen).to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    do = torch.randn(B, seq, width, device=dev, generator=gen).to(dtype)
     pad = torch.cat([torch.zeros((B, seq - L), dtype=torch.bool, device=dev), x_mask], dim=1)
     routes = {"fused": lambda: attention_cuda(q, k, v, heads, pad),
               "einsum": lambda: layers._attention(q, k, v, heads, pad, mha.dropout)}
-    lines = [f"one layer's attention ({B},{seq},{heads}x{width // heads}) bf16, ms per call "
+    lines = [f"one layer's attention ({B},{seq},{heads}x{width // heads}) {str(dtype)[6:]}, "
+             f"ms per call "
              f"(chip_smoke.time_ms: median of {smoke.TIME_BLOCKS} blocks of 20 calls):"]
     for name, fwd in routes.items():
         with torch.no_grad():
@@ -119,7 +127,8 @@ def _traced(step, state, x, cond, seed: int):
     return traced_ms, total, count, rows
 
 
-def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False) -> None:
+def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False,
+         dtype: str = "bfloat16") -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -128,7 +137,8 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.manual_seed(2023)
-    model = CMDM(motion_dim=D, dtype=torch.bfloat16, dropout=0.0 if flash else 0.1).to(dev)
+    model = CMDM(motion_dim=D, dtype=getattr(torch, dtype),
+                 dropout=0.0 if flash else 0.1).to(dev)
     diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
     state = TrainState.create(model, lr=1e-4)
     step = make_train_step(model, diffusion)
@@ -147,11 +157,13 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     })
     x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
     if flash:
-        text = "\n".join(_flash_table(model, step, state, x, cond, diffusion, dev))
+        text = "\n".join([f"model in {dtype}"]
+                         + _flash_table(model, step, state, x, cond, diffusion, dev))
         print(text, flush=True)
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "profile_train_step_flash.txt").write_text(text + "\n")
+        name = "profile_train_step_flash" + ("_float32" if dtype == "float32" else "")
+        (out / f"{name}.txt").write_text(text + "\n")
         return
     for i in range(3):
         step(state, x, cond, seed=i)
@@ -231,5 +243,10 @@ def _flash_table(model, step, state, x, cond, diffusion, dev) -> list:
 
 
 if __name__ == "__main__":
-    _args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    main(*_args[:1], banded="--banded" in sys.argv[1:], flash="--flash" in sys.argv[1:])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out_dir", nargs="?", default="build/profile")
+    ap.add_argument("--banded", action="store_true")
+    ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    args = ap.parse_args()
+    main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype)

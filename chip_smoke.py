@@ -50,9 +50,14 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    and 8191, with its time per pick, and past 8192 points (its streamed
    instance) at N = 16384 and 10000 on random and near-tie clouds. The fused 1-NN
    (``nn1``) at the scene protocol's shape (8192 scene points, 10475 body
-   vertices, 196 frames), on a cloud with duplicated and near-tie vertices
-   and at a vertex count that no tile divides: idx and d2 bit-equal to its
-   plain version, timed beside ``torch.cdist`` + ``argmin``. The fused
+   vertices, 196 frames) on two clouds (:func:`nn1_cloud`: a, points N(0, 2^2)
+   and vertices N(0, 1); b, a body in a room), on a cloud with duplicated and
+   near-tie vertices, at a vertex count that no group divides, and on a
+   cloud whose every group lies on its box's faces (:func:`nn1_faces_cloud`):
+   idx and d2 bit-equal to its plain version;
+   a and b timed beside ``torch.cdist`` + ``argmin`` with the share of pairs
+   the kernel evaluates (a device counter); a sets the kernels line's row
+   (the yardstick of the kernel's first port), b is logged. The fused
    attention at the denoiser's shape (batch 32, 8 heads of 64, 326 tokens,
    bf16, padded keys masked) and the regressor's (batch 16, 4 heads of 64,
    196 frames, f32), masked and not, and off the path at head dimensions 8,
@@ -61,8 +66,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    1e-5 of the largest ``|v|`` for f32; 2^-9 of it plus one bf16 ulp of the
    result for bf16, with the largest share of it any bf16 check needed);
    timed beside ``F.scaled_dot_product_attention``, with the kernels that
-   call launched. The attention's backward (bf16: one kernel for dq, dk and
-   dv; f32: the di pass, dK/dV and dQ) against ``attention_backward_plain``
+   call launched. The attention's backward (bf16 and f32: one kernel each for
+   dq, dk and dv) against ``attention_backward_plain``
    on the kernel forward's o and row statistics, to ``TOLERANCE_BWD`` (and for bf16
    at most ``DV_DIFFER_SHARE`` of dv's entries differing at all): at the
    train path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's
@@ -70,7 +75,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    head dimensions 8, 40 and 64 with odd lengths, a masked tile of 64 keys
    and an item with no attended key; two calls bit-identical; the forward's
    o bit-identical with and without the statistics, which must match
-   ``attention_lse_plain`` (LSE_LIMIT); and at 1100 keys (18 key tiles).
+   ``attention_lse_plain`` (LSE_LIMIT); and at 1100 keys (18 key tiles);
+   every f32 launch configuration bit-identical to the default.
    The whole backward timed at the train shape beside the gradient of
    ``scaled_dot_product_attention`` with the same mask with respect to the
    same inputs, and split by kernel by the profiler's device time where the
@@ -97,7 +103,10 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    and gather launched, and the scatter launched 7 times per step. Then
    ``flash train``: the same with ``model.dropout=0`` and
    ``AM_FLASH_ATTN=1``, where each step also launches the fused attention's
-   forward and backward once per layer (5 each), 8 steps and 4 resumed;
+   forward and backward once per layer (5 each), 8 steps and 4 resumed; and
+   ``flash f32 train``: the same with ``model.dtype=float32`` (the config's
+   reference-parity dtype), through the f32 forward and the f32 backward
+   once per layer (5 each);
 7. slice: ``afford_motion_torch.test`` (the port's test entry) from the
    checkpoint the train phase wrote, on one batch of 32 test items, once
    with DDIM-50 and once with DDPM-1000. x0 must be finite with shape
@@ -178,13 +187,19 @@ REPLACES = {
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
     "attention_bwd_dq": ("afford_motion_torch/csrc/attention.cu",
                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
+    # the f32 instance of both (dK/dV and dQ in one launch)
+    "attention_bwd_f32": ("afford_motion_torch/csrc/attention.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
 }
 # what the kernels line's numbers mean where a row's differ from the others'
 _WHOLE = ("both backward rows read one kernel, which computes dq, dk and dv: launches are "
           "calls of attention_backward_cuda, each launching it once; ms, bound_ms, plain_ms and "
           "library_ms (the whole backward of scaled_dot_product_attention) are the whole "
           "backward's, the same in both rows, not to be added")
-NOTES = {"attention_bwd_dkv": _WHOLE, "attention_bwd_dq": _WHOLE}
+NOTES = {"attention_bwd_dkv": _WHOLE, "attention_bwd_dq": _WHOLE,
+         "attention_bwd_f32": "the float32 backward, one launch for dq, dk and dv: the two "
+                              "library kernels at flash_attention.py:1121 (dK/dV) and :1456 (dQ); "
+                              "the bf16 rows count bf16 calls only"}
 # the packed-kNN calls of one SceneMap hierarchy, (query level, support
 # level, k), level 0 the 8192-point cloud and each next one its FPS to
 # 2048, 512, 128 (the 128x128 level is below the kernel's range and takes
@@ -199,7 +214,8 @@ GATHER_CALLS = (((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67), ((2, 2)
 # below both kNN kernels' range and takes the exact path
 PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
               "banded_knn": 0, "banded_gather": 0, "banded_scatter": 0,
-              "nn1": 0, "attention": 0, "attention_bwd_dkv": 0, "attention_bwd_dq": 0}
+              "nn1": 0, "attention": 0, "attention_bwd_dkv": 0, "attention_bwd_dq": 0,
+              "attention_bwd_f32": 0}
 BANDED_STEP = dict(PLAIN_STEP, fps=0, knn=0, gather=0, scatter=0, banded_knn=6, banded_gather=7,
                    banded_scatter=7)
 # launch configurations of the two scatter kernels' sums checked against
@@ -224,6 +240,9 @@ CMDM_LAYERS, REGRESSOR_LAYERS, FIT_BATCH = 5, 2, 16
 # fused attention's forward and backward once per denoiser layer
 FLASH_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_dkv=CMDM_LAYERS,
                   attention_bwd_dq=CMDM_LAYERS)
+# the same in float32 (model.dtype=float32): the f32 forward and the f32
+# backward (dK/dV and dQ in one launch) once per denoiser layer
+FLASH_F32_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_f32=CMDM_LAYERS)
 # published peaks of one H100 SXM: device memory, float32 outside the tensor
 # cores, bf16 products with float32 sums on the tensor cores (dense). A bound
 # takes the rate the card has for the inputs' type, whatever the kernel uses.
@@ -246,6 +265,63 @@ FLASH_GRAD_LIMIT = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-6}
 # block or cluster, with one barrier, at ~1.7 GHz): FPS picks are sequential,
 # so picks x this is its latency floor, not bytes or operations
 FPS_PICK_FLOOR_US = 0.25
+
+
+def nn1_cloud(kind: str, rng, n_points: int | None = None, frames: int | None = None,
+              n_verts: int | None = None):
+    """The 1-NN's timing clouds, float32 numpy: (points (O, 3), vertices
+    (frames, H, 3)). "a": points N(0, 2^2), vertices N(0, 1) in every frame.
+    "b", a body in a room: points uniform in a 6 x 6 x 3 m room; each frame
+    one blob of vertices N(0, 0.3^2) in random index order (as the synthetic
+    SMPL-X template has it), moved along a path through the room, with 1 cm
+    of motion of its own a frame. Sizes default to the protocol's."""
+    n_points, frames, n_verts = n_points or N_POINTS, frames or L, n_verts or N_VERTS
+    if kind == "a":
+        points = rng.normal(size=(n_points, 3)) * 2
+        return points.astype(np.float32), rng.normal(size=(frames, n_verts, 3)).astype(np.float32)
+    points = rng.uniform(size=(n_points, 3)) * np.array([6.0, 6.0, 3.0])
+    body = rng.normal(size=(n_verts, 3)) * 0.3
+    t = np.linspace(0.0, 1.0, frames)[:, None]
+    path = np.concatenate([0.8 + 4.4 * t, 0.8 + 4.4 * t * t, np.full_like(t, 0.9)], axis=1)
+    verts = body[None] + path[:, None, :] + rng.normal(size=(frames, n_verts, 3)) * 0.01
+    return points.astype(np.float32), verts.astype(np.float32)
+
+
+def nn1_faces_cloud(rng, cubes: int, frames: int, n_points: int):
+    """A cloud whose every group of the 1-NN kernel lies on the faces of its
+    box: in each frame ``cubes`` cells of a 16^3 grid over [0, 16]^3 (x below
+    8) hold a box of 32 vertices (its 8 corners and 24 points on its faces),
+    each mirrored to x' = 16 - x, and two cells hold 32 copies of a corner
+    of [0, 16]^3, so that the kernel's cells are these and each holds one
+    group. Coordinates lie on a 2^-20 grid: differences are exact, their
+    squares are rounded, and a query on the plane x = 8 (half of them; the
+    others anywhere) is exactly as far from a vertex as from its mirror
+    image. Vertex indices in random order. Returns float32 (points (O, 3),
+    vertices (frames, 64 cubes + 64, 3))."""
+    step = 2.0 ** -20
+    free = [(x, y, z) for x in range(8) for y in range(16) for z in range(16)
+            if (x, y, z) not in ((0, 0, 0), (0, 15, 15))]
+    corners = np.array([[i >> 2 & 1, i >> 1 & 1, i & 1] for i in range(8)], dtype=np.float64)
+    out = []
+    for _ in range(frames):
+        chosen = rng.choice(len(free), size=cubes, replace=False)
+        boxes = []
+        for c in chosen:
+            lo = np.array(free[c], np.float64) + 0.25 + rng.integers(0, 2 ** 16, 3) * step
+            hi = lo + 0.25 + rng.integers(0, 2 ** 16, 3) * step
+            face = rng.integers(0, 3, size=24)
+            pts = lo + rng.integers(0, np.round((hi - lo) / step).astype(np.int64) + 1,
+                                    size=(24, 3)) * step
+            pts[np.arange(24), face] = np.where(rng.integers(0, 2, size=24) == 1, hi[face],
+                                                lo[face])
+            box = np.concatenate([lo + corners * (hi - lo), pts])
+            boxes += [box, np.concatenate([16.0 - box[:, :1], box[:, 1:]], axis=1)]
+        boxes += [np.zeros((32, 3)), np.full((32, 3), 16.0)]
+        verts = np.concatenate(boxes)
+        out.append(verts[rng.permutation(len(verts))])
+    points = rng.integers(0, 16 * 2 ** 20, size=(n_points, 3)) * step
+    points[: n_points // 2, 0] = 8.0
+    return points.astype(np.float32), np.stack(out).astype(np.float32)
 
 
 def log(msg: str) -> None:
@@ -899,34 +975,48 @@ def check_banded_scatter_cases(dev: torch.device, rep: KernelReport, gen) -> Non
 
 def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
     """The scene slice's two kernels against their plain versions: the fused
-    1-NN at the protocol's shape, the fused attention at the denoiser's and
-    the regressor's."""
+    1-NN at the protocol's shape on the clouds of :func:`nn1_cloud` (timed,
+    with the share of pairs it evaluates; cloud a sets the kernels line's
+    row, as it has since the kernel's first port, and cloud b, a body in a
+    room, is logged beside it) and of :func:`nn1_faces_cloud`, the fused
+    attention at the
+    denoiser's and the regressor's."""
     import torch.nn.functional as F
 
     from afford_motion_torch.ops.cuda.attention import TOLERANCE, attention_cuda, attention_plain
-    from afford_motion_torch.ops.cuda.sdf import nn1_cuda, nn1_plain
+    from afford_motion_torch.ops.cuda.sdf import nn1_cuda, nn1_launch, nn1_plain
 
     rng = np.random.default_rng(SEED + 4)
-    points = torch.from_numpy((rng.normal(size=(N_POINTS, 3)) * 2).astype(np.float32)).to(dev)
-    verts = torch.from_numpy(rng.normal(size=(L, N_VERTS, 3)).astype(np.float32)).to(dev)
-    label = f"points({N_POINTS},3) verts({L},{N_VERTS},3)"
-    rep.check("nn1", label, nn1_cuda(points, verts), nn1_plain(points, verts))
+    for kind in ("a", "b"):
+        points, verts = (torch.from_numpy(x).to(dev) for x in nn1_cloud(kind, rng))
+        label = f"cloud {kind} points({N_POINTS},3) verts({L},{N_VERTS},3)"
+        want = nn1_plain(points, verts)
+        rep.check("nn1", label, nn1_cuda(points, verts), want)
 
-    def cdist_argmin():
-        out = []
-        for v in verts:
-            d = torch.cdist(points, v)
-            out.append((d.min(dim=1).values, d.argmin(dim=1)))
-        return out
+        def cdist_argmin(points=points, verts=verts):
+            out = []
+            for v in verts:
+                d = torch.cdist(points, v)
+                out.append((d.min(dim=1).values, d.argmin(dim=1)))
+            return out
 
-    # per point-vertex pair: 3 differences, 3 products, 2 sums (the compare
-    # that keeps the minimum is not counted as arithmetic)
-    rep.timed("nn1", label, lambda: nn1_cuda(points, verts), lambda: nn1_plain(points, verts), 3,
-              nbytes=(N_POINTS + L * N_VERTS) * 12 + L * N_POINTS * 8,
-              flops=8.0 * L * N_POINTS * N_VERTS, library=cdist_argmin)
+        # the skip of pairs is exact, so the bound is the bytes: points,
+        # vertices, d2 and idx
+        rep.timed("nn1", label, lambda: nn1_cuda(points, verts), lambda: nn1_plain(points, verts),
+                  3, kind == "a", nbytes=(N_POINTS + L * N_VERTS) * 12 + L * N_POINTS * 8,
+                  flops=0.0, library=cdist_argmin)
+        visits = torch.zeros(1, dtype=torch.int64, device=dev)
+        nn1_launch(points, verts, visits)
+        share = float(visits[0]) / (N_POINTS * L * N_VERTS)
+        # per evaluated pair: 3 differences, 3 products, 2 sums, without FMA
+        floor = 2e3 * 8.0 * float(visits[0]) / F32_FLOP_PER_S
+        dense = 2e3 * 8.0 * N_POINTS * L * N_VERTS / F32_FLOP_PER_S
+        log(f"  nn1 {label}: evaluates {share:.5f} of the point-vertex pairs; their no-FMA "
+            f"floor {floor:.4f} ms, a dense scan's {dense:.4f} ms")
+        del points, verts, want
     # duplicated and near-tie vertices on a 16^3 grid, queries on the same
-    # grid; and a vertex count that the kernel's tile of 2048 does not divide,
-    # with queries off its tile of 512
+    # grid; and a vertex count that no group of 32 divides, with queries off
+    # the kernel's block of 1024
     grid_v = torch.from_numpy(
         (rng.integers(0, 16, size=(4, N_VERTS, 3)) * 0.125).astype(np.float32)).to(dev)
     grid_p = torch.from_numpy(
@@ -936,11 +1026,15 @@ def phase_kernels_scene(dev: torch.device, rep: KernelReport) -> None:
     rep.check("nn1", "near-tie grid", got, nn1_plain(grid_p, grid_v))
     if float((got[0] == 0).float().mean()) < 0.5:
         raise AssertionError("nn1 near-tie grid: too few exact hits for a tie test")
-    odd_p, odd_v = points[:1000].contiguous(), verts[:3, :4099].contiguous()
-    rep.check("nn1", "odd (1000 points, 4099 vertices)", nn1_cuda(odd_p, odd_v),
-              nn1_plain(odd_p, odd_v))
-    log("  nn1: idx and d2 bit-equal to the plain version at the protocol shape, on the "
-        "near-tie grid and at the odd sizes")
+    points, verts = (torch.from_numpy(x).to(dev) for x in nn1_cloud("a", rng, 1000, 3, 4099))
+    rep.check("nn1", "odd (1000 points, 4099 vertices)", nn1_cuda(points, verts),
+              nn1_plain(points, verts))
+    # every group's vertices on its box's faces, exact ties across mirror
+    # images, coordinates whose squares round
+    points, verts = (torch.from_numpy(x).to(dev) for x in nn1_faces_cloud(rng, 160, 4, N_POINTS))
+    rep.check("nn1", "faces", nn1_cuda(points, verts), nn1_plain(points, verts))
+    log("  nn1: idx and d2 bit-equal to the plain version at the protocol shape on clouds a "
+        "and b, on the near-tie grid, at the odd sizes and on the faces cloud")
     del verts, grid_v
 
     # the denoiser's attention (time + text + 128 contact + 196 motion tokens,
@@ -1045,21 +1139,20 @@ def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> 
 
 
 def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
-    """The fused attention's backward kernels (bf16: one kernel for dq, dk
-    and dv; f32: the di pass, dK/dV, dQ) against
-    ``attention_backward_plain`` on the same inputs (the kernel forward's o
-    and statistics), to ``TOLERANCE_BWD``, and for bf16 at most
-    ``DV_DIFFER_SHARE`` of dv's entries differing at all; two calls
-    bit-identical; the forward's o bit-identical with and without the
-    statistics, which must match ``attention_lse_plain``. At the train
-    path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's masks) in
-    both instances, at the regressor's f32 shape, and off the path at head
-    dimensions 8, 40 and 64 with odd lengths, a masked tile of 64 keys and an
-    item with no attended key, and in bf16 at 1100 keys. Timed at the train
-    shape: the whole backward against the gradient of
+    """The fused attention's backward kernels (bf16 and f32: one kernel each
+    for dq, dk and dv) against ``attention_backward_plain`` on the same
+    inputs (the kernel forward's o and statistics), to ``TOLERANCE_BWD``,
+    and for bf16 at most ``DV_DIFFER_SHARE`` of dv's entries differing at
+    all; two calls bit-identical; the forward's o bit-identical with and
+    without the statistics, which must match ``attention_lse_plain``. At the
+    train path's shape (batch 32, 326 tokens, 8 heads of 64, the CMDM's
+    masks) in both instances, at the regressor's f32 shape, and off the path
+    at head dimensions 8, 40 and 64 with odd lengths, a masked tile of 64
+    keys and an item with no attended key, and at 1100 keys. Timed at the
+    train shape: the whole backward against the gradient of
     ``scaled_dot_product_attention`` with the same mask and beside its bound,
-    split by kernel by the profiler's device time where it sees the kernels
-    (:func:`device_ms`)."""
+    and by the profiler's device time where it sees the kernel
+    (:func:`device_ms`, logged)."""
     import torch.nn.functional as F
 
     from afford_motion_torch.ops.cuda import attention as attn
@@ -1099,8 +1192,13 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
             raise AssertionError(f"attention backward {label}: a masked key has a gradient")
         key = "bf16" if q.dtype == torch.bfloat16 else "f32"
         rep.attention_bwd_need[key] = max(rep.attention_bwd_need[key], need)
-        for name, (g, w) in (("attention_bwd_dq", (got[0], want[0])),
-                             ("attention_bwd_dkv", (torch.cat(got[1:]), torch.cat(want[1:])))):
+        if key == "bf16":
+            rows = (("attention_bwd_dq", (got[0], want[0])),
+                    ("attention_bwd_dkv", (torch.cat(got[1:]), torch.cat(want[1:]))))
+        else:
+            rows = (("attention_bwd_f32", (torch.cat([g.reshape(-1) for g in got]),
+                                           torch.cat([w.reshape(-1) for w in want]))),)
+        for name, (g, w) in rows:
             rep.err[name] = max(rep.err[name], (g.double() - w.double()).abs().max().item())
         return o, lse
 
@@ -1123,18 +1221,16 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                 log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms "
                     f"({whole[1]:.4f}-{whole[2]:.4f})")
                 continue
-            # timed: the whole backward by CUDA events, and split by kernel by
-            # the profiler's device time over the same calls where it sees
-            # them. bf16 is one kernel for dq, dk and dv, so both rows take
-            # the whole backward; f32 (off the path) launches the di pass,
-            # dK/dV and dQ, and the dK/dV row takes the di pass, whose di the
-            # dQ row reads
-            on_path = dtype == torch.bfloat16
+            # timed: the whole backward by CUDA events, and by the
+            # profiler's device time over the same calls where it sees the
+            # kernel. Each instance is one kernel for dq, dk and dv: bf16's
+            # time stands in both bf16 rows, f32's in its own
+            bf16 = dtype == torch.bfloat16
             size = q.element_size()
             tokens = b * seq * heads * hd   # entries of one (B, L, D) tensor
             pairs = float(seq * (~pad).sum()) * heads   # attended query-key pairs
             product = 2.0 * hd * pairs                  # one of the five products
-            peak = BF16_FLOP_PER_S if on_path else F32_FLOP_PER_S
+            peak = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
             stats = b * heads * seq * 4
             qh, kh, vh = (x.reshape(b, seq, heads, hd).transpose(1, 2).detach()
                           .requires_grad_(True) for x in (q, k, v))
@@ -1145,34 +1241,22 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
                 return attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
 
             whole = time_ms(backward, 10)
-            split = device_ms(backward, 10, ("attention_bwd_bf16",) if on_path else (
-                "attention_di_kernel", "attention_bwd_dkv", "attention_bwd_dq"))
+            split = device_ms(backward, 10, ("attention_bwd_bf16",) if bf16 else (
+                "attention_bwd_f32",))
             plain = time_ms(lambda: attn.attention_backward_plain(q, k, v, o, do, lse, heads,
                                                                   pad), 3, PLAIN_BLOCKS)
             lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
                           10)
-            # the whole: q, k, v, o, dO, lse read, dq, dk, dv written. dK/dV:
-            # q, k, v, o, dO, lse read, dk, dv, di written; dQ: q, k, v, dO,
-            # lse, di read, dq written. The plain version and the library call
-            # compute the three gradients at once: their times stand in both
-            if on_path:
-                how = f"the whole backward, median of {TIME_BLOCKS} blocks"
-                parts = [(name, whole[0], 8 * tokens * size + stats, 5 * product)
-                         for name in ("attention_bwd_dkv", "attention_bwd_dq")]
-            elif split is None:
-                parts = []
-            else:
-                how = "profiler device time, mean of 10 calls"
-                parts = [("attention_bwd_dkv",
-                          split["attention_di_kernel"] + split["attention_bwd_dkv"],
-                          7 * tokens * size + 2 * stats, 4 * product),
-                         ("attention_bwd_dq", split["attention_bwd_dq"],
-                          5 * tokens * size + 2 * stats, 3 * product)]
-            for name, k_ms, nbytes, flops in parts:
-                rep.record(name, label, k_ms, how, plain[0], on_path, nbytes=nbytes, flops=flops,
-                           peak=peak, line=f", the whole backward's library call {lib[0]:.4f} ms")
-                if on_path:
-                    rep.library_ms[name] = lib[0]
+            # the whole: q, k, v, o, dO, lse read, dq, dk, dv written. The
+            # plain version and the library call compute the three gradients
+            # at once
+            how = f"the whole backward, median of {TIME_BLOCKS} blocks"
+            names = ("attention_bwd_dkv", "attention_bwd_dq") if bf16 else ("attention_bwd_f32",)
+            for name in names:
+                rep.record(name, label, whole[0], how, plain[0], nbytes=8 * tokens * size + stats,
+                           flops=5 * product, peak=peak,
+                           line=f", the whole backward's library call {lib[0]:.4f} ms")
+                rep.library_ms[name] = lib[0]
             b_ms, by = bound_ms(1e3 * (8 * tokens * size + stats) / HBM_BYTES_PER_S,
                                 1e3 * 5 * product / peak)
             log(f"  attention backward {label}, whole: kernels {whole[0]:.4f} ms ({whole[1]:.4f}-"
@@ -1195,11 +1279,12 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
             pad[:2, 64:128] = True
             check(f"off-path hd={hd} Lq={lq} Lk={lk} {str(dtype)[6:]}", q, k, v, do, 2,
                   pad.to(dev))
-    # bf16 at 1100 keys (18 key tiles), a masked stretch across tiles
-    q, k, v, do = tensors(3, 100, 1100, 2, 64, torch.bfloat16)
-    pad = torch.from_numpy(np.arange(1100)[None, :] >= np.array([[1100], [1000], [300]]))
-    pad[:2, 448:640] = True
-    check("off-path hd=64 Lq=100 Lk=1100 bfloat16", q, k, v, do, 2, pad.to(dev))
+    # 1100 keys (18 key tiles), a masked stretch across tiles
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = tensors(3, 100, 1100, 2, 64, dtype)
+        pad = torch.from_numpy(np.arange(1100)[None, :] >= np.array([[1100], [1000], [300]]))
+        pad[:2, 448:640] = True
+        check(f"off-path hd=64 Lq=100 Lk=1100 {str(dtype)[6:]}", q, k, v, do, 2, pad.to(dev))
     log(f"  attention backward: within TOLERANCE_BWD of the plain version at every shape, "
         f"two calls bit-identical; the largest share needed: bf16 "
         f"2^{np.log2(max(rep.attention_bwd_need['bf16'], 1e-30)):.2f}, f32 "
@@ -1249,12 +1334,13 @@ def phase_flash_grads(dev: torch.device, counters: dict) -> None:
                                                  x_mask=cond_h["x_mask"], noise=noise)["loss"]
                 loss.mean().backward()
                 torch.cuda.synchronize()
-                counts = {k: counters[k].launches
-                          for k in ("attention", "attention_bwd_dkv", "attention_bwd_dq")}
-                want = CMDM_LAYERS * (flash == "1")
-                if any(c != want for c in counts.values()):
+                rows = ("attention", "attention_bwd_dkv", "attention_bwd_dq", "attention_bwd_f32")
+                counts = {k: counters[k].launches for k in rows}
+                step = FLASH_STEP if dtype == torch.bfloat16 else FLASH_F32_STEP
+                want = {k: step[k] * (flash == "1") for k in rows}
+                if counts != want:
                     raise AssertionError(f"flash grads AM_FLASH_ATTN={flash}: launches {counts}, "
-                                         f"expected {want} each")
+                                         f"expected {want}")
                 runs[flash] = (float(loss.mean().detach()), [
                     layer.self_attn.in_proj_weight.grad.clone()
                     for layer in model.self_attn_layer.layers], torch.cat(
@@ -1537,15 +1623,16 @@ def check_launches(name: str, counts: dict, per_pass: dict, passes: int, backwar
 
 
 def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = ()) -> dict:
-    """8 full-width bf16 steps through the train entry, then 4 more resumed
-    from step 4; returns the launches of both runs. ``per_step``: the
-    launches one step must make on this tree's route; ``extra``: arguments
-    beyond the flagship's. Nothing in the arguments names the banded route:
-    the loop picks it from the tree."""
+    """8 full-width steps through the train entry (the config's bf16 unless
+    ``extra`` sets model.dtype), then 4 more resumed from step 4; returns the
+    launches of both runs. ``per_step``: the launches one step must make on
+    this tree's route; ``extra``: arguments beyond the flagship's. Nothing in
+    the arguments names the banded route: the loop picks it from the tree."""
     from afford_motion_torch import train as entry
 
     banded = per_step is BANDED_STEP
-    tag = "banded " if banded else "flash " if per_step is FLASH_STEP else ""
+    tag = {id(BANDED_STEP): "banded ", id(FLASH_STEP): "flash ",
+           id(FLASH_F32_STEP): "flash f32 "}.get(id(per_step), "")
     train_args = base_args(tree) + list(extra) + [
         f"task.train.batch_size={B}", "task.train.save_every_step=4",
         "task.train.log_every_step=1", "task.train.max_steps=8",
@@ -1826,7 +1913,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     from afford_motion_torch.ops.cuda import banded, build
-    from afford_motion_torch.ops.cuda.attention import attention_backward_cuda, attention_cuda
+    from afford_motion_torch.ops.cuda.attention import attention_cuda, backward_bf16, backward_f32
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
@@ -1856,14 +1943,15 @@ def main() -> int:
     phase_autograd(dev)
     phase_reference(dev)
     phase_reference_scene(dev)
-    # one wrapper call launches the di pass and both backward kernels: its
-    # count stands in both rows
+    # one wrapper call launches one backward kernel for dq, dk and dv: the
+    # bf16 instance's count stands in both bf16 rows, the f32 instance's in
+    # its own
     counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
                 "scatter": scatter_add_rows, "banded_knn": banded.knn_banded,
                 "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded,
                 "nn1": nn1_cuda, "attention": attention_cuda,
-                "attention_bwd_dkv": attention_backward_cuda,
-                "attention_bwd_dq": attention_backward_cuda}
+                "attention_bwd_dkv": backward_bf16, "attention_bwd_dq": backward_bf16,
+                "attention_bwd_f32": backward_f32}
     phase_flash_grads(dev, counters)
     tree = make_tree()
     ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
@@ -1873,10 +1961,14 @@ def main() -> int:
                                      "ddpm1000": (["task.test.sampler=ddpm"], PLAIN_STEP)}),
     ]
     # training through the fused attention: dropout 0 and the switch on
-    # route every layer's attention, forward and backward, to the kernels
+    # route every layer's attention, forward and backward, to the kernels;
+    # in float32 (the reference-parity dtype of configs/model/cmdm.yaml)
+    # through the f32 forward and backward
     with flash_switch("1"):
         phases.append(phase_train(dict(tree, exp=WORK / "exp_flash"), counters, FLASH_STEP,
                                   ("model.dropout=0",)))
+        phases.append(phase_train(dict(tree, exp=WORK / "exp_flash_f32"), counters,
+                                  FLASH_F32_STEP, ("model.dropout=0", "model.dtype=float32")))
     banded_tree = make_banded_tree(tree)
     phases += [
         phase_train(banded_tree, counters, BANDED_STEP),

@@ -17,8 +17,9 @@ weight or a dS entry that rounds the other way moves a gradient entry by
 its ulp times the other operand; the readings are 2^-8.2 at most).
 
 The CUDA kernels' order (tiles of 64 (bf16) or 32 (f32) rows summed in order,
-P from the log-sum-exp in base 2 for bf16) is emulated here in torch and
-held to half of ``TOLERANCE_BWD``, the figure ``chip_smoke.py`` holds the
+P from the log-sum-exp in base 2 for bf16; the f32 kernel's own order is
+modelled step for step in ``tests/test_torch_attention_bwd_f32_design.py``)
+is emulated here in torch and held to half of ``TOLERANCE_BWD``, the figure ``chip_smoke.py`` holds the
 kernels to on the card; the same emulation with a fault planted (a key tile
 skipped, di left out, the mask missing in the backward, a key tile's dq part
 left out of the ordered dq sum or added twice) must need more than 4 times
