@@ -12,6 +12,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native as nio
 from ..utils.io import get_logger
 from ..utils.registry import DATASET
 from .loader import DataLoader, collate_fn_general
@@ -106,7 +107,7 @@ def read_anno(data_dir: str, set_name: str, anno_rel: str = "contact_motion/anno
 def compute_or_load_stats(path: str, compute_fn) -> Tuple[np.ndarray, np.ndarray]:
     """Mean/std cache protocol (reference: motionx.py:121-142)."""
     try:
-        npz = np.load(path)
+        npz = nio.load(path)
         logger.info(f"Load mean and std from {path}")
         return npz["mean"], npz["std"]
     except Exception:

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native as nio
 from ..utils.io import get_logger
 from ..utils.misc import compute_repr_dimension
 from ..utils.registry import DATASET
@@ -78,7 +79,7 @@ def load_h3d_corpus(
     lengths: List[int] = []
     for name in id_list:
         try:
-            motion = np.load(os.path.join(data_dir, "H3D", "new_joint_vecs", name + ".npy"))
+            motion = nio.load(os.path.join(data_dir, "H3D", "new_joint_vecs", name + ".npy"))
             if np.isnan(motion).any() or len(motion) < min_horizon or len(motion) >= 200:
                 continue
             full_texts = []
@@ -154,7 +155,7 @@ class _H3DBase(BaseDataset):
         for kind in ("sm", "seg"):
             f = os.path.join(self.data_dir, "H3D", f"geometry_{kind}", f"{base_name}.npz")
             if os.path.exists(f):
-                npz = np.load(f)
+                npz = nio.load(f)
                 for k in npz.files:
                     if fps_only and "_fps_idx" not in k:
                         continue
@@ -223,8 +224,8 @@ class HumanML3DDataset(_H3DBase):
         self._load_corpus(self.ratio)
 
     def _prepare_statistics(self) -> None:
-        self.mean = np.load(os.path.join(self.data_dir, "H3D", "Mean.npy"))
-        self.std = np.load(os.path.join(self.data_dir, "H3D", "Std.npy"))
+        self.mean = nio.load(os.path.join(self.data_dir, "H3D", "Mean.npy"))
+        self.std = nio.load(os.path.join(self.data_dir, "H3D", "Std.npy"))
 
     def __getitem__(self, idx: int) -> Dict:
         name = self.name_list[self.indices[idx]]
@@ -265,7 +266,7 @@ class HumanML3DExampleDataset(HumanML3DDataset):
         self.data_dict = {}
         for name in self.name_list:
             try:
-                motion = np.load(
+                motion = nio.load(
                     os.path.join(self.data_dir, "H3D", "new_joint_vecs", name + ".npy")
                 )
                 if np.isnan(motion).any() or len(motion) < self.min_horizon or len(motion) >= 200:
@@ -343,7 +344,7 @@ class ContactHumanML3DDataset(_H3DBase):
                 if not os.path.exists(cont_file):
                     continue
                 c = extract_contact(
-                    np.load(cont_file)["dist"].astype(np.float32),
+                    nio.load(cont_file)["dist"].astype(np.float32),
                     self.contact_type, self.contact_joints,
                 )
                 if not self.use_raw_dist:
@@ -365,7 +366,7 @@ class ContactHumanML3DDataset(_H3DBase):
             points3 = row["xyz16"]
             contact = row["dist32"]
         else:
-            npz = np.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
+            npz = nio.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
             points3 = npz["points"].astype(np.float32)[:, 0:3]
             contact = extract_contact(
                 npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
@@ -445,8 +446,8 @@ class ContactMotionHumanML3DDataset(_H3DBase):
                 self.pred_contact_dict[os.path.basename(f).split("-")[0]].append(f)
 
     def _prepare_statistics(self) -> None:
-        self.mean = np.load(os.path.join(self.data_dir, "H3D", "Mean.npy"))
-        self.std = np.load(os.path.join(self.data_dir, "H3D", "Std.npy"))
+        self.mean = nio.load(os.path.join(self.data_dir, "H3D", "Mean.npy"))
+        self.std = nio.load(os.path.join(self.data_dir, "H3D", "Std.npy"))
 
     def __getitem__(self, idx: int) -> Dict:
         name = self.name_list[self.indices[idx]]
@@ -461,13 +462,13 @@ class ContactMotionHumanML3DDataset(_H3DBase):
             points = row["xyz16"]
             contact = row["dist16"].astype(np.float32)
         else:
-            npz = np.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
+            npz = nio.load(os.path.join(self.data_dir, "H3D", "contacts", base + ".npz"))
             points = npz["points"].astype(np.float32)
             contact = extract_contact(
                 npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
             )
         if self.phase == "test":
-            contact = np.load(
+            contact = nio.load(
                 os.path.join(
                     self.contact_folder, "H3D", "pred_contact",
                     f"{base}-{text['caption_idx']}.npy",
@@ -476,7 +477,7 @@ class ContactMotionHumanML3DDataset(_H3DBase):
         elif self.phase in ("train", "all") and np.random.random() < self.mix_train_ratio:
             cands = getattr(self, "pred_contact_dict", {}).get(base, [])
             if cands:
-                contact = np.load(np.random.choice(cands)).squeeze(0)
+                contact = nio.load(np.random.choice(cands)).squeeze(0)
         if not self.use_raw_dist:
             contact = gaussian_contact(contact, self.sigma)
 
@@ -526,7 +527,7 @@ class ContactMotionHumanML3DExampleDataset(ContactMotionHumanML3DDataset):
                 parts = line.strip().split("#")
                 name, desc = parts[0], parts[1] if len(parts) > 1 else ""
                 length = int(parts[2]) if len(parts) > 2 and parts[2] else 60
-                contact = np.load(files[i % len(files)]).astype(np.float32)
+                contact = nio.load(files[i % len(files)]).astype(np.float32)
                 self.examples.append((name, desc, length, contact))
         self.indices = list(range(len(self.examples)))
 

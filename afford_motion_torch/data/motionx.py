@@ -19,6 +19,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from .. import native as nio
 from ..utils.io import get_logger
 from ..utils.registry import DATASET
 from .base import (
@@ -71,7 +72,7 @@ class _MotionXBase(BaseDataset):
                 if i not in split_ids[s]:
                     continue
                 if filter_horizon:
-                    motion = np.load(self._motion_path(s, i))
+                    motion = nio.load(self._motion_path(s, i))
                     if not (self.min_horizon <= motion.shape[0] <= self.max_horizon):
                         continue
                 self.all_data.append((s, i, scene_id, scene_trans, desc))
@@ -127,7 +128,7 @@ class _MotionXBase(BaseDataset):
                 self.data_dir, s, "contact_motion", f"geometry_{kind}", f"{i:05d}.npz"
             )
             if os.path.exists(f):
-                npz = np.load(f)
+                npz = nio.load(f)
                 for k in npz.files:
                     if fps_only and "_fps_idx" not in k:
                         continue
@@ -160,7 +161,7 @@ class _MotionXBase(BaseDataset):
     def _obj_mask(self, data: Dict, s: str, i: int) -> None:
         if self.phase == "test":
             if s == "HUMANISE":
-                data["info_obj_mask"] = np.load(
+                data["info_obj_mask"] = nio.load(
                     os.path.join(self.data_dir, s, "contact_motion", "target_mask", f"{i:05d}.npy")
                 )
             else:
@@ -205,7 +206,7 @@ class ContactMotionDataset(_MotionXBase):
         def compute():
             chunks = []
             for s, i, *_ in self.all_data:
-                m = np.load(self._motion_path(s, i))
+                m = nio.load(self._motion_path(s, i))
                 chunks.append(m.reshape(m.shape[0], -1))
             return np.concatenate(chunks, axis=0)
 
@@ -217,25 +218,25 @@ class ContactMotionDataset(_MotionXBase):
     def _load_contact(self, s: str, i: int, contact: np.ndarray) -> np.ndarray:
         """``contact``: pre-extracted (P, C) per-joint distances."""
         if self.phase == "test":
-            contact = np.load(
+            contact = nio.load(
                 os.path.join(self.contact_folder, s, "pred_contact", f"{i:05d}.npy")
             )  # (k, n, j) raw distances from stage 1
         elif self.phase in ("train", "all") and np.random.random() < self.mix_train_ratio:
             f = os.path.join(self.data_dir, s, "pred_contact", f"{i:05d}.npy")
             if os.path.exists(f):
-                contact = np.load(f).squeeze(0)
+                contact = nio.load(f).squeeze(0)
         if not self.use_raw_dist:
             contact = gaussian_contact(contact, self.sigma)
         return contact.astype(np.float32)
 
     def __getitem__(self, idx: int) -> Dict:
         s, i, scene_id, scene_trans, desc = self.all_data[self._resolve(idx)]
-        npz = np.load(self._contact_path(s, i))
+        npz = nio.load(self._contact_path(s, i))
         points3 = npz["points"].astype(np.float32)[:, 0:3]
         contact = extract_contact(
             npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
         )
-        motion = np.load(self._motion_path(s, i))
+        motion = nio.load(self._motion_path(s, i))
         motion = motion.reshape(motion.shape[0], -1)
         padded, mask = pad_motion(np.asarray(motion), self.max_horizon)
 

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from .. import native as nio
 from ..utils.io import get_logger
 from .base import extract_contact
 
@@ -78,7 +79,7 @@ class PackedStore:
                     return None
             fields = {}
             for name in meta["fields"]:
-                fields[name] = np.load(
+                fields[name] = nio.load(
                     os.path.join(directory, name + ".npy"), mmap_mode="r"
                 )
             logger.info(
@@ -206,7 +207,7 @@ def _pack(out_dir, bases, contact_npz, geo_npz, contact_type, contact_joints,
             if not os.path.exists(f):
                 motion_npy = None
                 break
-            max_len = max(max_len, np.load(f, mmap_mode="r").shape[0])
+            max_len = max(max_len, nio.load(f, mmap_mode="r").shape[0])
 
     # per-item Morton monotonicity, ANDed over the WHOLE corpus: a
     # partially sorted corpus (an interrupted `sort` stage, items added
@@ -218,7 +219,7 @@ def _pack(out_dir, bases, contact_npz, geo_npz, contact_type, contact_joints,
     curve_flags: list = []
 
     def load_item(base: str) -> Dict[str, np.ndarray]:
-        npz = np.load(contact_npz(base))
+        npz = nio.load(contact_npz(base))
         pts = npz["points"].astype(np.float32)
         curve_flags.append(matching_curves(pts[:, :3]))
         dist = extract_contact(
@@ -232,7 +233,7 @@ def _pack(out_dir, bases, contact_npz, geo_npz, contact_type, contact_joints,
         if pts.shape[1] >= 6:
             out["rgb16"] = pts[:, 3:6].astype(np.float16)
         if motion_npy is not None:
-            m = np.load(motion_npy(base)).astype(np.float32)
+            m = nio.load(motion_npy(base)).astype(np.float32)
             m = m.reshape(m.shape[0], -1)
             padded = np.zeros((max_len, m.shape[1]), dtype=np.float32)
             padded[: m.shape[0]] = m
@@ -241,7 +242,7 @@ def _pack(out_dir, bases, contact_npz, geo_npz, contact_type, contact_joints,
         for kind, f in geo_npz(base).items():
             if not os.path.exists(f):
                 continue
-            g = np.load(f)
+            g = nio.load(f)
             if "fp" in g.files and np.uint32(
                 zlib.crc32(pts[:, :3].astype(np.float32).tobytes()) & 0xFFFFFFFF
             ) != g["fp"]:

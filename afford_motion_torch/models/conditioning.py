@@ -26,21 +26,27 @@ ARRAY_COND_KEYS = (
 _FLAG_KEYS = ("c_text_mask", "c_text_erase", "c_pc_mask", "c_pc_erase")
 
 
-def host_prepare_cond(batch: Dict[str, Any], text_encoder: TextEncoder
-                      ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-    """Strings -> embeddings, info_* metadata dropped. Returns (x, cond) as
-    numpy, cached geometry (``geo_*``) included."""
-    cond: Dict[str, np.ndarray] = {}
+def encode_text(text_encoder: TextEncoder, captions) -> Dict[str, np.ndarray]:
+    """Captions -> ``text_emb`` (B, Lt, D), plus ``text_token_mask`` (True =
+    padding) from a per-token encoder; (B, 1, D) from a pooled one."""
     if getattr(text_encoder, "per_token", False):
-        cond["text_emb"], cond["text_token_mask"] = text_encoder.encode_tokens(batch["c_text"])
-    else:
-        cond["text_emb"] = text_encoder.encode(batch["c_text"])[:, None, :]  # (B, 1, D)
+        emb, pad = text_encoder.encode_tokens(captions)
+        return {"text_emb": emb, "text_token_mask": pad}
+    return {"text_emb": text_encoder.encode(captions)[:, None, :]}
+
+
+def host_prepare_cond(batch: Dict[str, Any], text_encoder: TextEncoder,
+                      drop: Tuple[str, ...] = ()) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Strings -> embeddings, info_* metadata dropped. Returns (x, cond) as
+    numpy, cached geometry (``geo_*``) included except the fields whose name
+    ends in one of ``drop`` (geometry the model never reads)."""
+    cond = encode_text(text_encoder, batch["c_text"])
     for key in ARRAY_COND_KEYS:
         if key in batch and isinstance(batch[key], np.ndarray):
             v = batch[key]
             cond[key] = v.reshape(v.shape[0], 1) if key in _FLAG_KEYS else v
     for key, v in batch.items():
-        if key.startswith("geo_") and isinstance(v, np.ndarray):
+        if key.startswith("geo_") and isinstance(v, np.ndarray) and not key.endswith(tuple(drop)):
             cond[key] = v
     return batch["x"], cond
 

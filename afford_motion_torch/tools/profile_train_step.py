@@ -1,7 +1,7 @@
 """Where one full-width train step's time goes on the card:
 
-    python -m afford_motion_torch.tools.profile_train_step [out_dir] [--banded | --flash]
-        [--dtype bfloat16 | float32]
+    python -m afford_motion_torch.tools.profile_train_step [out_dir]
+        [--banded | --store | --flash] [--dtype bfloat16 | float32]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -15,7 +15,14 @@ device's step, not the host's loading. With ``--banded`` it profiles the
 banded step instead, as the loop runs it on a curve-sorted packed store: the
 clouds are Hilbert-sorted, the batch carries each item's cached ascending
 ``fps_idx`` (so no FPS runs in the step) and the model has ``use_banded`` on;
-the table goes to ``profile_train_step_banded.txt``. With ``--flash`` the model
+the table goes to ``profile_train_step_banded.txt``. With ``--store`` it
+profiles the step as the loop runs it on the device store
+(``train/device_store.py``): the same sorted clouds, motions of 40..196
+frames and contacts held in a store on the card, the whole hierarchy cached
+at upload, and each step assembling its batch on the card from an index
+batch of random items and crops; the parts are the assembly, the hierarchy
+from the cache, forward with loss, backward and the optimizer, and the table
+goes to ``profile_train_step_store.txt``. With ``--flash`` the model
 has dropout 0 and every step is taken twice, with ``AM_FLASH_ATTN=1`` (the
 fused attention's kernels, forward and backward) and ``0`` (the einsum
 route), in turns; besides the whole and the traced steps it times one
@@ -74,6 +81,37 @@ def _banded_batch(rng, dev):
     return cond
 
 
+def _store_batch(rng, dev, model):
+    """A device store of B items on the card, as the loop builds it from a
+    prepared tree (sorted clouds with their cached FPS indices, f16 motions
+    of 40..196 frames, f16 distances), its hierarchy cached at upload, and
+    one index batch of random items and crops: (assemble, index batch)."""
+    from ..train.device_store import DeviceStore, make_assemble_fn
+
+    wire = _banded_batch(rng, dev)
+    wire["xyz16"] = wire.pop("c_pc_xyz")
+    lengths = rng.integers(40, L + 1, size=B).astype(np.int32)
+    motion16 = rng.normal(size=(B, L, D)).astype(np.float16)
+    motion16[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    arrays = {"motion16": motion16, "length": lengths,
+              "scene_row": np.arange(B, dtype=np.int32),
+              "dist16": rng.uniform(0, 2, size=(B, N, 6)).astype(np.float16),
+              **{k: v.cpu().numpy() for k, v in wire.items()}}
+    meta = {"kind": "h3d", "n_items": B, "max_horizon": L, "unit_length": 4, "sigma": 0.5,
+            "use_raw_dist": False, "motion_dim": D, "mix": False, "flag_chain": []}
+    store = DeviceStore(arrays, meta)
+    if not store.add_geometry_cache(model, dev):
+        raise RuntimeError("the store's geometry cache was not built")
+    assemble = make_assemble_fn(store, dev)
+    crop_len = (lengths // 4) * 4
+    batch = {"item_row": rng.permutation(B).astype(np.int32),
+             "text_emb": rng.normal(size=(B, 1, 512)).astype(np.float16)}
+    batch["crop_len"] = crop_len[batch["item_row"]]
+    batch["crop_start"] = rng.integers(0, lengths[batch["item_row"]] - batch["crop_len"] + 1
+                                       ).astype(np.int32)
+    return assemble, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
 def _attention_alone(smoke, model, x_mask, dev) -> list:
     """One layer's attention at the step's shape (batch 32, 1 + 1 + 128 + 196
     tokens, the motions' padding masked) in the model's type, forward and
@@ -128,7 +166,7 @@ def _traced(step, state, x, cond, seed: int):
 
 
 def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False,
-         dtype: str = "bfloat16") -> None:
+         dtype: str = "bfloat16", store: bool = False) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -141,21 +179,30 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
                  dropout=0.0 if flash else 0.1).to(dev)
     diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
     state = TrainState.create(model, lr=1e-4)
-    step = make_train_step(model, diffusion)
     rng = np.random.default_rng(2023)
-    x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
-    if banded:
+    assemble = None
+    if store:
         model.use_banded = True
-        cond = _banded_batch(rng, dev)
+        assemble, batch = _store_batch(rng, dev, model)
+        x = None
+        cond = batch
     else:
-        cond = {"c_pc_xyz":
-                torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev)}
-    cond.update({
-        "c_pc_contact": torch.from_numpy(rng.uniform(size=(B, N, 6)).astype(np.float16)).to(dev),
-        "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32)).to(dev),
-        "x_mask": torch.from_numpy(x_mask).to(dev),
-    })
-    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+        x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
+        if banded:
+            model.use_banded = True
+            cond = _banded_batch(rng, dev)
+        else:
+            cond = {"c_pc_xyz":
+                    torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev)}
+        cond.update({
+            "c_pc_contact": torch.from_numpy(rng.uniform(size=(B, N, 6)).astype(np.float16)
+                                             ).to(dev),
+            "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32)
+                                         ).to(dev),
+            "x_mask": torch.from_numpy(x_mask).to(dev),
+        })
+        x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    step = make_train_step(model, diffusion, assemble=assemble)
     if flash:
         text = "\n".join([f"model in {dtype}"]
                          + _flash_table(model, step, state, x, cond, diffusion, dev))
@@ -169,16 +216,24 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         step(state, x, cond, seed=i)
 
     # (1) the parts of a step, each to a synchronize
-    parts = {"hierarchy": [], "forward+loss": [], "backward": [], "optimizer": []}
+    parts = {"assemble": [], "hierarchy": [], "forward+loss": [], "backward": [],
+             "optimizer": []}
+    if assemble is None:
+        del parts["assemble"]
     for i in range(5):
         model.train()
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         set_dropout_generator(model, gen)
         t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
-        cond_h, ms = _sync_time(lambda: add_hierarchies(model, cond))
+        x_i, cond_i = x, cond
+        if assemble is not None:
+            (x_i, cond_i), ms = _sync_time(lambda: assemble(cond))
+            parts["assemble"].append(ms)
+            x_i = x_i.float()
+        cond_h, ms = _sync_time(lambda: add_hierarchies(model, cond_i))
         parts["hierarchy"].append(ms)
         loss, ms = _sync_time(lambda: diffusion.training_losses(
-            lambda x_t, ts: model(x_t, ts, cond_h), x, t, generator=gen,
+            lambda x_t, ts: model(x_t, ts, cond_h), x_i, t, generator=gen,
             x_mask=cond_h["x_mask"])["loss"].mean())
         parts["forward+loss"].append(ms)
         state.optimizer.zero_grad(set_to_none=True)
@@ -188,8 +243,8 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
             group["lr"] = annealed_lr(state.lr, state.step, state.lr_anneal_steps)
         _, ms = _sync_time(state.optimizer.step)
         parts["optimizer"].append(ms)
-    lines = [f"{'banded' if banded else 'non-banded'} step: parts of one step, ms to a "
-             "synchronize (5 steps: min / mean / max):"]
+    route = "store" if store else "banded" if banded else "non-banded"
+    lines = [f"{route} step: parts of one step, ms to a synchronize (5 steps: min / mean / max):"]
     for name, v in parts.items():
         lines.append(f"  {name}: {min(v):.3f} / {np.mean(v):.3f} / {max(v):.3f}")
     whole = [_sync_time(lambda i=i: step(state, x, cond, seed=200 + i))[1] for i in range(5)]
@@ -205,7 +260,8 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     print(text, flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    name = "profile_train_step_banded.txt" if banded else "profile_train_step.txt"
+    name = {"store": "profile_train_step_store.txt", "banded": "profile_train_step_banded.txt",
+            "non-banded": "profile_train_step.txt"}[route]
     (out / name).write_text(text + "\n")
 
 
@@ -246,7 +302,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out_dir", nargs="?", default="build/profile")
     ap.add_argument("--banded", action="store_true")
+    ap.add_argument("--store", action="store_true")
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
-    main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype)
+    main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype, store=args.store)

@@ -113,11 +113,25 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    (32, 196, 263), and FPS, kNN and gather must have been launched;
 8. banded train: a second tree, a copy of the first taken through
    ``afford_motion_torch.prepare`` ``sort``, ``geometry`` and ``pack``; the
-   train entry with the same arguments as in 6 (nothing names bandedness:
-   the loop must switch it on and say so in its log), 8 steps and 4 resumed
-   as in 6. Per step the banded kNN must be launched 6 times, the banded
-   gather 7 and the banded scatter 7, and FPS, the full kNN, the row gather
-   and its scatter not at all;
+   train entry with the same arguments as in 6 (nothing names bandedness or
+   the store: the loop must switch the banded kernels on and build the
+   device store, the flagship configuration's default, and say both in its
+   log), 8 steps and 4 resumed as in 6. The store's upload caches every
+   scene's hierarchy through the banded kNN, 6 launches a chunk of 64
+   scenes, counted apart from the steps (``STORE_UPLOAD``); per step the
+   banded gather must be launched 7 times and the banded scatter 7, and no
+   kNN, FPS, row gather or its scatter (``STORE_STEP``). The store's bytes,
+   its upload and cache time, s/step and the peak memory are logged. Then
+   ``banded host train``: the same with ``task.train.device_store=off``,
+   the host route's producer thread on the packed tree, where every step
+   launches the banded kNN 6 times (``BANDED_STEP``). Then ``store
+   megabatch``: one megabatch of 128 items assembled on the card from the
+   store equals the host wire of the same items with the same draws, bit
+   for bit in ``x``, ``x_mask``, ``c_pc_xyz``, the flags and the fps wire,
+   the cached hierarchy equals the one the step rebuilds from that wire
+   through the kernels, and ``c_pc_contact`` is within one f16 ulp (an f32
+   ``exp`` rounded to f16 on each side: the card's and numpy's may differ
+   in the last f32 bit);
 9. banded slice: one DDIM-50 chain through the test entry from that
    checkpoint with ``model.use_banded=true`` on the sorted tree, once from
    the cached FPS indices (no FPS launch) and once with the geometry cache
@@ -218,6 +232,19 @@ PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
               "attention_bwd_f32": 0}
 BANDED_STEP = dict(PLAIN_STEP, fps=0, knn=0, gather=0, scatter=0, banded_knn=6, banded_gather=7,
                    banded_scatter=7)
+# the device store's route on the sorted tree: the hierarchy comes from the
+# cache, so a step launches no kNN; the upload caches it through the banded
+# kNN, one hierarchy (6 launches) a chunk of STORE_CHUNK scenes
+STORE_STEP = dict(BANDED_STEP, banded_knn=0)
+STORE_CHUNK = 64
+
+
+def store_upload(n_scenes: int) -> dict:
+    """The launches of the store's geometry cache for ``n_scenes`` scenes."""
+    return dict({k: 0 for k in PLAIN_STEP},
+                banded_knn=BANDED_STEP["banded_knn"] * -(-n_scenes // STORE_CHUNK))
+
+
 # launch configurations of the two scatter kernels' sums checked against
 # their plain versions beside the wrappers' own: (a factor on the fewest
 # channel passes, channels a lane, registers budgeted), every instance of
@@ -1622,17 +1649,41 @@ def check_launches(name: str, counts: dict, per_pass: dict, passes: int, backwar
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
 
-def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = ()) -> dict:
+@contextlib.contextmanager
+def count_uploads(counters: dict, seen: list):
+    """Inside the block, each ``DeviceStore.add_geometry_cache`` call appends
+    the launches it made to ``seen``: the store's upload, apart from the
+    steps."""
+    from afford_motion_torch.train.device_store import DeviceStore
+
+    real = DeviceStore.add_geometry_cache
+
+    def counted(self, *args, **kwargs):
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = real(self, *args, **kwargs)
+        seen.append({k: fn.launches - before[k] for k, fn in counters.items()})
+        return out
+
+    DeviceStore.add_geometry_cache = counted
+    try:
+        yield
+    finally:
+        DeviceStore.add_geometry_cache = real
+
+
+def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
+                tag: str = "") -> dict:
     """8 full-width steps through the train entry (the config's bf16 unless
     ``extra`` sets model.dtype), then 4 more resumed from step 4; returns the
     launches of both runs. ``per_step``: the launches one step must make on
-    this tree's route; ``extra``: arguments beyond the flagship's. Nothing in
-    the arguments names the banded route: the loop picks it from the tree."""
+    this tree's route (``STORE_STEP``: the device store, whose upload must
+    launch ``store_upload`` of the tree's scenes); ``extra``: arguments
+    beyond the flagship's. Nothing in the arguments names the banded route
+    or the store: the loop picks them from the tree."""
     from afford_motion_torch import train as entry
 
-    banded = per_step is BANDED_STEP
-    tag = {id(BANDED_STEP): "banded ", id(FLASH_STEP): "flash ",
-           id(FLASH_F32_STEP): "flash f32 "}.get(id(per_step), "")
+    store = per_step is STORE_STEP
+    banded = store or per_step is BANDED_STEP
     train_args = base_args(tree) + list(extra) + [
         f"task.train.batch_size={B}", "task.train.save_every_step=4",
         "task.train.log_every_step=1", "task.train.max_steps=8",
@@ -1646,8 +1697,10 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = ()) -
     for name, (args, steps) in runs.items():
         name = tag + name
         reset(counters)
+        uploads: list = []
         t0 = time.monotonic()
-        summary = entry.main(args)
+        with count_uploads(counters, uploads):
+            summary = entry.main(args)
         wall = time.monotonic() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
         logged = summary["logged"]
@@ -1656,23 +1709,41 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = ()) -
             f"launches {counts}")
         if len(logged) != steps or summary["step"] != 8 or not np.isfinite(losses).all():
             raise AssertionError(f"{name}: expected {steps} finite losses up to step 8")
-        check_launches(name, counts, per_step, steps, backward=True)
         exp_dir = Path(summary["last_ckpt"]).parents[1]
-        switched = "banded windowed-neighborhood kernels enabled" in (
-            exp_dir / "log" / "runtime.log").read_text()
+        run_log = (exp_dir / "log" / "runtime.log").read_text()
+        switched = "banded windowed-neighborhood kernels enabled" in run_log
         if switched != banded:
             raise AssertionError(f"{name}: the loop's log says banded={switched}")
+        said = ("device store: staging" in run_log,
+                "device store: caching hierarchy geometry" in run_log, "store" in summary)
+        if said != (store,) * 3:
+            raise AssertionError(f"{name}: the loop's device store (staged, geometry cached, "
+                                 f"uploaded) = {said}, expected {store}")
+        if store:
+            n_scenes = len(json.loads((tree["data"] / "H3D" / "packed" / "meta.json"
+                                       ).read_text())["bases"])
+            want = store_upload(n_scenes)
+            if uploads != [want]:
+                raise AssertionError(f"{name}: upload launches {uploads}, expected [{want}]")
+            counts = {k: v - uploads[0][k] for k, v in counts.items()}
+            st = summary["store"]
+            log(f"{name}: device store {st['bytes'] / 1e6:.1f} MB for {n_scenes} scenes, "
+                f"geometry cache and upload {st['seconds']:.3f} s, upload launches {uploads[0]}")
+        elif uploads:
+            raise AssertionError(f"{name}: a geometry cache was built off the store route")
+        check_launches(name, counts, per_step, steps, backward=True)
         if not summary["last_ckpt"].endswith("model000008.pt") or not os.path.exists(
                 summary["last_ckpt"]):
             raise AssertionError(f"{name}: model000008.pt was not written")
         rest = [e["seconds"] / e["steps"] for e in logged[1:]]
         log(f"{name}: first step {logged[0]['seconds']:.3f} s (one-off set-up of the process "
             f"and the libraries included), then {np.mean(rest):.4f} s/step "
-            f"(min {min(rest):.4f}, max {max(rest):.4f}; data loading on the host included: "
-            f"the slowest step loads a megabatch of {4 * B} items), "
-            f"peak memory {summary['peak_memory_bytes'] / 2**30:.2f} GiB, entry {wall:.1f} s")
+            f"(min {min(rest):.4f}, max {max(rest):.4f}; the host's data work runs on the "
+            f"producer thread beside the steps), "
+            f"peak memory {summary.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB, "
+            f"entry {wall:.1f} s")
         for k in launches:
-            launches[k] += counts[k]
+            launches[k] += counts[k] + (uploads[0][k] if uploads else 0)
     straight = torch.load(tree["exp"] / "ckpt" / "model000008.pt", weights_only=True)
     resumed = torch.load(Path(f"{tree['exp']}_resumed") / "ckpt" / "model000008.pt",
                          weights_only=True)
@@ -1682,6 +1753,85 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = ()) -
     if not diff <= RESUME_LIMIT:
         raise AssertionError(f"the {tag}resumed run differs from the straight one by {diff}")
     return launches
+
+
+def phase_store_megabatch(tree: dict, dev: torch.device) -> None:
+    """One megabatch (4 B items) assembled on the card from the device store
+    of the sorted tree against the host wire of the same items with the same
+    draws (the packed dataset's items under the global streams seeded as the
+    store's generators): ``x``, ``x_mask``, ``c_pc_xyz``, the flags and the
+    fps wire bit for bit, ``c_pc_contact`` within one f16 ulp, and the cached
+    hierarchy equal to the one the step rebuilds from the host wire on the
+    card."""
+    import random
+
+    from afford_motion_torch.data import create_dataset
+    from afford_motion_torch.data.loader import collate_fn_general
+    from afford_motion_torch.models.cmdm import CMDM
+    from afford_motion_torch.models.conditioning import (
+        add_hierarchies, cond_to_device, host_prepare_cond)
+    from afford_motion_torch.train.device_store import DeviceStore, make_assemble_fn
+    from afford_motion_torch.utils.config import load_config
+
+    cfg = load_config("configs", base_args(tree) + [
+        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']"])
+    random.seed(SEED)
+    np.random.seed(SEED)
+    ds = create_dataset(cfg.task.dataset, "train")
+    store = DeviceStore.try_build(ds)
+    if store is None:
+        raise AssertionError("store megabatch: the device store refused the sorted tree")
+    model = CMDM(motion_dim=D, latent_dim=32, time_emb_dim=32, planes=(8, 16, 32, 64),
+                 num_layers=(1,), num_heads=4, dim_feedforward=32, use_banded=True).to(dev)
+    t0 = time.monotonic()
+    if not store.add_geometry_cache(model, dev):
+        raise AssertionError("store megabatch: no geometry cache")
+    assemble = make_assemble_fn(store, dev)
+    log(f"store megabatch: {store.nbytes() / 1e6:.1f} MB on the card, cache and upload "
+        f"{time.monotonic() - t0:.3f} s")
+
+    class Text:  # captions are not compared: zero embeddings on both sides
+        per_token = False
+
+        def encode(self, texts):
+            return np.zeros((len(texts), 16), np.float32)
+
+    ids, seed = list(range(4 * B)), SEED + 5
+    meta = store.draw_batch(ds, ids, random.Random(seed), np.random.RandomState(seed + 1))
+    meta["text_emb"] = Text().encode(meta.pop("c_text"))[:, None, :].astype(np.float16)
+    x, cond = assemble({k: torch.from_numpy(v).to(dev) for k, v in meta.items()})
+    random.seed(seed)
+    np.random.seed(seed + 1)
+    hx, hcond = host_prepare_cond(collate_fn_general([ds[i] for i in ids]), Text())
+    host = cond_to_device(hcond, dev)
+    for k in ("x_mask", "c_pc_xyz", "c_text_erase", "c_pc_erase", *(
+            k for k in hcond if k.endswith("_fps_idx"))):
+        if not torch.equal(cond[k].cpu(), host[k].to(cond[k].dtype).cpu()):
+            raise AssertionError(f"store megabatch: {k} differs from the host wire")
+    if x.dtype != torch.float16 or not torch.equal(bits(x).cpu(), bits(torch.from_numpy(hx))):
+        raise AssertionError("store megabatch: x differs from the host wire")
+    got = cond["c_pc_contact"].cpu().numpy().astype(np.float32)
+    want = host["c_pc_contact"].cpu().numpy().astype(np.float32)
+    ulp = np.maximum(np.spacing(np.maximum(np.abs(got), np.abs(want)).astype(np.float16)
+                                ).astype(np.float32), 2.0 ** -24)
+    ulps = float((np.abs(got - want) / ulp).max())
+    n_diff = int((got != want).sum())
+    log(f"store megabatch: x, x_mask, c_pc_xyz, flags and fps wire bit-equal to the host wire; "
+        f"c_pc_contact {n_diff} of {got.size} entries differ, at most {ulps:.1f} f16 ulp")
+    if ulps > 1.0:
+        raise AssertionError(f"store megabatch: c_pc_contact differs by {ulps} f16 ulp")
+    cached = add_hierarchies(model, cond)["levels_sm"]
+    rebuilt = add_hierarchies(model, host)["levels_sm"]
+    for li, (a, b) in enumerate(zip(cached, rebuilt)):
+        for f in ("xyz", "knn_idx", "fps_idx", "down_knn_idx", "down_starts"):
+            u, v = getattr(a, f), getattr(b, f)
+            if (u is None) != (v is None) or (u is not None and not torch.equal(u, v)):
+                raise AssertionError(f"store megabatch: level {li} {f}: the cache differs from "
+                                     "the in-step rebuild")
+        if not (a.banded and b.banded):
+            raise AssertionError(f"store megabatch: level {li} is not marked banded")
+    log(f"store megabatch: the cached hierarchy of {len(ids)} items equals the in-step rebuild "
+        f"({len(cached)} levels)")
 
 
 def phase_slice(tree: dict, counters: dict, runs: dict) -> dict:
@@ -1966,12 +2116,19 @@ def main() -> int:
     # through the f32 forward and backward
     with flash_switch("1"):
         phases.append(phase_train(dict(tree, exp=WORK / "exp_flash"), counters, FLASH_STEP,
-                                  ("model.dropout=0",)))
+                                  ("model.dropout=0",), tag="flash "))
         phases.append(phase_train(dict(tree, exp=WORK / "exp_flash_f32"), counters,
-                                  FLASH_F32_STEP, ("model.dropout=0", "model.dtype=float32")))
+                                  FLASH_F32_STEP, ("model.dropout=0", "model.dtype=float32"),
+                                  tag="flash f32 "))
     banded_tree = make_banded_tree(tree)
     phases += [
-        phase_train(banded_tree, counters, BANDED_STEP),
+        # the flagship configuration's default on a prepared tree: the store
+        phase_train(banded_tree, counters, STORE_STEP, tag="banded store "),
+        phase_train(dict(banded_tree, exp=WORK / "exp_banded_host"), counters, BANDED_STEP,
+                    ("task.train.device_store=off",), tag="banded host "),
+    ]
+    phase_store_megabatch(banded_tree, dev)
+    phases += [
         # the cached FPS indices serve the chain; with the cache off the chain
         # runs FPS and the sort itself
         phase_slice(banded_tree, counters, {

@@ -307,7 +307,8 @@ def test_port_imports_without_jax():
         "import chip_smoke\n"
         "for name in ('ops.cuda.banded', 'ops.curves', 'ops.morton', 'data.packed', 'prepare',\n"
         "             'ops.cuda.sdf', 'ops.cuda.attention', 'data.motionx', 'eval.smplx_lbs',\n"
-        "             'eval.joints_to_smplx', 'eval.physics', 'eval.evaluate'):\n"
+        "             'eval.joints_to_smplx', 'eval.physics', 'eval.evaluate', 'native',\n"
+        "             'train.device_store', 'parallel.mesh'):\n"
         "    assert 'afford_motion_torch.' + name in sys.modules, name\n"
         "from afford_motion_torch.models.cmdm import CMDM\n"
         "from afford_motion_torch.diffusion import create_gaussian_diffusion\n"

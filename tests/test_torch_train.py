@@ -665,9 +665,12 @@ def _banded_args(root, exp, *extra):
 def test_banded_entry_trains_resumes_and_hands_off(banded_tree, monkeypatch):
     """On a sorted, cached, packed tree the loop itself switches the banded
     kernels on (nothing in the arguments names them) and says so in its log;
-    8 steps straight and 4 + 4 resumed end bit-equal; the test entry samples
-    from the checkpoint with ``model.use_banded=true``, once from the cached
-    FPS indices and once building the hierarchy (FPS + sort) in the chain."""
+    the flagship configuration's default device store holds the corpus and
+    the hierarchy, cached at upload; 8 steps straight and 4 + 4 resumed end
+    bit-equal; with ``task.train.device_store=off`` each step rebuilds the
+    hierarchy from the fps wire; the test entry samples from the checkpoint
+    with ``model.use_banded=true``, once from the cached FPS indices and once
+    building the hierarchy (FPS + sort) in the chain."""
     monkeypatch.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     monkeypatch.setenv("AM_BANDED_DEBUG", "1")
     calls = _count_calls(monkeypatch, torch_banded,
@@ -680,10 +683,20 @@ def test_banded_entry_trains_resumes_and_hands_off(banded_tree, monkeypatch):
     log = (tree / "straight" / "log" / "runtime.log").read_text()
     assert "banded windowed-neighborhood kernels enabled (hilbert-sorted packed data" in log
     assert "packed store: 24 items" in log
-    # per step: kNN 512 self and 128 over 512; gathers: level 0's block, the
-    # first TransitionDown, and level 1's block (S = n = 128); no FPS at all
-    assert calls == {"knn_banded_plain": 16, "gather_banded_plain": 24,
+    assert "device store: staging" in log and "device store: caching hierarchy geometry" in log
+    # at upload, for the one chunk of 24 scenes: kNN 512 self and 128 over
+    # 512; per step: gathers of level 0's block, the first TransitionDown,
+    # and level 1's block (S = n = 128); no FPS at all
+    assert calls == {"knn_banded_plain": 2, "gather_banded_plain": 24,
                      "scatter_banded_plain": 24} and fps_calls == {"fps_plain": 0}
+    # the host route rebuilds the hierarchy from the fps wire in every step
+    for k in calls:
+        calls[k] = 0
+    train_pkg.main(_banded_args(tree, "host", "task.train.max_steps=2",
+                                "task.train.device_store=off"))
+    assert "device store" not in (tree / "host" / "log" / "runtime.log").read_text()
+    assert calls == {"knn_banded_plain": 4, "gather_banded_plain": 6,
+                     "scatter_banded_plain": 6} and fps_calls == {"fps_plain": 0}
     train_pkg.main(_banded_args(tree, "resumed", "task.train.max_steps=4"))
     resumed = train_pkg.main(_banded_args(
         tree, "resumed", "task.train.max_steps=8",
