@@ -1,6 +1,7 @@
 """Host-side datasets of the port (copies of the jax-free modules of
 ``afford_motion_tpu/data``). The HumanML3D family, the packed store and, of
-the MotionX family, ``ContactMotionDataset`` are ported."""
+the MotionX family, ``ContactMapDataset`` and ``ContactMotionDataset`` are
+ported."""
 from .base import (
     BaseDataset,
     contact_to_dist,

@@ -193,7 +193,7 @@ class BaseDataset:
 
 # classes of the MotionX family that wait for their slices
 NOT_PORTED_DATASETS = (
-    "MotionXDataset", "ContactMapDataset", "MotionXExampleDataset", "ContactMapExampleDataset",
+    "MotionXDataset", "MotionXExampleDataset", "ContactMapExampleDataset",
     "ContactMotionExampleOriginDataset", "ContactMotionExampleDataset", "MotionXCustomDataset",
     "ContactMapCustomDataset", "ContactMotionCustomDataset",
 )

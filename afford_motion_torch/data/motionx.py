@@ -6,10 +6,11 @@ Wire-compatible with the reference data directory layout:
 target_mask/*.npy}``, ``{set}/{phase}.txt`` splits, per-corpus mean/std
 caches, and the two-stage handoff files ``pred_contact/*.npy``.
 
-Ported so far: the shared base and ``ContactMotionDataset`` (the stage-2
-motion set of the scene protocol), on ``.npy`` / ``.npz`` trees, test and
-train phases. The seven other classes of the family and the packed MotionX
-store are refused by name until their slices are ported.
+Ported so far: the shared base, ``ContactMapDataset`` (the stage-1 contact
+set of ``ts2m_contact`` and ``novel_contact``) and ``ContactMotionDataset``
+(the stage-2 motion set of the scene protocol), on ``.npy`` / ``.npz``
+trees, test and train phases. The six other classes of the family and the
+packed MotionX store are refused by name until their slices are ported.
 """
 from __future__ import annotations
 
@@ -166,6 +167,92 @@ class _MotionXBase(BaseDataset):
                 )
             else:
                 data["info_obj_mask"] = None
+
+
+@DATASET.register()
+class ContactMapDataset(_MotionXBase):
+    """Stage-1 contact maps over the scene sets: ``x`` is the normalized
+    sigma-kernel contact (or the raw distances with ``use_raw_dist``) of the
+    ``data_repr`` channels; ``c_pc_feat`` the colours (and OpenScene
+    features)."""
+
+    def _read_cfg(self, cfg: Any) -> None:
+        self.contact_type = cfg.data_repr
+        self.contact_joints = list(cfg.data_repr_joints)
+        self.use_raw_dist = cfg.use_raw_dist
+        self.sigma = cfg.sigma
+        self.use_color = cfg.use_color
+        self.use_openscene = cfg.get("use_openscene", False)
+        self.point_feat_dim = cfg.get("point_feat_dim", 32)
+
+    def _load_datasets(self) -> None:
+        self._scan_sets(filter_horizon=False)
+        if not self.use_openscene:
+            self._open_packed(self.contact_type, self.contact_joints)
+
+    def _stats_path(self) -> str:
+        sets = "_".join(self.sets)
+        tail = (f"Mean_Std_Dist_{sets}_{self.contact_type}.npz" if self.use_raw_dist
+                else f"Mean_Std_Cont_{sets}_{self.contact_type}_{self.sigma}.npz")
+        path = os.path.join(self.data_dir, tail)
+        if "HumanML3D" in self.sets and self.sets_config.HumanML3D.get("use_fur", False):
+            path = path.replace(".npz", "_fur.npz")
+        return path
+
+    def _prepare_statistics(self) -> None:
+        def compute():
+            chunks = []
+            for s, i, *_ in self.all_data:
+                dist = nio.load(self._contact_path(s, i))["dist"].astype(np.float32)
+                c = extract_contact(dist, self.contact_type, self.contact_joints)
+                if not self.use_raw_dist:
+                    c = gaussian_contact(c, self.sigma)
+                chunks.append(c)
+            return np.concatenate(chunks, axis=0)
+
+        self.mean, self.std = compute_or_load_stats(self._stats_path(), compute)
+
+    def __len__(self) -> int:
+        return len(self.all_data)
+
+    def __getitem__(self, idx: int) -> Dict:
+        s, i, scene_id, scene_trans, desc = self.all_data[self._resolve(idx)]
+        npz = nio.load(self._contact_path(s, i))
+        points = npz["points"].astype(np.float32)
+        feat = self._color_feat(points)
+        if self.use_openscene:
+            feat = np.concatenate([feat, self._openscene_feat(npz, s, i, scene_id)], axis=-1)
+        contact = extract_contact(npz["dist"].astype(np.float32), self.contact_type,
+                                  self.contact_joints)
+        if not self.use_raw_dist:
+            contact = gaussian_contact(contact, self.sigma)
+
+        data = {
+            "x": contact,
+            "c_pc_xyz": points[:, 0:3],
+            "c_pc_feat": feat,
+            "c_text": self._pick_text(desc),
+            "info_set": s,
+            "info_index": i,
+            "info_scene_trans": translation_to_transform(scene_trans),
+            "info_scene_mesh": self._scene_mesh_path(s, scene_id),
+        }
+        self._obj_mask(data, s, i)
+        self._load_geometry(data, s, i)
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data
+
+    def _openscene_feat(self, npz, s: str, i: int, scene_id: str) -> np.ndarray:
+        """Distilled OpenScene features: the item's affordance file where
+        ``point_feat_dim`` is 1, else the scene's features at the item's
+        point mask."""
+        aff = os.path.join(self.data_dir, s, "contact_motion", "affordance", f"{i:05d}.npy")
+        if self.point_feat_dim == 1 and os.path.exists(aff):
+            return nio.load(aff).astype(np.float32)
+        feat_file = os.path.join(
+            self.data_dir, s, "feat", f"{full_name(s, scene_id)}_openscene_feat_distill.npy")
+        return nio.load(feat_file)[npz["mask"]]
 
 
 @DATASET.register()

@@ -1,7 +1,9 @@
 """Evaluators of the port (counterpart of ``afford_motion_tpu/eval``): the
-scene-protocol half (SMPL-X fit, LBS, SDF physics, APD) and the HumanML3D
-pickle writer."""
+stage-1 contact evaluators, the scene-protocol half (SMPL-X fit, LBS, SDF
+physics, APD) and the HumanML3D pickle writer."""
 from .evaluate import (
+    ContactEvaluator,
+    ContactHumanML3DEvaluator,
     Eval,
     Text2MotionInSceneEvaluator,
     Text2MotionInSceneHumanML3DEvaluator,
@@ -17,6 +19,8 @@ from .physics import (
 __all__ = [
     "Eval",
     "create_evaluator",
+    "ContactEvaluator",
+    "ContactHumanML3DEvaluator",
     "Text2MotionInSceneEvaluator",
     "Text2MotionInSceneHumanML3DEvaluator",
     "signed_distance_to_body",

@@ -2,6 +2,11 @@
 
 Same registry names, ``sample_list`` / ``k_samples_list`` contract and
 on-disk outputs as the JAX package:
+- ``ContactHumanML3DEvaluator`` writes the stage-1 handoff
+  ``H3D/pred_contact/{id}-{caption}.npy``;
+- ``ContactEvaluator`` computes ``dist_to_target@{thresholds}`` and its three
+  averages on the HUMANISE target-object masks and writes
+  ``{set}/pred_contact/{i:05d}.npy``;
 - ``Text2MotionInSceneHumanML3DEvaluator`` pickles motions for the offline
   MDM-protocol HumanML3D evaluation (``humanml/{id}-{caption}.pkl``);
 - ``Text2MotionInSceneEvaluator`` computes APD and the SDF physics metrics
@@ -10,9 +15,10 @@ on-disk outputs as the JAX package:
   (``joints/{i:05d}.pkl``). The SMPL-X projection needs the fitting
   weights and the body model on disk; joints are saved either way.
 
-The stage-1 evaluators (``ContactEvaluator``, ``ContactHumanML3DEvaluator``)
-and the in-process HumanML3D metric stack (``Rprecison``, ``fid``) are
-refused by name until their slices are ported.
+A handoff file holds distances, ``(1, N, C)`` for a sample and ``(k, N, C)``
+for k samples, which the stage-2 datasets read. The in-process HumanML3D
+metric stack (``Rprecison``, ``fid``) is refused by name until its slice is
+ported.
 """
 from __future__ import annotations
 
@@ -26,14 +32,13 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from ..data.base import contact_to_dist
 from ..utils.device import resolve_device
 from ..utils.io import get_logger
 from ..utils.registry import EVALUATOR
 from .physics import compute_pairwise_distance, dist_to_obj, face_table, physics_over_sequence
 
 logger = get_logger()
-
-_NOT_PORTED = ("ContactEvaluator", "ContactHumanML3DEvaluator")
 
 
 class Eval:
@@ -92,6 +97,75 @@ def _jsonable(v):
     if isinstance(v, list):
         return [_jsonable(x) for x in v]
     return v
+
+
+def _pred_dist(contact: np.ndarray, dataset) -> np.ndarray:
+    """A sampled (normalized) contact map -> distances: denormalized and
+    clipped, then through the inverse sigma kernel unless the dataset's
+    target is the raw distance."""
+    contact = dataset.denormalize(contact, clip=True)
+    if getattr(dataset, "use_raw_dist", False):
+        return contact.copy()
+    return contact_to_dist(contact, dataset.sigma)
+
+
+@EVALUATOR.register()
+class ContactHumanML3DEvaluator(Eval):
+    """Save stage-1 H3D contacts for the stage-2 dataset."""
+
+    def evaluate(self, sample_list, k_samples_list, save_dir, dataloader, **kwargs):
+        if not self.save_results:
+            return
+        out = os.path.join(save_dir, "H3D", "pred_contact")
+        os.makedirs(out, exist_ok=True)
+        for sample in sample_list:
+            dist = _pred_dist(sample["sample"], dataloader.dataset)
+            name, cap = sample["info_index"], sample["info_caption_index"]
+            np.save(os.path.join(out, f"{name}-{cap}.npy"), dist[None, ...])
+        for ks in k_samples_list:
+            dist = _pred_dist(ks["k_samples"], dataloader.dataset)
+            name, cap = ks["info_index"], ks["info_caption_index"]
+            np.save(os.path.join(out, f"{name}-{cap}.npy"), dist)
+
+
+@EVALUATOR.register()
+class ContactEvaluator(Eval):
+    """Stage-1 metrics on the target-object masks (``info_obj_mask``, the
+    HUMANISE items'): per sample, whether its nearest predicted distance on
+    the object is below each threshold, the mean distance over the object's
+    points, that of the first (pelvis) channel and that of each point's
+    nearest channel. Then the stage-1 -> stage-2 handoff files."""
+
+    def __init__(self, cfg: Any, *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        self.dist_to_target_thresholds = list(
+            cfg.evaluator.get("dist_to_target_thresholds", [0.1, 0.3, 0.5]))
+
+    def evaluate(self, sample_list, k_samples_list, save_dir, dataloader, **kwargs):
+        for sample in sample_list:
+            dist = _pred_dist(sample["sample"], dataloader.dataset)
+            if "dist_to_target" in self.eval_metrics and sample.get("info_obj_mask") is not None:
+                obj_dist = dist[np.asarray(sample["info_obj_mask"], dtype=bool), :]
+                if obj_dist.size == 0:
+                    continue
+                d = obj_dist.min()
+                for thr in self.dist_to_target_thresholds:
+                    self.metrics[f"dist_to_target_{thr}"].append(float(d < thr))
+                self.metrics["dist_to_target_average"].append(float(obj_dist.mean()))
+                self.metrics["dist_to_target_pelvis_average"].append(float(obj_dist[:, 0].mean()))
+                self.metrics["dist_to_target_min_average"].append(float(obj_dist.min(-1).mean()))
+
+        if self.save_results:
+            for sample in sample_list:
+                dist = _pred_dist(sample["sample"], dataloader.dataset)
+                out = os.path.join(save_dir, str(sample["info_set"]), "pred_contact")
+                os.makedirs(out, exist_ok=True)
+                np.save(os.path.join(out, f"{sample['info_index']:05d}.npy"), dist[None, ...])
+            for ks in k_samples_list:
+                dist = _pred_dist(ks["k_samples"], dataloader.dataset)
+                out = os.path.join(save_dir, str(ks["info_set"]), "pred_contact")
+                os.makedirs(out, exist_ok=True)
+                np.save(os.path.join(out, f"{ks['info_index']:05d}.npy"), dist)
 
 
 @EVALUATOR.register()
@@ -266,7 +340,4 @@ class Text2MotionInSceneEvaluator(Eval):
 
 def create_evaluator(cfg: Any, *args, **kwargs):
     """The evaluator named by ``cfg.evaluator.name``."""
-    name = str(cfg.evaluator.name)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"evaluator {name!r} is not ported yet (it comes with stage 1)")
-    return EVALUATOR.get(name)(cfg, *args, **kwargs)
+    return EVALUATOR.get(str(cfg.evaluator.name))(cfg, *args, **kwargs)

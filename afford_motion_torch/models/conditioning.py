@@ -1,10 +1,10 @@
-"""Condition preparation for the CMDM (counterpart of
+"""Condition preparation (counterpart of
 ``afford_motion_tpu/models/conditioning.py``): strings become embeddings on
-the host; the point hierarchy and the contact encoding run on the device,
-once per batch or sampling chain."""
+the host; the CMDM's point hierarchy and contact encoding run on the device,
+once per batch or sampling chain. The ported CDMs read neither."""
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -14,6 +14,7 @@ from ..ops.hierarchy import (
     build_point_hierarchy_from_fps,
     geometry_from_arrays,
 )
+from .cdm import CDM
 from .cmdm import CMDM
 from .pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES
 from .text import TextEncoder
@@ -57,12 +58,16 @@ def cond_to_device(cond: Dict[str, np.ndarray], device: torch.device) -> Dict[st
 
 
 @torch.no_grad()
-def add_hierarchies(model: CMDM, cond: Dict[str, Any]) -> Dict[str, Any]:
-    """Attach ``levels_sm``, the SceneMap hierarchy: from a full geometry
-    cache, from cached FPS indices, or built from ``c_pc_xyz``. Indices and
-    level coordinates carry no gradient. Bandedness and its window knobs
-    ride on the model (``use_banded``, set by the TrainLoop for curve-sorted
-    packed data or by the config; ``banded_window``, ``banded_adaptive``)."""
+def add_hierarchies(model: Union[CMDM, CDM], cond: Dict[str, Any]) -> Dict[str, Any]:
+    """Attach a CMDM's ``levels_sm``, the SceneMap hierarchy: from a full
+    geometry cache, from cached FPS indices, or built from ``c_pc_xyz``.
+    Indices and level coordinates carry no gradient. Bandedness and its
+    window knobs ride on the model (``use_banded``, set by the TrainLoop for
+    curve-sorted packed data or by the config; ``banded_window``,
+    ``banded_adaptive``). A ported CDM needs no hierarchy: ``cond`` comes
+    back as it is."""
+    if isinstance(model, CDM):
+        return cond
     if not isinstance(model, CMDM):
         raise NotImplementedError(f"add_hierarchies: {type(model).__name__} is not ported")
     xyz = cond.get("c_pc_xyz")
@@ -89,8 +94,12 @@ def add_hierarchies(model: CMDM, cond: Dict[str, Any]) -> Dict[str, Any]:
     return cond
 
 
-def encode_conditions(model: CMDM, cond: Dict[str, Any]) -> torch.Tensor:
-    """The expensive condition encoding, hoisted out of the denoising loop."""
-    if not isinstance(model, CMDM):
-        raise NotImplementedError(f"encode_conditions: {type(model).__name__} is not ported")
-    return model.encode_contact(cond)
+def encode_conditions(model: Union[CMDM, CDM], cond: Dict[str, Any]) -> Optional[torch.Tensor]:
+    """The expensive condition encoding, hoisted out of the denoising loop:
+    a CMDM's contact encoding, a CDM's scene features (None for the ported
+    configurations)."""
+    if isinstance(model, CMDM):
+        return model.encode_contact(cond)
+    if isinstance(model, CDM):
+        return model.encode_scene(cond)
+    raise NotImplementedError(f"encode_conditions: {type(model).__name__} is not ported")

@@ -3,8 +3,11 @@
     python -m afford_motion_torch.test <the same config overrides as test.py>
 
 Loads the natsort-latest ``model*.pt`` of ``<exp_dir>/ckpt`` with
-``strict=True``, runs the sampling chain over the test split (a k-sample
-repeat takes the k-th pre-generated contact, ``c_pc_contact[:, k]``), hands
+``strict=True``, runs the sampling chain over the test split (for the CMDM a
+k-sample repeat takes the k-th pre-generated contact, ``c_pc_contact[:, k]``;
+the CDM samples contact maps, whose evaluators write the stage-1 handoff
+``pred_contact/*.npy`` that a CMDM test reads through
+``task.test.contact_folder``), hands
 the samples to the task's evaluator (``eval/``) as ``sample_list`` /
 ``k_samples_list``, and writes the evaluator's ``metrics.txt`` /
 ``metrics.json`` and result files, ``samples.npz`` (the generated motions
@@ -88,6 +91,7 @@ def test(cfg: DictConfig, device: torch.device) -> str:
     chain_idx = 0
 
     B = cfg.task.test.batch_size
+    is_cmdm = str(cfg.model.name).startswith("CMDM")
     k_samples = evaluator.k_samples
     k_batches = set(range(evaluator.num_k_samples // B)) if k_samples > 0 else set()
     sample_list, k_samples_list = [], []
@@ -104,7 +108,7 @@ def test(cfg: DictConfig, device: torch.device) -> str:
         per_k = []
         for k in range(k_samples if use_k else 1):
             cond_k = dict(cond)
-            if cond_k["c_pc_contact"].ndim == 4:
+            if is_cmdm and cond_k["c_pc_contact"].ndim == 4:
                 cond_k["c_pc_contact"] = cond_k["c_pc_contact"][:, k]
             noise = noise_seq = None
             if noise_seed is not None:
@@ -131,9 +135,8 @@ def test(cfg: DictConfig, device: torch.device) -> str:
 
     timing["generation_loop_s"] = time.monotonic() - t_loop
     timing["n_motions"] = len(timing["chains"]) * B
-    out = {"sample": np.stack([s["sample"] for s in sample_list]),
-           "x_mask": np.stack([s["x_mask"] for s in sample_list])}
-    for key in ("info_index", "info_caption_index", "info_set", "c_text"):
+    out = {"sample": np.stack([s["sample"] for s in sample_list])}
+    for key in ("x_mask", "info_index", "info_caption_index", "info_set", "c_text"):
         if sample_list and key in sample_list[0]:
             out[key] = np.asarray([s[key] for s in sample_list])
     if k_samples_list:

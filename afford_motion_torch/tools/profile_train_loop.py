@@ -1,6 +1,6 @@
 """Seconds per step through the train entry in steady state, per data route:
 
-    python -m afford_motion_torch.tools.profile_train_loop [out_dir]
+    python -m afford_motion_torch.tools.profile_train_loop [out_dir] [--stage1]
 
 Builds ``chip_smoke.py``'s synthetic HumanML3D tree (192 items, 8192-point
 clouds, motions of 40..196 frames) and its sorted, cached, packed copy, then
@@ -14,12 +14,20 @@ for ``STEPS`` steps on each route in turn:
 - ``banded host``: the prepared tree with ``task.train.device_store=off``,
   the producer thread reading the packed store.
 
-With ``AM_LOOP_TIMING=1`` and a log every megabatch, it reports s/step over
-the megabatches after the first two (set-up, the first megabatch's load and
-the libraries' warm-up left out), the share of that wall time the loop
-waited for a batch (where the loop records it), the store's bytes and its cache and upload time, and the
-peak device memory. Prints the card's name and power limit first and writes
-``profile_train_loop.txt`` into ``out_dir`` (default ``build/profile``).
+With ``--stage1`` it trains stage 1 instead, the CDM-Perceiver of
+``scripts/t2m_contact/train_ddp.sh`` (batch 64, one step a megabatch: the
+tree's 144 training items hold no four), on the plain tree's host stream
+(``stage-1 plain host``) and through the stage-1 store on the prepared tree
+(``stage-1 store``).
+
+With ``AM_LOOP_TIMING=1`` and a log every 4 steps, it reports s/step over
+the windows after the first two (set-up, the first megabatch's load and the
+libraries' warm-up left out), the share of that wall time the loop waited
+for a batch (where the loop records it), the store's bytes and its cache and
+upload time, and the peak device memory. Prints the card's name and power
+limit first and writes ``profile_train_loop.txt`` (``--stage1``:
+``profile_train_loop_stage1.txt``) into ``out_dir`` (default
+``build/profile``).
 """
 from __future__ import annotations
 
@@ -35,15 +43,16 @@ from .kernel_ab import _smoke
 STEPS = 32  # eight megabatches: two to warm up, six measured
 
 
-def _route(smoke, tree: dict, name: str, steps: int, extra: tuple) -> str:
+def _route(smoke, tree: dict, name: str, steps: int, extra: tuple, stage1: bool = False) -> str:
     from .. import train as entry
 
-    args = smoke.base_args(tree) + list(extra) + [
-        f"exp_dir={smoke.WORK / ('loop_' + name.replace(' ', '_'))}",
-        f"task.train.batch_size={smoke.B}", f"task.train.max_steps={steps}",
-        f"task.train.save_every_step={steps}", "task.train.log_every_step=4",
-        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']",
-    ]
+    exp = smoke.WORK / ("loop_" + name.replace(" ", "_"))
+    model = smoke.stage1_args(tree, exp) if stage1 else smoke.base_args(tree) + [
+        f"exp_dir={exp}", f"task.train.batch_size={smoke.B}",
+        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']"]
+    args = model + list(extra) + [
+        f"task.train.max_steps={steps}", f"task.train.save_every_step={steps}",
+        "task.train.log_every_step=4"]
     summary = entry.main(args)
     windows = summary["logged"][2:]
     seconds = sum(w["seconds"] for w in windows)
@@ -58,7 +67,7 @@ def _route(smoke, tree: dict, name: str, steps: int, extra: tuple) -> str:
         waited = "waiting for a batch: not recorded"
     peak = summary.get("peak_memory_bytes", float("nan")) / 2**30
     line = (f"{name}: {seconds / n:.4f} s/step over steps {windows[0]['step'] - 3}.."
-            f"{windows[-1]['step']} (a megabatch of 4: min {min(per):.4f}, max "
+            f"{windows[-1]['step']} (windows of 4 steps: min {min(per):.4f}, max "
             f"{max(per):.4f} s/step), {waited}, peak memory {peak:.2f} GiB")
     if "store" in summary:
         st = summary["store"]
@@ -67,7 +76,7 @@ def _route(smoke, tree: dict, name: str, steps: int, extra: tuple) -> str:
     return line
 
 
-def main(out_dir: str = "build/profile") -> None:
+def main(out_dir: str = "build/profile", stage1: bool = False) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_loop runs only on a CUDA device")
     smoke = _smoke()
@@ -80,17 +89,26 @@ def main(out_dir: str = "build/profile") -> None:
     print(card, flush=True)
     tree = smoke.make_tree()
     banded = smoke.make_banded_tree(tree)
-    lines = [card, f"{STEPS} steps a route, batch {smoke.B}, bf16, seed {smoke.SEED}:"]
-    for name, t, extra in (("plain host", tree, ()), ("banded store", banded, ()),
-                           ("banded host", banded, ("task.train.device_store=off",))):
-        lines.append("  " + _route(smoke, t, name, STEPS, extra))
+    if stage1:
+        routes = (("stage-1 plain host", tree, ()), ("stage-1 store", banded, ()))
+        what = f"the CDM-Perceiver, batch {smoke.B_STAGE1}"
+    else:
+        routes = (("plain host", tree, ()), ("banded store", banded, ()),
+                  ("banded host", banded, ("task.train.device_store=off",)))
+        what = f"batch {smoke.B}"
+    lines = [card, f"{STEPS} steps a route, {what}, bf16, seed {smoke.SEED}:"]
+    for name, t, extra in routes:
+        lines.append("  " + _route(smoke, t, name, STEPS, extra, stage1))
         print(lines[-1], flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_train_loop.txt").write_text("\n".join(lines) + "\n")
+    name = "profile_train_loop_stage1.txt" if stage1 else "profile_train_loop.txt"
+    (out / name).write_text("\n".join(lines) + "\n")
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out_dir", nargs="?", default="build/profile")
-    main(ap.parse_args().out_dir)
+    ap.add_argument("--stage1", action="store_true")
+    args = ap.parse_args()
+    main(args.out_dir, args.stage1)

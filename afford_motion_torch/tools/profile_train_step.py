@@ -1,7 +1,7 @@
 """Where one full-width train step's time goes on the card:
 
     python -m afford_motion_torch.tools.profile_train_step [out_dir]
-        [--banded | --store | --flash] [--dtype bfloat16 | float32]
+        [--banded | --store | --flash] [--dtype bfloat16 | float32] [--stage1]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -33,10 +33,22 @@ float32`` builds the model in float32 (the config's reference-parity dtype)
 instead of the train config's bf16; with ``--flash`` that routes every layer
 through the f32 forward and backward kernels, and the table goes to
 ``profile_train_step_flash_float32.txt``.
+
+With ``--stage1`` the model is stage 1's instead, the CDM-Perceiver as
+``scripts/t2m_contact/train_ddp.sh`` builds it (bf16, dropout 0.1, no scene
+model), on a batch of 64 contact maps (8192 points, 6 channels) with their
+f16 clouds and caption embeddings; with ``--store`` also, each step
+assembling that batch on the card from a stage-1 store of 64 scenes (f32
+distances, the sigma kernel and the normalization on the card). The tables
+go to ``profile_train_step_stage1.txt`` and
+``profile_train_step_stage1_store.txt``. Every table ends with the traced
+step's device time by kernel class (GEMMs, elementwise, reductions, norms,
+softmax, the optimizer, copies, the port's kernels).
 """
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -112,6 +124,68 @@ def _store_batch(rng, dev, model):
     return assemble, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
+def _stage1(rng, dev, store: bool):
+    """The published CDM-Perceiver on the card and one stage-1 batch of
+    ``B_STAGE1`` items: (model, x, cond, assemble); with ``store`` x is None
+    and cond the index batch of a stage-1 store of ``B_STAGE1`` scenes."""
+    from ..models.base import create_model
+    from ..train.device_store import DeviceStore, make_assemble_fn
+    from ..utils.config import load_config
+    from .kernel_ab import _smoke
+
+    smoke = _smoke()
+    cfg = load_config(str(smoke.ROOT / "configs"),
+                      ["task=text_to_motion_contact_gen", *smoke.STAGE1_MODEL])
+    cfg.model.input_feats = 6
+    model = create_model(cfg.model, dev)
+    nb = smoke.B_STAGE1
+    text = rng.normal(size=(nb, 1, 512)).astype(np.float16)
+    xyz = rng.normal(size=(nb, N, 3)).astype(np.float16)
+    if not store:
+        cond = {"c_pc_xyz": torch.from_numpy(xyz).to(dev),
+                "text_emb": torch.from_numpy(text).to(dev)}
+        x = torch.from_numpy(rng.normal(size=(nb, N, 6)).astype(np.float32)).to(dev)
+        return model, x, cond, None
+    arrays = {"scene_row": np.arange(nb, dtype=np.int32), "xyz16": xyz,
+              "dist32": rng.uniform(0, 2, size=(nb, N, 6)).astype(np.float32)}
+    meta = {"kind": "h3d_contact", "n_items": nb, "sigma": 0.8, "use_raw_dist": False,
+            "mean": np.full((1, 6), 0.3, np.float32), "std": np.full((1, 6), 0.2, np.float32)}
+    assemble = make_assemble_fn(DeviceStore(arrays, meta), dev)
+    batch = {"item_row": rng.permutation(nb).astype(np.int32), "text_emb": text}
+    return model, None, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, assemble
+
+
+# the port's kernels (csrc/*.cu), by name
+PORT_KERNELS = re.compile(
+    r"(?<![a-z0-9_])(attention_bf16|attention_bwd_bf16|attention_bwd_f32|attention_f32|count|fps|"
+    r"fps_streamed|gather_banded|gather_rows|knn_banded|knn_merge|knn_scan|lists|nn1_scan|"
+    r"nn1_sort|order|place|scan|sums)_kernel(?![a-z0-9_])")
+# the other kernel classes of a traced step, by a word of the kernel's name;
+# the first class that matches takes it
+KERNEL_CLASSES = (
+    ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "sm80_", "cublas")),
+    ("softmax", ("softmax",)),
+    ("norms", ("layer_norm", "batch_norm", "welford")),
+    ("optimizer", ("adam", "multi_tensor")),
+    ("reductions", ("reduce",)),
+    ("copies and casts", ("copy", "cat", "index", "gather", "scatter", "fill")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _by_class(rows) -> list:
+    """Lines of the traced step's device ms and launches by kernel class."""
+    sums: dict = {}
+    for ms, n, key in rows:
+        low = key.lower()
+        name = "the port's kernels" if PORT_KERNELS.search(low) else next(
+            (c for c, words in KERNEL_CLASSES if any(w in low for w in words)), "other")
+        t, c = sums.get(name, (0.0, 0))
+        sums[name] = (t + ms, c + n)
+    return [f"  {name}: {t:.3f} ms in {c} launches"
+            for name, (t, c) in sorted(sums.items(), key=lambda kv: -kv[1][0])]
+
+
 def _attention_alone(smoke, model, x_mask, dev) -> list:
     """One layer's attention at the step's shape (batch 32, 1 + 1 + 128 + 196
     tokens, the motions' padding masked) in the model's type, forward and
@@ -166,7 +240,7 @@ def _traced(step, state, x, cond, seed: int):
 
 
 def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False,
-         dtype: str = "bfloat16", store: bool = False) -> None:
+         dtype: str = "bfloat16", store: bool = False, stage1: bool = False) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -175,33 +249,37 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.manual_seed(2023)
-    model = CMDM(motion_dim=D, dtype=getattr(torch, dtype),
-                 dropout=0.0 if flash else 0.1).to(dev)
-    diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
-    state = TrainState.create(model, lr=1e-4)
     rng = np.random.default_rng(2023)
     assemble = None
-    if store:
-        model.use_banded = True
-        assemble, batch = _store_batch(rng, dev, model)
-        x = None
-        cond = batch
+    if stage1:
+        model, x, cond, assemble = _stage1(rng, dev, store)
+        diffusion = create_gaussian_diffusion(DictConfig({"steps": 500}), dev)
     else:
-        x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
-        if banded:
+        model = CMDM(motion_dim=D, dtype=getattr(torch, dtype),
+                     dropout=0.0 if flash else 0.1).to(dev)
+        diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
+        if store:
             model.use_banded = True
-            cond = _banded_batch(rng, dev)
+            assemble, cond = _store_batch(rng, dev, model)
+            x = None
         else:
-            cond = {"c_pc_xyz":
-                    torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev)}
-        cond.update({
-            "c_pc_contact": torch.from_numpy(rng.uniform(size=(B, N, 6)).astype(np.float16)
-                                             ).to(dev),
-            "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32)
-                                         ).to(dev),
-            "x_mask": torch.from_numpy(x_mask).to(dev),
-        })
-        x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+            x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
+            if banded:
+                model.use_banded = True
+                cond = _banded_batch(rng, dev)
+            else:
+                cond = {"c_pc_xyz": torch.from_numpy(
+                    rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev)}
+            cond.update({
+                "c_pc_contact": torch.from_numpy(
+                    rng.uniform(size=(B, N, 6)).astype(np.float16)).to(dev),
+                "text_emb": torch.from_numpy(
+                    rng.normal(size=(B, 1, 512)).astype(np.float32)).to(dev),
+                "x_mask": torch.from_numpy(x_mask).to(dev),
+            })
+            x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    state = TrainState.create(model, lr=1e-4)
+    nb = len(cond["item_row"]) if x is None else x.shape[0]
     step = make_train_step(model, diffusion, assemble=assemble)
     if flash:
         text = "\n".join([f"model in {dtype}"]
@@ -212,8 +290,10 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         name = "profile_train_step_flash" + ("_float32" if dtype == "float32" else "")
         (out / f"{name}.txt").write_text(text + "\n")
         return
+    torch.cuda.reset_peak_memory_stats(dev)
     for i in range(3):
         step(state, x, cond, seed=i)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
 
     # (1) the parts of a step, each to a synchronize
     parts = {"assemble": [], "hierarchy": [], "forward+loss": [], "backward": [],
@@ -224,7 +304,7 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         model.train()
         gen = torch.Generator(device=dev).manual_seed(100 + i)
         set_dropout_generator(model, gen)
-        t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+        t = torch.randint(0, diffusion.num_timesteps, (nb,), generator=gen, device=dev)
         x_i, cond_i = x, cond
         if assemble is not None:
             (x_i, cond_i), ms = _sync_time(lambda: assemble(cond))
@@ -234,7 +314,7 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         parts["hierarchy"].append(ms)
         loss, ms = _sync_time(lambda: diffusion.training_losses(
             lambda x_t, ts: model(x_t, ts, cond_h), x_i, t, generator=gen,
-            x_mask=cond_h["x_mask"])["loss"].mean())
+            x_mask=cond_h.get("x_mask"))["loss"].mean())
         parts["forward+loss"].append(ms)
         state.optimizer.zero_grad(set_to_none=True)
         _, ms = _sync_time(loss.backward)
@@ -244,7 +324,10 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         _, ms = _sync_time(state.optimizer.step)
         parts["optimizer"].append(ms)
     route = "store" if store else "banded" if banded else "non-banded"
-    lines = [f"{route} step: parts of one step, ms to a synchronize (5 steps: min / mean / max):"]
+    if stage1:
+        route = "stage-1 store" if store else "stage-1"
+    lines = [f"{route} step, batch {nb}, peak memory of the first three {peak:.2f} GiB; parts "
+             f"of one step, ms to a synchronize (5 steps: min / mean / max):"]
     for name, v in parts.items():
         lines.append(f"  {name}: {min(v):.3f} / {np.mean(v):.3f} / {max(v):.3f}")
     whole = [_sync_time(lambda i=i: step(state, x, cond, seed=200 + i))[1] for i in range(5)]
@@ -256,12 +339,15 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
                  f"{total:.3f} ms of device kernels in {count} launches")
     for ms, n, key in rows[:30]:
         lines.append(f"  {ms:9.3f} ms  {n:5d}x  {key[:110]}")
+    lines.append("traced step by kernel class:")
+    lines += _by_class(rows)
     text = "\n".join(lines)
     print(text, flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     name = {"store": "profile_train_step_store.txt", "banded": "profile_train_step_banded.txt",
-            "non-banded": "profile_train_step.txt"}[route]
+            "non-banded": "profile_train_step.txt", "stage-1": "profile_train_step_stage1.txt",
+            "stage-1 store": "profile_train_step_stage1_store.txt"}[route]
     (out / name).write_text(text + "\n")
 
 
@@ -305,5 +391,7 @@ if __name__ == "__main__":
     ap.add_argument("--store", action="store_true")
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--stage1", action="store_true")
     args = ap.parse_args()
-    main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype, store=args.store)
+    main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype, store=args.store,
+         stage1=args.stage1)

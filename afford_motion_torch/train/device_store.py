@@ -1,6 +1,6 @@
 """Device-resident training corpus (counterpart of
-``afford_motion_tpu/train/device_store.py``, the HumanML3D stage-2 family):
-the corpus is uploaded to the card once and the host streams only indices.
+``afford_motion_tpu/train/device_store.py``, its HumanML3D stores): the
+corpus is uploaded to the card once and the host streams only indices.
 
 On a prepared tree (``prepare sort|geometry|pack``, the fps geometry wire,
 ``half_wire_x``) the store holds, on the card:
@@ -23,8 +23,14 @@ batch of a few hundred bytes plus the caption embedding, and
 ``mix_train_ratio`` > 0 ships the mixed items' contact override as a
 (B, P, C) f16 operand.
 
-The MotionX and stage-1 stores are not ported yet: :meth:`DeviceStore.try_build`
-says so and returns None, and the loop takes the host pipeline.
+The stage-1 store (``ContactHumanML3DDataset``, the t2m contact set) holds
+``xyz16``, the f32 distances ``dist32`` and the fps wire: the host draws
+only the captions, and the card computes the diffusion target
+normalize(exp(-0.5 dist^2 / sigma^2)) in f32, as the dataset's ``__getitem__``
+does on the host.
+
+The MotionX stores are not ported yet: :meth:`DeviceStore.try_build` says so
+and returns None, and the loop takes the host pipeline.
 """
 from __future__ import annotations
 
@@ -66,8 +72,8 @@ _FLAG_TRANSFORMS = {
 # scenes a hierarchy build of the geometry cache takes at once
 GEOMETRY_CHUNK = 64
 
-# dataset classes whose stores wait for their packed datasets
-_NOT_PORTED = ("ContactMotionDataset", "ContactHumanML3DDataset", "ContactMapDataset")
+# dataset classes whose stores wait for the packed MotionX store
+_NOT_PORTED = ("ContactMotionDataset", "ContactMapDataset")
 
 
 def _flag_chain(dataset, base=("NumpyToTensor",)):
@@ -146,9 +152,20 @@ class DeviceStore:
             logger.info(f"device store: the {name} store is not ported yet; "
                         "using the host pipeline")
             return None
-        if name != "ContactMotionHumanML3DDataset":
-            return None
-        return cls._try_build_h3d(dataset, max_bytes_from_env())
+        builders = {"ContactMotionHumanML3DDataset": cls._try_build_h3d,
+                    "ContactHumanML3DDataset": cls._try_build_h3d_contact}
+        build = builders.get(name)
+        return build(dataset, max_bytes_from_env()) if build else None
+
+    @staticmethod
+    def _common_gate(dataset, allowed_transforms) -> bool:
+        """A train phase, a train transform chain among
+        ``allowed_transforms`` and the fps geometry wire."""
+        if getattr(dataset, "phase", "") not in ("train", "all"):
+            return False
+        if list(dataset.cfg.get("train_transforms", [])) not in allowed_transforms:
+            return False
+        return str(dataset.cfg.get("geometry_wire", "full")) == "fps"
 
     @classmethod
     def _try_build_h3d(cls, dataset, max_bytes: int) -> Optional["DeviceStore"]:
@@ -216,6 +233,45 @@ class DeviceStore:
             "mix": float(dataset.cfg.get("mix_train_ratio", 0.0) or 0.0) > 0
             and bool(getattr(dataset, "pred_contact_dict", None)),
             "flag_chain": flag_chain,
+        }
+        return cls(host, meta)
+
+    @classmethod
+    def _try_build_h3d_contact(cls, dataset, max_bytes: int) -> Optional["DeviceStore"]:
+        """ContactHumanML3D (stage 1): the packed store's clouds and f32
+        distances, whose kernel the card computes in f32, so that the
+        diffusion target is the host path's."""
+        packed = getattr(dataset, "_packed", None)
+        if packed is None or isinstance(packed, dict):
+            return None
+        if not cls._common_gate(dataset, [["NumpyToTensor"]]) or "dist32" not in packed.fields:
+            return None
+        names = list(dataset.name_list)
+        bases = [n.split("_")[-1] for n in names]
+        if any(b not in packed.index for b in bases):
+            return None
+        host: Dict[str, Any] = {
+            "scene_row": np.array([packed.index[b] for b in bases], dtype=np.int32),
+            "xyz16": packed.fields["xyz16"],
+            "dist32": packed.fields["dist32"],
+        }
+        for k in packed.geo_keys:
+            if "_fps_idx" in k:
+                host[k] = packed.fields[k]
+        total = sum(v.nbytes for v in host.values())
+        if total > max_bytes:
+            logger.info(f"device store: corpus {total / 1e9:.2f}GB exceeds the "
+                        f"{max_bytes / 1e9:.1f}GB budget; using the host pipeline")
+            return None
+        logger.info(f"device store: staging {total / 1e9:.2f}GB ({len(names)} stage-1 items, "
+                    f"{host['xyz16'].shape[0]} scenes) for the device upload")
+        meta = {
+            "kind": "h3d_contact",
+            "n_items": len(names),
+            "sigma": float(dataset.sigma),
+            "use_raw_dist": bool(dataset.use_raw_dist),
+            "mean": np.asarray(dataset.mean, dtype=np.float32),
+            "std": np.asarray(dataset.std, dtype=np.float32),
         }
         return cls(host, meta)
 
@@ -318,6 +374,8 @@ class DeviceStore:
         ``np_rng`` draw for the contact mix (whatever the mix ratio), then
         the flag chain. Explicit generators keep the stream a function of
         the caller's seed whatever other threads draw."""
+        if self.meta["kind"] == "h3d_contact":
+            return self._draw_batch_contact(dataset, item_ids, py_rng)
         rnd, npr = py_rng, np_rng
         B = len(item_ids)
         crop_start = np.zeros((B,), np.int32)
@@ -361,6 +419,16 @@ class DeviceStore:
         return out
 
 
+    @staticmethod
+    def _draw_batch_contact(dataset, item_ids, py_rng: random.Random) -> Dict[str, Any]:
+        """Stage 1: the caption of each item, from ``py_rng`` as
+        ``__getitem__`` draws it."""
+        rows = np.array([dataset.indices[i] for i in item_ids], dtype=np.int32)
+        captions = [dataset._pick_caption(dataset.data_dict[dataset.name_list[r]]["text"],
+                                          py_rng)["caption"] for r in rows]
+        return {"item_row": rows, "c_text": captions}
+
+
 def index_stream(n_items: int, G: int, B: int, start_step: int, base_seed: int,
                  loader_seed: int) -> Iterator[np.ndarray]:
     """Endless stream of (G*B,) dataset-index chunks, the store route's only
@@ -392,6 +460,8 @@ def make_assemble_fn(store: DeviceStore, device="cuda"):
     on the device. Uploads the store to ``device`` first if it is not
     there."""
     store.ensure_device(device)
+    if store.meta["kind"] == "h3d_contact":
+        return _make_assemble_contact(store)
     A = store.arrays
     H = store.meta["max_horizon"]
     use_raw = store.meta["use_raw_dist"]
@@ -426,10 +496,42 @@ def make_assemble_fn(store: DeviceStore, device="cuda"):
         for k in ("text_token_mask", "c_text_mask", "c_text_erase", "c_pc_mask", "c_pc_erase"):
             if k in batch:
                 cond[k] = batch[k]
-        for k in A:
-            if k.startswith("geo_"):  # the fps wire and the cached hierarchy
-                v = store.fetch(k, s_rows)
-                cond[k] = v.int() if v.dtype == torch.int16 else v
+        cond.update(_geometry(store, s_rows))  # the fps wire and the cached hierarchy
         return x, cond
+
+    return assemble
+
+
+def _geometry(store: DeviceStore, s_rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Every ``geo_*`` field of the scenes ``s_rows``, int16 indices widened
+    to int32."""
+    out = {}
+    for k in store.arrays:
+        if k.startswith("geo_"):
+            v = store.fetch(k, s_rows)
+            out[k] = v.int() if v.dtype == torch.int16 else v
+    return out
+
+
+def _make_assemble_contact(store: DeviceStore):
+    """Stage 1's ``assemble(batch) -> (x, cond)``: ``x`` the normalized
+    kernel of the f32 distances (or the raw distances), in f32; ``cond`` the
+    caption embedding, the f16 cloud and the fps wire."""
+    A = store.arrays
+    dev = A["dist32"].device
+    use_raw = store.meta["use_raw_dist"]
+    # a 0-d tensor divisor, as make_assemble_fn's
+    sigma2 = torch.tensor(store.meta["sigma"] ** 2, dtype=torch.float32, device=dev)
+    mean = torch.as_tensor(store.meta["mean"], device=dev)
+    std = torch.as_tensor(store.meta["std"], device=dev)
+
+    def assemble(batch: Dict[str, torch.Tensor]):
+        s_rows = store.fetch("scene_row", batch["item_row"])
+        contact = store.fetch("dist32", s_rows)
+        if not use_raw:
+            contact = torch.exp(-0.5 * (contact * contact) / sigma2)
+        cond = {"text_emb": batch["text_emb"], "c_pc_xyz": store.fetch("xyz16", s_rows),
+                **_geometry(store, s_rows)}
+        return (contact - mean) / std, cond
 
     return assemble

@@ -240,8 +240,9 @@ class TrainLoop:
     def _drop_cond_suffixes(self) -> tuple:
         """Geometry fields the model never reads: an encoder-only SceneMap
         (CMDM ``trans_enc``) uses no 3-NN up-interpolation. The datasets
-        already leave them out where ``geometry_arch`` names the encoder."""
-        if self.model.needs_up_interpolation:
+        already leave them out where ``geometry_arch`` names the encoder. A
+        model that does not say (the CDM) keeps them, as in the JAX loop."""
+        if getattr(self.model, "needs_up_interpolation", True):
             return ()
         return ("_up_idx", "_up_weight")
 

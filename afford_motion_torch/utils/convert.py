@@ -1,6 +1,7 @@
 """Weights between the JAX package and the port: the flax variable tree of a
-``trans_enc`` CMDM, or of the joints-to-SMPL-X regressor, <-> the port's
-state_dict (the reference torch layout); and the SMPL-X body model's arrays.
+``trans_enc`` CMDM, of a CDM (Perceiver or MLP, no scene model), or of the
+joints-to-SMPL-X regressor, <-> the port's state_dict (the reference torch
+layout); and the SMPL-X body model's arrays.
 
 One table of (state_dict key, flax path, kind) entries drives both
 directions, so they are inverses by construction. Kinds: ``w`` a Dense
@@ -88,6 +89,54 @@ def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int]
                                   ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
 
 
+def _perceiver_layer(key: str, path: Path, cross: bool):
+    """A krasserm cross- or self-attention layer: ``Sequential(Residual(
+    attention), Residual(MLP))``."""
+    if cross:
+        yield from _layernorm(f"{key}.0.module.q_norm", (*path, "LayerNorm_0"))
+        yield from _layernorm(f"{key}.0.module.kv_norm", (*path, "LayerNorm_1"))
+    else:
+        yield from _layernorm(f"{key}.0.module.norm", (*path, "LayerNorm_0"))
+    for i, name in enumerate(("q_proj", "k_proj", "v_proj", "o_proj")):
+        yield from _dense(f"{key}.0.module.attention.{name}", (*path, "PerceiverMHA_0", f"Dense_{i}"))
+    mlp = (*path, "PerceiverMLP_0")
+    yield from _layernorm(f"{key}.1.module.0", (*mlp, "LayerNorm_0"))
+    yield from _dense(f"{key}.1.module.1", (*mlp, "Dense_0"))
+    yield from _dense(f"{key}.1.module.3", (*mlp, "Dense_1"))
+
+
+def cdm_entries(arch: str = "Perceiver", *, self_attn_layers: int = 2, mlp_layers: int = 2,
+                mlp_bias: bool = True) -> Iterator[Tuple[str, Path, str]]:
+    """Every (state_dict key, flax path, kind) of a CDM without a scene
+    model: ``Perceiver`` with ``self_attn_layers`` latent layers, or ``MLP``
+    with ``mlp_layers`` point-scene MLPs."""
+    yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
+    yield from _dense("timestep_embedder.time_embed.2", ("timestep_embedder", "Dense_1"))
+    yield from _dense("contact_layer", ("contact_layer",))
+    cm = ("contact_model",)
+    if arch == "MLP":
+        for i in range(mlp_layers):
+            key, path = f"contact_model.point_mlp.{i}", (*cm, f"PointSceneMLP_{i}")
+            for part, (ln, d0, d1) in (("mlp_pre", (0, 0, 1)), ("mlp_post", (1, 2, 3))):
+                yield from _layernorm(f"{key}.{part}.0", (*path, f"LayerNorm_{ln}"))
+                yield from _dense(f"{key}.{part}.1", (*path, f"Dense_{d0}"), bias=mlp_bias)
+                yield from _dense(f"{key}.{part}.3", (*path, f"Dense_{d1}"), bias=mlp_bias)
+        return
+    if arch != "Perceiver":
+        raise NotImplementedError(f"CDM arch {arch!r} is not ported yet")
+    for i, name in enumerate(("encoder_adapter", "language_adapter", "time_embedding_adapter")):
+        yield from _dense(f"contact_model.{name}", (*cm, f"Dense_{i}"))
+    yield from _perceiver_layer("contact_model.encoder_cross_attn",
+                                (*cm, "CrossAttentionLayer_0"), cross=True)
+    for i in range(self_attn_layers):
+        yield from _perceiver_layer(f"contact_model.encoder_self_attn.{i}",
+                                    (*cm, "SelfAttentionBlock_0", f"SelfAttentionLayer_{i}"),
+                                    cross=False)
+    yield from _dense("contact_model.decoder_adapter", (*cm, "Dense_3"))
+    yield from _perceiver_layer("contact_model.decoder_cross_attn",
+                                (*cm, "CrossAttentionLayer_1"), cross=True)
+
+
 def regressor_entries(num_layers: int = 2) -> Iterator[Tuple[str, Path, str]]:
     """Every (state_dict key, flax path, kind) of the joints-to-SMPL-X
     regressor (``eval/joints_to_smplx.py``)."""
@@ -162,6 +211,20 @@ def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
     missing from ``tensors`` (e.g. buffers, when gradients are carried) are
     left out of the tree."""
     return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks))
+
+
+def cdm_state_dict_from_jax(variables_np: Dict, **arch) -> Dict[str, torch.Tensor]:
+    """flax ``{"params": ...}`` of a CDM -> a state_dict that
+    :class:`afford_motion_torch.models.cdm.CDM` loads with ``strict=True``;
+    ``arch``: the keyword arguments of :func:`cdm_entries`."""
+    return _state_dict_from_jax(variables_np, cdm_entries(**arch))
+
+
+def cdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], **arch) -> Dict:
+    """The inverse: a dict of tensors keyed like a CDM's state_dict (its
+    parameters, or their gradients) -> ``{"params": ...}`` with numpy
+    leaves."""
+    return _jax_tree_from_state_dict(tensors, cdm_entries(**arch))
 
 
 def regressor_state_dict_from_jax(variables_np: Dict, *, num_layers: int = 2

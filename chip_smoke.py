@@ -136,13 +136,30 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    checkpoint with ``model.use_banded=true`` on the sorted tree, once from
    the cached FPS indices (no FPS launch) and once with the geometry cache
    off (FPS and sort in the chain);
-10. scene slice: the scene-protocol test path at full width. A synthetic
+10. stage 1: the CDM-Perceiver as every published
+   ``scripts/*_contact/train_ddp.sh`` runs it (no scene model, 500 diffusion
+   steps, a 512-wide encoder of 8 heads and 2 latent layers, a 256-wide
+   decoder, bf16 with float32 LayerNorms and head, dropout 0.1), through the
+   train entry with ``scripts/t2m_contact/train_ddp.sh``'s overrides (batch
+   64, sigma 0.8): 8 steps and 4 resumed, bit-exact, on the plain tree (the
+   host stream) and on the sorted, packed tree (the stage-1 device store,
+   its staging line logged); s/step, peak memory, and every port kernel's
+   launches 0 (the CDM builds no hierarchy and its attention is the einsum
+   route). Then the t2m chain: ``scripts/t2m_contact/test.sh`` (CDM-500, B
+   items) from that checkpoint writes ``H3D/pred_contact`` (finite distances
+   of shape (1, 8192, 6)), and a DDIM-50 chain of the CMDM reads them
+   through ``task.test.contact_folder``; its ``c_pc_contact`` for every item
+   it reads equals the sigma kernel of the file;
+11. scene slice: the scene-protocol test path at full width. A synthetic
    HUMANISE tree (8192-point scenes, 66-d joint motions of 40..196 frames, 36
-   test items) with seeded stage-1 ``pred_contact/{i:05d}.npy`` files, a
-   checkpoint of the seeded CMDM ``trans_enc`` (``data_repr=pos``, bf16), a
-   seeded joints-to-SMPL-X regressor file and a synthetic SMPL-X of the
-   official mesh size (10475 vertices, 20908 faces); then
-   ``afford_motion_torch.test task=contact_motion_gen model=cmdm
+   test items), checkpoints of a seeded CDM-Perceiver and of the seeded CMDM
+   ``trans_enc`` (``data_repr=pos``, bf16), a seeded joints-to-SMPL-X
+   regressor file and a synthetic SMPL-X of the official mesh size (10475
+   vertices, 20908 faces). First the ts2m chain's stage 1:
+   ``scripts/ts2m_contact/test.sh`` (CDM-500, ``ContactEvaluator``, two maps
+   for each of B items) writes ``HUMANISE/pred_contact`` and finite
+   ``dist_to_target_*`` metrics, and the scene protocol reads those files;
+   then ``afford_motion_torch.test task=contact_motion_gen model=cmdm
    diffusion.steps=500`` with ``AM_FLASH_ATTN=1``: one batch of 32, two
    DDPM-500 chains (``k_samples=2``), the batched fit (200 refine steps, 16
    sequences a batch), LBS, SDF physics and APD. Samples must be finite with
@@ -270,6 +287,14 @@ FLASH_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_dkv=CMDM_LAYE
 # the same in float32 (model.dtype=float32): the f32 forward and the f32
 # backward (dK/dV and dQ in one launch) once per denoiser layer
 FLASH_F32_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_f32=CMDM_LAYERS)
+# stage 1, the CDM-Perceiver of every published scripts/*_contact/train_ddp.sh
+# (no scene model, 500 diffusion steps): its train batch (its chains run at
+# B); it builds no point hierarchy and its attention is the einsum route, so
+# it launches none of the port's kernels
+B_STAGE1 = 64
+STAGE1_MODEL = ["model=cdm", "model.arch=Perceiver", "model.scene_model.use_scene_model=False",
+                "diffusion.steps=500"]
+STAGE1_STEP = {k: 0 for k in PLAIN_STEP}
 # published peaks of one H100 SXM: device memory, float32 outside the tensor
 # cores, bf16 products with float32 sums on the tensor cores (dense). A bound
 # takes the rate the card has for the inputs' type, whatever the kernel uses.
@@ -1608,6 +1633,14 @@ def make_banded_tree(tree: dict) -> dict:
     return dict(tree, data=data, exp=WORK / "exp_banded")
 
 
+def common_args() -> list:
+    """What every entry run here shares: no embedding table and no
+    text-encoder weights (the port's hash embeddings, from the caption), and
+    the jsonl board."""
+    return [f"text_encoder.table_path={WORK / 'no_table'}",
+            f"text_encoder.weights_dir={WORK / 'no_weights'}", "platform=jsonl"]
+
+
 def base_args(tree: dict) -> list:
     """The flagship configuration of ``scripts/t2m_contact_motion/train_ddp.sh``
     on the synthetic tree; both entries read it."""
@@ -1617,9 +1650,17 @@ def base_args(tree: dict) -> list:
         "task.dataset.sigma=0.8", f"task.dataset.data_dir={tree['data']}",
         f"task.test.contact_folder={tree['contacts']}", f"exp_dir={tree['exp']}",
         f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1", f"seed={SEED}",
-        f"text_encoder.table_path={WORK / 'no_table'}",
-        f"text_encoder.weights_dir={WORK / 'no_weights'}", "platform=jsonl",
+        *common_args(),
     ]
+
+
+def stage1_args(tree: dict, exp: Path) -> list:
+    """``scripts/t2m_contact/train_ddp.sh`` on the synthetic HumanML3D tree
+    (batch 64, sigma 0.8, captions of at most 20 tokens)."""
+    return ["task=text_to_motion_contact_gen", *STAGE1_MODEL, "task.dataset.sigma=0.8",
+            f"task.train.batch_size={B_STAGE1}", "model.text_model.max_length=20",
+            f"task.dataset.data_dir={tree['data']}", f"exp_dir={exp}", f"seed={SEED}",
+            *common_args()]
 
 
 @contextlib.contextmanager
@@ -1672,23 +1713,30 @@ def count_uploads(counters: dict, seen: list):
 
 
 def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
-                tag: str = "") -> dict:
+                tag: str = "", args: list | None = None, store: bool | None = None) -> dict:
     """8 full-width steps through the train entry (the config's bf16 unless
     ``extra`` sets model.dtype), then 4 more resumed from step 4; returns the
     launches of both runs. ``per_step``: the launches one step must make on
     this tree's route (``STORE_STEP``: the device store, whose upload must
     launch ``store_upload`` of the tree's scenes); ``extra``: arguments
-    beyond the flagship's. Nothing in the arguments names the banded route
-    or the store: the loop picks them from the tree."""
+    beyond the flagship's. ``args``: another model's configuration instead
+    of the flagship CMDM's (stage 1's, ``stage1_args``), and ``store``
+    whether its route is the device store; a CDM's store caches no
+    hierarchy, so its upload launches nothing. Nothing in the arguments
+    names the banded route or the store: the loop picks them from the
+    tree."""
     from afford_motion_torch import train as entry
 
-    store = per_step is STORE_STEP
+    cmdm = args is None
+    store = per_step is STORE_STEP if store is None else store
     banded = store or per_step is BANDED_STEP
-    train_args = base_args(tree) + list(extra) + [
-        f"task.train.batch_size={B}", "task.train.save_every_step=4",
-        "task.train.log_every_step=1", "task.train.max_steps=8",
-        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']",
-    ]
+    if cmdm:
+        args = base_args(tree) + [
+            f"task.train.batch_size={B}",
+            "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact',"
+            "'NumpyToTensor']"]
+    train_args = args + list(extra) + [
+        "task.train.save_every_step=4", "task.train.log_every_step=1", "task.train.max_steps=8"]
     launches = {k: 0 for k in counters}
     runs = {"train": (train_args, 8),
             "resumed": ([a for a in train_args if not a.startswith("exp_dir=")] + [
@@ -1716,17 +1764,19 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
             raise AssertionError(f"{name}: the loop's log says banded={switched}")
         said = ("device store: staging" in run_log,
                 "device store: caching hierarchy geometry" in run_log, "store" in summary)
-        if said != (store,) * 3:
+        if said != (store, store and cmdm, store):
             raise AssertionError(f"{name}: the loop's device store (staged, geometry cached, "
                                  f"uploaded) = {said}, expected {store}")
         if store:
             n_scenes = len(json.loads((tree["data"] / "H3D" / "packed" / "meta.json"
                                        ).read_text())["bases"])
-            want = store_upload(n_scenes)
+            want = store_upload(n_scenes) if cmdm else {k: 0 for k in PLAIN_STEP}
             if uploads != [want]:
                 raise AssertionError(f"{name}: upload launches {uploads}, expected [{want}]")
             counts = {k: v - uploads[0][k] for k, v in counts.items()}
             st = summary["store"]
+            staged = next(line for line in run_log.splitlines() if "device store: staging" in line)
+            log(f"{name}: {staged.split(' | ')[-1]}")
             log(f"{name}: device store {st['bytes'] / 1e6:.1f} MB for {n_scenes} scenes, "
                 f"geometry cache and upload {st['seconds']:.3f} s, upload launches {uploads[0]}")
         elif uploads:
@@ -1865,35 +1915,154 @@ def phase_slice(tree: dict, counters: dict, runs: dict) -> dict:
     return launches
 
 
+def phase_t2m_chain(tree: dict, counters: dict, s1_exp: Path) -> dict:
+    """Text -> contact -> motion through files. Stage 1:
+    ``scripts/t2m_contact/test.sh`` (CDM-500, the config's sigma 0.5, the
+    model overrides its checkpoint was trained with) from the stage-1 train
+    phase's checkpoint, one batch of B, writes ``H3D/pred_contact``. Stage 2:
+    a DDIM-50 chain of the CMDM from the plain train phase's checkpoint, with
+    ``task.test.contact_folder`` at stage 1's directory, reads them: its
+    dataset's ``c_pc_contact`` for every item the chain reads is the sigma
+    kernel of stage 1's file. Returns the launches of both tests."""
+    from afford_motion_torch import test as entry
+    from afford_motion_torch.data import create_dataset, gaussian_contact
+    from afford_motion_torch.utils.config import load_config
+
+    launches = {k: 0 for k in counters}
+    s1 = ["task=text_to_motion_contact_gen", *STAGE1_MODEL, "model.text_model.max_length=20",
+          f"task.dataset.data_dir={tree['data']}", f"exp_dir={s1_exp}",
+          f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1", f"seed={SEED}",
+          *common_args()]
+    reset(counters)
+    t0 = time.monotonic()
+    out1 = Path(entry.main(s1))
+    wall = time.monotonic() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    check_launches("t2m stage 1", counts, STAGE1_STEP, 1, backward=False)
+    timing = json.loads((out1 / "timing.json").read_text())
+    chain = timing["chains"][0]
+    files = {f.name: np.load(f) for f in (out1 / "H3D" / "pred_contact").glob("*.npy")}
+    bad = [n for n, d in files.items() if d.shape != (1, N_POINTS, 6) or d.dtype != np.float32
+           or not (np.isfinite(d).all() and (d >= 0).all())]
+    log(f"t2m stage 1: CDM-500 chain of {B} {chain['chain_s']:.3f} s "
+        f"({1e3 * chain['loop_s'] / chain['steps']:.3f} ms/step), entry {wall:.1f} s, peak "
+        f"memory {timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB; "
+        f"{len(files)} pred_contact files, launches {counts}")
+    if len(files) != B or bad:
+        raise AssertionError(f"t2m stage 1: {len(files)} files, bad: {bad[:4]}")
+
+    s2 = [a for a in base_args(tree) if not a.startswith("task.test.contact_folder=")] + [
+        f"task.test.contact_folder={out1}", "diffusion.timestep_respacing=ddim50",
+        "task.test.sampler=ddim"]
+    cfg = load_config("configs", s2)
+    sigma = float(cfg.task.dataset.sigma)
+    ds = create_dataset(cfg.task.dataset, "test", contact_folder=str(out1))
+    for i in range(B):   # the items the chain reads: the split's first B, in its order
+        item = ds[i]
+        name = f"{item['info_index']}-{item['info_caption_index']}.npy"
+        want = gaussian_contact(files[name], sigma).astype(np.float32)
+        if not np.array_equal(item["c_pc_contact"], want):
+            raise AssertionError(f"t2m stage 2: c_pc_contact of {name} is not the sigma "
+                                 "kernel of stage 1's file")
+    log(f"t2m stage 2: c_pc_contact of all {B} items it reads equals exp(-d^2 / 2 "
+        f"{sigma}^2) of stage 1's files")
+    reset(counters)
+    out2 = Path(entry.main(s2))
+    counts2 = {k: fn.launches for k, fn in counters.items()}
+    check_launches("t2m stage 2", counts2, PLAIN_STEP, 1, backward=False)
+    z = np.load(out2 / "samples.npz")
+    read = {f"{n}-0.npy" for n in z["info_index"]}
+    if z["sample"].shape != (B, L, D) or not np.isfinite(z["sample"]).all() or not read <= set(
+            files):
+        raise AssertionError(f"t2m stage 2: x0 {z['sample'].shape}, or items without a file")
+    c2 = json.loads((out2 / "timing.json").read_text())["chains"][0]
+    log(f"t2m stage 2: DDIM-50 chain {c2['chain_s']:.3f} s "
+        f"({1e3 * c2['loop_s'] / c2['steps']:.3f} ms/step) on stage 1's contacts, x0 "
+        f"{z['sample'].shape} finite, launches {counts2}")
+    for k in launches:
+        launches[k] += counts[k] + counts2[k]
+    return launches
+
+
 def make_scene_tree(dev: torch.device) -> dict:
     """What the scene slice reads, all from the seed: a synthetic HUMANISE
     tree (8192-point scenes, joint motions of 40..196 frames, 36 test items),
-    the stage-1 handoff ``HUMANISE/pred_contact/{i:05d}.npy`` (2 contact maps
-    per test item), a checkpoint of the full-width CMDM ``trans_enc`` for
-    66-d joint positions, and a joints-to-SMPL-X regressor file in the
-    reference's torch layout."""
+    a checkpoint of the full-width CDM-Perceiver (stage 1) and one of the
+    full-width CMDM ``trans_enc`` for 66-d joint positions, and a
+    joints-to-SMPL-X regressor file in the reference's torch layout."""
     from afford_motion_torch.data.synthetic import make_synthetic_motionx_set
     from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXRegressor
     from afford_motion_torch.models.base import create_model
     from afford_motion_torch.train.checkpoint import save_ckpt
     from afford_motion_torch.utils.config import load_config
 
-    data, contacts, exp = WORK / "scene_data", WORK / "scene_contacts", WORK / "scene_exp"
+    data, exp = WORK / "scene_data", WORK / "scene_exp"
     make_synthetic_motionx_set(str(data), "HUMANISE", n_items=40, num_points=N_POINTS,
                                horizon_range=(40, L + 1), seed=SEED, test_items=36)
-    pred = contacts / "HUMANISE" / "pred_contact"
-    pred.mkdir(parents=True)
-    rng = np.random.default_rng(SEED + 6)
-    for i in (data / "HUMANISE" / "test.txt").read_text().split():
-        np.save(pred / f"{int(i):05d}.npy",
-                np.abs(rng.normal(size=(2, N_POINTS, 6))).astype(np.float32))
-    tree = {"data": data, "contacts": contacts, "exp": exp, "regressor": WORK / "regressor.pt"}
-    cfg = load_config("configs", scene_args(tree))
+    tree = {"data": data, "exp": exp, "cdm_exp": WORK / "scene_cdm_exp",
+            "regressor": WORK / "regressor.pt"}
+    cfg = load_config("configs", ts2m_args(tree))
+    cfg.model.input_feats = 6
+    torch.manual_seed(SEED + 1)
+    save_ckpt(create_model(cfg.model, dev), str(tree["cdm_exp"] / "ckpt"), 0)
+    cfg = load_config("configs", scene_args(dict(tree, contacts=WORK)))
     cfg.model.input_feats = D_POS
     torch.manual_seed(SEED)
     save_ckpt(create_model(cfg.model, dev), str(exp / "ckpt"), 0)
     torch.save(JointsToSMPLXRegressor().state_dict(), tree["regressor"])
     return tree
+
+
+def ts2m_args(tree: dict) -> list:
+    """``scripts/ts2m_contact/test.sh`` (CDM-500, ``ContactEvaluator``, the
+    config's sigma 0.5) with the model overrides of its train script, on the
+    synthetic HUMANISE tree: one batch of B, 2 contact maps each."""
+    return ["task=contact_gen", *STAGE1_MODEL, "task.dataset.sets=[HUMANISE]",
+            f"task.dataset.data_dir={tree['data']}", f"exp_dir={tree['cdm_exp']}",
+            f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1",
+            "task.evaluator.k_samples=2", f"task.evaluator.num_k_samples={B}", f"seed={SEED}",
+            *common_args()]
+
+
+def phase_ts2m_contact(tree: dict, counters: dict) -> Path:
+    """Stage 1 of the scene protocol: the CDM-500 test writes
+    ``HUMANISE/pred_contact/{i:05d}.npy``, two contact maps of distances for
+    each of B test items, and ``dist_to_target_*``: the three threshold
+    rates in [0, 1], the three average distances finite and at most the
+    largest distance a contact map can encode, sqrt(-2 sigma^2 ln 1e-20).
+    Returns the directory that holds the files."""
+    from afford_motion_torch import test as entry
+
+    reset(counters)
+    t0 = time.monotonic()
+    out = Path(entry.main(ts2m_args(tree)))
+    wall = time.monotonic() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    check_launches("ts2m stage 1", counts, STAGE1_STEP, 1, backward=False)
+    timing = json.loads((out / "timing.json").read_text())
+    files = sorted((out / "HUMANISE" / "pred_contact").glob("*.npy"))
+    maps = [np.load(f) for f in files]
+    if len(files) != B or not all(m.shape == (2, N_POINTS, 6) and np.isfinite(m).all()
+                                  and (m >= 0).all() for m in maps):
+        raise AssertionError(f"ts2m stage 1: {len(files)} pred_contact files, or a bad one")
+    metrics = {k: float(v) for k, v in (line.split(": ") for line in
+                                        (out / "metrics.txt").read_text().splitlines())}
+    from afford_motion_torch.utils.config import load_config
+    sigma = float(load_config("configs", ts2m_args(tree)).task.dataset.sigma)
+    d_max = float(np.sqrt(-2.0 * sigma ** 2 * np.log(1e-20)))
+    rates = [f"dist_to_target_{t}" for t in (0.1, 0.3, 0.5)]
+    means = [f"dist_to_target_{k}average" for k in ("", "pelvis_", "min_")]
+    if sorted(metrics) != sorted(rates + means) or not (
+            all(0.0 <= metrics[k] <= 1.0 for k in rates)
+            and all(0.0 <= metrics[k] <= d_max for k in means)):
+        raise AssertionError(f"ts2m stage 1: metrics.txt holds {metrics}")
+    for c in timing["chains"]:
+        log(f"ts2m stage 1: CDM-500 chain of {B} {c['chain_s']:.3f} s "
+            f"({1e3 * c['loop_s'] / c['steps']:.3f} ms/step)")
+    log(f"ts2m stage 1: entry {wall:.1f} s, evaluator {timing['evaluator_s']:.3f} s, peak "
+        f"memory {timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB; {len(files)} "
+        f"pred_contact files of 2 maps; {metrics}; launches {counts}")
+    return out
 
 
 def scene_args(tree: dict) -> list:
@@ -1907,8 +2076,7 @@ def scene_args(tree: dict) -> list:
         "task.evaluator.k_samples=2", f"task.evaluator.num_k_samples={B}",
         "task.evaluator.opt_steps=200", f"task.evaluator.fit_batch={FIT_BATCH}",
         f"task.evaluator.joints_to_smplx_model_weights={tree['regressor']}", f"seed={SEED}",
-        f"text_encoder.table_path={WORK / 'no_table'}",
-        f"text_encoder.weights_dir={WORK / 'no_weights'}", "platform=jsonl",
+        *common_args(),
     ]
 
 
@@ -1977,7 +2145,9 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
     try:
         t0 = time.monotonic()
         tree = make_scene_tree(dev)
-        log(f"scene slice: tree, checkpoint and regressor in {time.monotonic() - t0:.1f} s")
+        log(f"scene slice: tree, checkpoints and regressor in {time.monotonic() - t0:.1f} s")
+        # the ts2m chain: stage 2 reads the contact maps stage 1 writes
+        tree["contacts"] = phase_ts2m_contact(tree, counters)
         base = scene_args(tree)
         seen = {}
         entry.create_evaluator = capture_evaluator(create_evaluator, seen)
@@ -2001,6 +2171,9 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
             raise AssertionError(f"scene slice: {len(chains)} chains, launches {launches}, "
                                  f"expected {want}")
         check_scene_outputs(out)
+        written = {f.stem for f in (tree["contacts"] / "HUMANISE" / "pred_contact").glob("*.npy")}
+        if not {f"{int(i):05d}" for i in np.load(out / "samples.npz")["info_index"]} <= written:
+            raise AssertionError("scene slice: an item without stage 1's contact file")
         # a second evaluator over the same samples: metrics.json byte for byte
         again = out / "evaluated_again"
         again.mkdir()
@@ -2128,6 +2301,19 @@ def main() -> int:
                     ("task.train.device_store=off",), tag="banded host "),
     ]
     phase_store_megabatch(banded_tree, dev)
+    # stage 1, the CDM-Perceiver as published: 8 + 4 steps on each data
+    # route (the plain tree through the host stream, the prepared tree
+    # through the stage-1 store), none of the port's kernels launched; then
+    # the text -> contact -> motion chain through pred_contact files
+    s1_tree = dict(tree, exp=WORK / "exp_stage1")
+    s1_banded = dict(banded_tree, exp=WORK / "exp_stage1_store")
+    phases += [
+        phase_train(s1_tree, counters, STAGE1_STEP, tag="stage-1 ",
+                    args=stage1_args(s1_tree, s1_tree["exp"]), store=False),
+        phase_train(s1_banded, counters, STAGE1_STEP, tag="stage-1 store ",
+                    args=stage1_args(s1_banded, s1_banded["exp"]), store=True),
+        phase_t2m_chain(tree, counters, s1_tree["exp"]),
+    ]
     phases += [
         # the cached FPS indices serve the chain; with the cache off the chain
         # runs FPS and the sort itself

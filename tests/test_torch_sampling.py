@@ -226,11 +226,12 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv``, ``trans_dec``, the stage-1
-    evaluators, the in-process HumanML3D metrics and the other datasets of
-    the MotionX family. ``use_banded``, a packed dataset tree under the
-    training wire format, ``data_repr: pos`` with ``ContactMotionDataset`` and
-    the two stage-2 evaluators are ported."""
+    not run some other way: ``fused_qkv``, ``trans_dec``, the CDM's scene
+    model and point-transformer backbones, the in-process HumanML3D metrics
+    and the other datasets of the MotionX family. ``use_banded``, a packed
+    dataset tree under the training wire format, ``data_repr: pos`` with
+    ``ContactMotionDataset``, the two stage-2 evaluators and the two stage-1
+    ones are ported."""
     from afford_motion_torch.data import create_dataset
     from afford_motion_torch.eval import (
         Text2MotionInSceneEvaluator,
@@ -257,14 +258,33 @@ def test_port_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_cmdm(model_cfg(override))
 
+    # stage 1: the published CDM-Perceiver and the MLP without a scene model;
+    # the scene model and the point-transformer backbones wait for their slice
+    from afford_motion_torch.models.cdm import CDM, build_cdm
+    from afford_motion_torch.eval import ContactEvaluator
+
+    def cdm_cfg(*extra):
+        cfg = load_config(str(REPO / "configs"), ["task=contact_gen", "model=cdm", *extra])
+        cfg.model.input_feats = 6
+        return cfg
+
+    for arch in ("Perceiver", "MLP"):
+        assert isinstance(build_cdm(cdm_cfg(f"model.arch={arch}",
+                                            "model.scene_model.use_scene_model=False").model), CDM)
+    for extra in (("model.arch=Perceiver",), ("model.arch=PointTrans",
+                                              "model.scene_model.use_scene_model=False")):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_cdm(cdm_cfg(*extra).model)
+    assert isinstance(create_evaluator(cdm_cfg().task, device="cpu"), ContactEvaluator)
+
     # the scene protocol's configuration: 66-d joint positions
     scene = load_config(str(REPO / "configs"), ["task=contact_motion_gen", "model=cmdm"])
     scene.model.input_feats = 66
     assert build_cmdm(scene.model).motion_adapter.in_features == 66
     assert isinstance(create_evaluator(scene.task, device="cpu"), Text2MotionInSceneEvaluator)
-    for override in ("task.evaluator.name=ContactEvaluator",
+    for override in ("task.evaluator.eval_metrics=['apd','Rprecison']",
                      "task.evaluator.eval_metrics=['apd','fid']",
-                     "task.dataset.name=ContactMapDataset"):
+                     "task.dataset.name=MotionXDataset"):
         cfg = load_config(str(REPO / "configs"),
                           ["task=contact_motion_gen", "model=cmdm", override])
         with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -93,8 +93,8 @@ def _assert_trees_close(got, want, *, rel_of_max=None, atol=0.0, what=""):
         if rel_of_max is None:
             np.testing.assert_allclose(got[path], w, rtol=0, atol=atol, err_msg=name)
         elif np.abs(w).max() < zero:
-            assert path[-1] == "bias" and ("PointTransformerLayer" in name or path[-3:-1] == (
-                "TorchMultiHeadAttention_0", "Dense_1")), name
+            assert path[-1] == "bias" and ("PointTransformerLayer" in name or path[-3:-1] in (
+                ("TorchMultiHeadAttention_0", "Dense_1"), ("PerceiverMHA_0", "Dense_1"))), name
             assert np.abs(got[path]).max() < zero, name
         else:
             np.testing.assert_allclose(got[path], w, rtol=0, atol=rel_of_max * np.abs(w).max(),
@@ -318,11 +318,11 @@ def _jax_step(jm, jd, state, x, cond, t, noise):
             out, upd = jm.apply({"params": params, "batch_stats": state.batch_stats}, x_t, ts,
                                 cond, train=True, rngs={"dropout": jax.random.PRNGKey(0)},
                                 mutable=["batch_stats"])
-            captured["bs"] = upd["batch_stats"]
+            captured["bs"] = upd.get("batch_stats", {})  # a CDM has no BatchNorm
             return out
 
         terms = jd.training_losses(model_fn, x, t, jax.random.PRNGKey(0),
-                                   x_mask=cond["x_mask"], noise=noise)
+                                   x_mask=cond.get("x_mask"), noise=noise)
         return terms["loss"].mean(), captured["bs"]
 
     (loss, bs), grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
@@ -337,18 +337,20 @@ def test_train_steps_match_jax(setup, weight_decay, lr_anneal_steps):
 
 
 def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr_anneal_steps,
-                         first_loss_rtol=1e-5):
+                         first_loss_rtol=1e-5, jm=None, to_tree=_to_tree):
     """Three optimizer steps from the same weights on the same batch with
     injected t and noise. Step 1: loss rtol 1e-5, every gradient within 1e-3
     of its tensor's largest entry, every parameter after the AdamW update
     within 1e-6 and every BatchNorm buffer within 1e-5, grad_norm rtol 1e-4. Steps 2 and 3: loss
-    1e-4 (the anneal makes their learning rates 0.9 and 0.8 of the first)."""
-    jm = setup["jm"]
+    1e-4 (the anneal makes their learning rates 0.9 and 0.8 of the first).
+    ``jm`` (default ``setup["jm"]``) and ``to_tree`` (state_dict -> flax
+    tree) name the model on each side."""
+    jm = setup["jm"] if jm is None else jm
     lr = 1e-4  # the config's; Adam's first update is +-lr, so 1e-6 is 1% of it
     cfg = DictConfig({"steps": 1000})
     jd, td = jax_diffusion(cfg), create_gaussian_diffusion(cfg)
     jstate = JaxTrainState.create(
-        params=variables["params"], batch_stats=variables["batch_stats"],
+        params=variables["params"], batch_stats=variables.get("batch_stats", {}),
         tx=jax_make_optimizer(lr, weight_decay, lr_anneal_steps, params=variables["params"]))
     jstep = jax.jit(lambda s, t, n: _jax_step(jm, jd, s, jnp.asarray(x), jcond, t, n))
     state = TrainState.create(tm, lr=lr, weight_decay=weight_decay,
@@ -366,7 +368,7 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
             continue
         assert float(m["mse"]) == float(m["loss"]) and state.step == 1 and tm.training
         jgrads = jax.device_get(jgrads)
-        got = _to_tree({names[id(p)]: p.grad for p in tm.parameters()})["params"]
+        got = to_tree({names[id(p)]: p.grad for p in tm.parameters()})["params"]
         _assert_trees_close(got, jgrads, rel_of_max=1e-3, what="grad")
         want_norm = np.sqrt(sum(float((g ** 2).sum()) for _, g in _flat(jgrads)))
         np.testing.assert_allclose(float(m["grad_norm"]), want_norm, rtol=1e-4)
@@ -379,7 +381,7 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
         # the JAX package's; below that the epsilon makes the update follow
         # g's absolute value at the 1e-8 level, beyond what the gradients
         # agree to, and the entry is held to 2 * lr (either sign)
-        after = _to_tree(tm.state_dict())
+        after = to_tree(tm.state_dict())
         zero = 1e-5 * max(np.abs(g).max() for _, g in _flat(jgrads))
         noise = {path for path, g in _flat(jgrads) if np.abs(g).max() < zero}
         before, jafter = dict(_flat(variables["params"])), dict(_flat(jax.device_get(jstate.params)))
@@ -396,8 +398,9 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
                                            err_msg="/".join(path))
                 assert np.abs(v - jafter[path]).max() <= 2 * lr * 1.001, "/".join(path)
         # the running statistics are O(1) float32 sums over up to 16k rows
-        _assert_trees_close(after["batch_stats"], jax.device_get(jstate.batch_stats), atol=1e-5,
-                            what="buffer after step")
+        if "batch_stats" in variables:
+            _assert_trees_close(after["batch_stats"], jax.device_get(jstate.batch_stats),
+                                atol=1e-5, what="buffer after step")
     assert state.step == 3 == int(jstate.step)
 
 
