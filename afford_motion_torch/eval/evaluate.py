@@ -13,12 +13,14 @@ on-disk outputs as the JAX package:
   (``non_collision``, ``contact``, ``dist``) through a batched SMPL-X fit
   and LBS on the evaluator's device, and saves per-sequence results
   (``joints/{i:05d}.pkl``). The SMPL-X projection needs the fitting
-  weights and the body model on disk; joints are saved either way.
+  weights and the body model on disk; joints are saved either way. With
+  ``Rprecison`` or ``fid`` in ``eval_metrics`` it also computes the
+  in-process HumanML3D metrics (``H3D+{metric}_{model}``) through the 'ours'
+  T2M evaluator (``eval/eval_humanml.py``), skipped with a warning when its
+  checkpoint or eval meta is not on disk.
 
 A handoff file holds distances, ``(1, N, C)`` for a sample and ``(k, N, C)``
-for k samples, which the stage-2 datasets read. The in-process HumanML3D
-metric stack (``Rprecison``, ``fid``) is refused by name until its slice is
-ported.
+for k samples, which the stage-2 datasets read.
 """
 from __future__ import annotations
 
@@ -216,9 +218,6 @@ class Text2MotionInSceneEvaluator(Eval):
 
     def __init__(self, cfg: Any, *args, **kwargs):
         super().__init__(cfg, *args, **kwargs)
-        if "Rprecison" in self.eval_metrics or "fid" in self.eval_metrics:
-            raise NotImplementedError(
-                "the in-process HumanML3D metrics (Rprecison, fid) are not ported yet")
         self.njoints = int(cfg.evaluator.get("njoints", 22))
         self.opt_rate = float(cfg.evaluator.get("opt_rate", 0.02))
         self.opt_steps = int(cfg.evaluator.get("opt_steps", 200))
@@ -267,6 +266,9 @@ class Text2MotionInSceneEvaluator(Eval):
 
         if "apd" in self.eval_metrics and len(k_samples_list) > 0:
             self._timed("apd_s", self.eval_apd, k_samples_list, dataloader)
+
+        if "Rprecison" in self.eval_metrics or "fid" in self.eval_metrics:
+            self._timed("humanml_s", self.eval_humanml, sample_list, k_samples_list, dataloader)
 
         if self.save_results:
             out = os.path.join(save_dir, "joints")
@@ -328,6 +330,35 @@ class Text2MotionInSceneEvaluator(Eval):
                 self.metrics["contact"].append(float(cts.cpu().numpy()[valid].mean()))
             if d is not None:
                 self.metrics["dist"].append(float(d))
+
+    def eval_humanml(self, sample_list, k_samples_list, dataloader):
+        """The in-process HumanML3D metrics (reference: evaluate.py:388-407),
+        paths from ``cfg.evaluator.{eval_meta_dir, t2m_ckpt_path}``, pools of
+        ``eval_batch_size``; Diversity and MultiModality draw from
+        ``np.random.RandomState(0)``. A missing asset skips them with a
+        warning."""
+        from .eval_humanml import eval_humanml
+
+        kwargs = {"device": self.device}
+        if "eval_meta_dir" in self.cfg:
+            kwargs["eval_meta_dir"] = str(self.cfg.eval_meta_dir)
+        if "t2m_ckpt_path" in self.cfg:
+            kwargs["ckpt_path"] = str(self.cfg.t2m_ckpt_path)
+        if "eval_batch_size" in self.cfg:
+            kwargs["batch_size"] = int(self.cfg.eval_batch_size)
+        try:
+            all_metrics = eval_humanml(sample_list, k_samples_list, dataloader, **kwargs)
+        except FileNotFoundError as e:
+            logger.warning(f"HumanML metrics skipped (missing asset: {e})")
+            return
+        for metric_name, metric_dict in all_metrics.items():
+            for model_name, values in metric_dict.items():
+                mean = np.mean(values, axis=0)
+                if isinstance(mean, np.ndarray):
+                    mean = mean.tolist()
+                elif isinstance(mean, (np.floating, np.integer)):
+                    mean = float(mean)
+                self.metrics["H3D+" + metric_name + "_" + model_name] = mean
 
     def eval_apd(self, k_samples_list, dataloader):
         for ks in k_samples_list:

@@ -1,7 +1,8 @@
 """Weights between the JAX package and the port: the flax variable tree of a
 ``trans_enc`` CMDM, of a CDM (Perceiver or MLP, no scene model), or of the
 joints-to-SMPL-X regressor, <-> the port's state_dict (the reference torch
-layout); and the SMPL-X body model's arrays.
+layout); the T2M evaluator's numpy parameter dicts <-> its three state
+dicts; and the SMPL-X body model's arrays.
 
 One table of (state_dict key, flax path, kind) entries drives both
 directions, so they are inverses by construction. Kinds: ``w`` a Dense
@@ -251,3 +252,68 @@ def smplx_model_from_arrays(arrays: Dict):
     from ..eval.smplx_lbs import SMPLXModel
 
     return SMPLXModel.from_numpy(**{name: np.asarray(arrays[name]) for name in SMPLX_FIELDS})
+
+
+def _t2m_names(net: str) -> Tuple[str, ...]:
+    """The parameter names of one T2M evaluator net (``finest.tar``)."""
+    if net == "movement_encoder":
+        return tuple(f"{k}.{p}" for k in ("main.0", "main.3", "out_net")
+                     for p in ("weight", "bias"))
+    gru = tuple(f"gru.{p}_l0{d}" for d in ("", "_reverse")
+                for p in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+    emb = ("pos_emb", "input_emb") if net == "text_encoder" else ("input_emb",)
+    return (tuple(f"{k}.{p}" for k in emb for p in ("weight", "bias")) + gru + ("hidden",)
+            + tuple(f"output_net.{i}.{p}" for i in (0, 1, 3) for p in ("weight", "bias")))
+
+
+def _t2m_rank(name: str) -> int:
+    """The rank of a T2M parameter: conv kernels and the initial hidden
+    state 3, biases and the LayerNorm's scale 1, the rest 2."""
+    if name == "hidden" or (name.startswith("main.") and name.endswith(".weight")):
+        return 3
+    if name.rsplit(".", 1)[-1].startswith("bias") or name == "output_net.1.weight":
+        return 1
+    return 2
+
+
+def t2m_state_dicts_from_jax(params: Dict[str, Dict]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's T2M parameter dicts (``{movement_encoder,
+    text_encoder, motion_encoder}`` of numpy arrays under the checkpoint's
+    names) -> the three state dicts of ``eval/t2m_models.py``. The names are
+    the same on both sides; this checks them, and that every leaf is a
+    finite float array of the rank its name gives, and makes f32 tensors.
+    ``build_t2m_modules`` checks the sizes when it loads them."""
+    from ..eval.t2m_models import NETS
+
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for net in NETS:
+        names = _t2m_names(net)
+        if set(params[net]) != set(names):
+            raise KeyError(f"{net}: names {sorted(set(params[net]) ^ set(names))} "
+                           "are on one side only")
+        sd = {}
+        for name in names:
+            v = np.asarray(params[net][name])
+            rank = _t2m_rank(name)
+            if v.dtype.kind != "f" or v.ndim != rank or not np.isfinite(v).all():
+                raise ValueError(f"{net}.{name}: {v.dtype} {v.shape}, expected finite floats "
+                                 f"of rank {rank}")
+            sd[name] = torch.tensor(np.ascontiguousarray(v, dtype=np.float32))
+        out[net] = sd
+    return out
+
+
+def t2m_jax_params_from_state_dicts(state_dicts: Dict[str, Dict[str, torch.Tensor]]
+                                    ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse: the three state dicts (or the modules' ``state_dict()``)
+    -> f32 numpy parameter dicts under the same names."""
+    from ..eval.t2m_models import NETS
+
+    out = {}
+    for net in NETS:
+        names = _t2m_names(net)
+        if set(state_dicts[net]) != set(names):
+            raise KeyError(f"{net}: names {sorted(set(state_dicts[net]) ^ set(names))} "
+                           "are on one side only")
+        out[net] = {k: state_dicts[net][k].detach().cpu().float().numpy() for k in names}
+    return out

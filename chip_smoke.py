@@ -169,7 +169,30 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    second evaluator over the same samples must write a byte-identical
    ``metrics.json``. Three
    alternating pairs of DDIM-50 chains with and without ``AM_FLASH_ATTN``
-   give the denoiser step's time each way.
+   give the denoiser step's time each way. Then the scene slice's evaluator
+   once more over the same samples with ``Rprecison`` and ``fid`` added: the
+   in-process HumanML3D metrics through a seeded full-width "ours" T2M
+   evaluator (66-d) against a synthetic ``HumanML3D/contact_motion`` set of
+   64 items beside the scene tree, pools of 32; the ``H3D+`` metrics finite,
+   ``humanml_s`` logged, no port kernel launched in them;
+12. the HumanML3D metric stack (``eval/t2m_models.py``,
+   ``evaluator_wrapper.py``, ``eval_humanml.py``, ``h3d_eval/``), none of
+   whose work is a port kernel (every count 0 in each of these phases):
+   the full-width "mdm" (263-d, the last 4 channels stripped) and "ours"
+   evaluators from seeded checkpoints (``make_synthetic_t2m_ckpt``) on 256
+   seeded rows (motions of 40..196 frames and four
+   under 4, captions of 5..22 tokens) on the card against the CPU, f32:
+   the co-embeddings within T2M_LIMIT of the largest entry, and a run with
+   TF32 on for cuBLAS and cuDNN outside it; the t2m chain's 32 stage-2
+   ``humanml/*.pkl`` scored by the offline entry
+   (``afford_motion_torch.h3d_eval.eval_h3d_offline``, ``wo_mm``) against
+   the tree's test split, the metrics finite and R-precision in [0, 1]; the
+   protocol at HumanML3D's scale: 4,384 test motions of 40..196 frames, a
+   GloVe triple and the eval meta, 1,000 generated motions and 100 k-sample
+   files of (30, 196, 263) written by
+   ``Text2MotionInSceneHumanML3DEvaluator.evaluate``; ``wo_mm`` twice (the
+   metrics files byte-identical) and ``mm_short`` once, each stage's
+   seconds, the pools' bytes on the card and the peak memory logged.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -1923,7 +1946,9 @@ def phase_t2m_chain(tree: dict, counters: dict, s1_exp: Path) -> dict:
     a DDIM-50 chain of the CMDM from the plain train phase's checkpoint, with
     ``task.test.contact_folder`` at stage 1's directory, reads them: its
     dataset's ``c_pc_contact`` for every item the chain reads is the sigma
-    kernel of stage 1's file. Returns the launches of both tests."""
+    kernel of stage 1's file. Returns the launches of both tests and stage
+    2's test directory, whose ``humanml/*.pkl`` the HumanML3D protocol
+    scores."""
     from afford_motion_torch import test as entry
     from afford_motion_torch.data import create_dataset, gaussian_contact
     from afford_motion_torch.utils.config import load_config
@@ -1981,7 +2006,7 @@ def phase_t2m_chain(tree: dict, counters: dict, s1_exp: Path) -> dict:
         f"{z['sample'].shape} finite, launches {counts2}")
     for k in launches:
         launches[k] += counts[k] + counts2[k]
-    return launches
+    return launches, out2
 
 
 def make_scene_tree(dev: torch.device) -> dict:
@@ -2131,10 +2156,13 @@ def capture_evaluator(create, seen: dict):
     return creating
 
 
-def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
+def phase_scene_slice(dev: torch.device, counters: dict, assets: dict | None = None) -> dict:
     """The scene-protocol test path through the test entry, with the fused
     attention on; then one DDIM-50 chain each way for the denoiser step's
-    time with and without it. Returns the launches of the protocol run."""
+    time with and without it. With ``assets`` (:func:`make_eval_assets`),
+    also the in-process HumanML3D metrics over the same samples
+    (:func:`phase_scene_humanml`). Returns the launches of the protocol
+    run."""
     from afford_motion_torch import test as entry
     from afford_motion_torch.eval import create_evaluator
 
@@ -2145,6 +2173,10 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
     try:
         t0 = time.monotonic()
         tree = make_scene_tree(dev)
+        if assets is not None:
+            from afford_motion_torch.data.synthetic import make_synthetic_h3d_contact_motion
+
+            make_synthetic_h3d_contact_motion(str(tree["data"]), n_items=T2M_GT, seed=SEED)
         log(f"scene slice: tree, checkpoints and regressor in {time.monotonic() - t0:.1f} s")
         # the ts2m chain: stage 2 reads the contact maps stage 1 writes
         tree["contacts"] = phase_ts2m_contact(tree, counters)
@@ -2187,6 +2219,8 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
         if not same:
             raise AssertionError("scene slice: two evaluator runs over the same samples wrote "
                                  "different metrics.json")
+        if assets is not None:
+            phase_scene_humanml(seen, out, counters, assets)
         ev = timing["evaluator"]
         for c in chains:
             log(f"scene slice: DDPM-500 chain {c['chain_s']:.3f} s (hierarchy + contact encoding "
@@ -2229,6 +2263,238 @@ def phase_scene_slice(dev: torch.device, counters: dict) -> dict:
             else:
                 os.environ[k] = v
     return launches
+
+
+# the HumanML3D metric stack (eval/t2m_models.py, evaluator_wrapper.py,
+# eval_humanml.py, h3d_eval/): HumanML3D's test split (bench.py
+# BENCH_EVAL_GT_POOL), the MDM protocol's 1,000 generated samples and 100
+# prompts of 30 draws (MDM's repeats a prompt) for MultiModality; the rows of
+# the evaluator's card-vs-CPU check; the in-process ground truth's items
+H3D_TEST, H3D_GEN, MM_PROMPTS, MM_K = 4384, 1000, 100, 30
+T2M_ROWS, T2M_GT = 256, 64
+# the card's co-embeddings against the CPU's, both f32, the largest
+# difference as a share of the largest |entry|: set between the card's
+# reading (1.2e-6 "ours", 1.3e-6 "mdm") and that of a run with TF32 on for
+# cuBLAS and cuDNN (6.5e-4, 6.0e-4), which must break it (an H100 at 700 W)
+T2M_LIMIT = 1e-4
+
+
+def make_eval_assets() -> dict:
+    """What the HumanML3D metrics read, from the seed, in the real formats:
+    the eval meta (``meta/{mean_std,t2m_mean_std}.npz``, ``meta/test.txt``
+    of the in-process ground truth's ids) with a GloVe triple, and seeded
+    full-width T2M evaluator checkpoints, "mdm" (263-d, the last 4 channels
+    stripped) and "ours" (66-d)."""
+    from afford_motion_torch.data.synthetic import make_synthetic_eval_meta, \
+        make_synthetic_t2m_ckpt
+
+    root = WORK / "eval"
+    make_synthetic_eval_meta(str(root), test_ids=range(T2M_GT), seed=SEED)
+    assets = {"meta": root, "mdm": root / "mdm_finest.tar", "ours": root / "ours_finest.tar"}
+    make_synthetic_t2m_ckpt(str(assets["mdm"]), seed=SEED)
+    make_synthetic_t2m_ckpt(str(assets["ours"]), dim_pose=D_POS, strip=False, seed=SEED + 1)
+    return assets
+
+
+def check_no_launches(name: str, counters: dict) -> None:
+    """The HumanML3D phases run no port kernel: the evaluator is XLA's work
+    in the JAX package, cuDNN's and cuBLAS's here."""
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log(f"{name}: launches {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{name}: port kernels launched: {counts}")
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """TF32 for cuBLAS and cuDNN set to ``on`` inside the block."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_t2m_evaluator(dev: torch.device, counters: dict, assets: dict) -> None:
+    """Both full-width evaluators on T2M_ROWS seeded rows (motions of 40..196
+    frames and a few under 4, captions of 5..22 tokens) on the card against
+    the same modules on the CPU, f32: the largest difference of the
+    co-embeddings within T2M_LIMIT of the largest entry; then again with
+    TF32 planted, which must break it. No port kernel is launched."""
+    from afford_motion_torch.eval.evaluator_wrapper import EvaluatorWrapper
+
+    rng = np.random.default_rng(SEED)
+    m_lens = rng.integers(40, L + 1, size=T2M_ROWS)
+    m_lens[:4] = (3, 1, 2, 3)
+    cap = rng.integers(5, 23, size=T2M_ROWS)
+    words = rng.standard_normal((T2M_ROWS, 22, 300), dtype=np.float32)
+    pos = np.eye(15, dtype=np.float32)[rng.integers(0, 15, size=(T2M_ROWS, 22))]
+    reset(counters)
+    for variant, dim in (("mdm", D), ("ours", D_POS)):
+        motions = rng.standard_normal((T2M_ROWS, L, dim), dtype=np.float32)
+        args = (words, pos, cap, motions, m_lens)
+        t0 = time.monotonic()
+        card = EvaluatorWrapper(str(assets[variant]), variant, device=dev)
+        load_s = time.monotonic() - t0
+        cpu = EvaluatorWrapper(str(assets[variant]), variant, device="cpu")
+        want = np.concatenate(cpu.get_co_embeddings(*args), axis=1)
+        scale = float(np.abs(want).max())
+        got = np.concatenate(card.get_co_embeddings(*args), axis=1)
+        err = float(np.abs(got - want).max()) / scale
+        with tf32(True):
+            planted = float(np.abs(np.concatenate(card.get_co_embeddings(*args), axis=1)
+                                   - want).max()) / scale
+        on_card = [torch.as_tensor(a, device=dev) for a in (words, pos, motions)]
+        ms = time_ms(lambda: card.get_co_embeddings(on_card[0], on_card[1], cap, on_card[2],
+                                                    m_lens, device_out=True), reps=3)
+        log(f"t2m evaluator {variant}: {T2M_ROWS} rows of ({L}, {dim}), co-embeddings "
+            f"{want.shape}, card vs CPU {err:.3e} of the largest |entry| {scale:.4f} (limit "
+            f"{T2M_LIMIT:.0e}); TF32 planted {planted:.3e}; finite={bool(np.isfinite(got).all())}"
+            f"; one call of {T2M_ROWS} rows {ms[0]:.3f} ms ({ms[1]:.3f}-{ms[2]:.3f}) by CUDA "
+            f"events, checkpoint load and upload {load_s:.2f} s")
+        if not (np.isfinite(got).all() and err <= T2M_LIMIT < planted):
+            raise AssertionError(f"t2m evaluator {variant}: card vs CPU {err:.3e}, TF32 planted "
+                                 f"{planted:.3e}, limit {T2M_LIMIT:.0e}")
+    check_no_launches("t2m evaluator", counters)
+
+
+def run_offline(results: Path, data: Path, assets: dict, mode: str, tag: str,
+                extra: tuple = ()) -> tuple:
+    """``afford_motion_torch.h3d_eval.eval_h3d_offline`` on the card, as a
+    user calls it; returns (metrics file, its bytes, the stage seconds)."""
+    from afford_motion_torch.h3d_eval import eval_h3d_offline
+
+    t0 = time.monotonic()
+    out = Path(eval_h3d_offline.main([
+        "--results_dir", str(results), "--data_dir", str(data),
+        "--eval_meta_dir", str(assets["meta"]), "--ckpt", str(assets["mdm"]),
+        "--eval_mode", mode, *extra]))
+    wall = time.monotonic() - t0
+    raw = out.read_bytes()
+    metrics = json.loads(raw)
+    timing = json.loads(out.with_name(out.stem + "_timing.json").read_text())
+    values = [np.asarray(v, dtype=np.float64) for d in metrics.values() for v in d.values()]
+    rp = np.asarray(metrics["R_precision"]["vald"][0])
+    stages = " ".join(f"{k} {v:.3f}" for k, v in timing.items() if k.endswith("_s"))
+    log(f"{tag}: {mode} in {wall:.2f} s ({stages}); pools on the card "
+        f"{timing['pool_bytes'] / 1e6:.1f} MB, peak memory "
+        f"{timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB; "
+        + "; ".join(f"{m} {metrics[m]}" for m in metrics))
+    if list(metrics) != ["Matching Score", "R_precision", "FID", "Diversity", "MultiModality"] \
+            or not all(np.isfinite(v).all() for v in values) \
+            or not (rp.shape == (3,) and (rp >= 0).all() and (rp <= 1).all()):
+        raise AssertionError(f"{tag}: {mode} metrics {metrics}")
+    return out, raw, timing
+
+
+def phase_t2m_scored(tree: dict, t2m_out: Path, counters: dict, assets: dict) -> None:
+    """The t2m chain's stage-2 files scored by the offline protocol
+    (``wo_mm``) against ``make_tree()``'s test split."""
+    files = sorted((t2m_out / "humanml").glob("*.pkl"))
+    if len(files) != B:
+        raise AssertionError(f"t2m scored: {len(files)} humanml files, expected {B}")
+    reset(counters)
+    run_offline(t2m_out / "humanml", tree["data"], assets, "wo_mm", f"t2m scored ({B} files)")
+    check_no_launches("t2m scored", counters)
+
+
+def write_protocol_samples(out: Path, rng) -> None:
+    """H3D_GEN generated motions and MM_PROMPTS groups of MM_K draws, written
+    by ``Text2MotionInSceneHumanML3DEvaluator.evaluate`` into
+    ``out/{gen,mm}/humanml``: seeded (196, 263) motions of 40..196 frames,
+    captions of 5..22 tokens."""
+    from afford_motion_torch.data.synthetic import synthetic_caption
+    from afford_motion_torch.eval import create_evaluator
+    from afford_motion_torch.utils.config import DictConfig
+
+    class Dataset:
+        def denormalize(self, x):
+            return x
+
+    class Loader:
+        dataset = Dataset()
+
+    def case(i: int) -> dict:
+        text, tokens = synthetic_caption(rng, int(rng.integers(5, 23)))
+        return {"x_mask": np.arange(L) >= int(rng.integers(40, L + 1)), "c_text": text,
+                "info_tokens": tokens, "info_index": f"{i:06d}", "info_caption_index": 0}
+
+    ev = create_evaluator(DictConfig({"evaluator": {
+        "name": "Text2MotionInSceneHumanML3DEvaluator", "save_results": True}}), device="cpu")
+    ev.evaluate([{"sample": rng.standard_normal((L, D), dtype=np.float32), **case(i)}
+                 for i in range(H3D_GEN)], [], str(out / "gen"), Loader())
+    ev.evaluate([], [{"k_samples": rng.standard_normal((MM_K, L, D), dtype=np.float32),
+                      **case(H3D_GEN + i)} for i in range(MM_PROMPTS)], str(out / "mm"), Loader())
+
+
+def phase_protocol(counters: dict, assets: dict) -> None:
+    """The offline protocol at HumanML3D's scale: H3D_TEST test motions of
+    40..196 frames (texts and split, no contact files), H3D_GEN generated
+    samples, MM_PROMPTS k-sample files of (MM_K, 196, 263); ``wo_mm`` twice
+    (the metrics file byte-identical) and ``mm_short`` once through the
+    entry on the card. No port kernel is launched."""
+    from afford_motion_torch.data.synthetic import make_synthetic_h3d_protocol
+
+    t0 = time.monotonic()
+    root = WORK / "protocol"
+    make_synthetic_h3d_protocol(str(root / "data"), n_train=0, n_test=H3D_TEST,
+                                horizon_range=(40, L + 1), seed=SEED, contacts=False)
+    tree_s = time.monotonic() - t0
+    write_protocol_samples(root, np.random.default_rng(SEED))
+    log(f"protocol: {H3D_TEST} test motions written in {tree_s:.1f} s, {H3D_GEN} generated and "
+        f"{MM_PROMPTS} k-sample files of ({MM_K}, {L}, {D}) by the evaluator in "
+        f"{time.monotonic() - t0 - tree_s:.1f} s")
+    gen = root / "gen" / "humanml"
+    reset(counters)
+    _, first, _ = run_offline(gen, root / "data", assets, "wo_mm", "protocol run 1")
+    _, second, _ = run_offline(gen, root / "data", assets, "wo_mm", "protocol run 2")
+    log(f"protocol: the two wo_mm metrics files byte-identical={first == second}")
+    if first != second:
+        raise AssertionError("protocol: two wo_mm runs wrote different metrics")
+    _, raw, _ = run_offline(gen, root / "data", assets, "mm_short", "protocol",
+                            ("--mm_results_dir", str(root / "mm" / "humanml")))
+    if not json.loads(raw)["MultiModality"]["vald"][0] > 0:
+        raise AssertionError("protocol: mm_short gave no MultiModality")
+    check_no_launches("protocol", counters)
+
+
+def phase_scene_humanml(seen: dict, out: Path, counters: dict, assets: dict) -> None:
+    """The scene slice's evaluator once more over the same samples, with
+    ``Rprecison`` and ``fid`` added to its metrics: the "ours" evaluator
+    against the synthetic ``HumanML3D/contact_motion`` set beside the scene
+    tree, pools of 32. The H3D+ metrics must be finite; their part of the
+    run launches no port kernel."""
+    from afford_motion_torch.eval import create_evaluator
+    from afford_motion_torch.utils.config import DictConfig
+
+    cfg = seen["args"][0].to_dict()
+    cfg["evaluator"].update(
+        eval_metrics=list(cfg["evaluator"]["eval_metrics"]) + ["Rprecison", "fid"],
+        eval_meta_dir=str(assets["meta"]), t2m_ckpt_path=str(assets["ours"]), eval_batch_size=B)
+    ev = create_evaluator(DictConfig(cfg), *seen["args"][1:], **seen["kwargs"])
+    inner, h3d = ev.eval_humanml, {}
+
+    def counted(*args, **kwargs):
+        reset(counters)
+        inner(*args, **kwargs)
+        h3d.update({k: fn.launches for k, fn in counters.items()})
+
+    ev.eval_humanml = counted
+    again = out / "evaluated_h3d"
+    again.mkdir()
+    t0 = time.monotonic()
+    ev.evaluate(*seen["samples"], str(again), seen["dataloader"])
+    ev.report(str(again))
+    metrics = json.loads((again / "metrics.json").read_text())
+    keys = ("H3D+Matching Score_vald", "H3D+R_precision_vald", "H3D+FID_vald")
+    log(f"scene humanml: evaluator with Rprecison and fid in {time.monotonic() - t0:.1f} s, "
+        f"humanml_s {ev.timing['humanml_s']:.3f}; "
+        + "; ".join(f"{k} {metrics.get(k)}" for k in sorted(metrics) if k.startswith("H3D+"))
+        + f"; launches in eval_humanml {h3d}")
+    if not all(k in metrics and np.isfinite(np.asarray(metrics[k], dtype=np.float64)).all()
+               for k in keys) or any(h3d.values()):
+        raise AssertionError(f"scene humanml: metrics {metrics}, launches {h3d}")
 
 
 def main() -> int:
@@ -2277,6 +2543,8 @@ def main() -> int:
                 "attention_bwd_f32": backward_f32}
     phase_flash_grads(dev, counters)
     tree = make_tree()
+    assets = make_eval_assets()
+    phase_t2m_evaluator(dev, counters, assets)
     ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
     phases = [
         phase_train(tree, counters, PLAIN_STEP),
@@ -2312,8 +2580,10 @@ def main() -> int:
                     args=stage1_args(s1_tree, s1_tree["exp"]), store=False),
         phase_train(s1_banded, counters, STAGE1_STEP, tag="stage-1 store ",
                     args=stage1_args(s1_banded, s1_banded["exp"]), store=True),
-        phase_t2m_chain(tree, counters, s1_tree["exp"]),
     ]
+    t2m_launches, t2m_out = phase_t2m_chain(tree, counters, s1_tree["exp"])
+    phases.append(t2m_launches)
+    phase_t2m_scored(tree, t2m_out, counters, assets)
     phases += [
         # the cached FPS indices serve the chain; with the cache off the chain
         # runs FPS and the sort itself
@@ -2322,8 +2592,9 @@ def main() -> int:
             "banded ddim50, no geometry cache": (
                 ddim + ["model.use_banded=true", "task.dataset.use_geometry_cache=false"],
                 dict(BANDED_STEP, fps=3))}),
-        phase_scene_slice(dev, counters),
+        phase_scene_slice(dev, counters, assets),
     ]
+    phase_protocol(counters, assets)
     launches = {k: sum(phase[k] for phase in phases) for k in counters}
 
     kernels = []

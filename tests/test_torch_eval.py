@@ -171,16 +171,17 @@ def test_scene_evaluator_without_the_fitter(tmp_path, synthetic_body, monkeypatc
 
 
 def test_evaluator_refusals(regressor_npz, synthetic_body):
-    """The in-process HumanML3D metrics are refused by name; the stage-1
-    evaluators are ported (``tests/test_torch_stage1.py``)."""
+    """The in-process HumanML3D metrics build (their values:
+    ``tests/test_torch_eval_humanml.py``); the stage-1 evaluators are ported
+    (``tests/test_torch_stage1.py``); an unknown name is refused."""
     for name in ("ContactEvaluator", "ContactHumanML3DEvaluator"):
         ev = teval.create_evaluator(DictConfig({"evaluator": {"name": name}}), device="cpu")
         assert type(ev).__name__ == name
     for metric in ("Rprecison", "fid"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            teval.create_evaluator(DictConfig(_evaluator_cfg(regressor_npz,
-                                                             eval_metrics=["apd", metric])),
-                                   device="cpu")
+        ev = teval.create_evaluator(DictConfig(_evaluator_cfg(regressor_npz,
+                                                              eval_metrics=["apd", metric])),
+                                    device="cpu")
+        assert isinstance(ev, teval.Text2MotionInSceneEvaluator) and metric in ev.eval_metrics
     with pytest.raises(KeyError):
         teval.create_evaluator(DictConfig({"evaluator": {"name": "NoSuchEvaluator"}}))
 

@@ -308,7 +308,8 @@ def test_port_imports_without_jax():
         "for name in ('ops.cuda.banded', 'ops.curves', 'ops.morton', 'data.packed', 'prepare',\n"
         "             'ops.cuda.sdf', 'ops.cuda.attention', 'data.motionx', 'eval.smplx_lbs',\n"
         "             'eval.joints_to_smplx', 'eval.physics', 'eval.evaluate', 'native',\n"
-        "             'train.device_store', 'parallel.mesh'):\n"
+        "             'train.device_store', 'parallel.mesh', 'eval.eval_humanml',\n"
+        "             'eval.t2m_models', 'h3d_eval.eval_h3d_offline'):\n"
         "    assert 'afford_motion_torch.' + name in sys.modules, name\n"
         "from afford_motion_torch.models.cmdm import CMDM\n"
         "from afford_motion_torch.diffusion import create_gaussian_diffusion\n"
@@ -330,7 +331,8 @@ def test_port_imports_without_jax():
         "nc, ct = physics_over_sequence(torch.randn(128, 3), verts, body.faces_arr)\n"
         "assert nc.shape == (3,) and bool(torch.isfinite(nc).all())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('afford_motion_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
+        "             ('afford_motion_tpu', 'h3d_eval', 'jax', 'jaxlib', 'flax', 'optax',\n"
+        "              'orbax'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -227,11 +227,11 @@ def test_entry_runs_without_jax(tmp_path):
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
     not run some other way: ``fused_qkv``, ``trans_dec``, the CDM's scene
-    model and point-transformer backbones, the in-process HumanML3D metrics
-    and the other datasets of the MotionX family. ``use_banded``, a packed
-    dataset tree under the training wire format, ``data_repr: pos`` with
-    ``ContactMotionDataset``, the two stage-2 evaluators and the two stage-1
-    ones are ported."""
+    model and point-transformer backbones and the other datasets of the
+    MotionX family. ``use_banded``, a packed dataset tree under the training
+    wire format, ``data_repr: pos`` with ``ContactMotionDataset``, the two
+    stage-2 evaluators with the in-process HumanML3D metrics and the two
+    stage-1 ones are ported."""
     from afford_motion_torch.data import create_dataset
     from afford_motion_torch.eval import (
         Text2MotionInSceneEvaluator,
@@ -283,13 +283,14 @@ def test_port_refuses_what_is_not_ported(tmp_path):
     assert build_cmdm(scene.model).motion_adapter.in_features == 66
     assert isinstance(create_evaluator(scene.task, device="cpu"), Text2MotionInSceneEvaluator)
     for override in ("task.evaluator.eval_metrics=['apd','Rprecison']",
-                     "task.evaluator.eval_metrics=['apd','fid']",
-                     "task.dataset.name=MotionXDataset"):
+                     "task.evaluator.eval_metrics=['apd','fid']"):
         cfg = load_config(str(REPO / "configs"),
                           ["task=contact_motion_gen", "model=cmdm", override])
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            create_evaluator(cfg.task, device="cpu")
-            create_dataset(cfg.task.dataset, "test", contact_folder=str(tmp_path))
+        assert isinstance(create_evaluator(cfg.task, device="cpu"), Text2MotionInSceneEvaluator)
+    cfg = load_config(str(REPO / "configs"),
+                      ["task=contact_motion_gen", "model=cmdm", "task.dataset.name=MotionXDataset"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        create_dataset(cfg.task.dataset, "test", contact_folder=str(tmp_path))
 
     make_synthetic_h3d(str(tmp_path), n_items=8, num_points=64, horizon_range=(40, 60))
     cfg = load_config(str(REPO / "configs"), base)
