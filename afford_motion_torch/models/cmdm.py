@@ -1,25 +1,41 @@
-"""CMDM, the stage-2 contact-to-motion diffusion denoiser, arch ``trans_enc``
-(counterpart of ``afford_motion_tpu/models/cmdm.py``).
+"""CMDM, the stage-2 contact-to-motion diffusion denoiser, archs
+``trans_enc`` and ``trans_dec`` (counterpart of
+``afford_motion_tpu/models/cmdm.py``).
 
-``encode_contact`` (the 8192-point SceneMap encoder) is split from
-``denoise`` so a sampling chain encodes its constant condition once. The
-classifier-free-guidance flags ``c_text_mask``, ``c_text_erase``,
-``c_pc_mask`` and ``c_pc_erase`` act as in the JAX package. Parameter names
-are the reference state_dict's, so a converted checkpoint loads with
-``strict=True``. Train or eval is the module's mode: ``.train()`` turns on
-the batch statistics of the contact encoder's BatchNorms and the dropout of
-the transformer (see ``layers.set_dropout_generator``).
+``trans_enc`` joins the SceneMap encoder's 128 group tokens to the time,
+text and motion tokens and runs one encoder stack. ``trans_dec`` encodes the
+contact cloud with the SceneMap U-Net into four scales, coarsest first, and
+runs ``len(num_layers)`` self-attention stages with a decoder layer between
+each two, whose cross-attention reads one scale through its kv mapping
+(Linear + float32 LayerNorm). ``encode_contact`` (the 8192-point encoder, for
+``trans_dec`` also its decoder) is split from ``denoise`` so a sampling chain
+encodes its constant condition once; the kv mappings run inside ``denoise``
+at every step, as in the JAX package. The classifier-free-guidance flags
+``c_text_mask``, ``c_text_erase``, ``c_pc_mask`` and ``c_pc_erase`` act as in
+the JAX package, on every memory of ``trans_dec``. Parameter names are the
+reference state_dict's (including its ``kv_mappling_layers``), so a
+converted checkpoint loads with ``strict=True``. Train or eval is the
+module's mode: ``.train()`` turns on the batch statistics of the contact
+encoder's BatchNorms and the dropout of the transformer (see
+``layers.set_dropout_generator``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from ..utils.misc import compute_repr_dimension
-from .layers import Linear, PositionalEncoding, TimestepEmbedder, TransformerEncoder
-from .scene_map import SceneMapEncoder
+from .layers import (
+    LayerNorm,
+    Linear,
+    PositionalEncoding,
+    TimestepEmbedder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
+)
+from .scene_map import SceneMapEncoder, SceneMapEncoderDecoder
 from .text import get_lang_feat_dim_type
 
 
@@ -46,8 +62,9 @@ class CMDM(nn.Module):
         banded_adaptive: Optional[bool] = None,
     ):
         super().__init__()
-        if arch != "trans_enc":
-            raise NotImplementedError(f"CMDM arch {arch!r} is not ported yet")
+        if arch not in ("trans_enc", "trans_dec"):
+            raise NotImplementedError(f"CMDM arch {arch!r}")
+        self.arch = arch
         self.mask_motion = mask_motion
         self.dtype = dtype
         # bit-exact kNN for the hierarchy instead of the packed-key kernel
@@ -60,26 +77,56 @@ class CMDM(nn.Module):
         self.banded_window = banded_window
         self.banded_adaptive = banded_adaptive
         self.timestep_embedder = TimestepEmbedder(latent_dim, time_emb_dim, 1000, dtype)
-        self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype)
-        self.contact_adapter = Linear(planes[-1], latent_dim, dtype=dtype)
-        self.self_attn_layer = TransformerEncoder(sum(num_layers), latent_dim, num_heads,
-                                                  dim_feedforward, dtype, dropout)
+        if arch == "trans_enc":
+            self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype)
+            self.contact_adapter = Linear(planes[-1], latent_dim, dtype=dtype)
+            self.self_attn_layer = TransformerEncoder(sum(num_layers), latent_dim, num_heads,
+                                                      dim_feedforward, dtype, dropout)
+        else:
+            self.contact_encoder = SceneMapEncoderDecoder(contact_dim, planes, blocks, dtype)
+            self.self_attn_layers = nn.ModuleList(
+                TransformerEncoder(n, latent_dim, num_heads, dim_feedforward, dtype, dropout)
+                for n in num_layers)
+            # one per scale, coarsest first: planes[-1], planes[-2], ...
+            self.kv_mappling_layers = nn.ModuleList(
+                nn.Sequential(Linear(planes[-1 - i], latent_dim, dtype=dtype),
+                              LayerNorm(latent_dim, dtype))
+                for i in range(len(num_layers) - 1))
+            self.cross_attn_layers = nn.ModuleList(
+                TransformerDecoderLayer(latent_dim, num_heads, dim_feedforward, dtype, dropout)
+                for _ in range(len(num_layers) - 1))
         self.language_adapter = Linear(text_feat_dim, latent_dim, dtype=dtype)
         self.motion_adapter = Linear(motion_dim, latent_dim, dtype=dtype)
         self.positional_encoder = PositionalEncoding(latent_dim, 5000, dtype, dropout)
         # the prediction head stays float32: the x0 math is full precision
         self.motion_layer = Linear(latent_dim, motion_dim, dtype=torch.float32)
 
-    # trans_enc pools encoder-only group tokens; the hierarchy's 3-NN
-    # up-interpolation is read only by trans_dec
-    needs_up_interpolation = False
+    @property
+    def needs_up_interpolation(self) -> bool:
+        """Only ``trans_dec``'s U-Net reads the hierarchy's 3-NN
+        up-interpolation; ``trans_enc`` pools encoder-only group tokens."""
+        return self.arch == "trans_dec"
 
-    def encode_contact(self, cond: Dict[str, Any]) -> torch.Tensor:
-        """(xyz ⊕ contact) -> (B, G, planes[-1]) group tokens."""
+    def encode_contact(self, cond: Dict[str, Any]) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """(xyz ⊕ contact) -> ``trans_enc``: (B, G, planes[-1]) group tokens;
+        ``trans_dec``: the U-Net's four scales, coarsest first."""
         return self.contact_encoder(cond["levels_sm"], cond["c_pc_contact"])
 
+    @staticmethod
+    def _memory_mask(cond: Dict[str, Any], B: int, n: int, dev) -> torch.Tensor:
+        mask = torch.zeros((B, n), dtype=torch.bool, device=dev)
+        if "c_pc_mask" in cond:
+            mask = mask | cond["c_pc_mask"].bool().expand_as(mask)
+        return mask
+
+    @staticmethod
+    def _erase(c: torch.Tensor, cond: Dict[str, Any]) -> torch.Tensor:
+        if "c_pc_erase" in cond:
+            c = c * (1.0 - cond["c_pc_erase"][..., None].to(c.dtype))
+        return c
+
     def denoise(self, x: torch.Tensor, timesteps: torch.Tensor, cond: Dict[str, Any],
-                cont_emb: torch.Tensor) -> torch.Tensor:
+                cont_emb: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
         B = x.shape[0]
         dev = x.device
         time_emb = self.timestep_embedder(timesteps)               # (B, 1, D)
@@ -97,22 +144,32 @@ class CMDM(nn.Module):
         text_emb = self.language_adapter(text_emb)
 
         h = self.motion_adapter(x)                                  # (B, L, D)
+        time_mask = torch.zeros((B, 1), dtype=torch.bool, device=dev)
 
-        c = cont_emb
-        cont_mask = torch.zeros((B, c.shape[1]), dtype=torch.bool, device=dev)
-        if "c_pc_mask" in cond:
-            cont_mask = cont_mask | cond["c_pc_mask"].bool().expand_as(cont_mask)
-        if "c_pc_erase" in cond:
-            c = c * (1.0 - cond["c_pc_erase"][..., None].to(c.dtype))
-        c = self.contact_adapter(c)                                 # (B, G, D)
+        if self.arch == "trans_enc":
+            cont_mask = self._memory_mask(cond, B, cont_emb.shape[1], dev)
+            c = self.contact_adapter(self._erase(cont_emb, cond))   # (B, G, D)
+            tokens = self.positional_encoder(torch.cat([time_emb, text_emb, c, h], dim=1))
+            pad_mask = None
+            if self.mask_motion:
+                pad_mask = torch.cat([time_mask, text_mask, cont_mask, cond["x_mask"].bool()],
+                                     dim=1)
+            tokens = self.self_attn_layer(tokens, pad_mask)
+            h = tokens[:, 1 + Lt + c.shape[1]:, :]
+            return self.motion_layer(h.float())
 
-        tokens = self.positional_encoder(torch.cat([time_emb, text_emb, c, h], dim=1))
+        tokens = self.positional_encoder(torch.cat([time_emb, text_emb, h], dim=1))
         pad_mask = None
         if self.mask_motion:
-            time_mask = torch.zeros((B, 1), dtype=torch.bool, device=dev)
-            pad_mask = torch.cat([time_mask, text_mask, cont_mask, cond["x_mask"].bool()], dim=1)
-        tokens = self.self_attn_layer(tokens, pad_mask)
-        h = tokens[:, 1 + Lt + c.shape[1]:, :]
+            pad_mask = torch.cat([time_mask, text_mask, cond["x_mask"].bool()], dim=1)
+        for i, self_attn in enumerate(self.self_attn_layers):
+            tokens = self_attn(tokens, pad_mask)
+            if i < len(self.cross_attn_layers):
+                mem = cont_emb[i]                                   # coarsest first
+                mem_mask = self._memory_mask(cond, B, mem.shape[1], dev)
+                mem = self.kv_mappling_layers[i](self._erase(mem, cond))
+                tokens = self.cross_attn_layers[i](tokens, mem, pad_mask, mem_mask)
+        h = tokens[:, 1 + Lt:, :]
         return self.motion_layer(h.float())
 
     def forward(self, x, timesteps, cond):

@@ -20,10 +20,12 @@ by :func:`set_dropout_generator`; the masks are torch's, not JAX's.
 With ``AM_FLASH_ATTN=1`` in the environment, attention on CUDA tensors goes
 through the fused kernels (``ops/cuda/attention.py``) wherever the weights'
 dropout is inactive, as the JAX package's flash path does on its device; the
-default is the float32-softmax :func:`_attention`. The fused route carries
-gradients (its backward is the library's, in kernels too), so a train step
-with ``model.dropout=0``, which reaches every Dropout here, differentiates
-through it.
+default is the float32-softmax :func:`_attention`. An item whose keys are
+all masked gets that function's uniform rows on the fused route too
+(:func:`_uniform_where_all_masked`; the kernels give it zeros). The fused
+route carries gradients (its backward is the library's, in kernels too),
+so a train step with ``model.dropout=0``, which reaches every Dropout here,
+differentiates through it. Self- and cross-attention both take it.
 """
 from __future__ import annotations
 
@@ -159,6 +161,21 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
     return o.transpose(1, 2).reshape(B, Lq, -1)
 
 
+def _uniform_where_all_masked(o: torch.Tensor, v: torch.Tensor,
+                              pad_mask: torch.Tensor) -> torch.Tensor:
+    """The rows of the items whose keys are all masked replaced by what
+    :func:`_attention` gives them: every logit ``finfo.min``, so uniform
+    weights ``1 / Lk`` (rounded to v's type) over all ``Lk`` keys, and each
+    row the mean of v. The fused kernels give such an item zero rows; a
+    cross-attention reaches the case whenever ``c_pc_mask`` drops an item's
+    whole memory. Differentiable: those items' v gets the weights' share of
+    the rows' gradient, their q and k none, as on the einsum route."""
+    Lk = v.shape[1]
+    w = float(torch.tensor(1.0 / Lk).to(v.dtype))
+    mean = (v.sum(dim=1, keepdim=True, dtype=torch.float32) * w).to(o.dtype)
+    return torch.where(pad_mask.all(dim=1)[:, None, None], mean, o)
+
+
 def _flash_enabled(t: torch.Tensor) -> bool:
     """The fused-kernel switch: ``AM_FLASH_ATTN=1`` (read at call time) and
     tensors on a CUDA device, as the JAX package's is its variable and its
@@ -196,6 +213,8 @@ class TorchMultiHeadAttention(nn.Module):
         )
         if use_flash:
             o = attention_cuda(q, k, v, self.num_heads, pad_mask)
+            if pad_mask is not None:
+                o = _uniform_where_all_masked(o, v, pad_mask)
         else:
             o = _attention(q, k, v, self.num_heads, pad_mask, self.dropout)
         return self.out_proj(o)
@@ -249,3 +268,32 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, pad_mask)
         return x
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Post-LN decoder layer with torch's parameter names: self-attn, add,
+    norm1; cross-attn (``multihead_attn``: q from the tokens, k and v from
+    the memory), add, norm2; linear1, GELU, linear2, add, norm3; dropout on
+    the three residual branches and after the activation."""
+
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        self.dtype = dtype
+        self.self_attn = TorchMultiHeadAttention(d_model, num_heads, dtype, dropout)
+        self.multihead_attn = TorchMultiHeadAttention(d_model, num_heads, dtype, dropout)
+        self.dropout = Dropout(dropout)
+        self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
+        self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
+        self.norm1 = LayerNorm(d_model, dtype)
+        self.norm2 = LayerNorm(d_model, dtype)
+        self.norm3 = LayerNorm(d_model, dtype)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, tgt_pad_mask=None,
+                mem_pad_mask=None) -> torch.Tensor:
+        x = x.to(self.dtype)
+        memory = memory.to(self.dtype)
+        x = self.norm1(x + self.dropout(self.self_attn(x, x, x, tgt_pad_mask)))
+        x = self.norm2(x + self.dropout(self.multihead_attn(x, memory, memory, mem_pad_mask)))
+        h = self.linear2(self.dropout(F.gelu(self.linear1(x), approximate="tanh")))
+        return self.norm3(x + self.dropout(h))

@@ -1,5 +1,6 @@
-"""PointTransformer encoder in dense (B, N, C) layout on a precomputed
-hierarchy (counterpart of ``afford_motion_tpu/models/pointtransformer.py``).
+"""PointTransformer encoder and U-Net decoder in dense (B, N, C) layout on a
+precomputed hierarchy (counterpart of
+``afford_motion_tpu/models/pointtransformer.py``).
 
 Parameter names are the reference torch names (``enc{i}.{j}.linear``,
 ``transformer2.linear_p.1``, ...), the layout ``export_cmdm_checkpoint``
@@ -11,7 +12,7 @@ stands for the JAX package's ``train=`` argument.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -142,6 +143,44 @@ class TransitionDown(nn.Module):
         return F.relu(self.bn(h)).amax(dim=2)
 
 
+class TransitionUp(nn.Module):
+    """Head form (``out_planes`` None): ``linear2`` (Linear + ReLU) of the
+    mean over the points, joined to every point's features, then ``linear1``
+    (Linear(2C -> C) + BN + ReLU). Fusion form: ``linear1`` (Linear + BN +
+    ReLU) of the fine level plus the 3-NN interpolation of ``linear2``
+    (Linear + BN + ReLU) of the coarse level: the coarse rows gathered
+    through the coarse level's ``up_idx`` (the row-gather kernel or, on a
+    banded hierarchy, the windowed one with its ``up_starts``) and weighted
+    by its ``up_weight``."""
+
+    def __init__(self, in_planes: int, out_planes: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.is_head = out_planes is None
+        if self.is_head:
+            self.linear1 = nn.Sequential(Linear(2 * in_planes, in_planes, dtype=dtype),
+                                         PointNorm(in_planes, dtype), nn.ReLU())
+            self.linear2 = nn.Sequential(Linear(in_planes, in_planes, dtype=dtype), nn.ReLU())
+        else:
+            self.linear1 = nn.Sequential(Linear(out_planes, out_planes, dtype=dtype),
+                                         PointNorm(out_planes, dtype), nn.ReLU())
+            self.linear2 = nn.Sequential(Linear(in_planes, out_planes, dtype=dtype),
+                                         PointNorm(out_planes, dtype), nn.ReLU())
+
+    def forward(self, x: torch.Tensor, coarse_x: Optional[torch.Tensor] = None,
+                coarse_geom: Optional[LevelGeometry] = None) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.is_head:
+            g = self.linear2(x.mean(dim=1, keepdim=True))
+            return self.linear1(torch.cat([x, g.expand_as(x)], dim=-1))
+        b = self.linear2(coarse_x.to(self.dtype))
+        gathered = bgather(b, coarse_geom.up_idx, coarse_geom.banded, coarse_geom.up_starts,
+                           coarse_geom.window)                      # (B, N_fine, 3, C)
+        b_up = torch.einsum("bnkc,bnk->bnc", gathered, coarse_geom.up_weight.to(self.dtype))
+        return self.linear1(x) + b_up
+
+
 class PointTransformerBlock(nn.Module):
     """Residual bottleneck around the vector-attention layer."""
 
@@ -194,3 +233,28 @@ class PointTransformerEncoder(nn.Module):
             outs.append(x)
             parent_xyz = geom.xyz
         return outs
+
+
+def decoder_stages(planes: Sequence[int], share_planes: int = 8,
+                   dtype: torch.dtype = torch.float32) -> Dict[str, nn.ModuleList]:
+    """The U-Net decoder's stages over an encoder of ``planes``: ``dec{L}``
+    (the head, at the coarsest level) down to ``dec1``, each a TransitionUp
+    and one PointTransformerBlock; a module adds them under these names."""
+    L = len(planes)
+    return {f"dec{i}": nn.ModuleList([
+        TransitionUp(planes[i - 1], None, dtype) if i == L
+        else TransitionUp(planes[i], planes[i - 1], dtype),
+        PointTransformerBlock(planes[i - 1], share_planes, dtype)]) for i in range(L, 0, -1)}
+
+
+def decode(module: nn.Module, levels: List[LevelGeometry], enc_feats: List[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    """Run ``module``'s :func:`decoder_stages` over the encoder's per-level
+    outputs; every stage's output, coarsest first."""
+    outs: List[torch.Tensor] = []
+    for i in range(len(enc_feats) - 1, -1, -1):
+        up, block = getattr(module, f"dec{i + 1}")
+        geom = levels[i]
+        x = up(enc_feats[i]) if not outs else up(enc_feats[i], outs[-1], levels[i + 1])
+        outs.append(block(geom.xyz, x, geom.knn_idx, geom.banded, geom.window))
+    return outs

@@ -2,25 +2,32 @@
 fused attention:
 
     python -m afford_motion_torch.tools.profile_denoiser_step [out_dir]
+        [--arch trans_enc | trans_dec]
 
 Builds the scene slice's denoiser, the CMDM ``trans_enc`` at full width
 (latent 512, 5 layers of 8 heads, planes 32/64/128/256, bf16) on 66-d joint
 motions, from a seeded init, the DDIM-50 respacing of the 500-step diffusion
 and one random batch of 32 (8192-point clouds with contact maps, text
-features, 40..196-frame motion masks), and encodes the conditions once. Then,
-alternating ``AM_FLASH_ATTN=1`` and ``0`` three times each, it times one
-DDIM-50 loop by the host clock to a device synchronize (ms per step), and
+features, 40..196-frame motion masks), and encodes the conditions once. With
+``--arch trans_dec`` the denoiser is instead ``trans_dec`` as
+``scripts/t2m_contact_motion/train_ddp.sh`` builds it with
+``model.arch=trans_dec`` (the same widths, 5 self-attention stages and 4
+decoder layers whose cross-attention reads the U-Net's 128, 512, 2048 and
+8192 points) on 263-d motions, with the DDIM-50 respacing of 1000 steps.
+Then, alternating ``AM_FLASH_ATTN=1`` and ``0`` three times each, it times
+one DDIM-50 loop by the host clock to a device synchronize (ms per step), and
 traces one more loop each way with ``torch.profiler``: device kernel time and
-launches per step, the attention's share, and the device's idle share, 1 -
-device ms / host ms per step of the untraced loops. Prints the card's name
-and power limit first; writes the table to ``out_dir`` (default
-``build/profile``) as ``profile_denoiser_step.txt``.
+launches per step, the attention's share, the device's idle share, 1 -
+device ms / host ms per step of the untraced loops, and the device time by
+kernel class. Prints the card's name and power limit first; writes the table
+to ``out_dir`` (default ``build/profile``) as ``profile_denoiser_step.txt``
+(``profile_denoiser_step_trans_dec.txt``).
 """
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
-import sys
 import time
 from pathlib import Path
 
@@ -31,9 +38,12 @@ from ..diffusion import create_gaussian_diffusion
 from ..models.cmdm import CMDM
 from ..models.conditioning import add_hierarchies, encode_conditions
 from ..utils.config import DictConfig
+from .profile_train_step import _by_class
 
-B, N, L, D = 32, 8192, 196, 66
+B, N, L = 32, 8192, 196
 STEPS = 50
+# motion width and diffusion steps of each arch's configuration
+ARCHS = {"trans_enc": (66, 500), "trans_dec": (263, 1000)}
 
 
 def _loop_ms(loop) -> float:
@@ -45,7 +55,7 @@ def _loop_ms(loop) -> float:
     return 1e3 * (time.perf_counter() - t0) / STEPS
 
 
-def main(out_dir: str = "build/profile") -> None:
+def main(out_dir: str = "build/profile", arch: str = "trans_enc") -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_denoiser_step runs only on a CUDA device")
     from torch.profiler import ProfilerActivity, profile
@@ -56,9 +66,10 @@ def main(out_dir: str = "build/profile") -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.manual_seed(2023)
-    model = CMDM(motion_dim=D, dtype=torch.bfloat16).to(dev).eval()
+    D, steps = ARCHS[arch]
+    model = CMDM(motion_dim=D, dtype=torch.bfloat16, arch=arch).to(dev).eval()
     diffusion = create_gaussian_diffusion(
-        DictConfig({"steps": 500, "timestep_respacing": f"ddim{STEPS}"}), dev)
+        DictConfig({"steps": steps, "timestep_respacing": f"ddim{STEPS}"}), dev)
     rng = np.random.default_rng(2023)
     x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
     cond = {
@@ -83,9 +94,9 @@ def main(out_dir: str = "build/profile") -> None:
                 os.environ["AM_FLASH_ATTN"] = flash
                 host[flash].append(_loop_ms(loop))
             host = {flash: v[1:] for flash, v in host.items()}
-            lines = ["DDIM-50 denoiser step of the scene slice's CMDM, batch 32, bf16; host ms "
-                     "per step to a synchronize, three alternating loops each way after a warm-up "
-                     "pair:"]
+            what = "the scene slice's CMDM" if arch == "trans_enc" else "the CMDM trans_dec"
+            lines = [f"DDIM-50 denoiser step of {what}, batch 32, bf16; host ms per step to a "
+                     "synchronize, three alternating loops each way after a warm-up pair:"]
             for flash, v in host.items():
                 lines.append(f"  AM_FLASH_ATTN={flash}: {', '.join(f'{x:.3f}' for x in v)} "
                              f"(median {np.median(v):.3f})")
@@ -108,6 +119,10 @@ def main(out_dir: str = "build/profile") -> None:
                 for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
                     lines.append(f"  {e.self_device_time_total / 1e3 / STEPS:8.4f} ms  "
                                  f"{e.count / STEPS:5.1f}x  {e.key[:100]}")
+                lines.append(f"  by kernel class, a step (AM_FLASH_ATTN={flash}):")
+                lines += ["  " + line for line in _by_class(
+                    [(e.self_device_time_total / 1e3 / STEPS, round(e.count / STEPS), e.key)
+                     for e in events])]
         finally:
             if saved is None:
                 os.environ.pop("AM_FLASH_ATTN", None)
@@ -117,8 +132,13 @@ def main(out_dir: str = "build/profile") -> None:
     print(text, flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_denoiser_step.txt").write_text(text + "\n")
+    name = "profile_denoiser_step" + ("" if arch == "trans_enc" else f"_{arch}")
+    (out / f"{name}.txt").write_text(text + "\n")
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out_dir", nargs="?", default="build/profile")
+    ap.add_argument("--arch", default="trans_enc", choices=tuple(ARCHS))
+    args = ap.parse_args()
+    main(args.out_dir, args.arch)

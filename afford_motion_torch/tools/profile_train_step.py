@@ -2,6 +2,7 @@
 
     python -m afford_motion_torch.tools.profile_train_step [out_dir]
         [--banded | --store | --flash] [--dtype bfloat16 | float32] [--stage1]
+        [--arch trans_enc | trans_dec]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -33,6 +34,14 @@ float32`` builds the model in float32 (the config's reference-parity dtype)
 instead of the train config's bf16; with ``--flash`` that routes every layer
 through the f32 forward and backward kernels, and the table goes to
 ``profile_train_step_flash_float32.txt``.
+
+``--arch trans_dec`` builds the CMDM ``trans_dec`` of the same widths
+instead (``model.arch=trans_dec``: the SceneMap U-Net, 5 self-attention
+stages and 4 decoder layers whose cross-attention reads its 128, 512, 2048
+and 8192 points), whose hierarchy, built in the step or cached in the
+store, carries the 3-NN up-interpolation; with every option above, and ``_trans_dec`` at the end of each table's name. With
+``--flash`` its attention alone is timed at each of its shapes: the
+self-attention (198 tokens) and each cross-attention.
 
 With ``--stage1`` the model is stage 1's instead, the CDM-Perceiver as
 ``scripts/t2m_contact/train_ddp.sh`` builds it (bf16, dropout 0.1, no scene
@@ -77,7 +86,9 @@ def _sync_time(fn):
 
 def _banded_batch(rng, dev):
     """Hilbert-sorted clouds (f16 on the wire) and their cached FPS indices,
-    as the packed store with the fps geometry wire delivers them."""
+    as the packed store with the fps geometry wire delivers them (the step's
+    hierarchy, and the store's cache, follow the model's
+    ``needs_up_interpolation``)."""
     from ..models.pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES
     from ..ops.curves import curve_order
     from ..ops.hierarchy import build_point_hierarchy
@@ -186,37 +197,62 @@ def _by_class(rows) -> list:
             for name, (t, c) in sorted(sums.items(), key=lambda kv: -kv[1][0])]
 
 
+def _attention_shapes(model) -> list:
+    """(label, query tokens, keys, calls a step) of the model's attention:
+    ``trans_enc`` one self-attention shape (1 + 1 + 128 + 196 tokens) in
+    every layer; ``trans_dec`` the self-attention of 1 + 1 + 196 tokens in
+    every encoder and decoder layer and one cross-attention a decoder layer,
+    against the U-Net's 128, 512, 2048 and 8192 points."""
+    if model.arch == "trans_enc":
+        seq = 2 + 128 + L
+        return [("self", seq, seq, len(model.self_attn_layer.layers))]
+    seq = 2 + L
+    n_self = sum(len(s.layers) for s in model.self_attn_layers) + len(model.cross_attn_layers)
+    return [("self", seq, seq, n_self)] + [(f"cross to {N // 4 ** (3 - i)} points", seq,
+                                            N // 4 ** (3 - i), 1)
+                                           for i in range(len(model.cross_attn_layers))]
+
+
 def _attention_alone(smoke, model, x_mask, dev) -> list:
-    """One layer's attention at the step's shape (batch 32, 1 + 1 + 128 + 196
-    tokens, the motions' padding masked) in the model's type, forward and
-    backward, fused and einsum, by ``chip_smoke.time_ms``: lines of the
-    table."""
+    """One call of each of the model's attention shapes (batch 32, 8 heads,
+    the motions' padding masked; a cross-attention's memory unmasked) in the
+    model's type, forward and backward, fused and einsum, by
+    ``chip_smoke.time_ms``: lines of the table."""
     from ..models import layers
     from ..ops.cuda.attention import attention_cuda
 
-    mha = model.self_attn_layer.layers[0].self_attn
+    mha = (model.self_attn_layer.layers[0] if model.arch == "trans_enc"
+           else model.self_attn_layers[0].layers[0]).self_attn
     heads, width = mha.num_heads, mha.d_model
-    seq = 2 + 128 + L
     gen = torch.Generator(device=dev).manual_seed(7)
     dtype = model.dtype
-    q, k, v = (torch.randn(B, seq, width, device=dev, generator=gen).to(dtype)
-               .requires_grad_(True) for _ in range(3))
-    do = torch.randn(B, seq, width, device=dev, generator=gen).to(dtype)
-    pad = torch.cat([torch.zeros((B, seq - L), dtype=torch.bool, device=dev), x_mask], dim=1)
-    routes = {"fused": lambda: attention_cuda(q, k, v, heads, pad),
-              "einsum": lambda: layers._attention(q, k, v, heads, pad, mha.dropout)}
-    lines = [f"one layer's attention ({B},{seq},{heads}x{width // heads}) {str(dtype)[6:]}, "
-             f"ms per call "
-             f"(chip_smoke.time_ms: median of {smoke.TIME_BLOCKS} blocks of 20 calls):"]
-    for name, fwd in routes.items():
-        with torch.no_grad():
-            f_ms = smoke.time_ms(fwd, 20)[0]
-        out = fwd()
-        b_ms = smoke.time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
-                             20)[0]
-        lines.append(f"  {name}: forward {f_ms:.4f}, backward {b_ms:.4f}, both {f_ms + b_ms:.4f}; "
-                     f"x {len(model.self_attn_layer.layers)} layers a step: "
-                     f"{len(model.self_attn_layer.layers) * (f_ms + b_ms):.4f}")
+    lines = [f"one attention call ({B} items, {heads}x{width // heads}) {str(dtype)[6:]}, ms "
+             f"per call (chip_smoke.time_ms: median of {smoke.TIME_BLOCKS} blocks of 20 calls):"]
+    total = {"fused": 0.0, "einsum": 0.0}
+    for label, lq, lk, calls in _attention_shapes(model):
+        q = torch.randn(B, lq, width, device=dev, generator=gen).to(dtype).requires_grad_(True)
+        k, v = (torch.randn(B, lk, width, device=dev, generator=gen).to(dtype)
+                .requires_grad_(True) for _ in range(2))
+        do = torch.randn(B, lq, width, device=dev, generator=gen).to(dtype)
+        pad = None
+        if lq == lk:
+            pad = torch.cat([torch.zeros((B, lk - L), dtype=torch.bool, device=dev), x_mask],
+                            dim=1)
+        routes = {"fused": lambda: attention_cuda(q, k, v, heads, pad),
+                  "einsum": lambda: layers._attention(q, k, v, heads, pad, mha.dropout)}
+        for name, fwd in routes.items():
+            with torch.no_grad():
+                f_ms = smoke.time_ms(fwd, 20)[0]
+            out = fwd()
+            b_ms = smoke.time_ms(
+                lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), 20)[0]
+            total[name] += calls * (f_ms + b_ms)
+            lines.append(f"  {label} ({lq} x {lk}) {name}: forward {f_ms:.4f}, backward "
+                         f"{b_ms:.4f}, both {f_ms + b_ms:.4f}; x {calls} a step: "
+                         f"{calls * (f_ms + b_ms):.4f}")
+            del out
+    lines.append(f"  a step's attention, forward and backward: fused {total['fused']:.4f}, "
+                 f"einsum {total['einsum']:.4f}")
     return lines
 
 
@@ -240,7 +276,8 @@ def _traced(step, state, x, cond, seed: int):
 
 
 def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False,
-         dtype: str = "bfloat16", store: bool = False, stage1: bool = False) -> None:
+         dtype: str = "bfloat16", store: bool = False, stage1: bool = False,
+         arch: str = "trans_enc") -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -255,7 +292,7 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         model, x, cond, assemble = _stage1(rng, dev, store)
         diffusion = create_gaussian_diffusion(DictConfig({"steps": 500}), dev)
     else:
-        model = CMDM(motion_dim=D, dtype=getattr(torch, dtype),
+        model = CMDM(motion_dim=D, dtype=getattr(torch, dtype), arch=arch,
                      dropout=0.0 if flash else 0.1).to(dev)
         diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), dev)
         if store:
@@ -281,13 +318,14 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     state = TrainState.create(model, lr=1e-4)
     nb = len(cond["item_row"]) if x is None else x.shape[0]
     step = make_train_step(model, diffusion, assemble=assemble)
+    suffix = "" if stage1 or arch == "trans_enc" else f"_{arch}"
     if flash:
-        text = "\n".join([f"model in {dtype}"]
+        text = "\n".join([f"CMDM {arch}, model in {dtype}"]
                          + _flash_table(model, step, state, x, cond, diffusion, dev))
         print(text, flush=True)
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
-        name = "profile_train_step_flash" + ("_float32" if dtype == "float32" else "")
+        name = "profile_train_step_flash" + ("_float32" if dtype == "float32" else "") + suffix
         (out / f"{name}.txt").write_text(text + "\n")
         return
     torch.cuda.reset_peak_memory_stats(dev)
@@ -326,6 +364,8 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     route = "store" if store else "banded" if banded else "non-banded"
     if stage1:
         route = "stage-1 store" if store else "stage-1"
+    if not stage1:
+        route = f"{arch} {route}"
     lines = [f"{route} step, batch {nb}, peak memory of the first three {peak:.2f} GiB; parts "
              f"of one step, ms to a synchronize (5 steps: min / mean / max):"]
     for name, v in parts.items():
@@ -345,10 +385,9 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     print(text, flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    name = {"store": "profile_train_step_store.txt", "banded": "profile_train_step_banded.txt",
-            "non-banded": "profile_train_step.txt", "stage-1": "profile_train_step_stage1.txt",
-            "stage-1 store": "profile_train_step_stage1_store.txt"}[route]
-    (out / name).write_text(text + "\n")
+    name = {"store": "_store", "banded": "_banded", "non-banded": "", "stage-1": "_stage1",
+            "stage-1 store": "_stage1_store"}[route.removeprefix(f"{arch} ")]
+    (out / f"profile_train_step{name}{suffix}.txt").write_text(text + "\n")
 
 
 def _flash_table(model, step, state, x, cond, diffusion, dev) -> list:
@@ -392,6 +431,7 @@ if __name__ == "__main__":
     ap.add_argument("--flash", action="store_true")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--stage1", action="store_true")
+    ap.add_argument("--arch", default="trans_enc", choices=("trans_enc", "trans_dec"))
     args = ap.parse_args()
     main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype, store=args.store,
-         stage1=args.stage1)
+         stage1=args.stage1, arch=args.arch)

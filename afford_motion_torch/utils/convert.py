@@ -1,8 +1,8 @@
 """Weights between the JAX package and the port: the flax variable tree of a
-``trans_enc`` CMDM, of a CDM (Perceiver or MLP, no scene model), or of the
-joints-to-SMPL-X regressor, <-> the port's state_dict (the reference torch
-layout); the T2M evaluator's numpy parameter dicts <-> its three state
-dicts; and the SMPL-X body model's arrays.
+CMDM (``trans_enc`` or ``trans_dec``), of a CDM (Perceiver or MLP, no scene
+model), or of the joints-to-SMPL-X regressor, <-> the port's state_dict (the
+reference torch layout); the T2M evaluator's numpy parameter dicts <-> its
+three state dicts; and the SMPL-X body model's arrays.
 
 One table of (state_dict key, flax path, kind) entries drives both
 directions, so they are inverses by construction. Kinds: ``w`` a Dense
@@ -70,12 +70,45 @@ def _encoder_layer(key: str, path: Path):
     yield from _layernorm(f"{key}.norm2", (*path, "LayerNorm_1"))
 
 
-def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int]
+def _decoder_layer(key: str, path: Path):
+    for j, name in enumerate(("self_attn", "multihead_attn")):
+        mha = (*path, f"TorchMultiHeadAttention_{j}")
+        yield f"{key}.{name}.in_proj_weight", ("params", *mha), "qkv_w"
+        yield f"{key}.{name}.in_proj_bias", ("params", *mha), "qkv_b"
+        yield from _dense(f"{key}.{name}.out_proj", (*mha, "Dense_3"))
+    for j in range(3):
+        yield from _layernorm(f"{key}.norm{j + 1}", (*path, f"LayerNorm_{j}"))
+    yield from _dense(f"{key}.linear1", (*path, "Dense_0"))
+    yield from _dense(f"{key}.linear2", (*path, "Dense_1"))
+
+
+def _point_decoder(key: str, path: Path, n_levels: int):
+    """``{key}.dec{k}`` <-> ``PointDecoderStage_{n_levels - k}``; stage 0,
+    ``dec{n_levels}``, is the head, whose ``Dense_0`` is ``linear2``."""
+    for k in range(n_levels, 0, -1):
+        stage = (*path, f"PointDecoderStage_{n_levels - k}")
+        up, tu = f"{key}.dec{k}.0", (*stage, "TransitionUp_0")
+        if k == n_levels:
+            yield from _dense(f"{up}.linear2.0", (*tu, "Dense_0"))
+            yield from _dense(f"{up}.linear1.0", (*tu, "Dense_1"))
+            yield from _bn(f"{up}.linear1.1", (*tu, "PointNorm_0"))
+        else:
+            for j, part in enumerate(("linear1", "linear2")):
+                yield from _dense(f"{up}.{part}.0", (*tu, f"Dense_{j}"))
+                yield from _bn(f"{up}.{part}.1", (*tu, f"PointNorm_{j}"))
+        yield from _pt_block(f"{key}.dec{k}.1", (*stage, "PointTransformerBlock_0"))
+
+
+def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "trans_enc"
                  ) -> Iterator[Tuple[str, Path, str]]:
-    """Every (state_dict key, flax path, kind) of a ``trans_enc`` CMDM."""
+    """Every (state_dict key, flax path, kind) of a CMDM of ``arch``
+    (``trans_enc`` or ``trans_dec``)."""
+    if arch not in ("trans_enc", "trans_dec"):
+        raise NotImplementedError(f"CMDM arch {arch!r}")
     yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
     yield from _dense("timestep_embedder.time_embed.2", ("timestep_embedder", "Dense_1"))
-    for name in ("language_adapter", "motion_adapter", "motion_layer", "contact_adapter"):
+    adapters = ("language_adapter", "motion_adapter", "motion_layer")
+    for name in adapters + (("contact_adapter",) if arch == "trans_enc" else ()):
         yield from _dense(name, (name,))
     for k, nblocks in enumerate(blocks, start=1):
         stage = ("contact_encoder", "enc", f"PointEncoderStage_{k - 1}")
@@ -85,9 +118,22 @@ def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int]
         for j in range(1, nblocks):
             yield from _pt_block(f"contact_encoder.enc{k}.{j}",
                                  (*stage, f"PointTransformerBlock_{j - 1}"))
-    for i in range(sum(num_layers)):
-        yield from _encoder_layer(f"self_attn_layer.layers.{i}",
-                                  ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
+    if arch == "trans_enc":
+        for i in range(sum(num_layers)):
+            yield from _encoder_layer(f"self_attn_layer.layers.{i}",
+                                      ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
+        return
+    yield from _point_decoder("contact_encoder", ("contact_encoder", "dec"), len(blocks))
+    for i, n in enumerate(num_layers):
+        for j in range(n):
+            yield from _encoder_layer(f"self_attn_layers.{i}.layers.{j}",
+                                      (f"self_attn_layers_{i}", f"TransformerEncoderLayer_{j}"))
+    for i in range(len(num_layers) - 1):
+        # the reference's own spelling on the torch side
+        yield from _dense(f"kv_mappling_layers.{i}.0", (f"kv_mapping_layers_{i}", "Dense_0"))
+        yield from _layernorm(f"kv_mappling_layers.{i}.1",
+                              (f"kv_mapping_layers_{i}", "LayerNorm_0"))
+        yield from _decoder_layer(f"cross_attn_layers.{i}", (f"cross_attn_layers_{i}",))
 
 
 def _perceiver_layer(key: str, path: Path, cross: bool):
@@ -197,21 +243,23 @@ def _jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], entries) -> Dict
 
 
 def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
-                             blocks: Sequence[int]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of a ``trans_enc`` CMDM -> a
+                             blocks: Sequence[int], arch: str = "trans_enc"
+                             ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a CMDM of ``arch`` -> a
     state_dict that :class:`afford_motion_torch.models.cmdm.CMDM` loads with
     ``strict=True``, BatchNorm running stats included."""
-    return _state_dict_from_jax(variables_np, cmdm_entries(num_layers, blocks))
+    return _state_dict_from_jax(variables_np, cmdm_entries(num_layers, blocks, arch))
 
 
 def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
-                                  num_layers: Sequence[int], blocks: Sequence[int]) -> Dict:
+                                  num_layers: Sequence[int], blocks: Sequence[int],
+                                  arch: str = "trans_enc") -> Dict:
     """The inverse: a dict of tensors keyed like the state_dict (parameters,
     buffers, or the gradients of the parameters) -> the flax tree
     ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Keys that are
     missing from ``tensors`` (e.g. buffers, when gradients are carried) are
     left out of the tree."""
-    return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks))
+    return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks, arch))
 
 
 def cdm_state_dict_from_jax(variables_np: Dict, **arch) -> Dict[str, torch.Tensor]:

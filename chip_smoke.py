@@ -192,14 +192,41 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    files of (30, 196, 263) written by
    ``Text2MotionInSceneHumanML3DEvaluator.evaluate``; ``wo_mm`` twice (the
    metrics files byte-identical) and ``mm_short`` once, each stage's
-   seconds, the pools' bytes on the card and the peak memory logged.
+   seconds, the pools' bytes on the card and the peak memory logged;
+13. CMDM ``trans_dec`` (``model.arch=trans_dec``, the flagship's widths:
+   the SceneMap U-Net with its 3-NN up-interpolation, 5 self-attention
+   stages and 4 decoder layers whose cross-attention reads the U-Net's 128,
+   512, 2048 and 8192 points; 13 attention calls a denoiser step). Its
+   kernels at the shapes it adds (:func:`phase_kernels_trans_dec`, run with
+   the kernel phases): the up kNN at k = 3 (#2 on the FPS pyramid of a
+   random and a near-tie cloud, #5 with the adaptive up starts on the
+   sorted one; level 3's 512 x 128 takes the exact path), the up-gathers
+   and their scatters (#3/#4, #6/#7), bit-equal to their plain versions;
+   the fused attention as cross-attention (198 queries against each scale,
+   bf16 and f32, an item with every key masked and one with a masked
+   stretch) within ``TOLERANCE`` / ``TOLERANCE_BWD``, and the all-masked
+   item through the module's fused route equal to the einsum route's
+   uniform rows, forward and v's gradient; each timed beside its bound and
+   SDPA. With the reference phases, one f32 denoiser step at full width
+   (2 items, 8192 points, one item's memories masked) on the card, on both
+   attention routes, against the CPU within ``DEC_STEP_LIMIT``. Then 8 + 4
+   train steps on the plain tree (``DEC_PLAIN_STEP``: 8 kNN, 14 gathers and
+   14 scatters a step), bit-exact resume; the chains from that checkpoint
+   through the test entry, DDIM-50 on the einsum route and with
+   ``AM_FLASH_ATTN=1``, DDPM-1000 fused, x0 finite of shape (32, 196, 263),
+   their seconds, ms a step and peak memory; 8 + 4 flash steps
+   (``model.dropout=0``, ``AM_FLASH_ATTN=1``: the cross-attention's backward
+   every step, ``DEC_FLASH_STEP``); and 8 + 4 steps through the device store
+   of the sorted tree (``DEC_STORE_STEP``; its upload caches the up arrays
+   too, 8 banded kNN a chunk of 64 scenes).
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
 largest difference from the plain version, and its time, the plain
 version's, the bound and the library call's (and the kNN's yardstick's,
 under ``yardstick_ms``), each summed over the shapes of one pass of its path (one hierarchy and encoder forward; for the scatter
-one backward). The last line is ``{"ok": true, "device": {...}}``.
+one backward) of ``trans_enc``; ``trans_dec``'s shapes are timed and
+logged apart. The last line is ``{"ok": true, "device": {...}}``.
 Everything written at run time goes under ``build/`` in the checkout.
 """
 from __future__ import annotations
@@ -279,10 +306,35 @@ STORE_STEP = dict(BANDED_STEP, banded_knn=0)
 STORE_CHUNK = 64
 
 
-def store_upload(n_scenes: int) -> dict:
-    """The launches of the store's geometry cache for ``n_scenes`` scenes."""
-    return dict({k: 0 for k in PLAIN_STEP},
-                banded_knn=BANDED_STEP["banded_knn"] * -(-n_scenes // STORE_CHUNK))
+def store_upload(n_scenes: int, knn: int = BANDED_STEP["banded_knn"]) -> dict:
+    """The launches of the store's geometry cache for ``n_scenes`` scenes,
+    ``knn`` banded kNN launches a hierarchy."""
+    return dict({k: 0 for k in PLAIN_STEP}, banded_knn=knn * -(-n_scenes // STORE_CHUNK))
+
+
+# CMDM trans_dec (model.arch=trans_dec): the SceneMap U-Net over the same
+# hierarchy, plus its 3-NN up-interpolation. UP_CALLS: (fine level, coarse
+# level, channels of the coarse features gathered), one a decoder stage; the
+# up kNN queries the fine level's points against the coarse level's with
+# k = 3, and level 3's 512 x 128 is below both kNN kernels' range (128 < 256
+# support points) and takes the exact path, as level 3's own neighbours do;
+# its up-gather still takes the kernels. A pass adds 2 kNN launches, 3
+# up-gathers and the 4 decoder blocks' gathers (the encoder blocks' shapes),
+# each with its scatter backward; the denoiser runs 5 self-attention stages
+# and 4 decoder layers, each a self- and a cross-attention: 13 attention
+# calls a denoiser step.
+UP_CALLS = ((0, 1, 32), (1, 2, 64), (2, 3, 128))
+DEC_ARCH = ("model.arch=trans_dec",)
+DEC_ATTENTION = 5 + 2 * 4
+DEC_PLAIN_STEP = dict(PLAIN_STEP, knn=PLAIN_STEP["knn"] + 2, gather=14, scatter=14)
+DEC_BANDED_KNN = BANDED_STEP["banded_knn"] + 2
+DEC_STORE_STEP = dict(STORE_STEP, banded_gather=14, banded_scatter=14)
+DEC_FLASH_STEP = dict(DEC_PLAIN_STEP, attention=DEC_ATTENTION,
+                      attention_bwd_dkv=DEC_ATTENTION, attention_bwd_dq=DEC_ATTENTION)
+# the cross-attention's key counts, coarsest first, and its query tokens
+# (time, pooled text, 196 frames)
+DEC_MEMORY = (128, 512, 2048, 8192)
+DEC_QUERIES = 2 + L
 
 
 # launch configurations of the two scatter kernels' sums checked against
@@ -1213,6 +1265,54 @@ def check_attention(rep: KernelReport, label: str, q, k, v, heads: int, pad) -> 
         rep.attention_bf16_atol = max(rep.attention_bf16_atol, float(excess.max()) / v_max)
 
 
+def check_attention_bwd(rep: KernelReport, label: str, q, k, v, do, heads: int, pad):
+    """The backward kernels against ``attention_backward_plain`` on the
+    kernel forward's o and row statistics (the forward's o bit-identical with
+    and without them, the statistics within LSE_LIMIT of the plain ones), to
+    ``TOLERANCE_BWD`` and for bf16 at most ``DV_DIFFER_SHARE`` of dv's
+    entries differing; two calls bit-identical; masked keys without a
+    gradient. Returns the forward's (o, lse)."""
+    from afford_motion_torch.ops.cuda import attention as attn
+
+    o0, _ = attn.attention_forward_cuda(q, k, v, heads, pad)
+    o, lse = attn.attention_forward_cuda(q, k, v, heads, pad, stats=True)
+    if not torch.equal(bits(o), bits(o0)):
+        raise AssertionError(f"attention {label}: o differs with the statistics written")
+    want_lse = attn.attention_lse_plain(q, k, heads, pad)
+    inf = torch.isinf(want_lse)
+    lse_err = float((lse - want_lse)[~inf].abs().max()) if bool((~inf).any()) else 0.0
+    if not (torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
+            and lse_err <= LSE_LIMIT * max(1.0, float(want_lse[~inf].abs().max()))):
+        raise AssertionError(f"attention {label}: statistics differ from the plain ones "
+                             f"(max {lse_err:.3e})")
+    got = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
+    again = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
+        raise AssertionError(f"attention backward {label}: two calls differ")
+    want = attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad)
+    atol, rtol = attn.TOLERANCE_BWD[q.dtype]
+    need = attn.backward_excess(got, want, rtol)
+    differ = float((got[2] != want[2]).float().mean())
+    log(f"  attention backward {label}: needs {need:.3e} of the largest gradient entry "
+        f"beyond the rtol term (limit {atol:.3e}); {differ:.4f} of dv's entries differ; "
+        f"lse max diff {lse_err:.3e}")
+    if need > atol or (q.dtype == torch.bfloat16 and differ > attn.DV_DIFFER_SHARE):
+        raise AssertionError(f"attention backward {label}: kernel differs from plain")
+    if pad is not None and any(bool(g[pad].any()) for g in got[1:]):
+        raise AssertionError(f"attention backward {label}: a masked key has a gradient")
+    key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    rep.attention_bwd_need[key] = max(rep.attention_bwd_need[key], need)
+    if key == "bf16":
+        rows = (("attention_bwd_dq", (got[0], want[0])),
+                ("attention_bwd_dkv", (torch.cat(got[1:]), torch.cat(want[1:]))))
+    else:
+        rows = (("attention_bwd_f32", (torch.cat([g.reshape(-1) for g in got]),
+                                       torch.cat([w.reshape(-1) for w in want]))),)
+    for name, (g, w) in rows:
+        rep.err[name] = max(rep.err[name], (g.double() - w.double()).abs().max().item())
+    return o, lse
+
+
 def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
     """The fused attention's backward kernels (bf16 and f32: one kernel each
     for dq, dk and dv) against ``attention_backward_plain`` on the same
@@ -1238,45 +1338,6 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
         return [torch.from_numpy(rng.normal(size=(b, n, heads * hd)).astype(np.float32)).to(dev)
                 .to(dtype) for n in (lq, lk, lk, lq)]
 
-    def check(label, q, k, v, do, heads, pad):
-        o0, _ = attn.attention_forward_cuda(q, k, v, heads, pad)
-        o, lse = attn.attention_forward_cuda(q, k, v, heads, pad, stats=True)
-        if not torch.equal(bits(o), bits(o0)):
-            raise AssertionError(f"attention {label}: o differs with the statistics written")
-        want_lse = attn.attention_lse_plain(q, k, heads, pad)
-        inf = torch.isinf(want_lse)
-        lse_err = float((lse - want_lse)[~inf].abs().max()) if bool((~inf).any()) else 0.0
-        if not (torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
-                and lse_err <= LSE_LIMIT * max(1.0, float(want_lse[~inf].abs().max()))):
-            raise AssertionError(f"attention {label}: statistics differ from the plain ones "
-                                 f"(max {lse_err:.3e})")
-        got = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
-        again = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad)
-        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
-            raise AssertionError(f"attention backward {label}: two calls differ")
-        want = attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad)
-        atol, rtol = attn.TOLERANCE_BWD[q.dtype]
-        need = attn.backward_excess(got, want, rtol)
-        differ = float((got[2] != want[2]).float().mean())
-        log(f"  attention backward {label}: needs {need:.3e} of the largest gradient entry "
-            f"beyond the rtol term (limit {atol:.3e}); {differ:.4f} of dv's entries differ; "
-            f"lse max diff {lse_err:.3e}")
-        if need > atol or (q.dtype == torch.bfloat16 and differ > attn.DV_DIFFER_SHARE):
-            raise AssertionError(f"attention backward {label}: kernel differs from plain")
-        if pad is not None and any(bool(g[pad].any()) for g in got[1:]):
-            raise AssertionError(f"attention backward {label}: a masked key has a gradient")
-        key = "bf16" if q.dtype == torch.bfloat16 else "f32"
-        rep.attention_bwd_need[key] = max(rep.attention_bwd_need[key], need)
-        if key == "bf16":
-            rows = (("attention_bwd_dq", (got[0], want[0])),
-                    ("attention_bwd_dkv", (torch.cat(got[1:]), torch.cat(want[1:]))))
-        else:
-            rows = (("attention_bwd_f32", (torch.cat([g.reshape(-1) for g in got]),
-                                           torch.cat([w.reshape(-1) for w in want]))),)
-        for name, (g, w) in rows:
-            rep.err[name] = max(rep.err[name], (g.double() - w.double()).abs().max().item())
-        return o, lse
-
     # the train path's attention (time + text + 128 contact + 196 motion
     # tokens, the motions' padded frames masked) in both instances, and the
     # regressor's shape in f32
@@ -1289,7 +1350,7 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
         for dtype in ((torch.bfloat16, torch.float32) if what == "train" else (torch.float32,)):
             q, k, v, do = tensors(b, seq, seq, heads, hd, dtype)
             label = f"{what} ({b},{seq},{heads}x{hd}) {str(dtype)[6:]}"
-            o, lse = check(label, q, k, v, do, heads, pad)
+            o, lse = check_attention_bwd(rep, label, q, k, v, do, heads, pad)
             if what != "train":   # off every train path: the whole backward, logged
                 whole = time_ms(lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads,
                                                                      pad), 10)
@@ -1352,16 +1413,238 @@ def phase_kernels_attention_bwd(dev: torch.device, rep: KernelReport) -> None:
             q, k, v, do = tensors(4, lq, lk, 2, hd, dtype)
             pad = torch.from_numpy(np.arange(lk)[None, :] >= np.array([[lk], [lk - 3], [1], [0]]))
             pad[:2, 64:128] = True
-            check(f"off-path hd={hd} Lq={lq} Lk={lk} {str(dtype)[6:]}", q, k, v, do, 2,
-                  pad.to(dev))
+            check_attention_bwd(rep, f"off-path hd={hd} Lq={lq} Lk={lk} {str(dtype)[6:]}", q,
+                                k, v, do, 2, pad.to(dev))
     # 1100 keys (18 key tiles), a masked stretch across tiles
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = tensors(3, 100, 1100, 2, 64, dtype)
         pad = torch.from_numpy(np.arange(1100)[None, :] >= np.array([[1100], [1000], [300]]))
         pad[:2, 448:640] = True
-        check(f"off-path hd=64 Lq=100 Lk=1100 {str(dtype)[6:]}", q, k, v, do, 2, pad.to(dev))
+        check_attention_bwd(rep, f"off-path hd=64 Lq=100 Lk=1100 {str(dtype)[6:]}", q, k, v, do,
+                            2, pad.to(dev))
     log(f"  attention backward: within TOLERANCE_BWD of the plain version at every shape, "
         f"two calls bit-identical; the largest share needed: bf16 "
+        f"2^{np.log2(max(rep.attention_bwd_need['bf16'], 1e-30)):.2f}, f32 "
+        f"2^{np.log2(max(rep.attention_bwd_need['f32'], 1e-30)):.2f}")
+
+
+def phase_kernels_trans_dec(dev: torch.device, rep: KernelReport) -> None:
+    """The kernels at the shapes CMDM ``trans_dec`` adds (timed, logged, and
+    kept out of the kernels line's pass sums, which stay ``trans_enc``'s):
+    the up kNN at k = 3 (#2 on the FPS pyramid of a random and a near-tie
+    cloud, #5 on the sorted pyramid with the adaptive up starts), bit-equal
+    to their plain versions; the up-gathers and their scatters (#3/#4, and
+    #6/#7 with the up starts) bit-equal; the fused attention forward and
+    backward as cross-attention, 198 queries against 128, 512, 2048 and
+    8192 keys, bf16 and f32, with an item whose keys are all masked and one
+    with its last 40% masked, within ``TOLERANCE`` / ``TOLERANCE_BWD``; and the
+    all-masked item through the module's fused route
+    (``layers._uniform_where_all_masked``) against the einsum route,
+    forward and the gradient of v."""
+    import torch.nn.functional as F
+
+    from afford_motion_torch.models import layers
+    from afford_motion_torch.ops.cuda import attention as attn
+    from afford_motion_torch.ops.cuda import banded
+    from afford_motion_torch.ops.cuda import knn as knn_mod
+    from afford_motion_torch.ops.cuda.fps import fps_cuda
+    from afford_motion_torch.ops.cuda.gather import (
+        gather_rows, gather_rows_plain, scatter_add_rows, scatter_add_rows_plain)
+    from afford_motion_torch.ops.cuda.knn import knn_cuda, knn_plain
+    from afford_motion_torch.ops.curves import curve_order
+    from afford_motion_torch.ops.pointops import knn as knn_exact
+
+    rng = np.random.default_rng(SEED + 11)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    w0 = 128
+    clouds = {
+        "random": rng.normal(size=(B, N_POINTS, 3)).astype(np.float32),
+        "near-tie": (rng.integers(0, 16, size=(B, N_POINTS, 3)) * 0.125).astype(np.float32),
+    }
+    for kind, cloud in clouds.items():
+        for route in ("plain", "banded"):
+            if route == "banded":
+                cloud = np.stack([c[curve_order(c, "hilbert")] for c in cloud])
+            levels, fps = [torch.from_numpy(cloud).to(dev)], [None]
+            for n_out in (2048, 512, 128):
+                idx = fps_cuda(levels[-1], n_out)
+                if route == "banded":
+                    idx = torch.sort(idx, dim=-1).values
+                fps.append(idx)
+                levels.append(torch.gather(levels[-1], 1, idx.long()[..., None].expand(-1, -1, 3)))
+            timed = kind == "random"
+            for fine, coarse, c in UP_CALLS:
+                q, sup = levels[fine], levels[coarse]
+                m, n = q.shape[1], sup.shape[1]
+                label = f"{kind} up q{tuple(q.shape)} s{tuple(sup.shape)} k=3"
+                st, size = None, n
+                if route == "plain":
+                    if knn_mod.supports(m, n, 3):
+                        got = knn_cuda(q, sup, 3)
+                        rep.check("knn", label, got, knn_plain(q, sup, 3))
+                        if timed:
+                            rep.timed("knn", label, lambda q=q, s=sup: knn_cuda(q, s, 3),
+                                      lambda q=q, s=sup: knn_plain(q, s, 3), 5, False,
+                                      nbytes=B * ((m + n) * 12 + m * 3 * 8), flops=0.0)
+                        idx = got[0]
+                    else:   # the exact path, as in the hierarchy
+                        idx = knn_exact(q, sup, 3)[0].contiguous()
+                        log(f"  {label}: below the kNN kernel's range, the exact path")
+                else:
+                    size = banded._window(m, n, w0)
+                    if banded.knn_supports(m, n, 3):
+                        st = banded.adaptive_up_starts(fps[coarse], m, w0)
+                        got = banded.knn_banded(q, sup, 3, st, w0)
+                        check_banded_knn(rep, f"{label} up starts{tuple(st.shape)} S={size}", q,
+                                         sup, 3, st, size, got)
+                        if timed:
+                            rep.timed("banded_knn", f"{label} S={size}",
+                                      lambda q=q, s=sup, st=st: banded.knn_banded(q, s, 3, st, w0),
+                                      lambda q=q, s=sup, st=st, size=size:
+                                      banded.knn_banded_plain(q, s, 3, st, size), 5, False,
+                                      nbytes=B * ((m + n) * 12 + m * 3 * 8) + st.numel() * 4,
+                                      flops=9.0 * B * m * size)
+                        idx = got[0]
+                    else:
+                        st = banded._starts_tensor(m, n, w0, dev)
+                        idx = knn_exact(q, sup, 3)[0].contiguous()
+                        log(f"  {label}: below the banded kNN's range, the exact path; the "
+                            f"gather's window S={size} covers the {n} points")
+                    if not banded.gather_supports(m, n, c, 3, 2, w0):
+                        raise AssertionError(f"{label}: the banded gather would not take C={c}")
+                # the up-gather of the coarse level's features and its scatter
+                for dtype in (torch.bfloat16, torch.float32):
+                    x = torch.randn(B, n, c, device=dev, generator=gen).to(dtype)
+                    g = torch.randn(B, m, 3, c, device=dev, generator=gen).to(dtype)
+                    glabel = f"{kind} up x({B},{n},{c}) idx{tuple(idx.shape)} {str(dtype)[6:]}"
+                    size_b = x.element_size()
+                    nbytes = B * (n * c * size_b + m * 3 * 4 + m * 3 * c * size_b)
+                    wide = idx.long().reshape(B, m * 3, 1).expand(-1, -1, c)
+                    flat = (idx.long() + n * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+
+                    def index_add(g=g, flat=flat, n=n, c=c):
+                        out = torch.zeros((B * n, c), dtype=g.dtype, device=g.device)
+                        return out.index_add_(0, flat, g.reshape(-1, c))
+
+                    if route == "plain":
+                        rep.check("gather", glabel, [gather_rows(x, idx)],
+                                  [gather_rows_plain(x, idx)])
+                        rep.check("scatter", glabel, [scatter_add_rows(g, idx, n)],
+                                  [scatter_add_rows_plain(g, idx, n)])
+                        if timed and dtype == torch.bfloat16:
+                            rep.timed("gather", glabel, lambda x=x, i=idx: gather_rows(x, i),
+                                      lambda x=x, i=idx: gather_rows_plain(x, i), 10, False,
+                                      nbytes=nbytes, flops=0.0,
+                                      library=lambda x=x, w=wide: torch.gather(x, 1, w))
+                            rep.timed("scatter", glabel,
+                                      lambda g=g, i=idx, n=n: scatter_add_rows(g, i, n),
+                                      lambda g=g, i=idx, n=n: scatter_add_rows_plain(g, i, n), 10,
+                                      False, nbytes=nbytes, flops=1.0 * B * m * 3 * c,
+                                      library=index_add)
+                        continue
+                    glabel += f" S={size} starts{tuple(st.shape)}"
+                    rep.check("banded_gather", glabel, [banded.gather_banded(x, idx, st, w0)],
+                              [banded.gather_banded_plain(x, idx, st, size)])
+                    rep.check("banded_scatter", glabel, [banded.scatter_banded(g, idx, st, n, size)],
+                              [banded.scatter_banded_plain(g, idx, st, n, size)])
+                    if timed and dtype == torch.bfloat16:
+                        rep.timed("banded_gather", glabel,
+                                  lambda x=x, i=idx, st=st: banded.gather_banded(x, i, st, w0),
+                                  lambda x=x, i=idx, st=st, size=size:
+                                  banded.gather_banded_plain(x, i, st, size), 10, False,
+                                  nbytes=nbytes + st.numel() * 4, flops=0.0,
+                                  library=lambda x=x, w=wide: torch.gather(x, 1, w))
+                        rep.timed("banded_scatter", glabel,
+                                  lambda g=g, i=idx, st=st, n=n, size=size:
+                                  banded.scatter_banded(g, i, st, n, size),
+                                  lambda g=g, i=idx, st=st, n=n, size=size:
+                                  banded.scatter_banded_plain(g, i, st, n, size), 10, False,
+                                  nbytes=nbytes + st.numel() * 4, flops=1.0 * B * m * 3 * c,
+                                  library=index_add)
+                    del wide, flat
+    log("  trans_dec: the up kNN at k=3 (#2 and #5 with the up starts), the up-gathers and "
+        "their scatters (#3/#4, #6/#7) bit-equal to their plain versions on the random and "
+        "the near-tie cloud")
+
+    # the cross-attention: 198 queries (time, text, 196 frames) against each
+    # U-Net scale; item 1's keys all masked (c_pc_mask), item 0's last 40%
+    heads, width = 8, 512
+    hd = width // heads
+    identity = layers.Dropout(0.0)
+    for lk in DEC_MEMORY:
+        pad = torch.zeros((B, lk), dtype=torch.bool)
+        pad[0, int(0.6 * lk):] = True
+        pad[1] = True
+        pad = pad.to(dev)
+        keep = ~pad[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, DEC_QUERIES, width, device=dev, generator=gen).to(dtype)
+            k, v = (torch.randn(B, lk, width, device=dev, generator=gen).to(dtype)
+                    for _ in range(2))
+            do = torch.randn(B, DEC_QUERIES, width, device=dev, generator=gen).to(dtype)
+            label = f"cross ({B},{DEC_QUERIES}x{lk},{heads}x{hd}) {str(dtype)[6:]}"
+            check_attention(rep, label, q, k, v, heads, pad)
+            o, lse = check_attention_bwd(rep, label, q, k, v, do, heads, pad)
+            # the module's fused route on the all-masked item against the
+            # einsum route: the mean of v, and v's share of the gradient
+            atol, rtol = attn.TOLERANCE[dtype]
+            v_max = float(v.float().abs().max())
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            fused = layers._uniform_where_all_masked(
+                attn.attention_cuda(*leaves, heads, pad), leaves[2], pad)
+            fused.backward(do)
+            e_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            einsum = layers._attention(*e_leaves, heads, pad, identity)
+            einsum.backward(do)
+            diff = (fused[1].float() - einsum[1].float()).abs()
+            dv_diff = (leaves[2].grad[1].float() - e_leaves[2].grad[1].float()).abs()
+            dv_max = float(e_leaves[2].grad[1].float().abs().max())
+            log(f"  attention {label}, all-masked item through the fused route: rows "
+                f"{diff.max().item():.3e} from the einsum route's (limit {atol:.1e} max|v| + "
+                f"{rtol:.1e} |einsum|), dv {dv_diff.max().item():.3e} of max {dv_max:.3e}; "
+                f"dq, dk of the item zero: "
+                f"{not bool(leaves[0].grad[1].any() or leaves[1].grad[1].any())}")
+            if not (bool((diff <= atol * v_max + rtol * einsum[1].float().abs()).all())
+                    and bool((dv_diff <= atol * dv_max
+                              + rtol * e_leaves[2].grad[1].float().abs()).all())
+                    and not bool(leaves[0].grad[1].any() or leaves[1].grad[1].any())):
+                raise AssertionError(f"attention {label}: the fused route's all-masked item "
+                                     "differs from the einsum route's")
+            del leaves, e_leaves, fused, einsum
+            # timed: the forward against SDPA with the same mask, and the
+            # whole backward against SDPA's gradient; the bound counts the
+            # attended pairs
+            bf16 = dtype == torch.bfloat16
+            peak = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+            size = q.element_size()
+            pairs = float(DEC_QUERIES * (~pad).sum()) * heads
+            io = (2 * q.numel() + 2 * k.numel()) * size
+            qh = q.reshape(B, DEC_QUERIES, heads, hd).transpose(1, 2)
+            kh, vh = (t.reshape(B, lk, heads, hd).transpose(1, 2) for t in (k, v))
+            rep.timed("attention", label, lambda: attn.attention_cuda(q, k, v, heads, pad),
+                      lambda: attn.attention_plain(q, k, v, heads, pad), 10, False,
+                      nbytes=io + pad.numel(), flops=4.0 * hd * pairs, peak=peak,
+                      library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))
+            stats = B * heads * DEC_QUERIES * 4
+            nbytes = (4 * q.numel() + 4 * k.numel()) * size + stats
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+            doh = do.reshape(B, DEC_QUERIES, heads, hd).transpose(1, 2)
+            whole = time_ms(lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad),
+                            10)
+            plain = time_ms(lambda: attn.attention_backward_plain(q, k, v, o, do, lse, heads,
+                                                                  pad), 2, PLAIN_BLOCKS)
+            lib = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), doh, retain_graph=True),
+                          10)
+            rep.record("attention_bwd_dkv" if bf16 else "attention_bwd_f32", label, whole[0],
+                       f"the whole backward, median of {TIME_BLOCKS} blocks; {whole[1]:.4f}-"
+                       f"{whole[2]:.4f}", plain[0], False, nbytes=nbytes, flops=5.0 * 2 * hd * pairs,
+                       peak=peak, line=f", SDPA's whole backward {lib[0]:.4f} ms")
+            del out, qg, kg, vg, o, lse
+        del pad, keep
+    log(f"  trans_dec cross-attention: within TOLERANCE and TOLERANCE_BWD at every Lk, the "
+        f"all-masked item as on the einsum route; largest shares needed so far: forward bf16 "
+        f"2^{np.log2(max(rep.attention_bf16_atol, 1e-30)):.2f}, backward bf16 "
         f"2^{np.log2(max(rep.attention_bwd_need['bf16'], 1e-30)):.2f}, f32 "
         f"2^{np.log2(max(rep.attention_bwd_need['f32'], 1e-30)):.2f}")
 
@@ -1559,6 +1842,73 @@ def phase_reference(dev: torch.device) -> float:
     return err
 
 
+# one float32 trans_dec denoiser step, card against CPU: the largest
+# difference as a share of the largest |output|; set before the first
+# reading at ten times the f32 attention kernel's own tolerance (1e-5 of
+# max |v|), which the fused route adds to the einsum route's sums in another
+# order
+DEC_STEP_LIMIT = 1e-4
+
+
+def phase_reference_trans_dec(dev: torch.device) -> None:
+    """One full-width float32 CMDM ``trans_dec`` denoiser step, the U-Net's
+    encoding and ``denoise``, on the card and on the CPU on the same inputs:
+    2 items of 8192 points, item 1's memories all masked (``c_pc_mask``),
+    padded frames. The hierarchy is built on the card through the kernels
+    (3 FPS, 8 kNN) and handed to the CPU as arrays. The card runs the step
+    on the einsum route and on the fused one (``AM_FLASH_ATTN=1``: 13 f32
+    forward launches), each within DEC_STEP_LIMIT of the CPU's."""
+    from afford_motion_torch.models.cmdm import CMDM
+    from afford_motion_torch.models.conditioning import add_hierarchies
+    from afford_motion_torch.ops.cuda.attention import attention_cuda
+    from afford_motion_torch.ops.hierarchy import geometry_to_arrays
+
+    torch.manual_seed(SEED)
+    cpu_model = CMDM(motion_dim=D, arch="trans_dec").eval()
+    gpu_model = CMDM(motion_dim=D, arch="trans_dec").to(dev).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    rng = np.random.default_rng(SEED + 12)
+    lb = 2
+    x_mask = np.zeros((lb, L), dtype=bool)
+    x_mask[0, 150:] = True
+    cond = {
+        "c_pc_xyz": rng.normal(size=(lb, N_POINTS, 3)).astype(np.float32),
+        "c_pc_contact": rng.uniform(size=(lb, N_POINTS, 6)).astype(np.float32),
+        "text_emb": rng.normal(size=(lb, 1, 512)).astype(np.float32),
+        "x_mask": x_mask, "c_pc_mask": np.array([[False], [True]]),
+    }
+    x = torch.from_numpy(rng.standard_normal((lb, L, D)).astype(np.float32))
+    t = torch.tensor([3, 871])
+    with torch.no_grad():
+        t0 = time.monotonic()
+        gcond = add_hierarchies(gpu_model, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in cond.items()})
+        arrays = {k: v.cpu() for k, v in geometry_to_arrays(gcond["levels_sm"],
+                                                            prefix="geo_sm").items()}
+        ccond = add_hierarchies(cpu_model, {**{k: torch.from_numpy(v) for k, v in cond.items()},
+                                            **arrays})
+        want = cpu_model.denoise(x, t, ccond, cpu_model.encode_contact(ccond))
+        cpu_s = time.monotonic() - t0
+        scale = float(want.abs().max())
+        for flash in ("0", "1"):
+            with flash_switch(flash):
+                before = attention_cuda.launches
+                got = gpu_model.denoise(x.to(dev), t.to(dev), gcond,
+                                        gpu_model.encode_contact(gcond)).cpu()
+                calls = attention_cuda.launches - before
+            err = float((got - want).abs().max()) / scale
+            route = "fused" if flash == "1" else "einsum"
+            log(f"reference trans_dec: one f32 denoiser step ({lb},{L},{D}), {N_POINTS} points, "
+                f"card {route} route vs CPU: {err:.3e} of the largest |output| {scale:.3f} "
+                f"(limit {DEC_STEP_LIMIT:.0e}); {calls} fused attention launches; the CPU's "
+                f"step with the card's hierarchy {cpu_s:.1f} s")
+            if not (bool(torch.isfinite(got).all()) and err <= DEC_STEP_LIMIT
+                    and calls == DEC_ATTENTION * (flash == "1")):
+                raise AssertionError(f"trans_dec denoiser step on the card ({route}) disagrees "
+                                     "with the CPU's")
+    del cpu_model, gpu_model
+
+
 def phase_reference_scene(dev: torch.device) -> None:
     """The evaluator's physics and a short SMPL-X fit, float32: the card
     (through the kernels) against the CPU (through the plain versions).
@@ -1736,7 +2086,8 @@ def count_uploads(counters: dict, seen: list):
 
 
 def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
-                tag: str = "", args: list | None = None, store: bool | None = None) -> dict:
+                tag: str = "", args: list | None = None, store: bool | None = None,
+                upload_knn: int = BANDED_STEP["banded_knn"]) -> dict:
     """8 full-width steps through the train entry (the config's bf16 unless
     ``extra`` sets model.dtype), then 4 more resumed from step 4; returns the
     launches of both runs. ``per_step``: the launches one step must make on
@@ -1745,7 +2096,8 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
     beyond the flagship's. ``args``: another model's configuration instead
     of the flagship CMDM's (stage 1's, ``stage1_args``), and ``store``
     whether its route is the device store; a CDM's store caches no
-    hierarchy, so its upload launches nothing. Nothing in the arguments
+    hierarchy, so its upload launches nothing; a CMDM's launches
+    ``upload_knn`` banded kNN a chunk. Nothing in the arguments
     names the banded route or the store: the loop picks them from the
     tree."""
     from afford_motion_torch import train as entry
@@ -1793,7 +2145,7 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
         if store:
             n_scenes = len(json.loads((tree["data"] / "H3D" / "packed" / "meta.json"
                                        ).read_text())["bases"])
-            want = store_upload(n_scenes) if cmdm else {k: 0 for k in PLAIN_STEP}
+            want = store_upload(n_scenes, upload_knn) if cmdm else {k: 0 for k in PLAIN_STEP}
             if uploads != [want]:
                 raise AssertionError(f"{name}: upload launches {uploads}, expected [{want}]")
             counts = {k: v - uploads[0][k] for k, v in counts.items()}
@@ -2529,9 +2881,11 @@ def main() -> int:
     phase_kernels_banded(dev, rep)
     phase_kernels_scene(dev, rep)
     phase_kernels_attention_bwd(dev, rep)
+    phase_kernels_trans_dec(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
     phase_reference_scene(dev)
+    phase_reference_trans_dec(dev)
     # one wrapper call launches one backward kernel for dq, dk and dv: the
     # bf16 instance's count stands in both bf16 rows, the f32 instance's in
     # its own
@@ -2561,6 +2915,22 @@ def main() -> int:
         phases.append(phase_train(dict(tree, exp=WORK / "exp_flash_f32"), counters,
                                   FLASH_F32_STEP, ("model.dropout=0", "model.dtype=float32"),
                                   tag="flash f32 "))
+    # CMDM trans_dec: 8 + 4 steps on the plain tree, its chains from that
+    # checkpoint (DDIM-50 on both attention routes, DDPM-1000 on the fused
+    # one), and 8 + 4 steps through the fused attention (dropout 0)
+    dec_tree = dict(tree, exp=WORK / "exp_dec")
+    phases.append(phase_train(dec_tree, counters, DEC_PLAIN_STEP, DEC_ARCH, tag="trans_dec "))
+    phases.append(phase_slice(dec_tree, counters, {
+        "trans_dec ddim50": ([*DEC_ARCH, *ddim], DEC_PLAIN_STEP)}))
+    with flash_switch("1"):
+        phases.append(phase_slice(dec_tree, counters, {
+            "trans_dec ddim50 fused": ([*DEC_ARCH, *ddim],
+                                       dict(DEC_PLAIN_STEP, attention=50 * DEC_ATTENTION)),
+            "trans_dec ddpm1000 fused": ([*DEC_ARCH, "task.test.sampler=ddpm"],
+                                         dict(DEC_PLAIN_STEP, attention=1000 * DEC_ATTENTION))}))
+        phases.append(phase_train(dict(tree, exp=WORK / "exp_dec_flash"), counters,
+                                  DEC_FLASH_STEP, (*DEC_ARCH, "model.dropout=0"),
+                                  tag="trans_dec flash "))
     banded_tree = make_banded_tree(tree)
     phases += [
         # the flagship configuration's default on a prepared tree: the store
@@ -2569,6 +2939,10 @@ def main() -> int:
                     ("task.train.device_store=off",), tag="banded host "),
     ]
     phase_store_megabatch(banded_tree, dev)
+    # trans_dec through the device store: the upload caches the up kNN too
+    phases.append(phase_train(dict(banded_tree, exp=WORK / "exp_dec_store"), counters,
+                              DEC_STORE_STEP, DEC_ARCH, tag="trans_dec store ", store=True,
+                              upload_knn=DEC_BANDED_KNN))
     # stage 1, the CDM-Perceiver as published: 8 + 4 steps on each data
     # route (the plain tree through the host stream, the prepared tree
     # through the stage-1 store), none of the port's kernels launched; then

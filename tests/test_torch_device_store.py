@@ -142,11 +142,10 @@ def _tiny_models(contact_dim=6, up=False):
     kw = dict(motion_dim=263, latent_dim=32, time_emb_dim=32, text_feat_dim=16,
               contact_dim=contact_dim, planes=(8, 16, 32, 64), blocks=(2, 2, 2, 2),
               num_layers=(1, 1), num_heads=4, dim_feedforward=32)
-    jm = JaxCMDM(**kw, arch="trans_dec" if up else "trans_enc")
+    arch = "trans_dec" if up else "trans_enc"
+    jm = JaxCMDM(**kw, arch=arch)
     torch.manual_seed(0)
-    tm = CMDM(**kw, dropout=0.0)
-    if up:
-        tm.needs_up_interpolation = True
+    tm = CMDM(**kw, arch=arch, dropout=0.0)
     return jm, tm
 
 

@@ -226,9 +226,10 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv``, ``trans_dec``, the CDM's scene
-    model and point-transformer backbones and the other datasets of the
-    MotionX family. ``use_banded``, a packed dataset tree under the training
+    not run some other way: ``fused_qkv``, the CDM's scene model and
+    point-transformer backbones and the other datasets of the MotionX
+    family. The CMDM's ``trans_dec`` builds, with its U-Net and its decoder
+    layers. ``use_banded``, a packed dataset tree under the training
     wire format, ``data_repr: pos`` with ``ContactMotionDataset``, the two
     stage-2 evaluators with the in-process HumanML3D metrics and the two
     stage-1 ones are ported."""
@@ -254,9 +255,11 @@ def test_port_refuses_what_is_not_ported(tmp_path):
     banded = build_cmdm(model_cfg("model.use_banded=true", "model.banded_window=256",
                                   "model.banded_adaptive=false"))
     assert (banded.use_banded, banded.banded_window, banded.banded_adaptive) == (True, 256, False)
-    for override in ("model.fused_qkv=true", "model.arch=trans_dec"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_cmdm(model_cfg(override))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_cmdm(model_cfg("model.fused_qkv=true"))
+    dec = build_cmdm(model_cfg("model.arch=trans_dec"))
+    assert dec.arch == "trans_dec" and dec.needs_up_interpolation
+    assert len(dec.cross_attn_layers) == len(dec.self_attn_layers) - 1 == 4
 
     # stage 1: the published CDM-Perceiver and the MLP without a scene model;
     # the scene model and the point-transformer backbones wait for their slice
