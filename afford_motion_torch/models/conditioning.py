@@ -1,10 +1,11 @@
 """Condition preparation (counterpart of
 ``afford_motion_tpu/models/conditioning.py``): strings become embeddings on
-the host; the CMDM's point hierarchy and contact encoding run on the device,
-once per batch or sampling chain. The ported CDMs read neither."""
+the host; the point hierarchies and the expensive encodings (a CMDM's
+contact encoder, a CDM's frozen scene model) run on the device, once per
+batch or sampling chain."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,7 +17,7 @@ from ..ops.hierarchy import (
 )
 from .cdm import CDM
 from .cmdm import CMDM
-from .pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES
+from .pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES, SEG_NSAMPLES, SEG_STRIDES
 from .text import TextEncoder
 
 ARRAY_COND_KEYS = (
@@ -57,47 +58,59 @@ def cond_to_device(cond: Dict[str, np.ndarray], device: torch.device) -> Dict[st
     return {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in cond.items()}
 
 
+def hierarchy_specs(model: Union[CMDM, CDM]
+                    ) -> List[Tuple[str, str, Sequence[int], Sequence[int], bool]]:
+    """The point hierarchies ``model`` reads, each as (cond key, cache
+    prefix, strides, nsamples, with the 3-NN up-interpolation): a CMDM's
+    SceneMap hierarchy ``levels_sm``; a CDM's scene-model hierarchy
+    ``levels_seg`` and PointTrans hierarchy ``levels_pt``, both for a U-Net,
+    so with the up-interpolation."""
+    if isinstance(model, CMDM):
+        return [("levels_sm", "geo_sm", SCENEMAP_STRIDES, SCENEMAP_NSAMPLES,
+                 bool(model.needs_up_interpolation))]
+    if isinstance(model, CDM):
+        return ([("levels_seg", "geo_seg", SEG_STRIDES, SEG_NSAMPLES, True)]
+                * model.needs_seg_hierarchy
+                + [("levels_pt", "geo_sm", SCENEMAP_STRIDES, SCENEMAP_NSAMPLES, True)]
+                * model.needs_pt_hierarchy)
+    raise NotImplementedError(f"{type(model).__name__} is not ported")
+
+
 @torch.no_grad()
 def add_hierarchies(model: Union[CMDM, CDM], cond: Dict[str, Any]) -> Dict[str, Any]:
-    """Attach a CMDM's ``levels_sm``, the SceneMap hierarchy: from a full
-    geometry cache, from cached FPS indices, or built from ``c_pc_xyz``.
-    Indices and level coordinates carry no gradient. Bandedness and its
-    window knobs ride on the model (``use_banded``, set by the TrainLoop for
-    curve-sorted packed data or by the config; ``banded_window``,
-    ``banded_adaptive``). A ported CDM needs no hierarchy: ``cond`` comes
-    back as it is."""
-    if isinstance(model, CDM):
-        return cond
-    if not isinstance(model, CMDM):
-        raise NotImplementedError(f"add_hierarchies: {type(model).__name__} is not ported")
+    """Attach the point hierarchies the model reads (:func:`hierarchy_specs`),
+    each from a full geometry cache, from cached FPS indices, or built from
+    ``c_pc_xyz``. Indices and level coordinates carry no gradient.
+    Bandedness and its window knobs ride on the model (``use_banded``, set by
+    the TrainLoop for curve-sorted packed data or by the config;
+    ``banded_window``, ``banded_adaptive``)."""
+    specs = hierarchy_specs(model)
     xyz = cond.get("c_pc_xyz")
     if xyz is None:
         return cond
     cond = dict(cond)
-    with_up = bool(model.needs_up_interpolation)
     knn_method = "exact" if model.knn_exact else None
     knobs = dict(banded=bool(model.use_banded), window=int(model.banded_window or 0),
                  adaptive=model.banded_adaptive)
-    prefix = "geo_sm"
-    if f"{prefix}0_knn_idx" in cond:
-        # a full cache rides with use_banded only where its indices came
-        # from the banded kNN; offline caches from the full kNN keep it off
-        levels = geometry_from_arrays(cond, xyz, len(SCENEMAP_STRIDES), prefix=prefix, **knobs)
-    elif f"{prefix}1_fps_idx" in cond:
-        levels = build_point_hierarchy_from_fps(
-            xyz, cond, SCENEMAP_STRIDES, SCENEMAP_NSAMPLES, prefix=prefix,
-            with_up=with_up, knn_method=knn_method, **knobs)
-    else:
-        levels = build_point_hierarchy(xyz, SCENEMAP_STRIDES, SCENEMAP_NSAMPLES,
-                                       with_up=with_up, knn_method=knn_method, **knobs)
-    cond["levels_sm"] = levels
+    for key, prefix, strides, nsamples, with_up in specs:
+        if f"{prefix}0_knn_idx" in cond:
+            # a full cache rides with use_banded only where its indices came
+            # from the banded kNN; offline caches from the full kNN keep it off
+            cond[key] = geometry_from_arrays(cond, xyz, len(strides), prefix=prefix, **knobs)
+        elif f"{prefix}1_fps_idx" in cond:
+            cond[key] = build_point_hierarchy_from_fps(
+                xyz, cond, strides, nsamples, prefix=prefix, with_up=with_up,
+                knn_method=knn_method, **knobs)
+        else:
+            cond[key] = build_point_hierarchy(xyz, strides, nsamples, with_up=with_up,
+                                              knn_method=knn_method, **knobs)
     return cond
 
 
 def encode_conditions(model: Union[CMDM, CDM], cond: Dict[str, Any]) -> Optional[torch.Tensor]:
     """The expensive condition encoding, hoisted out of the denoising loop:
-    a CMDM's contact encoding, a CDM's scene features (None for the ported
-    configurations)."""
+    a CMDM's contact encoding, a CDM's frozen scene features (None where
+    its configuration reads no scene model)."""
     if isinstance(model, CMDM):
         return model.encode_contact(cond)
     if isinstance(model, CDM):

@@ -12,6 +12,7 @@ stands for the JAX package's ``train=`` argument.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -21,6 +22,7 @@ from torch import nn
 from ..ops.cuda import banded as banded_ops
 from ..ops.cuda.gather import gather_rows
 from ..ops.hierarchy import LevelGeometry
+from ..utils.convert import load_torch_state_dict
 from .layers import Linear
 
 SCENEMAP_STRIDES = (1, 4, 4, 4)
@@ -258,3 +260,71 @@ def decode(module: nn.Module, levels: List[LevelGeometry], enc_feats: List[torch
         x = up(enc_feats[i]) if not outs else up(enc_feats[i], outs[-1], levels[i + 1])
         outs.append(block(geom.xyz, x, geom.knn_idx, geom.banded, geom.window))
     return outs
+
+
+# the frozen scene feature extractor's 5-level geometry, planes and blocks
+SEG_STRIDES = (1, 4, 4, 4, 4)
+SEG_NSAMPLES = (8, 16, 16, 16, 16)
+SEG_PLANES = (32, 64, 128, 256, 512)
+SEG_BLOCKS = (2, 3, 4, 6, 3)
+
+
+class PointTransformerEnc(PointTransformerEncoder):
+    """The 5-level encoder over (xyz, and the ``c - 3`` point features when
+    ``c > 3``); returns the coarsest level's points and features."""
+
+    def __init__(self, c: int = 6, planes: Sequence[int] = SEG_PLANES,
+                 blocks: Sequence[int] = SEG_BLOCKS, dtype: torch.dtype = torch.float32):
+        super().__init__(c, planes, blocks, SEG_STRIDES[:len(planes)], dtype=dtype)
+        self.c = c
+
+    def encode_input(self, levels: List[LevelGeometry], feats: torch.Tensor
+                     ) -> List[torch.Tensor]:
+        xyz = levels[0].xyz
+        x0 = xyz if self.c == 3 else torch.cat([xyz, feats.to(xyz.dtype)], dim=-1)
+        return self.encode(levels, x0)
+
+    def forward(self, levels: List[LevelGeometry], feats: torch.Tensor):
+        return levels[-1].xyz, self.encode_input(levels, feats)[-1]
+
+
+class PointTransformerSeg(PointTransformerEnc):
+    """The 5-level U-Net of the frozen scene feature extractor: ``enc1..enc5``
+    and ``dec5..dec1``, per-point ``planes[0]`` features on the finest
+    level."""
+
+    def __init__(self, c: int = 6, planes: Sequence[int] = SEG_PLANES,
+                 blocks: Sequence[int] = SEG_BLOCKS, dtype: torch.dtype = torch.float32):
+        super().__init__(c, planes, blocks, dtype)
+        for name, stage in decoder_stages(planes, dtype=dtype).items():
+            self.add_module(name, stage)
+
+    def forward(self, levels: List[LevelGeometry], feats: torch.Tensor) -> torch.Tensor:
+        return decode(self, levels, self.encode_input(levels, feats))[-1]
+
+
+SCENE_MODELS = {"PointTransformerSeg": PointTransformerSeg,
+                "PointTransformerEnc": PointTransformerEnc}
+
+
+def load_pretrained_scene(model: nn.Module, path: str) -> None:
+    """Load a pretrained scene-model file (a torch state_dict, DDP's
+    ``module.`` prefix stripped) into ``model`` with ``strict=True``: the
+    file's entries under ``model``'s own stages (the encoder's ``enc*``, a
+    U-Net's ``dec*``); the rest, a segmentation head, is left out."""
+    stages = {k.split(".", 1)[0] for k in model.state_dict()}
+    sd = load_torch_state_dict(path)
+    model.load_state_dict({k: v for k, v in sd.items() if k.split(".", 1)[0] in stages},
+                          strict=True)
+
+
+def load_scene_model(name: str, c: int, pretrained_weight: str = "") -> nn.Module:
+    """The scene model of ``name`` with ``c`` input channels, with the weights
+    of ``pretrained_weight`` where that file exists, else its initial
+    ones."""
+    if name not in SCENE_MODELS:
+        raise NotImplementedError(f"unknown scene model: {name}")
+    model = SCENE_MODELS[name](c=c)
+    if pretrained_weight and os.path.exists(pretrained_weight):
+        load_pretrained_scene(model, pretrained_weight)
+    return model

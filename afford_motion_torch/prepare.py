@@ -28,10 +28,6 @@ from .utils.misc import natsorted
 
 logger = get_logger()
 
-# the 5-level hierarchy of the segmentation backbone (``--kind seg``)
-SEG_STRIDES = (1, 4, 4, 4, 4)
-SEG_NSAMPLES = (8, 16, 16, 16, 16)
-
 
 def _contact_files(args) -> list:
     if args.dataset != "H3D":
@@ -62,7 +58,8 @@ def cmd_geometry(args) -> None:
     device. ``--kind sm`` (4-level SceneMap) or ``seg`` (5-level)."""
     import torch
 
-    from .models.pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES
+    from .models.pointtransformer import (
+        SCENEMAP_NSAMPLES, SCENEMAP_STRIDES, SEG_NSAMPLES, SEG_STRIDES)
     from .ops.hierarchy import build_point_hierarchy, geometry_to_arrays
     from .utils.device import resolve_device
 

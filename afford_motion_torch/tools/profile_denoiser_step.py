@@ -2,7 +2,7 @@
 fused attention:
 
     python -m afford_motion_torch.tools.profile_denoiser_step [out_dir]
-        [--arch trans_enc | trans_dec]
+        [--arch trans_enc | trans_dec | cdm_MLP | cdm_PointTransV2]
 
 Builds the scene slice's denoiser, the CMDM ``trans_enc`` at full width
 (latent 512, 5 layers of 8 heads, planes 32/64/128/256, bf16) on 66-d joint
@@ -14,7 +14,12 @@ features, 40..196-frame motion masks), and encodes the conditions once. With
 ``model.arch=trans_dec`` (the same widths, 5 self-attention stages and 4
 decoder layers whose cross-attention reads the U-Net's 128, 512, 2048 and
 8192 points) on 263-d motions, with the DDIM-50 respacing of 1000 steps.
-Then, alternating ``AM_FLASH_ATTN=1`` and ``0`` three times each, it times
+With ``--arch cdm_MLP`` (``cdm_PointTransV2``) it is stage 1's CDM with its
+frozen scene model as ``task=contact_gen model=cdm`` builds it (the shipped
+MLP backbone, or V2), on 32 coloured clouds' 6-channel contact maps, with the
+DDIM-50 respacing of its 500 steps (a step costs what a CDM-500 chain's
+does). The once-a-chain work (hierarchies and ``encode_conditions``) is
+timed apart to a synchronize. Then, alternating ``AM_FLASH_ATTN=1`` and ``0`` three times each, it times
 one DDIM-50 loop by the host clock to a device synchronize (ms per step), and
 traces one more loop each way with ``torch.profiler``: device kernel time and
 launches per step, the attention's share, the device's idle share, 1 -
@@ -43,7 +48,8 @@ from .profile_train_step import _by_class
 B, N, L = 32, 8192, 196
 STEPS = 50
 # motion width and diffusion steps of each arch's configuration
-ARCHS = {"trans_enc": (66, 500), "trans_dec": (263, 1000)}
+ARCHS = {"trans_enc": (66, 500), "trans_dec": (263, 1000), "cdm_MLP": (6, 500),
+         "cdm_PointTransV2": (6, 500)}
 
 
 def _loop_ms(loop) -> float:
@@ -67,26 +73,48 @@ def main(out_dir: str = "build/profile", arch: str = "trans_enc") -> None:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.manual_seed(2023)
     D, steps = ARCHS[arch]
-    model = CMDM(motion_dim=D, dtype=torch.bfloat16, arch=arch).to(dev).eval()
     diffusion = create_gaussian_diffusion(
         DictConfig({"steps": steps, "timestep_respacing": f"ddim{STEPS}"}), dev)
     rng = np.random.default_rng(2023)
-    x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
-    cond = {
-        "c_pc_xyz": torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)).to(dev),
-        "c_pc_contact": torch.from_numpy(rng.uniform(size=(B, N, 6)).astype(np.float16)).to(dev),
-        "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32)).to(dev),
-        "x_mask": torch.from_numpy(x_mask).to(dev),
-    }
-    noise = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(dev)
+    if arch.startswith("cdm_"):
+        from ..models.base import create_model
+        from ..utils.config import load_config
+
+        cfg = load_config(str(Path(__file__).resolve().parents[2] / "configs"),
+                          ["task=contact_gen", "model=cdm", "diffusion.steps=500",
+                           f"model.arch={arch[4:]}"])
+        cfg.model.input_feats = D
+        model = create_model(cfg.model, dev)
+        cond = {"c_pc_xyz": torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)),
+                "c_pc_feat": torch.from_numpy(rng.uniform(size=(B, N, 3)).astype(np.float32)),
+                "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32))}
+        shape = (B, N, D)
+    else:
+        model = CMDM(motion_dim=D, dtype=torch.bfloat16, arch=arch).to(dev).eval()
+        x_mask = np.arange(L)[None, :] >= rng.integers(40, L + 1, size=(B, 1))
+        cond = {
+            "c_pc_xyz": torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float16)),
+            "c_pc_contact": torch.from_numpy(rng.uniform(size=(B, N, 6)).astype(np.float16)),
+            "text_emb": torch.from_numpy(rng.normal(size=(B, 1, 512)).astype(np.float32)),
+            "x_mask": torch.from_numpy(x_mask),
+        }
+        shape = (B, L, D)
+    cond = {k: v.to(dev) for k, v in cond.items()}
+    noise = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
     saved = os.environ.get("AM_FLASH_ATTN")
     with torch.no_grad():
-        cond_h = add_hierarchies(model, cond)
-        enc = encode_conditions(model, cond_h)
+        prepare = []
+        for _ in range(4):   # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cond_h = add_hierarchies(model, cond)
+            enc = encode_conditions(model, cond_h)
+            torch.cuda.synchronize()
+            prepare.append(1e3 * (time.perf_counter() - t0))
 
         def loop():
             return diffusion.ddim_sample_loop(lambda x, t: model.denoise(x, t, cond_h, enc),
-                                              (B, L, D), noise=noise, clip_denoised=False)
+                                              shape, noise=noise, clip_denoised=False)
 
         try:
             host = {"1": [], "0": []}
@@ -94,8 +122,11 @@ def main(out_dir: str = "build/profile", arch: str = "trans_enc") -> None:
                 os.environ["AM_FLASH_ATTN"] = flash
                 host[flash].append(_loop_ms(loop))
             host = {flash: v[1:] for flash, v in host.items()}
-            what = "the scene slice's CMDM" if arch == "trans_enc" else "the CMDM trans_dec"
-            lines = [f"DDIM-50 denoiser step of {what}, batch 32, bf16; host ms per step to a "
+            what = {"trans_enc": "the scene slice's CMDM", "trans_dec": "the CMDM trans_dec"}.get(
+                arch, f"the CDM {arch[4:]} with its scene model")
+            lines = [f"once a chain (hierarchies and encode_conditions), ms to a synchronize: "
+                     f"{', '.join(f'{x:.3f}' for x in prepare[1:])}",
+                     f"DDIM-50 denoiser step of {what}, batch 32, bf16; host ms per step to a "
                      "synchronize, three alternating loops each way after a warm-up pair:"]
             for flash, v in host.items():
                 lines.append(f"  AM_FLASH_ATTN={flash}: {', '.join(f'{x:.3f}' for x in v)} "

@@ -2,7 +2,7 @@
 
     python -m afford_motion_torch.tools.profile_train_step [out_dir]
         [--banded | --store | --flash] [--dtype bfloat16 | float32] [--stage1]
-        [--arch trans_enc | trans_dec]
+        [--arch trans_enc | trans_dec] [--scene MLP | Perceiver | PointTrans | PointTransV2]
 
 Builds the flagship CMDM ``trans_enc`` (latent 512, 5 layers, planes
 32/64/128/256, bf16) from a seeded init and one random batch of 32 items
@@ -50,7 +50,11 @@ f16 clouds and caption embeddings; with ``--store`` also, each step
 assembling that batch on the card from a stage-1 store of 64 scenes (f32
 distances, the sigma kernel and the normalization on the card). The tables
 go to ``profile_train_step_stage1.txt`` and
-``profile_train_step_stage1_store.txt``. Every table ends with the traced
+``profile_train_step_stage1_store.txt``. ``--stage1 --scene ARCH`` profiles
+instead the CDM of that backbone with its frozen scene model, as
+``task=contact_gen model=cdm`` builds it (``MLP`` is the shipped default),
+on 64 coloured clouds; the hierarchies are built in the step, and the table
+goes to ``profile_train_step_stage1_scene_<ARCH>.txt``. Every table ends with the traced
 step's device time by kernel class (GEMMs, elementwise, reductions, norms,
 softmax, the optimizer, copies, the port's kernels).
 """
@@ -135,8 +139,9 @@ def _store_batch(rng, dev, model):
     return assemble, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def _stage1(rng, dev, store: bool):
-    """The published CDM-Perceiver on the card and one stage-1 batch of
+def _stage1(rng, dev, store: bool, scene: str | None = None):
+    """The published CDM-Perceiver (or, with ``scene``, the CDM of that
+    backbone with its scene model) on the card and one stage-1 batch of
     ``B_STAGE1`` items: (model, x, cond, assemble); with ``store`` x is None
     and cond the index batch of a stage-1 store of ``B_STAGE1`` scenes."""
     from ..models.base import create_model
@@ -145,8 +150,11 @@ def _stage1(rng, dev, store: bool):
     from .kernel_ab import _smoke
 
     smoke = _smoke()
-    cfg = load_config(str(smoke.ROOT / "configs"),
-                      ["task=text_to_motion_contact_gen", *smoke.STAGE1_MODEL])
+    if scene and store:
+        raise ValueError("--scene trains on the host route: the HUMANISE store is not ported")
+    args = (["task=contact_gen", "model=cdm", "diffusion.steps=500", f"model.arch={scene}"]
+            if scene else ["task=text_to_motion_contact_gen", *smoke.STAGE1_MODEL])
+    cfg = load_config(str(smoke.ROOT / "configs"), args)
     cfg.model.input_feats = 6
     model = create_model(cfg.model, dev)
     nb = smoke.B_STAGE1
@@ -155,6 +163,9 @@ def _stage1(rng, dev, store: bool):
     if not store:
         cond = {"c_pc_xyz": torch.from_numpy(xyz).to(dev),
                 "text_emb": torch.from_numpy(text).to(dev)}
+        if scene:
+            cond["c_pc_feat"] = torch.from_numpy(
+                rng.uniform(size=(nb, N, 3)).astype(np.float32)).to(dev)
         x = torch.from_numpy(rng.normal(size=(nb, N, 6)).astype(np.float32)).to(dev)
         return model, x, cond, None
     arrays = {"scene_row": np.arange(nb, dtype=np.int32), "xyz16": xyz,
@@ -277,7 +288,7 @@ def _traced(step, state, x, cond, seed: int):
 
 def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = False,
          dtype: str = "bfloat16", store: bool = False, stage1: bool = False,
-         arch: str = "trans_enc") -> None:
+         arch: str = "trans_enc", scene: str | None = None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_step runs only on a CUDA device")
     dev = torch.device("cuda:0")
@@ -289,7 +300,7 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     rng = np.random.default_rng(2023)
     assemble = None
     if stage1:
-        model, x, cond, assemble = _stage1(rng, dev, store)
+        model, x, cond, assemble = _stage1(rng, dev, store, scene)
         diffusion = create_gaussian_diffusion(DictConfig({"steps": 500}), dev)
     else:
         model = CMDM(motion_dim=D, dtype=getattr(torch, dtype), arch=arch,
@@ -363,7 +374,7 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         parts["optimizer"].append(ms)
     route = "store" if store else "banded" if banded else "non-banded"
     if stage1:
-        route = "stage-1 store" if store else "stage-1"
+        route = "stage-1 store" if store else f"stage-1 scene {scene}" if scene else "stage-1"
     if not stage1:
         route = f"{arch} {route}"
     lines = [f"{route} step, batch {nb}, peak memory of the first three {peak:.2f} GiB; parts "
@@ -386,7 +397,8 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     name = {"store": "_store", "banded": "_banded", "non-banded": "", "stage-1": "_stage1",
-            "stage-1 store": "_stage1_store"}[route.removeprefix(f"{arch} ")]
+            "stage-1 store": "_stage1_store",
+            f"stage-1 scene {scene}": f"_stage1_scene_{scene}"}[route.removeprefix(f"{arch} ")]
     (out / f"profile_train_step{name}{suffix}.txt").write_text(text + "\n")
 
 
@@ -432,6 +444,8 @@ if __name__ == "__main__":
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--stage1", action="store_true")
     ap.add_argument("--arch", default="trans_enc", choices=("trans_enc", "trans_dec"))
+    ap.add_argument("--scene", default=None,
+                    choices=("MLP", "Perceiver", "PointTrans", "PointTransV2"))
     args = ap.parse_args()
     main(args.out_dir, banded=args.banded, flash=args.flash, dtype=args.dtype, store=args.store,
-         stage1=args.stage1, arch=args.arch)
+         stage1=args.stage1, arch=args.arch, scene=args.scene)

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils.convert import load_torch_state_dict
 from ..utils.misc import natsorted
 
 
@@ -34,11 +35,7 @@ def save_ckpt(model: nn.Module, ckpt_dir: str, step: int) -> str:
 def load_ckpt(model: nn.Module, path: str) -> None:
     """Load a state_dict file (a bare dict or ``{"state_dict": ...}``,
     DDP's ``module.`` prefix stripped) with ``strict=True``."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(load_torch_state_dict(path), strict=True)
 
 
 def _train_state_path(model_path: str) -> str:

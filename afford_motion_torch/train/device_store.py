@@ -277,15 +277,16 @@ class DeviceStore:
 
     # ----------------------------------------------------- geometry cache
     def add_geometry_cache(self, model, device="cuda", max_bytes: Optional[int] = None) -> bool:
-        """Compute each scene's whole SceneMap hierarchy (kNN, down-kNN and,
-        where the model reads it, the 3-NN up) from the stored fps wire once,
-        on ``device``, ``GEOMETRY_CHUNK`` scenes at a time, and keep it with the
+        """Compute each scene's whole hierarchy (kNN, down-kNN and, where the
+        model reads it, the 3-NN up) from the stored fps wire once, on
+        ``device``, ``GEOMETRY_CHUNK`` scenes at a time, and keep it with the
         corpus, so that the step's ``add_hierarchies`` takes its cached
-        branch instead of running the kNN every step. The cache comes from
-        the kernels the in-step rebuild would launch (the banded kNN when
-        ``model.use_banded``), so the numerics do not change. Every index
-        field depends on distances only, so it holds under rigid
-        augmentation.
+        branch instead of running the kNN every step: each hierarchy the
+        model reads (``conditioning.hierarchy_specs``) whose fps wire the
+        store holds. The cache comes from the kernels the in-step rebuild
+        would launch (the banded kNN when ``model.use_banded``), so the
+        numerics do not change. Every index field depends on distances only,
+        so it holds under rigid augmentation.
 
         Index fields are stored as int16 below 2^15 parents. Within
         ``max_bytes`` (the corpus included) whole levels are kept from the
@@ -294,40 +295,40 @@ class DeviceStore:
         Returns True when anything was cached."""
         if os.environ.get("AM_DEVICE_GEO", "auto") == "off":
             return False
-        from ..models.cmdm import CMDM
-        from ..models.pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES
+        from ..models.conditioning import hierarchy_specs
         from ..ops.hierarchy import build_point_hierarchy_from_fps, geometry_to_arrays
 
         max_bytes = max_bytes_from_env() if max_bytes is None else max_bytes
-        if not isinstance(model, CMDM):
-            return False
-        prefix = "geo_sm"
-        if f"{prefix}1_fps_idx" not in self.arrays or f"{prefix}0_knn_idx" in self.arrays:
+        specs = [s[1:] for s in hierarchy_specs(model) if f"{s[1]}1_fps_idx" in self.arrays
+                 and f"{s[1]}0_knn_idx" not in self.arrays]
+        if not specs:
             return False
         dev = torch.device(device)
-        knobs = dict(with_up=bool(model.needs_up_interpolation), banded=bool(model.use_banded),
+        knobs = dict(banded=bool(model.use_banded),
                      knn_method="exact" if model.knn_exact else None,
                      window=int(model.banded_window or 0), adaptive=model.banded_adaptive)
-        fps_keys = [k for k in self.arrays if k.startswith(prefix) and k.endswith("_fps_idx")]
         xyz = self.arrays["xyz16"]
         n_sc = xyz.shape[0]
 
         outs: Dict[str, list] = {}
         with torch.no_grad():
-            for a in range(0, n_sc, GEOMETRY_CHUNK):
-                b = min(a + GEOMETRY_CHUNK, n_sc)
-                fps = {k: _to_device(self.arrays[k][a:b], dev) for k in fps_keys}
-                levels = build_point_hierarchy_from_fps(
-                    _to_device(xyz[a:b], dev).float(), fps, SCENEMAP_STRIDES,
-                    SCENEMAP_NSAMPLES, prefix=prefix, **knobs)
-                for k, v in geometry_to_arrays(levels, prefix=prefix).items():
-                    if k.endswith("_fps_idx"):
-                        continue  # stored already: the wire itself
-                    arr = v.cpu().numpy()
-                    if k.endswith("_idx"):
-                        n_parent = int(arr.max(initial=0)) + 1
-                        arr = arr.astype(np.int16 if n_parent < (1 << 15) else np.int32)
-                    outs.setdefault(k, []).append(arr)
+            for prefix, strides, nsamples, with_up in specs:
+                fps_keys = [k for k in self.arrays
+                            if k.startswith(prefix) and k.endswith("_fps_idx")]
+                for a in range(0, n_sc, GEOMETRY_CHUNK):
+                    b = min(a + GEOMETRY_CHUNK, n_sc)
+                    fps = {k: _to_device(self.arrays[k][a:b], dev) for k in fps_keys}
+                    levels = build_point_hierarchy_from_fps(
+                        _to_device(xyz[a:b], dev).float(), fps, strides, nsamples,
+                        prefix=prefix, with_up=with_up, **knobs)
+                    for k, v in geometry_to_arrays(levels, prefix=prefix).items():
+                        if k.endswith("_fps_idx"):
+                            continue  # stored already: the wire itself
+                        arr = v.cpu().numpy()
+                        if k.endswith("_idx"):
+                            n_parent = int(arr.max(initial=0)) + 1
+                            arr = arr.astype(np.int16 if n_parent < (1 << 15) else np.int32)
+                        outs.setdefault(k, []).append(arr)
         new_host = {k: np.concatenate(parts, axis=0) for k, parts in outs.items()}
         if not new_host:
             return False
@@ -337,8 +338,8 @@ class DeviceStore:
         # deep levels are small (a scene's bytes shrink ~4x a level) while
         # level 0's kNN is the largest field. build_point_hierarchy_from_fps
         # takes any cached subset and computes what is missing.
-        def level_of(key):
-            return int(key[len(prefix):].split("_")[0])
+        def level_of(key):   # geo_sm2_knn_idx -> 2
+            return int(key.split("_")[1].lstrip("abcdefghijklmnopqrstuvwxyz"))
 
         level_bytes: Dict[int, int] = {}
         for k, v in new_host.items():

@@ -2,7 +2,7 @@
 
     python -m afford_motion_torch.train <the same config overrides as train.py>
 
-Trains the configured model (the CMDM ``trans_enc`` so far) with the host
+Trains the configured model (a CMDM or a CDM) with the host
 dataloader and writes ``config.yaml``, ``log/runtime.log`` and
 ``ckpt/model{step:06d}.pt`` (plus ``train_state{step:06d}.pt`` for resume:
 ``task.train.resume_ckpt=<.../model000004.pt>``) under ``exp_dir``. It runs

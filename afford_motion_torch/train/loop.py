@@ -23,10 +23,11 @@ packed store with the fps geometry wire the loop switches the banded
 kernels on (``_maybe_enable_banded``). ``task.train.profile_steps`` traces
 that many steps with ``torch.profiler`` after the first 2 G, into
 ``<exp_dir>/log/profile``; ``AM_LOOP_TIMING=1`` logs the loop's wall time by
-phase at every logged step.
+phase at every logged step. A CDM's frozen scene model takes the
+pretrained weights of ``model.scene_model.pretrained_weight`` where that
+file exists (``_maybe_load_pretrained_scene``).
 
-Not ported yet: the device mesh (one device), the pretrained scene-model
-load.
+Not ported yet: the device mesh (one device).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from ..diffusion import GaussianDiffusion
 from ..diffusion.resample import LossSecondMomentResampler, UniformSampler
 from ..models.conditioning import add_hierarchies, encode_text, host_prepare_cond
 from ..models.layers import set_dropout_generator
+from ..models.pointtransformer import load_pretrained_scene
 from ..models.text import TextEncoder
 from ..parallel.mesh import DevicePrefetcher
 from ..utils.io import Board, get_logger, mkdir_if_not_exists
@@ -133,6 +135,7 @@ class TrainLoop:
         # what the run measured, for the caller: one entry per logged window
         self.summary: Dict[str, Any] = {"device": str(device), "logged": []}
         self._maybe_enable_banded()
+        self._maybe_load_pretrained_scene(cfg)
 
         # items load serially inside the producer thread's megabatch draw,
         # so that the datasets' random choices follow its per-megabatch seeds
@@ -186,6 +189,22 @@ class TrainLoop:
         logger.info(f"device store: {store.nbytes() / 1e9:.3f}GB in {len(store.arrays)} arrays "
                     f"on {self.device} (geometry cache {'on' if cached else 'off'}), "
                     f"{seconds:.2f} s for the cache and the upload")
+
+    def _maybe_load_pretrained_scene(self, cfg: Any) -> None:
+        """A CDM's frozen scene model from ``model.scene_model.pretrained_weight``
+        (the reference's ``.pth``: its ``enc*``/``dec*`` entries, loaded with
+        ``strict=True``); where that file does not exist the scene model
+        keeps its initial weights, with a warning."""
+        scene = getattr(self.model, "scene_model", None)
+        if scene is None:
+            return
+        weight = str(cfg.model.scene_model.get("pretrained_weight", "") or "")
+        if not weight or not os.path.exists(weight):
+            logger.warning(f"pretrained scene weights not found at {weight!r}; "
+                           "the frozen scene model keeps its random init")
+            return
+        load_pretrained_scene(scene, weight)
+        logger.info(f"Loaded pretrained scene model from {weight}")
 
     def _maybe_enable_banded(self) -> None:
         """Enable the banded windowed-neighbourhood kernels when the data

@@ -1,7 +1,8 @@
 """Weights between the JAX package and the port: the flax variable tree of a
-CMDM (``trans_enc`` or ``trans_dec``), of a CDM (Perceiver or MLP, no scene
-model), or of the joints-to-SMPL-X regressor, <-> the port's state_dict (the
-reference torch layout); the T2M evaluator's numpy parameter dicts <-> its
+CMDM (``trans_enc`` or ``trans_dec``), of a CDM (MLP, Perceiver, PointTrans
+or PointTransV2, with or without its frozen scene model), of the scene model
+``PointTransformerSeg`` alone, or of the joints-to-SMPL-X regressor, <-> the
+port's state_dict (the reference torch layout); the T2M evaluator's numpy parameter dicts <-> its
 three state dicts; and the SMPL-X body model's arrays.
 
 One table of (state_dict key, flax path, kind) entries drives both
@@ -12,7 +13,7 @@ Numpy only; the leaves may be numpy or jax arrays.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,12 +83,25 @@ def _decoder_layer(key: str, path: Path):
     yield from _dense(f"{key}.linear2", (*path, "Dense_1"))
 
 
+def _point_encoder(key: str, path: Path, blocks: Sequence[int]):
+    """``{key}enc{k}`` <-> ``PointEncoderStage_{k - 1}`` under ``path``: a
+    TransitionDown and ``blocks[k - 1] - 1`` PointTransformerBlocks."""
+    for k, nblocks in enumerate(blocks, start=1):
+        stage = (*path, f"PointEncoderStage_{k - 1}")
+        yield from _dense(f"{key}enc{k}.0.linear", (*stage, "TransitionDown_0", "Dense_0"),
+                          bias=False)
+        yield from _bn(f"{key}enc{k}.0.bn", (*stage, "TransitionDown_0", "PointNorm_0"))
+        for j in range(1, nblocks):
+            yield from _pt_block(f"{key}enc{k}.{j}", (*stage, f"PointTransformerBlock_{j - 1}"))
+
+
 def _point_decoder(key: str, path: Path, n_levels: int):
-    """``{key}.dec{k}`` <-> ``PointDecoderStage_{n_levels - k}``; stage 0,
-    ``dec{n_levels}``, is the head, whose ``Dense_0`` is ``linear2``."""
+    """``{key}dec{k}`` <-> ``PointDecoderStage_{n_levels - k}`` under
+    ``path``; stage 0, ``dec{n_levels}``, is the head, whose ``Dense_0`` is
+    ``linear2``."""
     for k in range(n_levels, 0, -1):
         stage = (*path, f"PointDecoderStage_{n_levels - k}")
-        up, tu = f"{key}.dec{k}.0", (*stage, "TransitionUp_0")
+        up, tu = f"{key}dec{k}.0", (*stage, "TransitionUp_0")
         if k == n_levels:
             yield from _dense(f"{up}.linear2.0", (*tu, "Dense_0"))
             yield from _dense(f"{up}.linear1.0", (*tu, "Dense_1"))
@@ -96,7 +110,17 @@ def _point_decoder(key: str, path: Path, n_levels: int):
             for j, part in enumerate(("linear1", "linear2")):
                 yield from _dense(f"{up}.{part}.0", (*tu, f"Dense_{j}"))
                 yield from _bn(f"{up}.{part}.1", (*tu, f"PointNorm_{j}"))
-        yield from _pt_block(f"{key}.dec{k}.1", (*stage, "PointTransformerBlock_0"))
+        yield from _pt_block(f"{key}dec{k}.1", (*stage, "PointTransformerBlock_0"))
+
+
+def pointtransformer_seg_entries(blocks: Sequence[int], key: str = "", path: Path = ()
+                                 ) -> Iterator[Tuple[str, Path, str]]:
+    """Every (state_dict key, flax path, kind) of a ``PointTransformerSeg``
+    of ``blocks`` (the scene model's are 2/3/4/6/3), its torch keys under
+    the prefix ``key`` and its flax tree under ``path``: ``enc{k}`` <->
+    ``enc/PointEncoderStage_{k - 1}``, ``dec{k}`` <-> ``dec/PointDecoderStage_*``."""
+    yield from _point_encoder(key, (*path, "enc"), blocks)
+    yield from _point_decoder(key, (*path, "dec"), len(blocks))
 
 
 def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "trans_enc"
@@ -110,20 +134,13 @@ def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "
     adapters = ("language_adapter", "motion_adapter", "motion_layer")
     for name in adapters + (("contact_adapter",) if arch == "trans_enc" else ()):
         yield from _dense(name, (name,))
-    for k, nblocks in enumerate(blocks, start=1):
-        stage = ("contact_encoder", "enc", f"PointEncoderStage_{k - 1}")
-        yield from _dense(f"contact_encoder.enc{k}.0.linear",
-                          (*stage, "TransitionDown_0", "Dense_0"), bias=False)
-        yield from _bn(f"contact_encoder.enc{k}.0.bn", (*stage, "TransitionDown_0", "PointNorm_0"))
-        for j in range(1, nblocks):
-            yield from _pt_block(f"contact_encoder.enc{k}.{j}",
-                                 (*stage, f"PointTransformerBlock_{j - 1}"))
+    yield from _point_encoder("contact_encoder.", ("contact_encoder", "enc"), blocks)
     if arch == "trans_enc":
         for i in range(sum(num_layers)):
             yield from _encoder_layer(f"self_attn_layer.layers.{i}",
                                       ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
         return
-    yield from _point_decoder("contact_encoder", ("contact_encoder", "dec"), len(blocks))
+    yield from _point_decoder("contact_encoder.", ("contact_encoder", "dec"), len(blocks))
     for i, n in enumerate(num_layers):
         for j in range(n):
             yield from _encoder_layer(f"self_attn_layers.{i}.layers.{j}",
@@ -153,13 +170,18 @@ def _perceiver_layer(key: str, path: Path, cross: bool):
 
 
 def cdm_entries(arch: str = "Perceiver", *, self_attn_layers: int = 2, mlp_layers: int = 2,
-                mlp_bias: bool = True) -> Iterator[Tuple[str, Path, str]]:
-    """Every (state_dict key, flax path, kind) of a CDM without a scene
-    model: ``Perceiver`` with ``self_attn_layers`` latent layers, or ``MLP``
-    with ``mlp_layers`` point-scene MLPs."""
+                mlp_bias: bool = True, blocks: Sequence[int] = (2, 2, 2, 2),
+                scene_blocks: Optional[Sequence[int]] = None) -> Iterator[Tuple[str, Path, str]]:
+    """Every (state_dict key, flax path, kind) of a CDM: ``Perceiver`` with
+    ``self_attn_layers`` latent layers, ``MLP`` with ``mlp_layers``
+    point-scene MLPs, ``PointTrans`` / ``PointTransV2`` with ``blocks`` a
+    stage; with ``scene_blocks`` also its frozen ``PointTransformerSeg``
+    (``scene_model.*``) of those blocks."""
     yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
     yield from _dense("timestep_embedder.time_embed.2", ("timestep_embedder", "Dense_1"))
     yield from _dense("contact_layer", ("contact_layer",))
+    if scene_blocks is not None:
+        yield from pointtransformer_seg_entries(scene_blocks, "scene_model.", ("scene_model",))
     cm = ("contact_model",)
     if arch == "MLP":
         for i in range(mlp_layers):
@@ -169,8 +191,22 @@ def cdm_entries(arch: str = "Perceiver", *, self_attn_layers: int = 2, mlp_layer
                 yield from _dense(f"{key}.{part}.1", (*path, f"Dense_{d0}"), bias=mlp_bias)
                 yield from _dense(f"{key}.{part}.3", (*path, f"Dense_{d1}"), bias=mlp_bias)
         return
+    if arch in ("PointTrans", "PointTransV2"):
+        yield from _point_encoder("contact_model.", cm, blocks)
+        yield from _point_decoder("contact_model.", cm, len(blocks))
+        # the context MLPs in the order the flax module makes them
+        names = ("ctx4", "ctx3", "ctx2") if arch == "PointTransV2" else ("ctx",)
+        for i, name in enumerate(names):
+            ctx = (*cm, f"_CtxMLP_{i}")
+            yield from _dense(f"contact_model.{name}.0", (*ctx, "Dense_0"))
+            yield from _bn(f"contact_model.{name}.1", (*ctx, "PointNorm_0"))
+            yield from _dense(f"contact_model.{name}.3", (*ctx, "Dense_1"))
+        if arch == "PointTransV2":
+            yield from _encoder_layer("contact_model.self_attn_layers.layers.0",
+                                      (*cm, "TransformerEncoder_0", "TransformerEncoderLayer_0"))
+        return
     if arch != "Perceiver":
-        raise NotImplementedError(f"CDM arch {arch!r} is not ported yet")
+        raise NotImplementedError(f"CDM arch {arch!r}")
     for i, name in enumerate(("encoder_adapter", "language_adapter", "time_embedding_adapter")):
         yield from _dense(f"contact_model.{name}", (*cm, f"Dense_{i}"))
     yield from _perceiver_layer("contact_model.encoder_cross_attn",
@@ -193,6 +229,15 @@ def regressor_entries(num_layers: int = 2) -> Iterator[Tuple[str, Path, str]]:
         yield from _encoder_layer(f"TransEncoder.layers.{i}",
                                   ("TransformerEncoder_0", f"TransformerEncoderLayer_{i}"))
     yield from _dense("output_layer", ("Dense_2",))
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch file's state_dict (a bare dict, or one under ``"state_dict"``)
+    on the CPU, with DDP's ``module.`` prefix stripped from its keys."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 
 def _get(tree: Dict, path: Path):
@@ -263,7 +308,8 @@ def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
 
 
 def cdm_state_dict_from_jax(variables_np: Dict, **arch) -> Dict[str, torch.Tensor]:
-    """flax ``{"params": ...}`` of a CDM -> a state_dict that
+    """flax ``{"params", "batch_stats"}`` of a CDM (``batch_stats`` where it
+    has BatchNorms) -> a state_dict that
     :class:`afford_motion_torch.models.cdm.CDM` loads with ``strict=True``;
     ``arch``: the keyword arguments of :func:`cdm_entries`."""
     return _state_dict_from_jax(variables_np, cdm_entries(**arch))
@@ -271,9 +317,22 @@ def cdm_state_dict_from_jax(variables_np: Dict, **arch) -> Dict[str, torch.Tenso
 
 def cdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], **arch) -> Dict:
     """The inverse: a dict of tensors keyed like a CDM's state_dict (its
-    parameters, or their gradients) -> ``{"params": ...}`` with numpy
-    leaves."""
+    parameters and buffers, or the gradients of its parameters) -> the flax
+    tree with numpy leaves; keys missing from ``tensors`` are left out."""
     return _jax_tree_from_state_dict(tensors, cdm_entries(**arch))
+
+
+def pointtransformer_seg_state_dict_from_jax(variables_np: Dict, *, blocks: Sequence[int]
+                                             ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a ``PointTransformerSeg`` -> a
+    state_dict the port's loads with ``strict=True``."""
+    return _state_dict_from_jax(variables_np, pointtransformer_seg_entries(blocks))
+
+
+def pointtransformer_seg_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
+                                                  blocks: Sequence[int]) -> Dict:
+    """The inverse: a ``PointTransformerSeg`` state_dict -> its flax tree."""
+    return _jax_tree_from_state_dict(tensors, pointtransformer_seg_entries(blocks))
 
 
 def regressor_state_dict_from_jax(variables_np: Dict, *, num_layers: int = 2

@@ -219,6 +219,32 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    every step, ``DEC_FLASH_STEP``); and 8 + 4 steps through the device store
    of the sorted tree (``DEC_STORE_STEP``; its upload caches the up arrays
    too, 8 banded kNN a chunk of 64 scenes).
+14. the CDM with its frozen scene model, the shipped stage-1 default
+   (``task=contact_gen model=cdm``: the MLP backbone and the 5-level
+   ``PointTransformerSeg`` in float32, 32-d point features, bf16, 500 steps;
+   the pretrained file is not in the checkout, so its seeded init, with the
+   entry's warning). Its kernels at the shapes it adds
+   (:func:`phase_kernels_cdm_scene`, with the kernel phases): FPS down to 32
+   points and the scene hierarchy's kNN at batch 64, bit-equal; the float32
+   gather of its level 0 (64 x 8192 x 8 x 67) and the bf16 scatter of
+   PointTrans's (131 channels), bit-equal, beside ``torch.gather`` and
+   ``index_add_``, and PointTrans's banded kNN, gather and scatter of level
+   0 on a sorted cloud at batch 64; V2's bottleneck attention (32 x 128 tokens, 8 heads of 64)
+   within ``TOLERANCE``, beside SDPA. With the reference phases, one float32
+   CDM-V2 forward with the scene model at a small width on 2 x 8192 points,
+   card vs CPU: the hierarchies bit-equal, the features and the output
+   within ``CDM_SCENE_LIMIT``. Then on a synthetic HUMANISE tree (8192-point
+   scenes with colours) through the entries: 8 + 4 steps of the MLP at
+   batch 64 (``SCENE_PASS`` a step: the hierarchy and the scene model, no
+   backward through it), 4 + 2 each of the Perceiver, PointTrans and
+   PointTransV2 with the scene model (``PT_SCENE_STEP``), every run's scene
+   model bit-equal to the seeded init after training; 4 + 2 steps of
+   PointTrans without it through the stage-1 store of the sorted H3D tree
+   (the banded route and the upload's geometry cache); the MLP's CDM-500
+   test (two chains of 32, ``pred_contact`` files and ``dist_to_target_*``
+   as in the ts2m phase) and V2's DDIM-50 test with ``AM_FLASH_ATTN=1`` (the
+   bottleneck attention fused, once a step). Every run's launches are
+   checked exactly.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -335,6 +361,30 @@ DEC_FLASH_STEP = dict(DEC_PLAIN_STEP, attention=DEC_ATTENTION,
 # (time, pooled text, 196 frames)
 DEC_MEMORY = (128, 512, 2048, 8192)
 DEC_QUERIES = 2 + L
+
+
+# the CDM with its frozen scene model (task=contact_gen model=cdm, the
+# shipped default; scripts/ts2m_contact/train_ddp.sh without its
+# use_scene_model=False). A pass builds the scene model's 5-level hierarchy
+# (4 FPS, 8192 -> 2048 -> 512 -> 128 -> 32; 8 kNN: the self kNN of the levels
+# of 8192, 2048 and 512 points, the down kNN of 2048, 512 and 128 points and
+# the up kNN of 8192 x 2048 and 2048 x 512; below 256 support points the
+# exact path) and runs the scene model once, forward only and in float32:
+# 26 row gathers (17 in the encoder of blocks 2/3/4/6/3, 5 decoder blocks
+# and 4 up-gathers) and no scatter. The PointTrans backbones add the SceneMap
+# hierarchy with its up kNN (3 FPS, 8 kNN) and their U-Net's 14 gathers a
+# pass, 14 scatters backward; V2's bottleneck self-attention is one
+# attention call a denoiser step (128 tokens, 8 heads of 64), fused under
+# AM_FLASH_ATTN=1 in chains (its dropout 0.1 keeps training on the einsum
+# route). Without the scene model, through the stage-1 store of the sorted
+# tree, PointTrans runs trans_dec's store route: DEC_STORE_STEP, and the
+# upload DEC_BANDED_KNN banded kNN a chunk.
+SCENE_PASS = dict(PLAIN_STEP, fps=4, knn=8, gather=26, scatter=0)
+PT_SCENE_STEP = dict(SCENE_PASS, fps=4 + 3, knn=8 + 8, gather=26 + 14, scatter=14)
+# V2's bottleneck attention (B chains of N_POINTS / 64 tokens) and the scene
+# model's shapes the kernel phases add
+V2_TOKENS, V2_WIDTH, V2_HEADS = N_POINTS // 64, 512, 8
+SCENE_GATHER_C = 3 + 2 * 32
 
 
 # launch configurations of the two scatter kernels' sums checked against
@@ -1649,6 +1699,149 @@ def phase_kernels_trans_dec(dev: torch.device, rep: KernelReport) -> None:
         f"2^{np.log2(max(rep.attention_bwd_need['f32'], 1e-30)):.2f}")
 
 
+def phase_kernels_cdm_scene(dev: torch.device, rep: KernelReport) -> None:
+    """The kernels at the shapes the CDM's scene model and its PointTrans
+    backbones add (timed, logged, kept out of the kernels line's pass sums):
+    the scene model's hierarchy at the train batch B_STAGE1 (FPS down to 32
+    points, every kNN the kernel takes, each bit-equal to its plain
+    version; FPS 512 -> 128 and 128 -> 32 and the k = 8 self kNN over 8192
+    points timed), its float32 row gather at level 0 (B_STAGE1 x 8192 x 8 x
+    67: xyz and the 32-wide k and v) bit-equal and timed beside
+    ``torch.gather``, the bf16 scatter of PointTrans's level-0 block at that
+    batch (3 + 2 x 64 channels) bit-equal and timed beside ``index_add_``;
+    the same block on the stage-1 store's banded route (a sorted cloud: the
+    banded self kNN, gather and scatter, each checked and timed); and V2's
+    bottleneck attention (B chains x 128 tokens, 8 heads of 64,
+    bf16, no mask) within ``TOLERANCE`` of its plain version, timed beside
+    SDPA."""
+    import torch.nn.functional as F
+
+    from afford_motion_torch.models.pointtransformer import SEG_NSAMPLES, SEG_STRIDES
+    from afford_motion_torch.ops.cuda import attention as attn
+    from afford_motion_torch.ops.cuda import banded
+    from afford_motion_torch.ops.cuda import knn as knn_mod
+    from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
+    from afford_motion_torch.ops.cuda.gather import (
+        gather_rows, gather_rows_plain, scatter_add_rows, scatter_add_rows_plain)
+    from afford_motion_torch.ops.cuda.knn import knn_cuda, knn_plain
+    from afford_motion_torch.ops.curves import curve_order
+
+    rng = np.random.default_rng(SEED + 13)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    nb = B_STAGE1
+    levels = [torch.from_numpy(rng.normal(size=(nb, N_POINTS, 3)).astype(np.float32)).to(dev)]
+    for stride in SEG_STRIDES[1:]:
+        parent = levels[-1]
+        n_in, n_out = parent.shape[1], parent.shape[1] // stride
+        label = f"scene ({nb},{n_in},3)->{n_out}"
+        got = fps_cuda(parent, n_out)
+        rep.check("fps", label, [got], [fps_plain(parent, n_out)])
+        if n_out <= 128:
+            rep.timed("fps", label, lambda p=parent, m=n_out: fps_cuda(p, m),
+                      lambda p=parent, m=n_out: fps_plain(p, m), 5, False,
+                      nbytes=nb * (n_in * 12 + n_out * 4), flops=10.0 * nb * n_out * n_in)
+        levels.append(torch.gather(parent, 1, got.long()[..., None].expand(-1, -1, 3)))
+    calls = [(li, li, SEG_NSAMPLES[li]) for li in range(5)]
+    calls += [(li, li - 1, SEG_NSAMPLES[li]) for li in range(1, 5)]
+    calls += [(li - 1, li, 3) for li in range(1, 5)]
+    knn0 = None
+    for qi, si, k in calls:
+        q, sup = levels[qi], levels[si]
+        m, n = q.shape[1], sup.shape[1]
+        label = f"scene q{tuple(q.shape)} s{tuple(sup.shape)} k={k}"
+        if not knn_mod.supports(m, n, k):
+            log(f"  knn {label}: below the kernel's range, the exact path")
+            continue
+        got = knn_cuda(q, sup, k)
+        rep.check("knn", label, got, knn_plain(q, sup, k))
+        if (qi, si) == (0, 0):
+            knn0 = got[0]
+            rep.timed("knn", label, lambda q=q, s=sup, k=k: knn_cuda(q, s, k),
+                      lambda q=q, s=sup, k=k: knn_plain(q, s, k), 5, False,
+                      nbytes=nb * ((m + n) * 12 + m * k * 8), flops=0.0)
+    del levels
+    # the scene model's level-0 block gathers xyz, k and v (3 + 2 x 32
+    # channels, float32) through the k = 8 neighbours
+    c = SCENE_GATHER_C
+    x = torch.randn(nb, N_POINTS, c, device=dev, generator=gen)
+    label = f"scene x({nb},{N_POINTS},{c}) idx{tuple(knn0.shape)} float32"
+    rep.check("gather", label, [gather_rows(x, knn0)], [gather_rows_plain(x, knn0)])
+    wide = knn0.long().reshape(nb, -1, 1).expand(-1, -1, c)
+    rows = knn0.shape[1] * knn0.shape[2]
+    k_ms, _, l_ms = rep.timed(
+        "gather", label, lambda: gather_rows(x, knn0), lambda: gather_rows_plain(x, knn0), 10,
+        False, nbytes=nb * (N_POINTS * c * 4 + rows * 4 + rows * c * 4), flops=0.0,
+        library=lambda: torch.gather(x, 1, wide))
+    log(f"    gather {label}: kernel / torch.gather {k_ms / l_ms:.3f}")
+    del x, wide
+    # PointTrans's level-0 block at the train batch: 3 + 2 x 64 bf16 channels
+    c = 3 + 2 * 64
+    g = torch.randn(nb, N_POINTS, knn0.shape[2], c, device=dev, generator=gen).to(torch.bfloat16)
+    label = f"PointTrans g{tuple(g.shape)} -> ({nb},{N_POINTS},{c}) bfloat16"
+    got = scatter_add_rows(g, knn0, N_POINTS)
+    rep.check("scatter", label, [got], [scatter_add_rows_plain(g, knn0, N_POINTS)])
+    rep.check("scatter", label + " again", [scatter_add_rows(g, knn0, N_POINTS)], [got])
+    flat = (knn0.long() + N_POINTS * torch.arange(nb, device=dev)[:, None, None]).reshape(-1)
+
+    def index_add():   # reads this scope's g and flat when it is called
+        out = torch.zeros((nb * N_POINTS, c), dtype=g.dtype, device=dev)
+        return out.index_add_(0, flat, g.reshape(-1, c))
+
+    rep.timed("scatter", label, lambda: scatter_add_rows(g, knn0, N_POINTS),
+              lambda: scatter_add_rows_plain(g, knn0, N_POINTS), 10, False,
+              nbytes=nb * (rows * c * 2 + rows * 4 + N_POINTS * c * 2), flops=1.0 * nb * rows * c,
+              library=index_add)
+    del g, got, flat, knn0
+    # PointTrans through the stage-1 store: level 0 of a sorted cloud at the
+    # train batch, its banded self kNN (k = 8, static starts) and the banded
+    # gather and scatter of its block (131 bf16 channels)
+    w0 = 128
+    cloud = rng.normal(size=(nb, N_POINTS, 3)).astype(np.float32)
+    xyz = torch.from_numpy(np.stack([p[curve_order(p, "hilbert")] for p in cloud])).to(dev)
+    st = banded._starts_tensor(N_POINTS, N_POINTS, w0, dev)
+    size = banded._window(N_POINTS, N_POINTS, w0)
+    label = f"PointTrans store ({nb},{N_POINTS},3) k=8 S={size} starts{tuple(st.shape)}"
+    got = banded.knn_banded(xyz, xyz, 8, st, w0)
+    check_banded_knn(rep, label, xyz, xyz, 8, st, size, got)
+    rep.timed("banded_knn", label, lambda: banded.knn_banded(xyz, xyz, 8, st, w0),
+              lambda: banded.knn_banded_plain(xyz, xyz, 8, st, size), 5, False,
+              nbytes=nb * (2 * N_POINTS * 12 + N_POINTS * 8 * 8) + st.numel() * 4,
+              flops=9.0 * nb * N_POINTS * size)
+    idx = got[0]
+    x = torch.randn(nb, N_POINTS, c, device=dev, generator=gen).to(torch.bfloat16)
+    g = torch.randn(nb, N_POINTS, 8, c, device=dev, generator=gen).to(torch.bfloat16)
+    label = f"PointTrans store x({nb},{N_POINTS},{c}) idx{tuple(idx.shape)} bfloat16 S={size}"
+    rep.check("banded_gather", label, [banded.gather_banded(x, idx, st, w0)],
+              [banded.gather_banded_plain(x, idx, st, size)])
+    rep.check("banded_scatter", label, [banded.scatter_banded(g, idx, st, N_POINTS, size)],
+              [banded.scatter_banded_plain(g, idx, st, N_POINTS, size)])
+    nbytes = nb * (N_POINTS * c * 2 + rows * 4 + rows * c * 2) + st.numel() * 4
+    wide = idx.long().reshape(nb, -1, 1).expand(-1, -1, c)
+    flat = (idx.long() + N_POINTS * torch.arange(nb, device=dev)[:, None, None]).reshape(-1)
+    rep.timed("banded_gather", label, lambda: banded.gather_banded(x, idx, st, w0),
+              lambda: banded.gather_banded_plain(x, idx, st, size), 10, False, nbytes=nbytes,
+              flops=0.0, library=lambda: torch.gather(x, 1, wide))
+    rep.timed("banded_scatter", label, lambda: banded.scatter_banded(g, idx, st, N_POINTS, size),
+              lambda: banded.scatter_banded_plain(g, idx, st, N_POINTS, size), 10, False,
+              nbytes=nbytes, flops=1.0 * nb * rows * c, library=index_add)
+    del x, g, wide, flat, idx, got
+    # V2's bottleneck self-attention in a chain of B
+    hd = V2_WIDTH // V2_HEADS
+    q, k, v = (torch.randn(B, V2_TOKENS, V2_WIDTH, device=dev, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    label = f"V2 bottleneck ({B},{V2_TOKENS}x{V2_TOKENS},{V2_HEADS}x{hd}) bfloat16"
+    check_attention(rep, label, q, k, v, V2_HEADS, None)
+    qh, kh, vh = (t.reshape(B, V2_TOKENS, V2_HEADS, hd).transpose(1, 2) for t in (q, k, v))
+    pairs = float(B * V2_HEADS * V2_TOKENS * V2_TOKENS)
+    rep.timed("attention", label, lambda: attn.attention_cuda(q, k, v, V2_HEADS, None),
+              lambda: attn.attention_plain(q, k, v, V2_HEADS, None), 10, False,
+              nbytes=4 * q.numel() * 2, flops=4.0 * hd * pairs, peak=BF16_FLOP_PER_S,
+              library=lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    log("  CDM scene: FPS to 32 points and the scene hierarchy's kNN at batch "
+        f"{nb}, the float32 gather and the bf16 scatter of level 0 bit-equal to their plain "
+        "versions; V2's bottleneck attention within TOLERANCE")
+
+
 def phase_flash_grads(dev: torch.device, counters: dict) -> None:
     """One train step's gradients through the fused attention against the
     einsum route: the flagship CMDM at full width (dropout 0, from one seeded
@@ -1909,6 +2102,60 @@ def phase_reference_trans_dec(dev: torch.device) -> None:
     del cpu_model, gpu_model
 
 
+# the card's float32 CDM forward with its scene model against the CPU's, as
+# a share of the CPU output's largest entry
+CDM_SCENE_LIMIT = 1e-4
+
+
+def phase_reference_cdm_scene(dev: torch.device) -> None:
+    """One float32 forward of a CDM with its scene model and the V2 backbone
+    at a small width (scene planes 32/32/64/64/128, blocks 1/2/1/1/1;
+    PointTrans planes 32/64/64/128, blocks 1/2/1/1), 2 x 8192 points: the
+    hierarchies (``add_hierarchies``: FPS and kNN on the card through the
+    kernels) bit-equal to the CPU's plain versions, the scene features and
+    the denoiser's output within CDM_SCENE_LIMIT of the CPU's."""
+    from afford_motion_torch.models.cdm import CDM
+    from afford_motion_torch.models.conditioning import add_hierarchies
+
+    torch.manual_seed(SEED + 17)
+    model = CDM(6, 128, 512, 32, True, arch="PointTransV2",
+                arch_cfg={"blocks": (1, 2, 1, 1), "planes": (32, 64, 64, 128)},
+                scene_planes=(32, 32, 64, 64, 128), scene_blocks=(1, 2, 1, 1, 1)).eval()
+    rng = np.random.default_rng(SEED + 17)
+    nb = 2
+    cond = {"c_pc_xyz": rng.normal(size=(nb, N_POINTS, 3)).astype(np.float32),
+            "c_pc_feat": rng.uniform(size=(nb, N_POINTS, 3)).astype(np.float32),
+            "text_emb": rng.normal(size=(nb, 1, 512)).astype(np.float32)}
+    x = rng.normal(size=(nb, N_POINTS, 6)).astype(np.float32)
+    t = np.array([3, 450])
+    outs = []
+    for device in (torch.device("cpu"), dev):
+        model.to(device)
+        c = add_hierarchies(model, {k: torch.from_numpy(v).to(device) for k, v in cond.items()})
+        with torch.no_grad():
+            feat = model.encode_scene(c)
+            out = model.denoise(torch.from_numpy(x).to(device), torch.from_numpy(t).to(device),
+                                c, feat)
+        outs.append((c, feat.cpu(), out.cpu()))
+    for key in ("levels_seg", "levels_pt"):
+        for li, (a, b) in enumerate(zip(outs[0][0][key], outs[1][0][key])):
+            for f in ("knn_idx", "fps_idx", "down_knn_idx", "up_idx"):
+                fa, fb = getattr(a, f), getattr(b, f)
+                if (fa is None) != (fb is None) or (fa is not None and not torch.equal(
+                        fa, fb.cpu())):
+                    raise AssertionError(f"reference CDM: {key}[{li}].{f} differs card vs CPU")
+    errs = []
+    for i, what in ((1, "scene features"), (2, "denoiser output")):
+        a, b = outs[0][i], outs[1][i]
+        errs.append((b - a).abs().max().item() / a.abs().max().item())
+        if not (torch.isfinite(b).all() and errs[-1] <= CDM_SCENE_LIMIT):
+            raise AssertionError(f"reference CDM: {what} card vs CPU {errs[-1]:.3e} of the "
+                                 f"largest entry (limit {CDM_SCENE_LIMIT:.0e})")
+    log(f"reference: CDM-V2 with its scene model, f32, 2 x {N_POINTS} points: hierarchies "
+        f"bit-equal card vs CPU; scene features {errs[0]:.3e} and output {errs[1]:.3e} of the "
+        f"largest entry from the CPU's (limit {CDM_SCENE_LIMIT:.0e})")
+
+
 def phase_reference_scene(dev: torch.device) -> None:
     """The evaluator's physics and a short SMPL-X fit, float32: the card
     (through the kernels) against the CPU (through the plain versions).
@@ -2087,22 +2334,25 @@ def count_uploads(counters: dict, seen: list):
 
 def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
                 tag: str = "", args: list | None = None, store: bool | None = None,
-                upload_knn: int = BANDED_STEP["banded_knn"]) -> dict:
-    """8 full-width steps through the train entry (the config's bf16 unless
-    ``extra`` sets model.dtype), then 4 more resumed from step 4; returns the
-    launches of both runs. ``per_step``: the launches one step must make on
+                upload_knn: int = BANDED_STEP["banded_knn"], steps: int = 8,
+                geometry_cache: bool | None = None) -> dict:
+    """``steps`` (8) full-width steps through the train entry (the config's
+    bf16 unless ``extra`` sets model.dtype), then the second half again
+    resumed from the midpoint; returns the launches of both runs. ``per_step``: the launches one step must make on
     this tree's route (``STORE_STEP``: the device store, whose upload must
     launch ``store_upload`` of the tree's scenes); ``extra``: arguments
     beyond the flagship's. ``args``: another model's configuration instead
     of the flagship CMDM's (stage 1's, ``stage1_args``), and ``store``
-    whether its route is the device store; a CDM's store caches no
-    hierarchy, so its upload launches nothing; a CMDM's launches
-    ``upload_knn`` banded kNN a chunk. Nothing in the arguments
+    whether its route is the device store, whose upload caches the hierarchy
+    (``geometry_cache``, default: for a CMDM) with ``upload_knn`` banded kNN
+    a chunk, or launches nothing. Nothing in the arguments
     names the banded route or the store: the loop picks them from the
     tree."""
     from afford_motion_torch import train as entry
 
     cmdm = args is None
+    geometry_cache = cmdm if geometry_cache is None else geometry_cache
+    half = steps // 2
     store = per_step is STORE_STEP if store is None else store
     banded = store or per_step is BANDED_STEP
     if cmdm:
@@ -2111,13 +2361,15 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
             "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact',"
             "'NumpyToTensor']"]
     train_args = args + list(extra) + [
-        "task.train.save_every_step=4", "task.train.log_every_step=1", "task.train.max_steps=8"]
+        f"task.train.save_every_step={half}", "task.train.log_every_step=1",
+        f"task.train.max_steps={steps}"]
     launches = {k: 0 for k in counters}
-    runs = {"train": (train_args, 8),
+    runs = {"train": (train_args, steps),
             "resumed": ([a for a in train_args if not a.startswith("exp_dir=")] + [
                 f"exp_dir={tree['exp']}_resumed",
-                f"task.train.resume_ckpt={tree['exp'] / 'ckpt' / 'model000004.pt'}"], 4)}
-    for name, (args, steps) in runs.items():
+                f"task.train.resume_ckpt={tree['exp'] / 'ckpt' / f'model{half:06d}.pt'}"],
+                steps - half)}
+    for name, (args, n) in runs.items():
         name = tag + name
         reset(counters)
         uploads: list = []
@@ -2130,8 +2382,8 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
         losses = [e["loss"] for e in logged]
         log(f"{name}: steps {[e['step'] for e in logged]} losses {[round(v, 4) for v in losses]} "
             f"launches {counts}")
-        if len(logged) != steps or summary["step"] != 8 or not np.isfinite(losses).all():
-            raise AssertionError(f"{name}: expected {steps} finite losses up to step 8")
+        if len(logged) != n or summary["step"] != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: expected {n} finite losses up to step {steps}")
         exp_dir = Path(summary["last_ckpt"]).parents[1]
         run_log = (exp_dir / "log" / "runtime.log").read_text()
         switched = "banded windowed-neighborhood kernels enabled" in run_log
@@ -2139,13 +2391,14 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
             raise AssertionError(f"{name}: the loop's log says banded={switched}")
         said = ("device store: staging" in run_log,
                 "device store: caching hierarchy geometry" in run_log, "store" in summary)
-        if said != (store, store and cmdm, store):
+        if said != (store, store and geometry_cache, store):
             raise AssertionError(f"{name}: the loop's device store (staged, geometry cached, "
                                  f"uploaded) = {said}, expected {store}")
         if store:
             n_scenes = len(json.loads((tree["data"] / "H3D" / "packed" / "meta.json"
                                        ).read_text())["bases"])
-            want = store_upload(n_scenes, upload_knn) if cmdm else {k: 0 for k in PLAIN_STEP}
+            want = (store_upload(n_scenes, upload_knn) if geometry_cache
+                    else {k: 0 for k in PLAIN_STEP})
             if uploads != [want]:
                 raise AssertionError(f"{name}: upload launches {uploads}, expected [{want}]")
             counts = {k: v - uploads[0][k] for k, v in counts.items()}
@@ -2156,10 +2409,10 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
                 f"geometry cache and upload {st['seconds']:.3f} s, upload launches {uploads[0]}")
         elif uploads:
             raise AssertionError(f"{name}: a geometry cache was built off the store route")
-        check_launches(name, counts, per_step, steps, backward=True)
-        if not summary["last_ckpt"].endswith("model000008.pt") or not os.path.exists(
-                summary["last_ckpt"]):
-            raise AssertionError(f"{name}: model000008.pt was not written")
+        check_launches(name, counts, per_step, n, backward=True)
+        last = f"model{steps:06d}.pt"
+        if not summary["last_ckpt"].endswith(last) or not os.path.exists(summary["last_ckpt"]):
+            raise AssertionError(f"{name}: {last} was not written")
         rest = [e["seconds"] / e["steps"] for e in logged[1:]]
         log(f"{name}: first step {logged[0]['seconds']:.3f} s (one-off set-up of the process "
             f"and the libraries included), then {np.mean(rest):.4f} s/step "
@@ -2169,12 +2422,12 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
             f"entry {wall:.1f} s")
         for k in launches:
             launches[k] += counts[k] + (uploads[0][k] if uploads else 0)
-    straight = torch.load(tree["exp"] / "ckpt" / "model000008.pt", weights_only=True)
-    resumed = torch.load(Path(f"{tree['exp']}_resumed") / "ckpt" / "model000008.pt",
+    straight = torch.load(tree["exp"] / "ckpt" / f"model{steps:06d}.pt", weights_only=True)
+    resumed = torch.load(Path(f"{tree['exp']}_resumed") / "ckpt" / f"model{steps:06d}.pt",
                          weights_only=True)
     diff = max((straight[k].double() - resumed[k].double()).abs().max().item() for k in straight)
-    log(f"{tag}resumed: largest difference from the straight run's weights and buffers at step 8: "
-        f"{diff:.3e} (limit {RESUME_LIMIT:.0e})")
+    log(f"{tag}resumed: largest difference from the straight run's weights and buffers at step "
+        f"{steps}: {diff:.3e} (limit {RESUME_LIMIT:.0e})")
     if not diff <= RESUME_LIMIT:
         raise AssertionError(f"the {tag}resumed run differs from the straight one by {diff}")
     return launches
@@ -2401,45 +2654,147 @@ def ts2m_args(tree: dict) -> list:
             *common_args()]
 
 
-def phase_ts2m_contact(tree: dict, counters: dict) -> Path:
-    """Stage 1 of the scene protocol: the CDM-500 test writes
-    ``HUMANISE/pred_contact/{i:05d}.npy``, two contact maps of distances for
-    each of B test items, and ``dist_to_target_*``: the three threshold
-    rates in [0, 1], the three average distances finite and at most the
-    largest distance a contact map can encode, sqrt(-2 sigma^2 ln 1e-20).
-    Returns the directory that holds the files."""
+def phase_ts2m_contact(tree: dict, counters: dict, args: list | None = None,
+                       per_chain: dict = STAGE1_STEP, tag: str = "ts2m stage 1"):
+    """Stage 1 of the scene protocol: the CDM-500 test (``args``, default
+    :func:`ts2m_args`) writes ``HUMANISE/pred_contact/{i:05d}.npy``, two
+    contact maps of distances for each of B test items, and
+    ``dist_to_target_*``: the three threshold rates in [0, 1], the three
+    average distances finite and at most the largest distance a contact map
+    can encode, sqrt(-2 sigma^2 ln 1e-20). Each of its chains must launch
+    ``per_chain``. Returns the directory that holds the files and the
+    launches."""
     from afford_motion_torch import test as entry
+    from afford_motion_torch.utils.config import load_config
 
+    args = ts2m_args(tree) if args is None else args
     reset(counters)
     t0 = time.monotonic()
-    out = Path(entry.main(ts2m_args(tree)))
+    out = Path(entry.main(args))
     wall = time.monotonic() - t0
     counts = {k: fn.launches for k, fn in counters.items()}
-    check_launches("ts2m stage 1", counts, STAGE1_STEP, 1, backward=False)
     timing = json.loads((out / "timing.json").read_text())
+    check_launches(tag, counts, per_chain, len(timing["chains"]), backward=False)
     files = sorted((out / "HUMANISE" / "pred_contact").glob("*.npy"))
     maps = [np.load(f) for f in files]
     if len(files) != B or not all(m.shape == (2, N_POINTS, 6) and np.isfinite(m).all()
                                   and (m >= 0).all() for m in maps):
-        raise AssertionError(f"ts2m stage 1: {len(files)} pred_contact files, or a bad one")
+        raise AssertionError(f"{tag}: {len(files)} pred_contact files, or a bad one")
     metrics = {k: float(v) for k, v in (line.split(": ") for line in
                                         (out / "metrics.txt").read_text().splitlines())}
-    from afford_motion_torch.utils.config import load_config
-    sigma = float(load_config("configs", ts2m_args(tree)).task.dataset.sigma)
+    sigma = float(load_config("configs", args).task.dataset.sigma)
     d_max = float(np.sqrt(-2.0 * sigma ** 2 * np.log(1e-20)))
     rates = [f"dist_to_target_{t}" for t in (0.1, 0.3, 0.5)]
     means = [f"dist_to_target_{k}average" for k in ("", "pelvis_", "min_")]
     if sorted(metrics) != sorted(rates + means) or not (
             all(0.0 <= metrics[k] <= 1.0 for k in rates)
             and all(0.0 <= metrics[k] <= d_max for k in means)):
-        raise AssertionError(f"ts2m stage 1: metrics.txt holds {metrics}")
+        raise AssertionError(f"{tag}: metrics.txt holds {metrics}")
     for c in timing["chains"]:
-        log(f"ts2m stage 1: CDM-500 chain of {B} {c['chain_s']:.3f} s "
-            f"({1e3 * c['loop_s'] / c['steps']:.3f} ms/step)")
-    log(f"ts2m stage 1: entry {wall:.1f} s, evaluator {timing['evaluator_s']:.3f} s, peak "
+        log(f"{tag}: chain of {B} {c['chain_s']:.3f} s (prepare {c['prepare_s']:.3f} s, "
+            f"{1e3 * c['loop_s'] / c['steps']:.3f} ms/step over {c['steps']} steps)")
+    log(f"{tag}: entry {wall:.1f} s, evaluator {timing['evaluator_s']:.3f} s, peak "
         f"memory {timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB; {len(files)} "
         f"pred_contact files of 2 maps; {metrics}; launches {counts}")
-    return out
+    return out, counts
+
+
+def make_cdm_tree() -> dict:
+    """A synthetic HUMANISE tree for the CDM with its scene model: 8192-point
+    scenes with colours, B_STAGE1 + B items (the train phase ``all`` reads
+    them all, one batch of B_STAGE1 a step), the last B the test split."""
+    from afford_motion_torch.data.synthetic import make_synthetic_motionx_set
+
+    data = WORK / "cdm_data"
+    make_synthetic_motionx_set(str(data), "HUMANISE", n_items=B_STAGE1 + B, num_points=N_POINTS,
+                               horizon_range=(40, L + 1), seed=SEED + 3, test_items=B)
+    return {"data": data}
+
+
+def cdm_args(tree: dict, exp: Path, arch: str | None = None, test: bool = False) -> list:
+    """``scripts/ts2m_contact/train_ddp.sh`` without its
+    ``model.scene_model.use_scene_model=False``: the shipped CDM (``arch``
+    MLP, the frozen PointTransformerSeg, 32-d point features, bf16, 500
+    steps) at batch B_STAGE1 on the synthetic HUMANISE tree, or another
+    ``arch``; with ``test``, ``scripts/ts2m_contact/test.sh``'s run of it,
+    one batch of B, two contact maps each."""
+    run = ([f"task.test.batch_size={B}", "task.evaluator.eval_nbatch=1",
+            "task.evaluator.k_samples=2", f"task.evaluator.num_k_samples={B}"] if test
+           else [f"task.train.batch_size={B_STAGE1}"])
+    return ["task=contact_gen", "model=cdm", "diffusion.steps=500", "task.dataset.sets=[HUMANISE]",
+            *([f"model.arch={arch}"] if arch else []), *run,
+            f"task.dataset.data_dir={tree['data']}", f"exp_dir={exp}", f"seed={SEED}",
+            *common_args()]
+
+
+def check_scene_frozen(tag: str, args: list, exp: Path, steps: int) -> None:
+    """The straight and the resumed run's last checkpoints hold the frozen
+    scene model's weights and BatchNorm statistics bit for bit as the seeded
+    init made them (the pretrained file is not in the checkout: the train
+    entry warns and keeps the init)."""
+    from afford_motion_torch.models.base import create_model
+    from afford_motion_torch.utils.config import load_config
+    from afford_motion_torch.utils.misc import compute_repr_dimension
+
+    cfg = load_config("configs", args)
+    cfg.model.input_feats = compute_repr_dimension(cfg.model.data_repr)
+    torch.manual_seed(int(cfg.seed))
+    init = {k: v for k, v in create_model(cfg.model, torch.device("cpu")).state_dict().items()
+            if k.startswith("scene_model.")}
+    for run in (exp, Path(f"{exp}_resumed")):
+        sd = torch.load(run / "ckpt" / f"model{steps:06d}.pt", weights_only=True)
+        changed = [k for k, v in init.items() if not torch.equal(sd[k].cpu(), v)]
+        if not init or changed:
+            raise AssertionError(f"{tag}: the frozen scene model changed in training: "
+                                 f"{changed[:4]} of {len(init)} tensors")
+        if "pretrained scene weights not found" not in (run / "log" / "runtime.log").read_text():
+            raise AssertionError(f"{tag}: the train entry did not say the scene model keeps "
+                                 "its init")
+    log(f"{tag}: the scene model's {len(init)} tensors (weights and BatchNorm statistics) after "
+        f"{steps} steps, straight and resumed, bit-equal to the seeded init")
+
+
+def phase_cdm_scene(counters: dict, banded_tree: dict) -> list:
+    """The CDM with its frozen scene model, the shipped stage-1 default,
+    through the entries on a synthetic HUMANISE tree: 8 + 4 steps of the
+    MLP at batch B_STAGE1 (``SCENE_PASS`` a step), 4 + 2 of the Perceiver and
+    of the PointTrans and PointTransV2 backbones (``PT_SCENE_STEP``), each
+    with the scene model unchanged; 4 + 2 of PointTrans without it through
+    the stage-1 store of the sorted HumanML3D tree (the banded kernels and
+    the upload's geometry cache: ``DEC_STORE_STEP``, ``DEC_BANDED_KNN`` a
+    chunk); then the MLP's CDM-500 test (two chains of B through
+    ``pred_contact`` files and ``dist_to_target_*``) and V2's DDIM-50 test
+    with ``AM_FLASH_ATTN=1`` (the bottleneck attention fused, once a step).
+    Returns the launches of every run."""
+    tree = make_cdm_tree()
+    runs = []
+    exps = {}
+    for arch, per_step, steps in (("MLP", SCENE_PASS, 8), ("Perceiver", SCENE_PASS, 4),
+                                  ("PointTrans", PT_SCENE_STEP, 4),
+                                  ("PointTransV2", PT_SCENE_STEP, 4)):
+        t = dict(tree, exp=WORK / f"exp_cdm_{arch}")
+        args = cdm_args(t, t["exp"], None if arch == "MLP" else arch)
+        tag = f"cdm {arch} + scene "
+        runs.append(phase_train(t, counters, per_step, tag=tag, args=args, store=False,
+                                steps=steps))
+        check_scene_frozen(tag.strip(), args, t["exp"], steps)
+        exps[arch] = t["exp"]
+    st = dict(banded_tree, exp=WORK / "exp_cdm_pt_store")
+    runs.append(phase_train(st, counters, DEC_STORE_STEP, ("model.arch=PointTrans",),
+                            tag="cdm PointTrans store ", args=stage1_args(st, st["exp"]),
+                            store=True, upload_knn=DEC_BANDED_KNN, steps=4,
+                            geometry_cache=True))
+    _, counts = phase_ts2m_contact(tree, counters, cdm_args(tree, exps["MLP"], test=True),
+                                   SCENE_PASS, tag="cdm MLP + scene CDM-500")
+    runs.append(counts)
+    ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
+    with flash_switch("1"):
+        _, counts = phase_ts2m_contact(
+            tree, counters, cdm_args(tree, exps["PointTransV2"], "PointTransV2", test=True) + ddim,
+            dict(PT_SCENE_STEP, gather=26 + 14 * 50, scatter=0, attention=50),
+            tag="cdm PointTransV2 + scene DDIM-50 fused")
+    runs.append(counts)
+    return runs
 
 
 def scene_args(tree: dict) -> list:
@@ -2531,7 +2886,7 @@ def phase_scene_slice(dev: torch.device, counters: dict, assets: dict | None = N
             make_synthetic_h3d_contact_motion(str(tree["data"]), n_items=T2M_GT, seed=SEED)
         log(f"scene slice: tree, checkpoints and regressor in {time.monotonic() - t0:.1f} s")
         # the ts2m chain: stage 2 reads the contact maps stage 1 writes
-        tree["contacts"] = phase_ts2m_contact(tree, counters)
+        tree["contacts"], _ = phase_ts2m_contact(tree, counters)
         base = scene_args(tree)
         seen = {}
         entry.create_evaluator = capture_evaluator(create_evaluator, seen)
@@ -2882,10 +3237,12 @@ def main() -> int:
     phase_kernels_scene(dev, rep)
     phase_kernels_attention_bwd(dev, rep)
     phase_kernels_trans_dec(dev, rep)
+    phase_kernels_cdm_scene(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
     phase_reference_scene(dev)
     phase_reference_trans_dec(dev)
+    phase_reference_cdm_scene(dev)
     # one wrapper call launches one backward kernel for dq, dk and dv: the
     # bf16 instance's count stands in both bf16 rows, the f32 instance's in
     # its own
@@ -2955,6 +3312,8 @@ def main() -> int:
         phase_train(s1_banded, counters, STAGE1_STEP, tag="stage-1 store ",
                     args=stage1_args(s1_banded, s1_banded["exp"]), store=True),
     ]
+    # the CDM with its frozen scene model and the point-transformer backbones
+    phases += phase_cdm_scene(counters, banded_tree)
     t2m_launches, t2m_out = phase_t2m_chain(tree, counters, s1_tree["exp"])
     phases.append(t2m_launches)
     phase_t2m_scored(tree, t2m_out, counters, assets)

@@ -219,11 +219,14 @@ def _cfg(*extra, task="text_to_motion_contact_gen"):
     return cfg.model
 
 
-def test_create_model_builds_the_published_cdm_and_refuses_the_rest():
+def test_create_model_builds_the_published_cdm_and_refuses_the_rest(tmp_path):
     """``create_model`` builds the CDM-Perceiver of ``scripts/t2m_contact``
     at full width (bf16, 512-wide encoder of 8 heads, 2 latent layers,
-    256-wide decoder) and the CDM-MLP; the scene-model configurations and
-    the point-transformer backbones are refused by name."""
+    256-wide decoder) and the CDM-MLP; the shipped default (MLP with the
+    frozen scene model), the point-transformer backbones and the OpenScene
+    features build too. Refused: a scene model on the HumanML3D task (whose
+    items carry no ``c_pc_feat``), and what is still unported, a local text
+    encoder's weights and ``prepare`` for the MotionX sets."""
     cpu = torch.device("cpu")
     m = create_model(_cfg("model.arch=Perceiver", "model.scene_model.use_scene_model=False"),
                      cpu)
@@ -236,15 +239,26 @@ def test_create_model_builds_the_published_cdm_and_refuses_the_rest():
     mlp = create_model(_cfg("model.scene_model.use_scene_model=False"), cpu)
     assert [b.mlp_post[3].out_features for b in mlp.contact_model.point_mlp] == [512, 512]
     assert mlp.contact_layer.in_features == 512
+    shipped = create_model(_cfg(task="contact_gen"), cpu)
+    assert shipped.arch == "MLP" and shipped.needs_seg_hierarchy and not shipped.scene_model.training
+    assert shipped.contact_model.point_mlp[0].mlp_pre[1].in_features == 6 + 32 + 512 + 128
     for task, extra in (
             ("text_to_motion_contact_gen", ["model.arch=PointTrans",
                                             "model.scene_model.use_scene_model=False"]),
             ("text_to_motion_contact_gen", ["model.arch=PointTransV2",
                                             "model.scene_model.use_scene_model=False"]),
-            ("text_to_motion_contact_gen", ["model.arch=Perceiver"]),
-            ("contact_gen", ["model.arch=Perceiver", "task.dataset.use_openscene=true"])):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_cdm(_cfg(*extra, task=task))
+            ("contact_gen", ["model.arch=Perceiver"]),
+            ("contact_gen", ["model.arch=Perceiver", "task.dataset.use_openscene=true",
+                             "model.scene_model.point_feat_dim=1"])):
+        assert isinstance(build_cdm(_cfg(*extra, task=task)), CDM)
+    with pytest.raises(ValueError, match="c_pc_feat"):
+        build_cdm(_cfg("model.arch=Perceiver"))
+    from afford_motion_torch import prepare
+    from afford_motion_torch.models.text import create_text_encoder
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        create_text_encoder("ViT-B/32", weights_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        prepare.main(["sort", "--dataset", "HUMANISE", "--out_dir", str(tmp_path)])
     # the published ts2m configuration resolves use_openscene to false
     assert isinstance(build_cdm(_cfg("model.arch=Perceiver",
                                       "model.scene_model.use_scene_model=False",

@@ -226,10 +226,10 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv``, the CDM's scene model and
-    point-transformer backbones and the other datasets of the MotionX
-    family. The CMDM's ``trans_dec`` builds, with its U-Net and its decoder
-    layers. ``use_banded``, a packed dataset tree under the training
+    not run some other way: ``fused_qkv``, a CDM's local CLIP weights and
+    the other datasets of the MotionX family. The CMDM's ``trans_dec``
+    builds, with its U-Net and its decoder layers, and so does every CDM
+    backbone, with the frozen scene model and without. ``use_banded``, a packed dataset tree under the training
     wire format, ``data_repr: pos`` with ``ContactMotionDataset``, the two
     stage-2 evaluators with the in-process HumanML3D metrics and the two
     stage-1 ones are ported."""
@@ -261,9 +261,10 @@ def test_port_refuses_what_is_not_ported(tmp_path):
     assert dec.arch == "trans_dec" and dec.needs_up_interpolation
     assert len(dec.cross_attn_layers) == len(dec.self_attn_layers) - 1 == 4
 
-    # stage 1: the published CDM-Perceiver and the MLP without a scene model;
-    # the scene model and the point-transformer backbones wait for their slice
+    # stage 1: every CDM backbone, with the frozen scene model (the shipped
+    # default) and without; a local text encoder's weights are not ported
     from afford_motion_torch.models.cdm import CDM, build_cdm
+    from afford_motion_torch.models.text import create_text_encoder
     from afford_motion_torch.eval import ContactEvaluator
 
     def cdm_cfg(*extra):
@@ -271,13 +272,15 @@ def test_port_refuses_what_is_not_ported(tmp_path):
         cfg.model.input_feats = 6
         return cfg
 
-    for arch in ("Perceiver", "MLP"):
-        assert isinstance(build_cdm(cdm_cfg(f"model.arch={arch}",
-                                            "model.scene_model.use_scene_model=False").model), CDM)
-    for extra in (("model.arch=Perceiver",), ("model.arch=PointTrans",
-                                              "model.scene_model.use_scene_model=False")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_cdm(cdm_cfg(*extra).model)
+    for arch in ("Perceiver", "MLP", "PointTrans", "PointTransV2"):
+        bare = build_cdm(cdm_cfg(f"model.arch={arch}",
+                                 "model.scene_model.use_scene_model=False").model)
+        assert isinstance(bare, CDM) and bare.scene_model is None
+        scene = build_cdm(cdm_cfg(f"model.arch={arch}").model)
+        assert scene.needs_seg_hierarchy and scene.scene_model.enc1[0].linear.in_features == 6
+    (tmp_path / "clip").mkdir()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        create_text_encoder(cdm_cfg().model.text_model.version, weights_dir=str(tmp_path / "clip"))
     assert isinstance(create_evaluator(cdm_cfg().task, device="cpu"), ContactEvaluator)
 
     # the scene protocol's configuration: 66-d joint positions

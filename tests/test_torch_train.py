@@ -96,7 +96,16 @@ def _assert_trees_close(got, want, *, rel_of_max=None, atol=0.0, what=""):
         elif np.abs(w).max() < zero:
             up_bn = path[-3] == "TransitionUp_0" and (
                 path[-2] == "Dense_1" or "PointDecoderStage_0" not in path)
-            assert path[-1] == "bias" and ("PointTransformerLayer" in name or up_bn or path[-3:-1] in (
+            # a PointTrans CDM's context MLPs: each a Linear and a
+            # train-mode BatchNorm, which the time embedder's last bias and
+            # V2's bottleneck encoder's last LayerNorm bias reach only
+            # through; V2's ctx3 and ctx2 feed a TransitionUp's linear1 (a
+            # Linear and a train-mode BatchNorm) only
+            ctx_bn = (path[-3].startswith("_CtxMLP_")
+                      and (path[-2] == "Dense_0" or path[-3] != "_CtxMLP_0")) or path[-3:-1] in (
+                ("timestep_embedder", "Dense_1"), ("TransformerEncoderLayer_0", "LayerNorm_1"))
+            assert path[-1] == "bias" and ("PointTransformerLayer" in name or up_bn or ctx_bn
+                                           or path[-3:-1] in (
                 ("TorchMultiHeadAttention_0", "Dense_1"), ("TorchMultiHeadAttention_1", "Dense_1"),
                 ("PerceiverMHA_0", "Dense_1"))), name
             assert np.abs(got[path]).max() < zero, name
@@ -340,8 +349,23 @@ def test_train_steps_match_jax(setup, weight_decay, lr_anneal_steps):
                          _torch_model(setup["variables"]), weight_decay, lr_anneal_steps)
 
 
+def _without(tree, paths, prefix=()):
+    """``tree`` without the leaves at ``paths`` (and the branches left empty)."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (k,)
+        if isinstance(v, dict):
+            sub = _without(v, paths, path)
+            if sub:
+                out[k] = sub
+        elif path not in paths:
+            out[k] = v
+    return out
+
+
 def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr_anneal_steps,
-                         first_loss_rtol=1e-5, jm=None, to_tree=_to_tree, grad_rel_of_max=1e-3):
+                         first_loss_rtol=1e-5, jm=None, to_tree=_to_tree, grad_rel_of_max=1e-3,
+                         expect_noise=True):
     """Three optimizer steps from the same weights on the same batch with
     injected t and noise. Step 1: loss rtol 1e-5, every gradient within
     ``grad_rel_of_max`` (1e-3) of its tensor's largest entry, every parameter
@@ -349,7 +373,12 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
     1e-5, grad_norm rtol 1e-4. Steps 2 and 3: loss
     1e-4 (the anneal makes their learning rates 0.9 and 0.8 of the first).
     ``jm`` (default ``setup["jm"]``) and ``to_tree`` (state_dict -> flax
-    tree) name the model on each side."""
+    tree) name the model on each side. Frozen parameters (a CDM's scene
+    model: no ``requires_grad`` once the optimizer is made) get no gradient
+    in the port and an exactly zero one in JAX, and stay bit for bit as they
+    were on both sides. ``expect_noise``: whether some trainable leaves have
+    a true gradient of 0 (see ``_assert_trees_close``); a model without
+    BatchNorms or attention has none."""
     jm = setup["jm"] if jm is None else jm
     lr = 1e-4  # the config's; Adam's first update is +-lr, so 1e-6 is 1% of it
     cfg = DictConfig({"steps": 1000})
@@ -362,6 +391,8 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
                               lr_anneal_steps=lr_anneal_steps)
     train_step = make_train_step(tm, td)
     names = {id(p): k for k, p in tm.named_parameters()}
+    frozen = set(dict(_flat(to_tree({k: p.detach() for k, p in tm.named_parameters()
+                                     if not p.requires_grad}).get("params", {}))))
     nb = x.shape[0]
     for i, (t, noise) in enumerate(zip(setup["ts"], setup["noises"])):
         t, noise = t[:nb], noise[:nb]
@@ -373,11 +404,15 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
             continue
         assert float(m["mse"]) == float(m["loss"]) and state.step == 1 and tm.training
         jgrads = jax.device_get(jgrads)
-        got = to_tree({names[id(p)]: p.grad for p in tm.parameters()})["params"]
+        all_grads = dict(_flat(jgrads))
+        assert all(not np.any(all_grads[path]) for path in frozen)
+        want_norm = np.sqrt(sum(float((g ** 2).sum()) for g in all_grads.values()))
+        jgrads = _without(jgrads, frozen)
+        got = to_tree({names[id(p)]: p.grad for p in tm.parameters() if p.requires_grad})["params"]
         _assert_trees_close(got, jgrads, rel_of_max=grad_rel_of_max, what="grad")
-        want_norm = np.sqrt(sum(float((g ** 2).sum()) for _, g in _flat(jgrads)))
         np.testing.assert_allclose(float(m["grad_norm"]), want_norm, rtol=1e-4)
-        assert all(p.grad.dtype == torch.float32 for p in tm.parameters())
+        assert all(p.grad.dtype == torch.float32 if p.requires_grad else p.grad is None
+                   for p in tm.parameters())
         # Adam divides a gradient by its own magnitude, so the numerically
         # zero gradients (see _assert_trees_close) become updates of size lr
         # whose signs are rounding noise, on both sides: those leaves are held
@@ -391,9 +426,13 @@ def _compare_train_steps(setup, variables, jcond, tcond, x, tm, weight_decay, lr
         noise = {path for path, g in _flat(jgrads) if np.abs(g).max() < zero}
         before, jafter = dict(_flat(variables["params"])), dict(_flat(jax.device_get(jstate.params)))
         jg = dict(_flat(jgrads))
-        assert 0 < len(noise) < len(before) / 2
+        assert (0 < len(noise) if expect_noise else not noise)
+        assert len(noise) < (len(before) - len(frozen)) / 2
         for path, v in _flat(after["params"]):
-            if path in noise:
+            if path in frozen:
+                assert np.array_equal(v, before[path]) and np.array_equal(jafter[path],
+                                                                          before[path])
+            elif path in noise:
                 for side in (v, jafter[path]):
                     assert np.abs(side - before[path]).max() <= lr * (1 + weight_decay) * 1.001
             else:
