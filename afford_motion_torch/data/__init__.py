@@ -1,7 +1,6 @@
 """Host-side datasets of the port (copies of the jax-free modules of
-``afford_motion_tpu/data``). The HumanML3D family, the packed store and, of
-the MotionX family, ``ContactMapDataset`` and ``ContactMotionDataset`` are
-ported."""
+``afford_motion_tpu/data``): the HumanML3D family, the MotionX family with
+its example and custom sets, and the packed store."""
 from .base import (
     BaseDataset,
     contact_to_dist,

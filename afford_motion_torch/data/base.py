@@ -191,16 +191,6 @@ class BaseDataset:
         return len(self.indices) if self.indices is not None else len(self.all_data)
 
 
-# classes of the MotionX family that wait for their slices
-NOT_PORTED_DATASETS = (
-    "MotionXDataset", "MotionXExampleDataset", "ContactMapExampleDataset",
-    "ContactMotionExampleOriginDataset", "ContactMotionExampleDataset", "MotionXCustomDataset",
-    "ContactMapCustomDataset", "ContactMotionCustomDataset",
-)
-
-
 def create_dataset(cfg: Any, phase: str, **kwargs) -> BaseDataset:
     """Factory by cfg.name (reference: datasets/base.py:7-17)."""
-    if cfg.name in NOT_PORTED_DATASETS:
-        raise NotImplementedError(f"dataset {cfg.name!r} is not ported yet")
     return DATASET.get(cfg.name)(cfg, phase, **kwargs)

@@ -6,14 +6,17 @@ Wire-compatible with the reference data directory layout:
 target_mask/*.npy}``, ``{set}/{phase}.txt`` splits, per-corpus mean/std
 caches, and the two-stage handoff files ``pred_contact/*.npy``.
 
-Ported so far: the shared base, ``ContactMapDataset`` (the stage-1 contact
-set of ``ts2m_contact`` and ``novel_contact``) and ``ContactMotionDataset``
-(the stage-2 motion set of the scene protocol), on ``.npy`` / ``.npz``
-trees, test and train phases. The six other classes of the family and the
-packed MotionX store are refused by name until their slices are ported.
+All ten registered classes: ``MotionXDataset``, ``ContactMapDataset`` (the
+stage-1 contact set of ``ts2m_contact`` and ``novel_contact``) and
+``ContactMotionDataset`` (the stage-2 motion set of the scene protocol), on
+``.npy`` / ``.npz`` trees and, for the two contact sets' train phases, on the
+per-set packed memmap stores of ``prepare pack`` (``data/packed.py``); the
+four example sets of ``sample.py`` (prompt files ``desc#set#index[#frames]``)
+and the three sets of the novel-scene ``custom/`` layout (test phase only).
 """
 from __future__ import annotations
 
+import glob
 import os
 import random
 from typing import Any, Dict, List
@@ -22,6 +25,7 @@ import numpy as np
 
 from .. import native as nio
 from ..utils.io import get_logger
+from ..utils.misc import compute_repr_dimension, natsorted
 from ..utils.registry import DATASET
 from .base import (
     BaseDataset,
@@ -139,25 +143,43 @@ class _MotionXBase(BaseDataset):
 
     # ---------------------------------------------------------------- packed
     def _open_packed(self, contact_type: str, contact_joints) -> None:
-        """Where the JAX package would open a set's packed memmap store
-        (train phases, the half_wire wire format, the geometry cache on,
-        never the contacts_fur variant), the port refuses: reading the
-        packed MotionX store is not ported yet, and going on from the
-        ``.npz`` files would train on another wire format unasked."""
+        """Per-set packed memmap stores (``prepare pack``) for the training
+        fast path: train phases only, the ``half_wire`` wire format only, the
+        geometry cache on, and never for the ``contacts_fur`` variant (the
+        store is packed from the default contacts). A set without a store
+        compatible with ``contact_type`` / ``contact_joints`` reads its
+        ``.npz`` files."""
+        self._packed: Dict[str, Any] = {}
         if self.phase not in ("train", "all"):
             return
         if not (self.cfg.get("use_packed", True) and self.cfg.get("half_wire", False)):
             return
         if not self.cfg.get("use_geometry_cache", True):
             return
+        from .packed import PackedStore
+
         for s in self.sets:
             if s == "HumanML3D" and self.sets_config.HumanML3D.get("use_fur", False):
                 continue
-            meta = os.path.join(self.data_dir, s, "contact_motion", "packed", "meta.json")
-            if os.path.exists(meta):
-                raise NotImplementedError(
-                    f"the packed MotionX store ({os.path.dirname(meta)}) is not ported yet; "
-                    "set task.dataset.use_packed=false to read the .npz files")
+            st = PackedStore.try_open(
+                os.path.join(self.data_dir, s, "contact_motion", "packed"),
+                expect={"contact_type": contact_type, "contact_joints": list(contact_joints)})
+            if st is not None:
+                self._packed[s] = st
+
+    def _packed_row(self, s: str, i: int):
+        """(the item's packed row or None, the set's store or None)."""
+        st = getattr(self, "_packed", {}).get(s)
+        return (st.row(f"{i:05d}") if st is not None else None), st
+
+    def _attach_geometry(self, data: Dict, s: str, i: int, row, store) -> None:
+        """The geometry cache's fields: from the packed row where there is
+        one, else from the set's ``geometry_*`` files."""
+        if row is None:
+            self._load_geometry(data, s, i)
+            return
+        store.attach_geometry(data, row, str(self.cfg.get("geometry_arch", "")) == "trans_enc",
+                              str(self.cfg.get("geometry_wire", "full")) == "fps")
 
     def _obj_mask(self, data: Dict, s: str, i: int) -> None:
         if self.phase == "test":
@@ -167,6 +189,61 @@ class _MotionXBase(BaseDataset):
                 )
             else:
                 data["info_obj_mask"] = None
+
+
+@DATASET.register()
+class MotionXDataset(_MotionXBase):
+    """Text-to-motion over the scene sets: ``x`` the normalized
+    ``data_repr`` motion, padded to ``max_horizon``; ``c_pc_feat`` the
+    colours. No shipped config names it."""
+
+    def _read_cfg(self, cfg: Any) -> None:
+        self.motion_type = cfg.data_repr
+        self.use_color = cfg.use_color
+        self.min_horizon = cfg.min_horizon
+        self.max_horizon = cfg.max_horizon
+
+    def _load_datasets(self) -> None:
+        self._scan_sets(filter_horizon=True)
+
+    def _prepare_statistics(self) -> None:
+        path = os.path.join(
+            self.data_dir, f"Mean_Std_MotionX_{'_'.join(self.sets)}_{self.motion_type}.npz")
+        dim = compute_repr_dimension(self.motion_type)
+
+        def compute():
+            return np.concatenate([nio.load(self._motion_path(s, i)).reshape(-1, dim)
+                                   for s, i, *_ in self.all_data], axis=0)
+
+        self.mean, self.std = compute_or_load_stats(path, compute)
+
+    def __len__(self) -> int:
+        return len(self.all_data)
+
+    def _motion_item(self, s, i, scene_id, scene_trans, desc, motion) -> Dict:
+        points = nio.load(self._contact_path(s, i))["points"].astype(np.float32)
+        padded, mask = pad_motion(motion.reshape(motion.shape[0], -1), self.max_horizon)
+        return {
+            "x": padded,
+            "x_mask": mask,
+            "c_text": self._pick_text(desc),
+            "c_pc_xyz": points[:, 0:3],
+            "c_pc_feat": self._color_feat(points),
+            "info_set": s,
+            "info_index": i,
+            "info_scene_trans": translation_to_transform(scene_trans),
+            "info_scene_mesh": self._scene_mesh_path(s, scene_id),
+        }
+
+    def __getitem__(self, idx: int) -> Dict:
+        s, i, scene_id, scene_trans, desc = self.all_data[self._resolve(idx)]
+        data = self._motion_item(s, i, scene_id, scene_trans, desc,
+                                 nio.load(self._motion_path(s, i)))
+        self._obj_mask(data, s, i)
+        self._load_geometry(data, s, i)
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data
 
 
 @DATASET.register()
@@ -217,19 +294,30 @@ class ContactMapDataset(_MotionXBase):
 
     def __getitem__(self, idx: int) -> Dict:
         s, i, scene_id, scene_trans, desc = self.all_data[self._resolve(idx)]
-        npz = nio.load(self._contact_path(s, i))
-        points = npz["points"].astype(np.float32)
-        feat = self._color_feat(points)
-        if self.use_openscene:
-            feat = np.concatenate([feat, self._openscene_feat(npz, s, i, scene_id)], axis=-1)
-        contact = extract_contact(npz["dist"].astype(np.float32), self.contact_type,
-                                  self.contact_joints)
+        row, store = self._packed_row(s, i)
+        if row is not None:
+            # the packed row: f16 points and colours (the half wire), and the
+            # f32 distances, so that the diffusion target is the live path's
+            points3 = row["xyz16"]
+            contact = row["dist32"]
+            feat = np.zeros((points3.shape[0], 0), dtype=np.float32)
+            if self.use_color:
+                feat = (row["rgb16"].astype(np.float32) + 1) / 2.0
+        else:
+            npz = nio.load(self._contact_path(s, i))
+            points = npz["points"].astype(np.float32)
+            points3 = points[:, 0:3]
+            feat = self._color_feat(points)
+            if self.use_openscene:
+                feat = np.concatenate([feat, self._openscene_feat(npz, s, i, scene_id)], axis=-1)
+            contact = extract_contact(npz["dist"].astype(np.float32), self.contact_type,
+                                      self.contact_joints)
         if not self.use_raw_dist:
             contact = gaussian_contact(contact, self.sigma)
 
         data = {
             "x": contact,
-            "c_pc_xyz": points[:, 0:3],
+            "c_pc_xyz": points3,
             "c_pc_feat": feat,
             "c_text": self._pick_text(desc),
             "info_set": s,
@@ -238,7 +326,7 @@ class ContactMapDataset(_MotionXBase):
             "info_scene_mesh": self._scene_mesh_path(s, scene_id),
         }
         self._obj_mask(data, s, i)
-        self._load_geometry(data, s, i)
+        self._attach_geometry(data, s, i, row, store)
         data = self.transform(data)
         data["x"] = self.normalize(data["x"]).astype(np.float32)
         return data
@@ -318,13 +406,21 @@ class ContactMotionDataset(_MotionXBase):
 
     def __getitem__(self, idx: int) -> Dict:
         s, i, scene_id, scene_trans, desc = self.all_data[self._resolve(idx)]
-        npz = nio.load(self._contact_path(s, i))
-        points3 = npz["points"].astype(np.float32)[:, 0:3]
-        contact = extract_contact(
-            npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
-        )
-        motion = nio.load(self._motion_path(s, i))
-        motion = motion.reshape(motion.shape[0], -1)
+        row, store = self._packed_row(s, i)
+        if row is not None and "motion32" in row:
+            # the packed row: f16 points and distances, the raw f32 motion
+            points3 = row["xyz16"]
+            contact = row["dist16"].astype(np.float32)
+            motion = row["motion32"][: int(row["motion_len"])]
+        else:
+            row = None
+            npz = nio.load(self._contact_path(s, i))
+            points3 = npz["points"].astype(np.float32)[:, 0:3]
+            contact = extract_contact(
+                npz["dist"].astype(np.float32), self.contact_type, self.contact_joints
+            )
+            motion = nio.load(self._motion_path(s, i))
+            motion = motion.reshape(motion.shape[0], -1)
         padded, mask = pad_motion(np.asarray(motion), self.max_horizon)
 
         data = {
@@ -339,7 +435,278 @@ class ContactMotionDataset(_MotionXBase):
             "info_scene_mesh": self._scene_mesh_path(s, scene_id),
         }
         self._obj_mask(data, s, i)
-        self._load_geometry(data, s, i)
+        self._attach_geometry(data, s, i, row, store)
         data = self.transform(data)
         data["x"] = self.normalize(data["x"]).astype(np.float32)
         return self._finalize(data)
+
+
+# --------------------------------------------------------------- examples
+def _example_lines(path: str) -> List[List[str]]:
+    """The '#'-separated fields of each line of a prompt file."""
+    with open(path) as f:
+        return [line.strip("\n").split("#") for line in f]
+
+
+@DATASET.register()
+class MotionXExampleDataset(MotionXDataset):
+    """``sample.py``'s set for ``MotionXDataset``: lines
+    ``desc#set#index#nframes``. With a caption and a frame count the motion
+    is ``nframes`` zero frames under that caption; with either empty, the
+    item's own motion and captions."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        self.all_data = []
+        for desc, s, index, nframes in _example_lines(self.data_path):
+            index = int(index)
+            scene_id, scene_trans, anno_desc = read_anno(self.data_dir, s)[index]
+            motion = nio.load(self._motion_path(s, index))
+            if desc == "" or nframes == "":
+                descs = anno_desc
+            else:
+                descs = [desc]
+                motion = np.zeros((int(nframes), *motion.shape[1:]), dtype=np.float32)
+            self.all_data.append((s, index, scene_id, scene_trans, descs, motion))
+        self.indices = None
+
+    def __getitem__(self, idx: int) -> Dict:
+        data = self._motion_item(*self.all_data[idx])
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data
+
+
+@DATASET.register()
+class ContactMapExampleDataset(ContactMapDataset):
+    """``sample.py``'s stage-1 set: lines ``desc#set#index[#...]``, the
+    item's scene under the given caption."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        self.all_data = []
+        for parts in _example_lines(self.data_path):
+            desc, s, index = parts[0], parts[1], int(parts[2])
+            scene_id, scene_trans, _ = read_anno(self.data_dir, s)[index]
+            self.all_data.append((s, index, scene_id, scene_trans, [desc]))
+        self.indices = None
+
+
+@DATASET.register()
+class ContactMotionExampleOriginDataset(ContactMotionDataset):
+    """Stage-2 examples on the items' ground-truth contacts: lines
+    ``desc#set#index#nframes``, of which only the set and the index are
+    read (the item's captions and motion)."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        kwargs.setdefault("contact_folder", "unused")
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        self.all_data = []
+        for _, s, index, _ in _example_lines(self.data_path):
+            index = int(index)
+            scene_id, scene_trans, desc = read_anno(self.data_dir, s)[index]
+            self.all_data.append((s, index, scene_id, scene_trans, desc))
+        self.indices = None
+
+    def _load_contact(self, s, i, contact):
+        """``contact``: the pre-extracted (P, C) ground-truth distances; no
+        ``pred_contact`` file replaces them."""
+        if not self.use_raw_dist:
+            contact = gaussian_contact(contact, self.sigma)
+        return contact.astype(np.float32)
+
+
+@DATASET.register()
+class ContactMotionExampleDataset(ContactMotionDataset):
+    """``sample.py``'s stage-2 set: lines ``desc#set#index#nframes`` in the
+    order of the stage-1 visualizer's cases, whose
+    ``{contact_folder}/*-*/contact.npy`` (points then distances, natsorted)
+    give the cloud and the contact; the motion is ``nframes`` zero frames."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        self._example_contact_folder = kwargs.get("contact_folder", "")
+        kwargs["contact_folder"] = kwargs.get("contact_folder") or "unused"
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        pred_contacts = []
+        if self._example_contact_folder:
+            files = natsorted(
+                glob.glob(os.path.join(self._example_contact_folder, "*-*", "contact.npy")))
+            pred_contacts = [nio.load(f).astype(np.float32) for f in files]
+            if not pred_contacts:
+                raise FileNotFoundError(
+                    f"no predicted contacts in {self._example_contact_folder}")
+            if self.gpu == 0:
+                logger.info(f"Load {len(pred_contacts)} predicted contacts")
+
+        self.all_data = []
+        for i, (desc, s, index, nframes) in enumerate(_example_lines(self.data_path)):
+            index, nframes = int(index), int(nframes)
+            scene_id, scene_trans, _ = read_anno(self.data_dir, s)[index]
+            xyz, dist = pred_contacts[i][:, 0:3], pred_contacts[i][:, 3:]
+            motion_shape = nio.load(self._motion_path(s, index)).shape[1:]
+            motion = np.zeros((nframes, *motion_shape), dtype=np.float32)
+            self.all_data.append((s, index, scene_id, scene_trans, [desc], xyz, dist, motion))
+        self.indices = None
+
+    def __getitem__(self, idx: int) -> Dict:
+        s, i, scene_id, scene_trans, desc, xyz, dist, motion = self.all_data[idx]
+        contact = dist if self.use_raw_dist else gaussian_contact(dist, self.sigma)
+        padded, mask = pad_motion(motion.reshape(motion.shape[0], -1), self.max_horizon)
+        data = {
+            "x": padded,
+            "x_mask": mask,
+            "c_pc_xyz": xyz,
+            "c_pc_contact": contact.astype(np.float32),
+            "c_text": self._pick_text(desc),
+            "info_set": s,
+            "info_index": i,
+            "info_scene_trans": translation_to_transform(scene_trans),
+            "info_scene_mesh": self._scene_mesh_path(s, scene_id),
+        }
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data
+
+
+# ----------------------------------------------------------------- custom
+class _CustomMixin:
+    """The novel-scene ``custom`` layout: ``custom/anno.csv`` (scene id and
+    translation, the utterance, its tagged tokens under ``others`` and a
+    frame count under ``frame``) and ``custom/points/{i:04d}.npz`` clouds
+    with 0..255 colours. Test phase only; the order is shuffled by
+    ``shuffle_seed``."""
+
+    def _scan_custom(self) -> List:
+        import pandas as pd
+
+        anno = pd.read_csv(os.path.join(self.data_dir, "custom", "anno.csv"))
+        rows = []
+        for i in range(len(anno)):
+            scene_id = anno.loc[i]["scene_id"]
+            scene_id = "" if not isinstance(scene_id, str) else scene_id
+            scene_trans = np.array([anno.loc[i][f"scene_trans_{a}"] for a in "xyz"],
+                                   dtype=np.float32)
+            rows.append((scene_id, scene_trans, anno.loc[i]["utterance"],
+                         anno.loc[i].get("others", ""), int(anno.loc[i].get("frame", 0))))
+        return rows
+
+    def _custom_points(self, i: int) -> np.ndarray:
+        return nio.load(os.path.join(self.data_dir, "custom", "points", f"{i:04d}.npz")
+                        )["points"].astype(np.float32)
+
+    def _custom_data(self, make_row) -> None:
+        if self.phase != "test":
+            raise ValueError("the custom datasets have a test phase only")
+        self.all_data = [make_row(i, *row) for i, row in enumerate(self._scan_custom())]
+        self.indices = list(range(len(self.all_data)))
+        random.Random(self.shuffle_seed).shuffle(self.indices)
+
+    def _custom_fields(self, s: str, i: int, scene_id: str, scene_trans) -> Dict:
+        return {"info_set": s, "info_index": i,
+                "info_scene_trans": translation_to_transform(-scene_trans),
+                "info_scene_mesh": os.path.join(self.data_dir, s, "scenes", f"{scene_id}.ply")}
+
+
+@DATASET.register()
+class MotionXCustomDataset(_CustomMixin, MotionXDataset):
+    """Text-to-motion on a custom scene: ``frame`` zero frames to
+    generate."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        self.motion_dim = compute_repr_dimension(cfg.data_repr)
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        self._custom_data(lambda i, sid, st, desc, tok, nf: (
+            "custom", i, sid, st, desc, self._custom_points(i), tok, nf))
+
+    def __getitem__(self, idx: int) -> Dict:
+        s, i, scene_id, scene_trans, desc, points, tokens, nframes = (
+            self.all_data[self._resolve(idx)])
+        data = {
+            "x": np.zeros((self.max_horizon, self.motion_dim), dtype=np.float32),
+            "x_mask": np.arange(self.max_horizon) >= nframes,
+            "c_text": desc,
+            "c_pc_xyz": points[:, 0:3],
+            "c_pc_feat": self._color_feat(points, scale="byte"),
+            "info_tokens": tokens,
+            **self._custom_fields(s, i, scene_id, scene_trans),
+        }
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data
+
+
+@DATASET.register()
+class ContactMapCustomDataset(_CustomMixin, ContactMapDataset):
+    """Stage-1 contact maps on a custom scene."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        self.contact_dim = compute_repr_dimension(cfg.data_repr)
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        self._custom_data(lambda i, sid, st, desc, _tok, _nf: (
+            "custom", i, sid, st, [desc] if isinstance(desc, str) else []))
+
+    def __getitem__(self, idx: int) -> Dict:
+        s, i, scene_id, scene_trans, desc = self.all_data[self._resolve(idx)]
+        points = self._custom_points(i)
+        data = {
+            "x": np.zeros((points.shape[0], self.contact_dim), dtype=np.float32),
+            "c_pc_xyz": points[:, 0:3],
+            "c_pc_feat": self._color_feat(points, scale="byte"),
+            "c_text": desc[0] if desc else "",
+            **self._custom_fields(s, i, scene_id, scene_trans),
+        }
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data
+
+
+@DATASET.register()
+class ContactMotionCustomDataset(_CustomMixin, ContactMotionDataset):
+    """Stage-2 motion on a custom scene, conditioned on the stage-1 handoff
+    ``{contact_folder}/custom/pred_contact/{i:05d}.npy``."""
+
+    def __init__(self, cfg: Any, phase: str, **kwargs):
+        self.data_path = kwargs.get("data_path", "")
+        self.motion_dim = compute_repr_dimension(cfg.data_repr)
+        super().__init__(cfg, phase, **kwargs)
+
+    def _load_datasets(self) -> None:
+        self._custom_data(lambda i, sid, st, desc, tok, nf: (
+            "custom", i, sid, st, desc, self._custom_points(i)[:, 0:3], tok, nf))
+
+    def __getitem__(self, idx: int) -> Dict:
+        s, i, scene_id, scene_trans, desc, xyz, tokens, nframes = (
+            self.all_data[self._resolve(idx)])
+        contact = nio.load(os.path.join(self.contact_folder, s, "pred_contact", f"{i:05d}.npy"))
+        if not self.use_raw_dist:
+            contact = gaussian_contact(contact, self.sigma)
+        data = {
+            "x": np.zeros((self.max_horizon, self.motion_dim), dtype=np.float32),
+            "x_mask": np.arange(self.max_horizon) >= nframes,
+            "c_pc_xyz": xyz,
+            "c_pc_contact": contact.astype(np.float32),
+            "c_text": desc,
+            "info_tokens": tokens,
+            **self._custom_fields(s, i, scene_id, scene_trans),
+        }
+        data = self.transform(data)
+        data["x"] = self.normalize(data["x"]).astype(np.float32)
+        return data

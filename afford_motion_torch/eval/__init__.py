@@ -1,6 +1,7 @@
 """Evaluators of the port (counterpart of ``afford_motion_tpu/eval``): the
 stage-1 contact evaluators, the scene-protocol half (SMPL-X fit, LBS, SDF
-physics, APD) and the HumanML3D pickle writer."""
+physics, APD) and the HumanML3D pickle writer; ``eval.visualize`` holds the
+visualizers of ``sample.py``."""
 from .evaluate import (
     ContactEvaluator,
     ContactHumanML3DEvaluator,

@@ -1,13 +1,17 @@
 """Data preparation of the port, the three stages the banded training
-deployment needs (counterpart of the root ``prepare.py`` for ``--dataset
-H3D``, same arguments):
+deployment needs (counterpart of the root ``prepare.py``'s ``sort``,
+``geometry`` and ``pack``, same arguments), for the HumanML3D tree ``H3D``
+and for the MotionX sets (``HUMANISE``, ``PROX``, ``HumanML3D``):
 
-    python -m afford_motion_torch.prepare sort --dataset H3D --out_dir <data> [--curve hilbert]
-    python -m afford_motion_torch.prepare geometry --dataset H3D --out_dir <data> [--kind sm]
-    python -m afford_motion_torch.prepare pack --dataset H3D --out_dir <data>
+    python -m afford_motion_torch.prepare sort --dataset HUMANISE --out_dir <data> [--curve hilbert]
+    python -m afford_motion_torch.prepare geometry --dataset HUMANISE --out_dir <data> [--kind sm]
+    python -m afford_motion_torch.prepare pack --dataset HUMANISE --out_dir <data>
 
-``sort`` rewrites every contacts ``.npz`` with its point rows in
-space-filling-curve order; ``geometry`` caches each item's FPS / kNN
+A set's files are under ``<data>/H3D/`` for H3D and under
+``<data>/<set>/contact_motion/`` for a MotionX set. ``sort`` rewrites every
+contacts ``.npz`` with its point rows in space-filling-curve order, and a
+MotionX item's per-point sidecars (``target_mask/``, ``affordance/``) in the
+same order; ``geometry`` caches each item's FPS / kNN
 hierarchy (ascending ``fps_idx``, int16 indices, a crc32 of the points it
 was built from); ``pack`` bakes contacts and caches into the memmap store the
 train loop reads. Run them in this order: the caches hold row positions.
@@ -29,18 +33,33 @@ from .utils.misc import natsorted
 logger = get_logger()
 
 
+# per-point files beside a MotionX item's contacts, one row a point
+SIDECARS = ("target_mask", "affordance")
+
+
+def _set_dir(args) -> str:
+    """The directory of the dataset's ``contacts/`` and caches."""
+    if args.dataset == "H3D":
+        return os.path.join(args.out_dir, "H3D")
+    return os.path.join(args.out_dir, args.dataset, "contact_motion")
+
+
 def _contact_files(args) -> list:
-    if args.dataset != "H3D":
-        raise NotImplementedError(f"prepare: dataset {args.dataset!r} is not ported yet (H3D is)")
-    return natsorted(glob.glob(os.path.join(args.out_dir, "H3D", "contacts", "*.npz")))
+    files = natsorted(glob.glob(os.path.join(_set_dir(args), "contacts", "*.npz")))
+    if not files:
+        raise FileNotFoundError(f"prepare: no contacts under {_set_dir(args)}/contacts")
+    return files
 
 
 def cmd_sort(args) -> None:
-    """Rewrite per-item point rows of the contacts npz in curve order
-    (``ops/curves.py``) so the banded kernels apply. Idempotent per curve."""
+    """Rewrite per-item point rows of the contacts npz, and of a MotionX
+    item's sidecars, in curve order (``ops/curves.py``) so the banded
+    kernels apply. Idempotent per curve."""
     from .ops.curves import curve_order
 
+    base = _set_dir(args)
     files = _contact_files(args)
+    sidecars = () if args.dataset == "H3D" else SIDECARS
     for n, f in enumerate(files):
         data = dict(np.load(f))
         order = curve_order(np.asarray(data["points"])[:, :3], args.curve)
@@ -48,9 +67,16 @@ def cmd_sort(args) -> None:
             if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == len(order):
                 data[key] = v[order]
         np.savez(f, **data)
+        name = os.path.basename(f)[: -len(".npz")]
+        for sub in sidecars:
+            side = os.path.join(base, sub, f"{name}.npy")
+            if os.path.exists(side):
+                v = np.load(side)
+                if v.ndim >= 1 and v.shape[0] == len(order):
+                    np.save(side, v[order])
         if (n + 1) % 500 == 0 or n + 1 == len(files):
             logger.info(f"sort {n + 1}/{len(files)}")
-    logger.info(f"{args.curve}-sorted {len(files)} items under {args.out_dir}/H3D")
+    logger.info(f"{args.curve}-sorted {len(files)} items under {base}")
 
 
 def cmd_geometry(args) -> None:
@@ -67,7 +93,7 @@ def cmd_geometry(args) -> None:
     strides, nsamples = ((SCENEMAP_STRIDES, SCENEMAP_NSAMPLES) if args.kind == "sm"
                          else (SEG_STRIDES, SEG_NSAMPLES))
     files = _contact_files(args)
-    out_dir = os.path.join(args.out_dir, "H3D", f"geometry_{args.kind}")
+    out_dir = os.path.join(_set_dir(args), f"geometry_{args.kind}")
     os.makedirs(out_dir, exist_ok=True)
     for start in range(0, len(files), args.batch_size):
         chunk = files[start: start + args.batch_size]
@@ -96,13 +122,17 @@ def cmd_geometry(args) -> None:
 
 
 def cmd_pack(args) -> None:
-    """Bake contacts and geometry caches into the packed memmap training
-    store (``data/packed.py``)."""
-    from .data.packed import pack_h3d
+    """Bake contacts and geometry caches (and a MotionX set's raw motions)
+    into the packed memmap training store (``data/packed.py``)."""
+    from .data.packed import pack_h3d, pack_motionx
 
     _contact_files(args)
     joints = [int(j) for j in args.contact_joints.split(",") if j != ""]
-    pack_h3d(args.out_dir, contact_type=args.contact_type, contact_joints=joints)
+    if args.dataset == "H3D":
+        pack_h3d(args.out_dir, contact_type=args.contact_type, contact_joints=joints)
+    else:
+        pack_motionx(args.out_dir, args.dataset, contact_type=args.contact_type,
+                     contact_joints=joints)
 
 
 def main(argv=None) -> None:

@@ -1,6 +1,6 @@
 """Seconds per step through the train entry in steady state, per data route:
 
-    python -m afford_motion_torch.tools.profile_train_loop [out_dir] [--stage1]
+    python -m afford_motion_torch.tools.profile_train_loop [out_dir] [--stage1] [--motionx]
 
 Builds ``chip_smoke.py``'s synthetic HumanML3D tree (192 items, 8192-point
 clouds, motions of 40..196 frames) and its sorted, cached, packed copy, then
@@ -20,13 +20,25 @@ tree's 144 training items hold no four), on the plain tree's host stream
 (``stage-1 plain host``) and through the stage-1 store on the prepared tree
 (``stage-1 store``).
 
+With ``--motionx`` it trains the scene protocol's two stages on
+``chip_smoke.py``'s prepared HUMANISE tree (96 scenes, 66-d motions of
+40..196 frames, every other item with a ``pred_contact`` file for the mix,
+sorted, cached and packed by ``afford_motion_torch.prepare``):
+``scripts/ts2m_contact_motion/train_ddp.sh``'s CMDM (batch 32, the rotation
+chain, one step a megabatch: 96 items hold no four batches) through the
+``motionx`` store (``motionx store``) and on the packed host route
+(``motionx host``), and ``scripts/ts2m_contact/train_ddp.sh``'s
+CDM-Perceiver (batch 64) through the ``motionx_contact`` store and on the
+host route (``motionx stage-1 store`` / ``host``).
+
 With ``AM_LOOP_TIMING=1`` and a log every 4 steps, it reports s/step over
 the windows after the first two (set-up, the first megabatch's load and the
 libraries' warm-up left out), the share of that wall time the loop waited
 for a batch (where the loop records it), the store's bytes and its cache and
 upload time, and the peak device memory. Prints the card's name and power
 limit first and writes ``profile_train_loop.txt`` (``--stage1``:
-``profile_train_loop_stage1.txt``) into ``out_dir`` (default
+``profile_train_loop_stage1.txt``, ``--motionx``:
+``profile_train_loop_motionx.txt``) into ``out_dir`` (default
 ``build/profile``).
 """
 from __future__ import annotations
@@ -43,14 +55,30 @@ from .kernel_ab import _smoke
 STEPS = 32  # eight megabatches: two to warm up, six measured
 
 
-def _route(smoke, tree: dict, name: str, steps: int, extra: tuple, stage1: bool = False) -> str:
+def _flagship(smoke, tree: dict, exp) -> list:
+    return smoke.base_args(tree) + [
+        f"exp_dir={exp}", f"task.train.batch_size={smoke.B}",
+        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']"]
+
+
+def _stage1(smoke, tree: dict, exp) -> list:
+    return smoke.stage1_args(tree, exp)
+
+
+def _motionx(smoke, tree: dict, exp) -> list:
+    return smoke.mx_args(tree, exp)
+
+
+def _motionx_stage1(smoke, tree: dict, exp) -> list:
+    return smoke.mx_stage1_args(tree, exp)
+
+
+def _route(smoke, tree: dict, name: str, steps: int, extra: tuple, args_of) -> str:
+    """``args_of(smoke, tree, exp)``: the run's configuration."""
     from .. import train as entry
 
     exp = smoke.WORK / ("loop_" + name.replace(" ", "_"))
-    model = smoke.stage1_args(tree, exp) if stage1 else smoke.base_args(tree) + [
-        f"exp_dir={exp}", f"task.train.batch_size={smoke.B}",
-        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']"]
-    args = model + list(extra) + [
+    args = args_of(smoke, tree, exp) + list(extra) + [
         f"task.train.max_steps={steps}", f"task.train.save_every_step={steps}",
         "task.train.log_every_step=4"]
     summary = entry.main(args)
@@ -76,7 +104,7 @@ def _route(smoke, tree: dict, name: str, steps: int, extra: tuple, stage1: bool 
     return line
 
 
-def main(out_dir: str = "build/profile", stage1: bool = False) -> None:
+def main(out_dir: str = "build/profile", stage1: bool = False, motionx: bool = False) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train_loop runs only on a CUDA device")
     smoke = _smoke()
@@ -87,22 +115,34 @@ def main(out_dir: str = "build/profile", stage1: bool = False) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    tree = smoke.make_tree()
-    banded = smoke.make_banded_tree(tree)
-    if stage1:
-        routes = (("stage-1 plain host", tree, ()), ("stage-1 store", banded, ()))
-        what = f"the CDM-Perceiver, batch {smoke.B_STAGE1}"
+    off = ("task.train.device_store=off",)
+    if motionx:
+        smoke.shutil.rmtree(smoke.WORK, ignore_errors=True)
+        tree, _ = smoke.make_motionx_tree(smoke.launch_counters())
+        routes = (("motionx store", tree, (), _motionx), ("motionx host", tree, off, _motionx),
+                  ("motionx stage-1 store", tree, (), _motionx_stage1),
+                  ("motionx stage-1 host", tree, off, _motionx_stage1))
+        what = (f"ts2m_contact_motion batch {smoke.B} and ts2m_contact batch "
+                f"{smoke.B_STAGE1} on {smoke.MX_ITEMS} HUMANISE scenes")
     else:
-        routes = (("plain host", tree, ()), ("banded store", banded, ()),
-                  ("banded host", banded, ("task.train.device_store=off",)))
-        what = f"batch {smoke.B}"
+        tree = smoke.make_tree()
+        banded = smoke.make_banded_tree(tree)
+        if stage1:
+            routes = (("stage-1 plain host", tree, (), _stage1),
+                      ("stage-1 store", banded, (), _stage1))
+            what = f"the CDM-Perceiver, batch {smoke.B_STAGE1}"
+        else:
+            routes = (("plain host", tree, (), _flagship), ("banded store", banded, (), _flagship),
+                      ("banded host", banded, off, _flagship))
+            what = f"batch {smoke.B}"
     lines = [card, f"{STEPS} steps a route, {what}, bf16, seed {smoke.SEED}:"]
-    for name, t, extra in routes:
-        lines.append("  " + _route(smoke, t, name, STEPS, extra, stage1))
+    for name, t, extra, args_of in routes:
+        lines.append("  " + _route(smoke, t, name, STEPS, extra, args_of))
         print(lines[-1], flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    name = "profile_train_loop_stage1.txt" if stage1 else "profile_train_loop.txt"
+    name = ("profile_train_loop_motionx.txt" if motionx else
+            "profile_train_loop_stage1.txt" if stage1 else "profile_train_loop.txt")
     (out / name).write_text("\n".join(lines) + "\n")
 
 
@@ -110,5 +150,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("out_dir", nargs="?", default="build/profile")
     ap.add_argument("--stage1", action="store_true")
+    ap.add_argument("--motionx", action="store_true")
     args = ap.parse_args()
-    main(args.out_dir, args.stage1)
+    main(args.out_dir, args.stage1, args.motionx)

@@ -1,6 +1,6 @@
 """Device-resident training corpus (counterpart of
-``afford_motion_tpu/train/device_store.py``, its HumanML3D stores): the
-corpus is uploaded to the card once and the host streams only indices.
+``afford_motion_tpu/train/device_store.py``): the corpus is uploaded to the
+card once and the host streams only indices.
 
 On a prepared tree (``prepare sort|geometry|pack``, the fps geometry wire,
 ``half_wire_x``) the store holds, on the card:
@@ -29,8 +29,19 @@ only the captions, and the card computes the diffusion target
 normalize(exp(-0.5 dist^2 / sigma^2)) in f32, as the dataset's ``__getitem__``
 does on the host.
 
-The MotionX stores are not ported yet: :meth:`DeviceStore.try_build` says so
-and returns None, and the loop takes the host pipeline.
+The MotionX stores (``ContactMotionDataset`` and ``ContactMapDataset`` over
+the per-set packed stores, concatenated in set order) hold the raw motions
+in f32 (``motion32``: they are normalized after the rotation, by per-channel
+stds that can be small, so an f16 copy would amplify its rounding), their
+lengths, the f16 clouds and distances (stage 1: the f32 distances and the
+f16 colours ``rgb16``) and the fps wire. The ``RandomRotation`` of the train
+chain moves onto the card: the host draws the angle at the chain's place in
+the numpy stream, and the card rotates the cloud (and the motion's joints)
+about the z axis in f32, then normalizes; padding frames normalize to
+(0 - mean) / std, as on the host.
+
+:meth:`DeviceStore.try_build` returns None, and the loop takes the host
+pipeline, wherever a requirement does not hold.
 """
 from __future__ import annotations
 
@@ -72,8 +83,11 @@ _FLAG_TRANSFORMS = {
 # scenes a hierarchy build of the geometry cache takes at once
 GEOMETRY_CHUNK = 64
 
-# dataset classes whose stores wait for the packed MotionX store
-_NOT_PORTED = ("ContactMotionDataset", "ContactMapDataset")
+# the MotionX train chains the stores replay: the rotation (stage 2 moves
+# points and motion, stage 1 points only) or nothing
+MOTIONX_CHAIN = ["RandomRotation", "ApplyTransformCMDM", "NumpyToTensor"]
+MOTIONX_CONTACT_CHAINS = [["NumpyToTensor"],
+                          ["RandomRotation", "ApplyTransformCDM", "NumpyToTensor"]]
 
 
 def _flag_chain(dataset, base=("NumpyToTensor",)):
@@ -147,14 +161,11 @@ class DeviceStore:
         """The store of ``dataset`` (by its exact class: the sample-mode
         subclasses do not match), or None where the requirements do not
         hold; the caller then takes the host pipeline."""
-        name = type(dataset).__name__
-        if name in _NOT_PORTED:
-            logger.info(f"device store: the {name} store is not ported yet; "
-                        "using the host pipeline")
-            return None
         builders = {"ContactMotionHumanML3DDataset": cls._try_build_h3d,
-                    "ContactHumanML3DDataset": cls._try_build_h3d_contact}
-        build = builders.get(name)
+                    "ContactMotionDataset": cls._try_build_motionx,
+                    "ContactHumanML3DDataset": cls._try_build_h3d_contact,
+                    "ContactMapDataset": cls._try_build_motionx_contact}
+        build = builders.get(type(dataset).__name__)
         return build(dataset, max_bytes_from_env()) if build else None
 
     @staticmethod
@@ -275,6 +286,119 @@ class DeviceStore:
         }
         return cls(host, meta)
 
+    @classmethod
+    def _try_build_motionx(cls, dataset, max_bytes: int) -> Optional["DeviceStore"]:
+        """ContactMotionDataset over the MotionX sets: motions and scenes
+        from the per-set packed stores; the rotation of the train chain runs
+        on the card."""
+        needed = ("all_data", "mean", "std", "max_horizon", "sigma", "use_raw_dist",
+                  "contact_type")
+        if not all(hasattr(dataset, a) for a in needed):
+            return None
+        if getattr(dataset, "phase", "") not in ("train", "all"):
+            return None
+        if getattr(dataset, "_x16", False) is False:
+            return None
+        stores = getattr(dataset, "_packed", None)
+        if not isinstance(stores, dict) or not stores:
+            return None
+        tlist = list(dataset.cfg.get("train_transforms", []))
+        rotate = tlist == MOTIONX_CHAIN
+        if not rotate and any(t != "NumpyToTensor" for t in tlist):
+            return None
+        if rotate and _gravity_dim(dataset) != 2:
+            return None  # the published configs are z-up
+        if str(dataset.cfg.get("geometry_wire", "full")) != "fps":
+            return None
+        if any(not {"xyz16", "dist16", "motion32", "motion_len"} <= set(st.fields)
+               for st in stores.values()):
+            return None
+        sets, offsets, rows = _store_rows(dataset, stores)
+        if rows is None:
+            return None
+
+        n_sc = sum(len(stores[s].meta["bases"]) for s in sets)
+        L_max = max(int(stores[s].fields["motion32"].shape[1]) for s in sets)
+        D = int(stores[sets[0]].fields["motion32"].shape[2])
+        motion = np.zeros((n_sc, L_max, D), dtype=np.float32)
+        length = np.zeros((n_sc,), dtype=np.int32)
+        for s in sets:
+            st = stores[s]
+            a, b = offsets[s], offsets[s] + len(st.meta["bases"])
+            m = np.asarray(st.fields["motion32"])
+            motion[a:b, : m.shape[1]] = m
+            length[a:b] = np.asarray(st.fields["motion_len"])
+        host: Dict[str, np.ndarray] = {"motion32": motion, "length": length}
+        host.update(_concat_fields(stores, sets, ["xyz16", "dist16"]))
+        host["scene_row"] = np.arange(n_sc, dtype=np.int32)  # one scene an item
+
+        total = sum(v.nbytes for v in host.values())
+        if total > max_bytes:
+            logger.info(f"device store: corpus {total / 1e9:.2f}GB exceeds the "
+                        f"{max_bytes / 1e9:.1f}GB budget; using the host pipeline")
+            return None
+        logger.info(f"device store: staging {total / 1e9:.2f}GB ({len(rows)} items over "
+                    f"{sets}) for the device upload")
+        meta = {
+            "kind": "motionx",
+            "item_store_row": np.asarray(rows, dtype=np.int32),
+            "n_items": len(rows),
+            "max_horizon": int(dataset.max_horizon),
+            "sigma": float(dataset.sigma),
+            "use_raw_dist": bool(dataset.use_raw_dist),
+            "motion_dim": D,
+            "rotate": rotate,
+            "mean": np.asarray(dataset.mean, dtype=np.float32),
+            "std": np.asarray(dataset.std, dtype=np.float32),
+            "mix": float(dataset.cfg.get("mix_train_ratio", 0.0) or 0.0) > 0,
+        }
+        return cls(host, meta)
+
+    @classmethod
+    def _try_build_motionx_contact(cls, dataset, max_bytes: int) -> Optional["DeviceStore"]:
+        """ContactMapDataset (stage 1) over the MotionX sets: the h3d_contact
+        store's fields, plus the f16 colours where the dataset reads them,
+        and the rotation of the cloud on the card (the contact target does
+        not move)."""
+        stores = getattr(dataset, "_packed", None)
+        if not isinstance(stores, dict) or not stores:
+            return None
+        if not cls._common_gate(dataset, MOTIONX_CONTACT_CHAINS):
+            return None
+        rotate = "RandomRotation" in list(dataset.cfg.get("train_transforms", []))
+        if rotate and _gravity_dim(dataset) != 2:
+            return None
+        use_color = bool(getattr(dataset, "use_color", False))
+        need = {"xyz16", "dist32"} | ({"rgb16"} if use_color else set())
+        if any(not need <= set(st.fields) for st in stores.values()):
+            return None
+        sets, _, rows = _store_rows(dataset, stores)
+        if rows is None:
+            return None
+        n_sc = sum(len(stores[s].meta["bases"]) for s in sets)
+        host = {"scene_row": np.arange(n_sc, dtype=np.int32)}
+        host.update(_concat_fields(stores, sets,
+                                   ["xyz16", "dist32"] + (["rgb16"] if use_color else [])))
+        total = sum(v.nbytes for v in host.values())
+        if total > max_bytes:
+            logger.info(f"device store: corpus {total / 1e9:.2f}GB exceeds the "
+                        f"{max_bytes / 1e9:.1f}GB budget; using the host pipeline")
+            return None
+        logger.info(f"device store: staging {total / 1e9:.2f}GB ({len(rows)} stage-1 items, "
+                    f"{n_sc} scenes) for the device upload")
+        meta = {
+            "kind": "motionx_contact",
+            "item_store_row": np.asarray(rows, dtype=np.int32),
+            "n_items": len(rows),
+            "sigma": float(dataset.sigma),
+            "use_raw_dist": bool(dataset.use_raw_dist),
+            "rotate": rotate,
+            "use_color": use_color,
+            "mean": np.asarray(dataset.mean, dtype=np.float32),
+            "std": np.asarray(dataset.std, dtype=np.float32),
+        }
+        return cls(host, meta)
+
     # ----------------------------------------------------- geometry cache
     def add_geometry_cache(self, model, device="cuda", max_bytes: Optional[int] = None) -> bool:
         """Compute each scene's whole hierarchy (kNN, down-kNN and, where the
@@ -373,10 +497,16 @@ class DeviceStore:
         the dataset's ``__getitem__`` semantics and generator order: per
         item the caption and the crop start from ``py_rng``, then one
         ``np_rng`` draw for the contact mix (whatever the mix ratio), then
-        the flag chain. Explicit generators keep the stream a function of
-        the caller's seed whatever other threads draw."""
+        the flag chain; for the MotionX sets the caption from ``py_rng``,
+        then from ``np_rng`` the mix draw (stage 2) and the rotation angle.
+        Explicit generators keep the stream a function of the caller's seed
+        whatever other threads draw."""
+        if self.meta["kind"] == "motionx":
+            return self._draw_batch_motionx(dataset, item_ids, py_rng, np_rng)
         if self.meta["kind"] == "h3d_contact":
             return self._draw_batch_contact(dataset, item_ids, py_rng)
+        if self.meta["kind"] == "motionx_contact":
+            return self._draw_batch_motionx_contact(dataset, item_ids, py_rng, np_rng)
         rnd, npr = py_rng, np_rng
         B = len(item_ids)
         crop_start = np.zeros((B,), np.int32)
@@ -429,6 +559,93 @@ class DeviceStore:
                                           py_rng)["caption"] for r in rows]
         return {"item_row": rows, "c_text": captions}
 
+    def _draw_batch_motionx(self, dataset, item_ids, py_rng: random.Random,
+                            np_rng: np.random.RandomState) -> Dict[str, Any]:
+        """Stage 2 over the MotionX sets. Per item: the caption from
+        ``py_rng``; from ``np_rng`` the mix draw (``_load_contact``), where
+        it hits, the item's ``pred_contact`` file, if there is one, as its
+        contact (f16); then the rotation angle (``RandomRotation``)."""
+        B = len(item_ids)
+        rows = np.zeros((B,), np.int32)
+        captions = []
+        angle = np.zeros((B,), np.float32) if self.meta["rotate"] else None
+        mix_contact = mix_mask = None
+        if self.meta["mix"]:
+            P, C = self.arrays["dist16"].shape[1:]
+            mix_contact = np.zeros((B, P, C), np.float16)
+            mix_mask = np.zeros((B,), bool)
+        store_rows = self.meta["item_store_row"]
+        for j, idx in enumerate(item_ids):
+            resolved = dataset.indices[idx]
+            s, i, _scene_id, _trans, desc = dataset.all_data[resolved]
+            rows[j] = store_rows[resolved]
+            captions.append(dataset._pick_text(desc, py_rng))
+            mixed = np_rng.random() < getattr(dataset, "mix_train_ratio", 0.0)
+            if mixed and mix_contact is not None:
+                f = os.path.join(dataset.data_dir, s, "pred_contact", f"{i:05d}.npy")
+                if os.path.exists(f):
+                    from .. import native as nio
+
+                    mix_contact[j] = nio.load(f).squeeze(0).astype(np.float16)
+                    mix_mask[j] = True
+            if angle is not None:
+                angle[j] = np_rng.uniform(-1.0, 1.0) * np.pi
+        out: Dict[str, Any] = {"item_row": rows, "c_text": captions}
+        if angle is not None:
+            out["aug_angle"] = angle
+        if mix_contact is not None:
+            out["mix_contact"] = mix_contact
+            out["mix_mask"] = mix_mask
+        return out
+
+    def _draw_batch_motionx_contact(self, dataset, item_ids, py_rng: random.Random,
+                                    np_rng: np.random.RandomState) -> Dict[str, Any]:
+        """Stage 1 over the MotionX sets: per item the caption from
+        ``py_rng``, then the rotation angle from ``np_rng``."""
+        rows = np.zeros((len(item_ids),), np.int32)
+        captions = []
+        angle = np.zeros((len(item_ids),), np.float32) if self.meta["rotate"] else None
+        for j, idx in enumerate(item_ids):
+            resolved = dataset.indices[idx]
+            rows[j] = self.meta["item_store_row"][resolved]
+            captions.append(dataset._pick_text(dataset.all_data[resolved][4], py_rng))
+            if angle is not None:
+                angle[j] = np_rng.uniform(-1.0, 1.0) * np.pi
+        out: Dict[str, Any] = {"item_row": rows, "c_text": captions}
+        if angle is not None:
+            out["aug_angle"] = angle
+        return out
+
+
+def _gravity_dim(dataset) -> int:
+    return int(dataset.cfg.get("transform_cfg", {}).get("gravity_dim", 2))
+
+
+def _store_rows(dataset, stores):
+    """(the sets in order, each set's first row in the concatenated store,
+    each dataset item's row there); the rows are None where an item is not
+    in its set's store."""
+    sets = sorted(stores)
+    offsets, off = {}, 0
+    for s in sets:
+        offsets[s] = off
+        off += len(stores[s].meta["bases"])
+    rows = []
+    for s, i, *_ in dataset.all_data:
+        st = stores.get(s)
+        if st is None or f"{i:05d}" not in st.index:
+            return sets, offsets, None
+        rows.append(offsets[s] + st.index[f"{i:05d}"])
+    return sets, offsets, rows
+
+
+def _concat_fields(stores, sets, fields) -> Dict[str, np.ndarray]:
+    """``fields`` and the fps wire of the first set's store, each the sets'
+    rows concatenated in order."""
+    fields = list(fields) + [k for k in stores[sets[0]].geo_keys if "_fps_idx" in k]
+    return {f: np.concatenate([np.asarray(stores[s].fields[f]) for s in sets], axis=0)
+            for f in fields}
+
 
 def index_stream(n_items: int, G: int, B: int, start_step: int, base_seed: int,
                  loader_seed: int) -> Iterator[np.ndarray]:
@@ -458,10 +675,13 @@ def make_assemble_fn(store: DeviceStore, device="cuda"):
     its mask, the f16 motion rows, the cloud, the contact through
     exp(-0.5 c^2 / sigma^2) unless ``use_raw_dist``, the mix override, the
     flags and every ``geo_*`` field, the int16 index fields widened to int32
-    on the device. Uploads the store to ``device`` first if it is not
-    there."""
+    on the device; the MotionX and stage-1 stores' own assembly otherwise
+    (:func:`_make_assemble_motionx`, :func:`_make_assemble_contact`).
+    Uploads the store to ``device`` first if it is not there."""
     store.ensure_device(device)
-    if store.meta["kind"] == "h3d_contact":
+    if store.meta["kind"] == "motionx":
+        return _make_assemble_motionx(store)
+    if store.meta["kind"].endswith("_contact"):
         return _make_assemble_contact(store)
     A = store.arrays
     H = store.meta["max_horizon"]
@@ -514,13 +734,79 @@ def _geometry(store: DeviceStore, s_rows: torch.Tensor) -> Dict[str, torch.Tenso
     return out
 
 
+def _rotate_z(points: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(..., 3) f32 points rotated about the z (gravity) axis by the angle
+    whose cosine and sine are ``c`` and ``s`` (broadcast over the points):
+    ``RandomRotation``'s matrix for ``gravity_dim`` 2, applied in f32."""
+    x0, x1, x2 = points.unbind(-1)
+    return torch.stack([c * x0 - s * x1, s * x0 + c * x1, x2], dim=-1)
+
+
+def _make_assemble_motionx(store: DeviceStore):
+    """Stage 2 over the MotionX sets: ``x`` the raw f32 motion padded to the
+    horizon, rotated by the batch's ``aug_angle`` (the joints' xyz triples),
+    normalized after the padding (padding frames become (0 - mean) / std) and
+    rounded to f16; ``cond`` the mask, the caption embedding, the rotated f16
+    cloud, the contact through exp(-0.5 c^2 / sigma^2) unless
+    ``use_raw_dist`` (the mix override first) and every ``geo_*`` field."""
+    A = store.arrays
+    H = store.meta["max_horizon"]
+    use_raw = store.meta["use_raw_dist"]
+    dev = A["motion32"].device
+    # 0-d / (1, D) tensor divisors: true division on the card, as on the host
+    sigma2 = torch.tensor(store.meta["sigma"] ** 2, dtype=torch.float32, device=dev)
+    mean = torch.as_tensor(store.meta["mean"], device=dev)
+    std = torch.as_tensor(store.meta["std"], device=dev)
+    t_idx = torch.arange(H, dtype=torch.int32, device=dev)
+    L_max, D = A["motion32"].shape[1:]
+
+    def assemble(batch: Dict[str, torch.Tensor]):
+        rows = batch["item_row"]
+        B = rows.shape[0]
+        motion = store.fetch("motion32", rows)
+        motion = (torch.nn.functional.pad(motion, (0, 0, 0, H - L_max)) if L_max < H
+                  else motion[:, :H])
+        valid = t_idx[None] < store.fetch("length", rows)[:, None]          # (B, H)
+        xyz = store.fetch("xyz16", rows).float()
+        if "aug_angle" in batch:
+            ang = batch["aug_angle"].float()
+            c, s = torch.cos(ang), torch.sin(ang)
+            xyz = _rotate_z(xyz, c[:, None], s[:, None])
+            motion = _rotate_z(motion.reshape(B, H, D // 3, 3), c[:, None, None],
+                               s[:, None, None]).reshape(B, H, D)
+        x = ((motion - mean) / std).half()
+
+        contact = store.fetch("dist16", rows).float()
+        if "mix_contact" in batch:
+            contact = torch.where(batch["mix_mask"][:, None, None],
+                                  batch["mix_contact"].float(), contact)
+        if not use_raw:
+            contact = torch.exp(-0.5 * (contact * contact) / sigma2)
+        cond = {
+            "x_mask": ~valid,
+            "text_emb": batch["text_emb"],
+            "c_pc_xyz": xyz.half(),
+            "c_pc_contact": contact.half(),
+        }
+        if "text_token_mask" in batch:
+            cond["text_token_mask"] = batch["text_token_mask"]
+        cond.update(_geometry(store, rows))  # the fps wire and the cached hierarchy
+        return x, cond
+
+    return assemble
+
+
 def _make_assemble_contact(store: DeviceStore):
     """Stage 1's ``assemble(batch) -> (x, cond)``: ``x`` the normalized
     kernel of the f32 distances (or the raw distances), in f32; ``cond`` the
-    caption embedding, the f16 cloud and the fps wire."""
+    caption embedding, the f16 cloud (rotated by ``aug_angle`` where the
+    batch has one), for the MotionX sets the f16 colour features (empty
+    without ``use_color``), and the fps wire."""
     A = store.arrays
     dev = A["dist32"].device
     use_raw = store.meta["use_raw_dist"]
+    motionx = store.meta["kind"] == "motionx_contact"
+    use_color = motionx and store.meta["use_color"]
     # a 0-d tensor divisor, as make_assemble_fn's
     sigma2 = torch.tensor(store.meta["sigma"] ** 2, dtype=torch.float32, device=dev)
     mean = torch.as_tensor(store.meta["mean"], device=dev)
@@ -531,8 +817,17 @@ def _make_assemble_contact(store: DeviceStore):
         contact = store.fetch("dist32", s_rows)
         if not use_raw:
             contact = torch.exp(-0.5 * (contact * contact) / sigma2)
-        cond = {"text_emb": batch["text_emb"], "c_pc_xyz": store.fetch("xyz16", s_rows),
-                **_geometry(store, s_rows)}
+        xyz = store.fetch("xyz16", s_rows)
+        if "aug_angle" in batch:
+            ang = batch["aug_angle"].float()
+            xyz = _rotate_z(xyz.float(), torch.cos(ang)[:, None],
+                            torch.sin(ang)[:, None]).half()
+        cond = {"text_emb": batch["text_emb"], "c_pc_xyz": xyz}
+        if use_color:
+            cond["c_pc_feat"] = ((store.fetch("rgb16", s_rows).float() + 1.0) / 2.0).half()
+        elif motionx:
+            cond["c_pc_feat"] = xyz.new_zeros(xyz.shape[:-1] + (0,))
+        cond.update(_geometry(store, s_rows))
         return (contact - mean) / std, cond
 
     return assemble

@@ -12,7 +12,8 @@ one of two routes:
   ``auto`` or ``off``): on a packed tree with the fps geometry wire and the
   f16 motion wire the corpus and its cached hierarchy live on the card, and
   the host draws only item indices (``index_stream``), captions, crops and
-  flags, from generators seeded per megabatch;
+  flags (for the MotionX sets the mix and the rotation angles), from
+  generators seeded per megabatch;
 - the host route otherwise: the loader's collated megabatches, whose
   datasets draw from the global ``random`` / ``np.random``, re-seeded per
   megabatch by the producer thread, the only thread that draws from them

@@ -245,6 +245,26 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    as in the ts2m phase) and V2's DDIM-50 test with ``AM_FLASH_ATTN=1`` (the
    bottleneck attention fused, once a step). Every run's launches are
    checked exactly.
+15. the MotionX training route and ``sample.py`` (:func:`phase_motionx`, after
+   the stage-1 phases): a synthetic HUMANISE tree (96 scenes of 8192
+   coloured points, 66-d joint motions of 40..196 frames, a ``pred_contact``
+   file for every other item) taken through ``afford_motion_torch.prepare
+   sort|geometry|pack --dataset HUMANISE`` on the card (the ``target_mask``
+   sidecars checked to follow their sorted rows; 3 FPS and 8 kNN a chunk of
+   B in the geometry stage); ``scripts/ts2m_contact_motion/train_ddp.sh``
+   (the CMDM ``trans_enc`` at full width, 500 steps, batch 32, the rotation
+   chain, mix 0.5) 4 + 2 steps through the ``motionx`` store (the banded
+   route: ``STORE_STEP`` a step, the upload's banded kNN), one assembled
+   batch on the card against the same batch assembled on the CPU (``x_mask``
+   and the fps wire equal; ``x``, ``c_pc_xyz``, ``c_pc_contact`` within one
+   f16 ulp plus ``MX_ROT_UNITS`` f32 unit roundoffs of the rotation's scale,
+   :func:`rotation_excess`), 4 + 2 steps on the packed host route
+   (``BANDED_STEP``), 4 + 2 steps of ``scripts/ts2m_contact/train_ddp.sh``
+   through the ``motionx_contact`` store; each store's kind asserted; then
+   ``python -m afford_motion_torch.sample``'s two stages from those
+   checkpoints at batch 8, DDPM-500: one ``contact.npy`` of (8192, 9) finite
+   f32 a case from stage 1 (no port kernel), one frame PLY a frame of each
+   case from stage 2 (one encoding: ``PLAIN_STEP``), each chain's seconds.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -2395,8 +2415,8 @@ def phase_train(tree: dict, counters: dict, per_step: dict, extra: tuple = (),
             raise AssertionError(f"{name}: the loop's device store (staged, geometry cached, "
                                  f"uploaded) = {said}, expected {store}")
         if store:
-            n_scenes = len(json.loads((tree["data"] / "H3D" / "packed" / "meta.json"
-                                       ).read_text())["bases"])
+            packed = tree.get("packed", tree["data"] / "H3D" / "packed")
+            n_scenes = len(json.loads((packed / "meta.json").read_text())["bases"])
             want = (store_upload(n_scenes, upload_knn) if geometry_cache
                     else {k: 0 for k in PLAIN_STEP})
             if uploads != [want]:
@@ -2795,6 +2815,288 @@ def phase_cdm_scene(counters: dict, banded_tree: dict) -> list:
             tag="cdm PointTransV2 + scene DDIM-50 fused")
     runs.append(counts)
     return runs
+
+
+# the MotionX training route (scripts/ts2m_contact_motion/train_ddp.sh and
+# its stage 1, scripts/ts2m_contact/train_ddp.sh) on a prepared HUMANISE
+# tree, and the two-stage demo chain of sample.py: MX_ITEMS scenes, every
+# other one with a stage-1 pred_contact file for the training mix; the demo's
+# prompt files hold MX_SAMPLE lines, one batch of task.sample.batch_size
+MX_ITEMS, MX_SAMPLE, MX_STEPS = 96, 8, 4
+MX_FRAMES = (40, 60, 80, 100, 120, 140, 160, 196)
+
+
+@contextlib.contextmanager
+def record_store_kinds(kinds: list):
+    """Inside the block, each ``DeviceStore.try_build`` call appends the kind
+    of the store it built (None where it built none) to ``kinds``."""
+    from afford_motion_torch.train.device_store import DeviceStore
+
+    raw = DeviceStore.__dict__["try_build"]
+    real = DeviceStore.try_build
+
+    def recorded(dataset):
+        store = real(dataset)
+        kinds.append(None if store is None else store.meta["kind"])
+        return store
+
+    DeviceStore.try_build = staticmethod(recorded)
+    try:
+        yield
+    finally:
+        DeviceStore.try_build = raw
+
+
+def make_motionx_tree(counters: dict) -> tuple:
+    """A synthetic HUMANISE tree (MX_ITEMS scenes of N_POINTS points, 66-d
+    joint motions of 40..196 frames, ``pred_contact`` files for every other
+    item) taken through ``afford_motion_torch.prepare sort|geometry|pack
+    --dataset HUMANISE`` on the card: the store sorted, cached and whole, the
+    ``target_mask`` sidecars in their clouds' new row order, one hierarchy's
+    FPS and kNN launches (with the up kNN) a chunk of B scenes in the
+    geometry stage. Returns the tree and the launches."""
+    from afford_motion_torch import prepare
+    from afford_motion_torch.data.synthetic import make_synthetic_motionx_set
+
+    data = WORK / "mx_data"
+    make_synthetic_motionx_set(str(data), "HUMANISE", n_items=MX_ITEMS, num_points=N_POINTS,
+                               horizon_range=(40, L + 1), seed=SEED + 7, test_items=MX_SAMPLE)
+    base = data / "HUMANISE" / "contact_motion"
+    pred = data / "HUMANISE" / "pred_contact"
+    pred.mkdir()
+    rng = np.random.default_rng(SEED + 7)
+    for i in range(0, MX_ITEMS, 2):
+        np.save(pred / f"{i:05d}.npy", np.abs(rng.normal(size=(1, N_POINTS, 6))).astype(np.float32))
+    before = {i: (np.load(base / "contacts" / f"{i:05d}.npz")["points"][:, :3],
+                  np.load(base / "target_mask" / f"{i:05d}.npy")) for i in (0, MX_ITEMS - 1)}
+    launches = {k: 0 for k in counters}
+    for stage in ("sort", "geometry", "pack"):
+        reset(counters)
+        t0 = time.monotonic()
+        prepare.main([stage, "--dataset", "HUMANISE", "--out_dir", str(data),
+                      "--batch_size", str(B)])
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"motionx prepare {stage}: {time.monotonic() - t0:.1f} s, launches {counts}")
+        # the geometry stage builds one hierarchy with its up kNN (3 FPS, 8
+        # kNN) a chunk of B scenes; the others are numpy
+        chunks = -(-MX_ITEMS // B) if stage == "geometry" else 0
+        check_launches(f"motionx prepare {stage}", counts,
+                       dict(STAGE1_STEP, fps=3, knn=DEC_PLAIN_STEP["knn"]), chunks,
+                       backward=False)
+        for k in launches:
+            launches[k] += counts[k]
+    for i, (xyz, mask) in before.items():
+        now = np.load(base / "contacts" / f"{i:05d}.npz")["points"][:, :3]
+        row = {p.tobytes(): r for r, p in enumerate(xyz)}
+        order = np.array([row[p.tobytes()] for p in now])
+        if (order == np.arange(N_POINTS)).all() or not np.array_equal(
+                np.load(base / "target_mask" / f"{i:05d}.npy"), mask[order]):
+            raise AssertionError(f"motionx prepare: item {i}'s target_mask does not follow "
+                                 "its sorted rows")
+    meta = json.loads((base / "packed" / "meta.json").read_text())
+    if not (meta["morton"] and meta["curve"] == "hilbert" and len(meta["bases"]) == MX_ITEMS
+            and {"motion32", "motion_len", "rgb16", "geo_sm1_fps_idx"} <= set(meta["fields"])):
+        raise AssertionError(f"motionx prepare: the packed store is not sorted, cached and "
+                             f"whole: { {k: v for k, v in meta.items() if k != 'bases'} }")
+    log(f"motionx prepare: {MX_ITEMS} scenes sorted with their target_mask sidecars, cached, "
+        f"packed ({sorted(meta['fields'])})")
+    return {"data": data, "packed": base / "packed"}, launches
+
+
+def mx_args(tree: dict, exp: Path) -> list:
+    """``scripts/ts2m_contact_motion/train_ddp.sh`` on the synthetic HUMANISE
+    tree: the CMDM ``trans_enc`` at full width, 500 diffusion steps, batch
+    B, the config's rotation chain and mix ratio 0.5."""
+    return ["task=contact_motion_gen", "model=cmdm", "model.arch=trans_enc",
+            "diffusion.steps=500", "task.dataset.sets=[HUMANISE]", f"task.train.batch_size={B}",
+            f"task.dataset.data_dir={tree['data']}", f"exp_dir={exp}", f"seed={SEED}",
+            *common_args()]
+
+
+def mx_stage1_args(tree: dict, exp: Path) -> list:
+    """``scripts/ts2m_contact/train_ddp.sh``: the CDM-Perceiver at batch
+    B_STAGE1 on the synthetic HUMANISE tree."""
+    return ["task=contact_gen", *STAGE1_MODEL, "task.dataset.sets=[HUMANISE]",
+            f"task.train.batch_size={B_STAGE1}", f"task.dataset.data_dir={tree['data']}",
+            f"exp_dir={exp}", f"seed={SEED}", *common_args()]
+
+
+def phase_motionx(dev: torch.device, counters: dict) -> list:
+    """The MotionX training route and the sample chain. Prepare the tree
+    (:func:`make_motionx_tree`); MX_STEPS steps and half of them resumed of
+    ``ts2m_contact_motion`` through the ``motionx`` store (the banded route,
+    ``STORE_STEP`` a step, the upload's banded kNN ``store_upload``); one
+    assembled batch on the card against the CPU's
+    (:func:`phase_motionx_batch`); the same run with
+    ``task.train.device_store=off`` (the host route of the packed tree,
+    ``BANDED_STEP``); stage 1 through the ``motionx_contact`` store
+    (``STAGE1_STEP``); then ``sample.py``'s two stages
+    (:func:`phase_sample`). Returns the launches of every run."""
+    tree, prep = make_motionx_tree(counters)
+    runs = [prep]
+    s2 = dict(tree, exp=WORK / "exp_mx_store")
+    s1 = dict(tree, exp=WORK / "exp_mx_stage1")
+    for tag, t, args, per_step, store, kind in (
+            ("motionx store ", s2, mx_args(s2, s2["exp"]), STORE_STEP, True, "motionx"),
+            ("motionx host ", dict(tree, exp=WORK / "exp_mx_host"),
+             mx_args(tree, WORK / "exp_mx_host") + ["task.train.device_store=off"],
+             BANDED_STEP, False, None),
+            ("motionx stage-1 store ", s1, mx_stage1_args(s1, s1["exp"]), STAGE1_STEP, True,
+             "motionx_contact")):
+        kinds: list = []
+        with record_store_kinds(kinds):
+            runs.append(phase_train(t, counters, per_step, tag=tag, args=args, store=store,
+                                    steps=MX_STEPS, geometry_cache=per_step is STORE_STEP))
+        want = [kind] * 2 if store else []
+        if kinds != want:
+            raise AssertionError(f"{tag}: stores built {kinds}, expected {want}")
+        if tag == "motionx store ":
+            phase_motionx_batch(tree, dev)
+    runs.append(phase_sample(tree, counters, s1["exp"], s2["exp"]))
+    log(f"motionx launches: {[{k: v for k, v in r.items() if v} for r in runs]}")
+    return runs
+
+
+# the card's rotation against the CPU's: CUDA's cosf / sinf are within 2 ulps
+# of the true value, the CPU's within 1, and the rotation's products and sum,
+# the normalization's subtraction and division each round once on each side:
+# within MX_ROT_UNITS f32 unit roundoffs (2^-24) of (r + |mean|) / std, r the
+# point's or joint's distance from the z axis (mean 0 and std 1 for the
+# cloud), before the rounding to f16, which adds one f16 ulp of the value
+MX_ROT_UNITS = 16
+
+
+def rotation_excess(a: np.ndarray, b: np.ndarray, scale: np.ndarray) -> float:
+    """The largest |a - b| of two f16 results of a rotation, in units of what
+    MX_ROT_UNITS allows at ``scale``: at most 1 passes."""
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    ulp = np.maximum(np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float16)
+                                ).astype(np.float32), 2.0 ** -24)
+    return float((np.abs(a - b) / (ulp + MX_ROT_UNITS * 2.0 ** -24 * scale)).max())
+
+
+def rotation_scales(store, rows: np.ndarray) -> dict:
+    """(r + |mean|) / std of ``x`` and r of ``c_pc_xyz`` for the store rows
+    ``rows``, r from the unrotated rows (the padding frames' 0)."""
+    H = store.meta["max_horizon"]
+    raw = store.arrays["motion32"][rows][:, :H]
+    raw = np.pad(raw, ((0, 0), (0, H - raw.shape[1]), (0, 0)))
+    r_joint = np.repeat(np.hypot(raw[..., 0::3], raw[..., 1::3]), 3, axis=-1)
+    xyz = store.arrays["xyz16"][rows].astype(np.float32)
+    return {"x": (r_joint + np.abs(store.meta["mean"])) / store.meta["std"],
+            "c_pc_xyz": np.repeat(np.hypot(xyz[..., :1], xyz[..., 1:2]), 3, axis=-1),
+            "c_pc_contact": np.zeros(xyz.shape[:-1] + (store.arrays["dist16"].shape[-1],))}
+
+
+def phase_motionx_batch(tree: dict, dev: torch.device) -> None:
+    """One batch of B items assembled on the card from the ``motionx`` store
+    (rotation, normalization, the mix override) against the same index
+    batch assembled on the CPU: ``x_mask`` and the fps wire equal, ``x``,
+    ``c_pc_xyz`` and ``c_pc_contact`` within one f16 ulp plus what
+    MX_ROT_UNITS allows the rotation (:func:`rotation_excess`)."""
+    import random
+
+    from afford_motion_torch.data import create_dataset
+    from afford_motion_torch.train.device_store import DeviceStore, make_assemble_fn
+    from afford_motion_torch.utils.config import load_config
+
+    cfg = load_config("configs", mx_args(tree, WORK / "exp_mx_batch"))
+    random.seed(SEED)
+    np.random.seed(SEED)
+    ds = create_dataset(cfg.task.dataset, cfg.task.train.phase)
+    store = DeviceStore.try_build(ds)
+    if store is None or store.meta["kind"] != "motionx" or not store.meta["rotate"]:
+        raise AssertionError("motionx batch: no rotating motionx store")
+    seed = SEED + 9
+    meta = store.draw_batch(ds, list(range(B)), random.Random(seed),
+                            np.random.RandomState(seed + 1))
+    meta.pop("c_text")
+    meta["text_emb"] = np.zeros((B, 1, 16), np.float16)
+    if not meta["mix_mask"].any():
+        raise AssertionError("motionx batch: no item took its pred_contact file")
+    out = []
+    for where in (dev, torch.device("cpu")):
+        st = DeviceStore(dict(store.arrays), dict(store.meta))
+        x, cond = make_assemble_fn(st, where)({k: torch.from_numpy(v).to(where)
+                                               for k, v in meta.items()})
+        out.append({"x": x.cpu(), **{k: v.cpu() for k, v in cond.items()}})
+    card, cpu = out
+    scales = rotation_scales(store, meta["item_row"])
+    for k in cpu:
+        if k in scales:
+            a, b = card[k].numpy(), cpu[k].numpy()
+            excess = rotation_excess(a, b, scales[k])
+            d = np.abs(a.astype(np.float32) - b.astype(np.float32))
+            ulp = np.spacing(np.maximum(np.abs(a), np.abs(b))).astype(np.float32)
+            log(f"motionx batch: {k} {tuple(a.shape)} card vs CPU: {int((a != b).sum())} of "
+                f"{a.size} entries differ, at most {float((d / ulp).max()):.1f} f16 ulp, "
+                f"{excess:.3f} of the allowance (1 f16 ulp + {MX_ROT_UNITS} x 2^-24 x scale)")
+            if card[k].dtype != torch.float16 or excess > 1.0:
+                raise AssertionError(f"motionx batch: {k} differs by {excess} of the allowance")
+        elif not torch.equal(card[k], cpu[k]):
+            raise AssertionError(f"motionx batch: {k} differs between the card and the CPU")
+
+
+def phase_sample(tree: dict, counters: dict, s1_exp: Path, s2_exp: Path) -> dict:
+    """``python -m afford_motion_torch.sample``'s two-stage demo chain from
+    the MotionX phase's checkpoints, DDPM-500, one batch of MX_SAMPLE cases:
+    stage 1 (``ContactMapExampleDataset``, the CDM-Perceiver) writes one
+    ``contact.npy`` of (N_POINTS, 3 + 6) finite f32 a case; stage 2
+    (``ContactMotionExampleDataset`` through ``task.sample.contact_folder``,
+    the CMDM) one skeleton PLY a frame of each case. Stage 1 launches none of
+    the kernels; stage 2's chain one encoding (``PLAIN_STEP``: the example
+    clouds carry no cached geometry). Returns the launches of both."""
+    from afford_motion_torch import sample as entry
+
+    ex = WORK / "mx_examples"
+    ex.mkdir(exist_ok=True)
+    idx = range(MX_ITEMS - MX_SAMPLE, MX_ITEMS)
+    texts = [f"walk to the object {i}" for i in idx]
+    (ex / "contact.txt").write_text("".join(f"{t}#HUMANISE#{i}\n" for t, i in zip(texts, idx)))
+    (ex / "motion.txt").write_text("".join(
+        f"{t}#HUMANISE#{i}#{n}\n" for t, i, n in zip(texts, idx, MX_FRAMES)))
+    launches = {k: 0 for k in counters}
+    stage1 = mx_stage1_args(tree, s1_exp) + [f"task.sample.data_path={ex / 'contact.txt'}",
+                                             f"task.sample.batch_size={MX_SAMPLE}"]
+    stage2 = mx_args(tree, s2_exp) + [f"task.sample.data_path={ex / 'motion.txt'}",
+                                      f"task.sample.batch_size={MX_SAMPLE}"]
+    out1 = None
+    for name, args, per_chain in (("stage 1", stage1, STAGE1_STEP),
+                                  ("stage 2", stage2, PLAIN_STEP)):
+        if out1 is not None:
+            args = args + [f"task.sample.contact_folder={out1}"]
+        reset(counters)
+        t0 = time.monotonic()
+        out = Path(entry.main(args))
+        wall = time.monotonic() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        check_launches(f"sample {name}", counts, per_chain, 1, backward=False)
+        cases = sorted(p.name for p in out.iterdir() if p.is_dir())
+        if cases != [f"{i:03d}-{t}" for i, t in enumerate(texts)]:
+            raise AssertionError(f"sample {name}: cases {cases}")
+        if out1 is None:
+            for case in cases:
+                c = np.load(out / case / "contact.npy")
+                if c.shape != (N_POINTS, 3 + 6) or c.dtype != np.float32 \
+                        or not np.isfinite(c).all():
+                    raise AssertionError(f"sample stage 1: {case}/contact.npy is "
+                                         f"{c.dtype} {c.shape}")
+            out1 = out
+            detail = f"{len(cases)} contact.npy of ({N_POINTS}, 9) f32, finite"
+        else:
+            frames = [len(list((out / case).glob("frame_*.ply"))) for case in cases]
+            if frames != list(MX_FRAMES):
+                raise AssertionError(f"sample stage 2: frames {frames}, expected {MX_FRAMES}")
+            detail = f"frame PLYs per case {frames}"
+        timing = json.loads((out / "timing.json").read_text())
+        chain = timing["chains"][0]
+        log(f"sample {name}: DDPM-500 chain of {MX_SAMPLE} "
+            f"{chain['prepare_s'] + chain['loop_s']:.3f} s (prepare {chain['prepare_s']:.3f} s, "
+            f"{1e3 * chain['loop_s'] / chain['steps']:.3f} ms a step), visualizer "
+            f"{timing['visualize_s'][0]:.3f} s, entry {wall:.1f} s; {detail}; launches {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+    return launches
 
 
 def scene_args(tree: dict) -> list:
@@ -3204,16 +3506,31 @@ def phase_scene_humanml(seen: dict, out: Path, counters: dict, assets: dict) -> 
         raise AssertionError(f"scene humanml: metrics {metrics}, launches {h3d}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
-        return 2
-    from afford_motion_torch.ops.cuda import banded, build
+def launch_counters() -> dict:
+    """Each kernels-line row's wrapper, whose ``launches`` it reads. One
+    wrapper call launches one backward kernel for dq, dk and dv: the bf16
+    instance's count stands in both bf16 rows, the f32 instance's in its
+    own."""
+    from afford_motion_torch.ops.cuda import banded
     from afford_motion_torch.ops.cuda.attention import attention_cuda, backward_bf16, backward_f32
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
     from afford_motion_torch.ops.cuda.sdf import nn1_cuda
+
+    return {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
+            "scatter": scatter_add_rows, "banded_knn": banded.knn_banded,
+            "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded,
+            "nn1": nn1_cuda, "attention": attention_cuda,
+            "attention_bwd_dkv": backward_bf16, "attention_bwd_dq": backward_bf16,
+            "attention_bwd_f32": backward_f32}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    from afford_motion_torch.ops.cuda import build
 
     os.chdir(ROOT)  # the entries read ./configs, as the root train.py and test.py do
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3243,15 +3560,7 @@ def main() -> int:
     phase_reference_scene(dev)
     phase_reference_trans_dec(dev)
     phase_reference_cdm_scene(dev)
-    # one wrapper call launches one backward kernel for dq, dk and dv: the
-    # bf16 instance's count stands in both bf16 rows, the f32 instance's in
-    # its own
-    counters = {"fps": fps_cuda, "knn": knn_cuda, "gather": gather_rows,
-                "scatter": scatter_add_rows, "banded_knn": banded.knn_banded,
-                "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded,
-                "nn1": nn1_cuda, "attention": attention_cuda,
-                "attention_bwd_dkv": backward_bf16, "attention_bwd_dq": backward_bf16,
-                "attention_bwd_f32": backward_f32}
+    counters = launch_counters()
     phase_flash_grads(dev, counters)
     tree = make_tree()
     assets = make_eval_assets()
@@ -3312,6 +3621,9 @@ def main() -> int:
         phase_train(s1_banded, counters, STAGE1_STEP, tag="stage-1 store ",
                     args=stage1_args(s1_banded, s1_banded["exp"]), store=True),
     ]
+    # the MotionX route: prepare a HUMANISE tree, train stage 2 and stage 1
+    # through their stores (and stage 2 on the host route), then sample.py
+    phases += phase_motionx(dev, counters)
     # the CDM with its frozen scene model and the point-transformer backbones
     phases += phase_cdm_scene(counters, banded_tree)
     t2m_launches, t2m_out = phase_t2m_chain(tree, counters, s1_tree["exp"])

@@ -226,7 +226,8 @@ def test_create_model_builds_the_published_cdm_and_refuses_the_rest(tmp_path):
     frozen scene model), the point-transformer backbones and the OpenScene
     features build too. Refused: a scene model on the HumanML3D task (whose
     items carry no ``c_pc_feat``), and what is still unported, a local text
-    encoder's weights and ``prepare`` for the MotionX sets."""
+    encoder's weights; ``prepare`` takes the MotionX sets and refuses a set
+    without contacts."""
     cpu = torch.device("cpu")
     m = create_model(_cfg("model.arch=Perceiver", "model.scene_model.use_scene_model=False"),
                      cpu)
@@ -257,7 +258,9 @@ def test_create_model_builds_the_published_cdm_and_refuses_the_rest(tmp_path):
     from afford_motion_torch.models.text import create_text_encoder
     with pytest.raises(NotImplementedError, match="not ported yet"):
         create_text_encoder("ViT-B/32", weights_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # prepare takes the MotionX sets: a tree without HUMANISE contacts is
+    # refused for that, not for the set (tests/test_torch_motionx_store.py)
+    with pytest.raises(FileNotFoundError, match="no contacts under"):
         prepare.main(["sort", "--dataset", "HUMANISE", "--out_dir", str(tmp_path)])
     # the published ts2m configuration resolves use_openscene to false
     assert isinstance(build_cdm(_cfg("model.arch=Perceiver",

@@ -13,11 +13,16 @@ import pytest
 from afford_motion_tpu.data import create_dataset as jax_create_dataset
 from afford_motion_tpu.utils.config import load_config as jax_load_config
 from afford_motion_torch.data import create_dataset
-from afford_motion_torch.data.base import NOT_PORTED_DATASETS
+from afford_motion_torch.utils.registry import DATASET
 from afford_motion_torch.data.synthetic import make_synthetic_motionx_set
 from afford_motion_torch.utils.config import load_config
 
 N_POINTS, K = 64, 2
+# the ten registered classes of the family
+FAMILY = ("MotionXDataset", "ContactMapDataset", "ContactMotionDataset", "MotionXExampleDataset",
+          "ContactMapExampleDataset", "ContactMotionExampleOriginDataset",
+          "ContactMotionExampleDataset", "MotionXCustomDataset", "ContactMapCustomDataset",
+          "ContactMotionCustomDataset")
 
 
 @pytest.fixture
@@ -105,13 +110,24 @@ def test_train_phase_items_equal_jax(tree):
 
 
 def test_dataset_refusals(tree):
-    """What waits for its own slice is refused by name: the other classes of
-    the family, and a packed MotionX store under the training wire format."""
+    """Every class of the MotionX family is ported and the factory refuses
+    none by name: each is registered in both packages, and
+    ``MotionXDataset`` builds through the factory in both phases. What is
+    still refused: the test phase of ``ContactMotionDataset`` without a
+    contact folder. A packed store that cannot be opened (a meta of another
+    version) is passed over for the ``.npz`` files, as the H3D store is; an
+    opened one serves the train phase (``tests/test_torch_motionx_store.py``)."""
+    from afford_motion_tpu.utils.registry import DATASET as JAX_DATASET
+
     argv = _args(tree)
-    for name in NOT_PORTED_DATASETS:
-        cfg = load_config("configs", argv + [f"task.dataset.name={name}"])
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            create_dataset(cfg.task.dataset, "test", contact_folder=str(tree[1]))
+    for name in FAMILY:
+        assert name in DATASET and name in JAX_DATASET, name
+    cfg = load_config("configs", argv + ["task.dataset.name=MotionXDataset",
+                                         "task.dataset.use_color=true"])
+    for phase in ("test", "train"):
+        ds = create_dataset(cfg.task.dataset, phase)
+        assert type(ds).__name__ == "MotionXDataset" and len(ds) > 0
+        assert ds[0]["c_pc_feat"].shape == (N_POINTS, 3) and ds[0]["x"].shape == (196, 66)
     with pytest.raises(AssertionError, match="contact folder"):
         create_dataset(load_config("configs", argv).task.dataset, "test")
     packed = tree[0] / "PROX" / "contact_motion" / "packed"
@@ -119,8 +135,8 @@ def test_dataset_refusals(tree):
     (packed / "meta.json").write_text("{}")
     try:
         cfg = load_config("configs", argv)
-        with pytest.raises(NotImplementedError, match="packed MotionX store .* is not ported yet"):
-            create_dataset(cfg.task.dataset, "train")
+        train = create_dataset(cfg.task.dataset, "train")
+        assert train._packed == {} and len(train) > 0
         # the test phase never reads the store, and use_packed=false passes it over
         assert len(create_dataset(cfg.task.dataset, "test", contact_folder=str(tree[1]))) > 0
         cfg = load_config("configs", argv + ["task.dataset.use_packed=false"])

@@ -174,8 +174,13 @@ def test_prepare_stages_match_root_prepare(trees):
 
 
 def test_prepare_refuses_other_datasets_and_needs_the_card_by_default(trees, monkeypatch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_prepare.main(["sort", "--dataset", "HUMANISE", "--out_dir", str(trees[0])])
+    """Every stage takes the MotionX sets too (``tests/test_torch_motionx_store.py``);
+    a set with no contacts under its directory is refused, by every stage,
+    and the geometry stage needs the card unless ``--device cpu`` is given."""
+    for stage in ("sort", "geometry", "pack"):
+        with pytest.raises(FileNotFoundError, match="HUMANISE/contact_motion/contacts"):
+            port_prepare.main([stage, "--dataset", "HUMANISE", "--out_dir", str(trees[0]),
+                               "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_prepare.main(["geometry", "--dataset", "H3D", "--out_dir", str(trees[0])])

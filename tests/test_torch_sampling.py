@@ -226,8 +226,8 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv``, a CDM's local CLIP weights and
-    the other datasets of the MotionX family. The CMDM's ``trans_dec``
+    not run some other way: ``fused_qkv`` and a CDM's local CLIP weights.
+    Every dataset of the MotionX family builds. The CMDM's ``trans_dec``
     builds, with its U-Net and its decoder layers, and so does every CDM
     backbone, with the frozen scene model and without. ``use_banded``, a packed dataset tree under the training
     wire format, ``data_repr: pos`` with ``ContactMotionDataset``, the two
@@ -293,10 +293,19 @@ def test_port_refuses_what_is_not_ported(tmp_path):
         cfg = load_config(str(REPO / "configs"),
                           ["task=contact_motion_gen", "model=cmdm", override])
         assert isinstance(create_evaluator(cfg.task, device="cpu"), Text2MotionInSceneEvaluator)
-    cfg = load_config(str(REPO / "configs"),
-                      ["task=contact_motion_gen", "model=cmdm", "task.dataset.name=MotionXDataset"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_dataset(cfg.task.dataset, "test", contact_folder=str(tmp_path))
+    # the whole MotionX family is ported: its plain text-to-motion set
+    # builds through the factory (tests/test_torch_sample.py holds the
+    # example and custom sets against the JAX package's)
+    from afford_motion_torch.data.synthetic import make_synthetic_motionx_set
+
+    make_synthetic_motionx_set(str(tmp_path / "motionx"), "HUMANISE", n_items=8, num_points=64,
+                               horizon_range=(30, 60))
+    cfg = load_config(str(REPO / "configs"), [
+        "task=contact_motion_gen", "model=cmdm", "task.dataset.name=MotionXDataset",
+        "task.dataset.use_color=true", "task.dataset.sets=[HUMANISE]",
+        f"task.dataset.data_dir={tmp_path / 'motionx'}"])
+    motionx = create_dataset(cfg.task.dataset, "test")
+    assert type(motionx).__name__ == "MotionXDataset" and motionx[0]["x"].shape == (196, 66)
 
     make_synthetic_h3d(str(tmp_path), n_items=8, num_points=64, horizon_range=(40, 60))
     cfg = load_config(str(REPO / "configs"), base)
