@@ -326,3 +326,222 @@ def make_synthetic_data_dir(
     make_synthetic_h3d(root, n_items, num_points)
     make_synthetic_custom(root, max(2, n_items // 2), num_points)
     return root
+
+
+# ------------------------------------------------------------- raw releases
+HUMANISE_ACTIONS = ("sit", "stand up", "walk", "lie")
+
+
+def write_scene_ply(path, xyz: np.ndarray, rgb: np.ndarray, faces: Optional[np.ndarray] = None,
+                    ascii: bool = False) -> None:
+    """A scene mesh as ScanNet writes its ``_vh_clean_2.ply``: vertices of
+    float x, y, z and uchar red, green, blue, alpha, then triangles; binary
+    little-endian, or ascii (6 decimals) without faces."""
+    n = len(xyz)
+    faces = np.zeros((0, 3), np.int32) if faces is None or ascii else faces
+    head = ["ply", f"format {'ascii' if ascii else 'binary_little_endian'} 1.0",
+            f"element vertex {n}", "property float x", "property float y", "property float z",
+            "property uchar red", "property uchar green", "property uchar blue",
+            "property uchar alpha", f"element face {len(faces)}",
+            "property list uchar int vertex_indices", "end_header"]
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(("\n".join(head) + "\n").encode("ascii"))
+        if ascii:
+            f.write("".join(f"{x:.6f} {y:.6f} {z:.6f} {r} {g} {b} 255\n"
+                            for (x, y, z), (r, g, b) in zip(xyz, rgb)).encode("ascii"))
+            return
+        vert = np.zeros(n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"),
+                                  ("green", "u1"), ("blue", "u1"), ("alpha", "u1")])
+        for k, name in enumerate("xyz"):
+            vert[name] = xyz[:, k]
+        for k, name in enumerate(("red", "green", "blue")):
+            vert[name] = rgb[:, k]
+        vert["alpha"] = 255
+        f.write(vert.tobytes())
+        face = np.zeros(len(faces), dtype=[("n", "u1"), ("v", "<i4", (3,))])
+        face["n"], face["v"] = 3, faces
+        f.write(face.tobytes())
+
+
+def _room(rng, n_points: int, size: float = 6.0):
+    """A room's points: a floor and a few boxes of furniture; xyz (N, 3)
+    float32 and rgb (N, 3) uint8."""
+    xyz = np.empty((n_points, 3), np.float32)
+    floor = n_points // 2
+    xyz[:floor, :2] = rng.uniform(-size / 2, size / 2, size=(floor, 2))
+    xyz[:floor, 2] = rng.normal(scale=0.005, size=floor)
+    rest = n_points - floor
+    centers = rng.uniform(-size / 3, size / 3, size=(8, 2))
+    which = rng.integers(0, 8, size=rest)
+    xyz[floor:, :2] = centers[which] + rng.uniform(-0.4, 0.4, size=(rest, 2))
+    xyz[floor:, 2] = rng.uniform(0.0, 1.2, size=rest)
+    rgb = rng.integers(0, 256, size=(n_points, 3)).astype(np.uint8)
+    return xyz, rgb
+
+
+def make_synthetic_raw_humanise(raw_dir: str, data_dir: str, n_scenes: int = 2,
+                                scene_points: int = 2048, n_motions: int = 6,
+                                horizon_range=(20, 61), seed: int = 0,
+                                empty_caption: Optional[int] = None) -> List[str]:
+    """The raw HUMANISE release at its layout under ``raw_dir``: pure motions
+    ``pure_motion/<action>/<id>/motion.pkl`` (the 9-tuple gender, transl,
+    global orient, betas (16,), body pose (L, 63), hand pose (L, 90), jaw,
+    eyes, joints (L, 22, 3) whose joint 0 is the pelvis) and the aligned
+    annotations ``align_data_release/<action>/<batch>/anno.pkl`` (a list of
+    dicts: motion, action, rotation, translation, scene, scene_translation,
+    object_id, object_semantic_label, utterance); ScanNet's scenes under
+    ``<data_dir>/HUMANISE/scenes/<id>/``: ``<id>_vh_clean_2.ply`` of
+    ``scene_points`` points, the segments ``<id>_vh_clean_2.0.010000.segs.json``
+    and their objects ``<id>.aggregation.json``. The scene numbers spread
+    over 0..700, so that both splits are non-empty; ``empty_caption`` is an
+    annotation whose utterance is empty. Returns the scene ids."""
+    import json
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    raw, data = Path(raw_dir), Path(data_dir)
+    numbers = [round(k * 700 / max(n_scenes - 1, 1)) for k in range(n_scenes)]
+    scenes = [f"scene{n:04d}_00" for n in numbers]
+    n_objects = {}
+    for sid in scenes:
+        sdir = data / "HUMANISE" / "scenes" / sid
+        xyz, rgb = _room(rng, scene_points)
+        faces = rng.integers(0, scene_points, size=(scene_points // 2, 3)).astype(np.int32)
+        write_scene_ply(sdir / f"{sid}_vh_clean_2.ply", xyz, rgb, faces)
+        # segments: 0.5 m cells of the floor plan; objects: groups of cells
+        cell = np.floor((xyz[:, :2] + 3.0) / 0.5).astype(np.int64)
+        seg = cell[:, 0] * 16 + cell[:, 1]
+        segs = np.unique(seg)
+        groups = np.array_split(rng.permutation(segs), 6)
+        n_objects[sid] = len(groups)
+        (sdir / f"{sid}_vh_clean_2.0.010000.segs.json").write_text(json.dumps(
+            {"sceneId": sid, "segIndices": seg.tolist()}))
+        (sdir / f"{sid}.aggregation.json").write_text(json.dumps({"sceneId": sid, "segGroups": [
+            {"id": k, "objectId": k, "label": f"object{k}", "segments": g.tolist()}
+            for k, g in enumerate(groups)]}))
+    annos = {}
+    for i in range(n_motions):
+        action = HUMANISE_ACTIONS[i % len(HUMANISE_ACTIONS)]
+        motion_id = f"{i:05d}"
+        L = int(rng.integers(*horizon_range))
+        heading = rng.uniform(0, 2 * np.pi)
+        step = np.array([np.cos(heading), np.sin(heading), 0.0]) * (0.01 if action == "walk"
+                                                                   else 0.002)
+        trans = (np.arange(L)[:, None] * step + rng.normal(scale=0.003, size=(L, 3))
+                 + [0.0, 0.0, 0.9]).astype(np.float32)
+        pelvis_offset = rng.normal(scale=0.02, size=3).astype(np.float32)
+        joints = (trans[:, None, :] + pelvis_offset
+                  + rng.normal(scale=0.3, size=(1, 22, 3)).astype(np.float32))
+        joints[:, 0, :] = trans + pelvis_offset
+        motion = ("neutral", trans, rng.normal(scale=0.3, size=(L, 3)).astype(np.float32),
+                  rng.normal(scale=0.5, size=16).astype(np.float32),
+                  rng.normal(scale=0.3, size=(L, 63)).astype(np.float32),
+                  rng.normal(scale=0.2, size=(L, 90)).astype(np.float32),
+                  np.zeros((L, 3), np.float32), np.zeros((L, 6), np.float32),
+                  joints.astype(np.float32))
+        mdir = raw / "pure_motion" / action / motion_id
+        mdir.mkdir(parents=True, exist_ok=True)
+        with open(mdir / "motion.pkl", "wb") as f:
+            pickle.dump(motion, f)
+        sid = scenes[i % n_scenes]
+        annos.setdefault(action, []).append({
+            "motion": motion_id, "action": action,
+            "rotation": float(rng.uniform(-np.pi, np.pi)),
+            "translation": rng.uniform(-1.5, 1.5, size=3).astype(np.float32) * [1, 1, 0],
+            "scene": sid, "scene_translation": rng.normal(scale=0.2, size=3).astype(np.float32),
+            "object_id": int(rng.integers(0, n_objects[sid])),
+            "object_semantic_label": "chair" if action == "sit" else "floor",
+            "utterance": "" if i == empty_caption else f"{action} to the object number {i}",
+        })
+    for action, rows in annos.items():
+        adir = raw / "align_data_release" / action / "batch0"
+        adir.mkdir(parents=True, exist_ok=True)
+        with open(adir / "anno.pkl", "wb") as f:
+            pickle.dump(rows, f)
+    return scenes
+
+
+PROX_SCENES = ("MPH11", "N3Office", "MPH16")
+
+
+def make_synthetic_raw_prox(raw_dir: str, data_dir: str, n_frames=(12, 9),
+                            scene_points: int = 2048, seed: int = 0) -> List[str]:
+    """The PROX fittings at their layout: ``<raw_dir>/<scene>_<subject>_<n>/
+    results/s<k>/000.pkl`` (one frame each: transl, global_orient, body_pose
+    (1, 63), betas (1, 10)), one sequence of ``n_frames[i]`` frames a scene;
+    ``<data_dir>/PROX/cam2world/<scene>.json`` (and a ``_``-named file the
+    extractor skips) and the scenes ``<data_dir>/PROX/scenes/<scene>.ply``,
+    the last one ascii. Returns the sequences."""
+    import json
+    import pickle
+
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    raw, prox = Path(raw_dir), Path(data_dir) / "PROX"
+    (prox / "cam2world").mkdir(parents=True, exist_ok=True)
+    sequences = []
+    for k, (scene, frames) in enumerate(zip(PROX_SCENES, n_frames)):
+        xyz, rgb = _room(rng, scene_points)
+        write_scene_ply(prox / "scenes" / f"{scene}.ply", xyz, rgb,
+                        ascii=k == len(n_frames) - 1)
+        cam = np.eye(4)
+        cam[:3, :3] = Rotation.from_rotvec(rng.normal(scale=0.5, size=3)).as_matrix()
+        cam[:3, 3] = rng.uniform(-2, 2, size=3)
+        (prox / "cam2world" / f"{scene}.json").write_text(json.dumps(cam.tolist()))
+        seq = f"{scene}_{159 + k}_{k:02d}"
+        for f in range(frames):
+            fdir = raw / seq / "results" / f"s{f:03d}"
+            fdir.mkdir(parents=True, exist_ok=True)
+            with open(fdir / "000.pkl", "wb") as fp:
+                pickle.dump({
+                    "transl": rng.normal(scale=0.5, size=(1, 3)).astype(np.float32),
+                    "global_orient": rng.normal(scale=0.5, size=(1, 3)).astype(np.float32),
+                    "body_pose": rng.normal(scale=0.3, size=(1, 63)).astype(np.float32),
+                    "betas": rng.normal(scale=0.5, size=(1, 10)).astype(np.float32),
+                }, fp)
+        sequences.append(seq)
+    (prox / "cam2world" / f"{PROX_SCENES[0]}_second.json").write_text(
+        json.dumps(np.eye(4).tolist()))
+    return sequences
+
+
+def make_synthetic_raw_amass(root: str, seed: int = 0) -> tuple:
+    """AMASS SMPL-X sequences (``<root>/amass/smplx_neutral/<dataset>/<subject>/
+    <name>_stageii.npz``: trans, root_orient, pose_body (T, 63), pose_hand
+    (T, 90), betas (16,)), their SMPL-H frame rates
+    (``<root>/amass/smplh/.../<name>_poses.npz`` with ``mocap_framerate``) and
+    HumanML3D's index CSV (source_path, start_frame, end_frame, new_name).
+    The index also names a humanact12 sequence, one without its SMPL-X file,
+    one without its SMPL-H file and one whose SMPL-H file has no frame rate,
+    each of which the extractor leaves out. Returns (the SMPL-X directory,
+    the index CSV's path)."""
+    rng = np.random.default_rng(seed)
+    base = Path(root) / "amass"
+    smplx, smplh = base / "smplx_neutral", base / "smplh"
+    rows = ["source_path,start_frame,end_frame,new_name"]
+    specs = [("KIT/3/walk_01", 100, True, True), ("MPI_HDM05/bk/sit 02", 120, True, True),
+             ("CMU/07/run_03", 60, True, True), ("KIT/4/missing_04", 60, False, True),
+             ("KIT/4/nofps_05", 60, True, False), ("KIT/4/nokey_06", 60, True, "nokey")]
+    for n, (rel, fps, has_x, has_h) in enumerate(specs):
+        T = int(rng.integers(240, 400))
+        if has_x:
+            path = smplx / f"{rel}_stageii.npz".replace(" ", "_")
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.savez(path, trans=rng.normal(size=(T, 3)), root_orient=rng.normal(size=(T, 3)),
+                     pose_body=rng.normal(size=(T, 63)), pose_hand=rng.normal(size=(T, 90)),
+                     betas=rng.normal(size=16))
+        if has_h:
+            path = smplh / f"{rel}_poses.npz"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            if has_h == "nokey":
+                np.savez(path, trans=np.zeros((1, 3)))
+            else:
+                np.savez(path, mocap_framerate=np.array(float(fps)))
+        rows.append(f"./pose_data/{rel}_poses.npy,{2 + n},{30 + 4 * n},{n:06d}.npy")
+    rows.append("./pose_data/humanact12/humanact12/P01G01R01F0001T0064A0101.npy,0,20,"
+                "000099.npy")
+    index = base / "index.csv"
+    index.write_text("\n".join(rows) + "\n")
+    return str(smplx), str(index)

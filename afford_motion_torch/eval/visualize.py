@@ -5,16 +5,16 @@ Same registry names and output protocols:
 - ContactVisualizer writes per-joint contact heatmap PLYs and
   ``contact.npy`` (xyz then dist), the sample-mode stage-1 -> stage-2 link
   that ContactMotionExampleDataset reads (reference: motionx.py:984-992);
-- the motion visualizers export per-frame skeleton meshes as PLYs.
-
-Not ported: rendering the frames to a video (the JAX package's
-``_render_frames_to_video``, pyrender and ffmpeg); where pyrender is
-installed, :func:`export_animation` logs that and writes the frames.
+- the motion visualizers export per-frame skeleton meshes as PLYs, and
+  render them to ``animation.mp4`` where pyrender is installed
+  (:func:`_render_frames_to_video`: pyrender, trimesh and PIL, then
+  ``ffmpeg`` on the ``PATH``).
 """
 from __future__ import annotations
 
 import importlib.util
 import os
+import subprocess
 from typing import Any, List
 
 import numpy as np
@@ -94,19 +94,48 @@ def export_animation(save_dir: str, meshes: List[SimpleMesh],
                      appendix_meshes: List[SimpleMesh] | None = None,
                      ext: str = "mp4") -> None:
     """One ``frame_{f:04d}.ply`` a frame, the frame's mesh with the
-    ``appendix_meshes`` (reference: render_meshes_to_animation,
-    visualize.py:339-409, whose render to ``animation.{ext}`` is not
-    ported)."""
+    ``appendix_meshes``, and where pyrender is installed their render to
+    ``animation.{ext}`` (reference: render_meshes_to_animation,
+    visualize.py:339-409)."""
     os.makedirs(save_dir, exist_ok=True)
     static = concatenate(appendix_meshes) if appendix_meshes else None
     for f, mesh in enumerate(meshes):
         full = concatenate([mesh, static]) if static is not None else mesh
         full.export(os.path.join(save_dir, f"frame_{f:04d}.ply"))
     if importlib.util.find_spec("pyrender") is not None:
-        logger.info(f"rendering to animation.{ext} is not ported; exported {len(meshes)} "
-                    f"frame meshes to {save_dir}")
+        _render_frames_to_video(save_dir, meshes, static, ext)
     else:
         logger.info(f"pyrender unavailable; exported {len(meshes)} frame meshes to {save_dir}")
+
+
+def _render_frames_to_video(save_dir: str, meshes: List[SimpleMesh], static, ext: str) -> None:
+    """Each frame's mesh (with ``static``) rendered offscreen at 960 x 540 by
+    a camera 3 m behind and 2 m above the origin to ``render_{f:04d}.png``,
+    then ``ffmpeg`` joins them at 20 fps into ``animation.{ext}``; a failing
+    ``ffmpeg`` raises."""
+    import pyrender
+    import trimesh
+    from PIL import Image
+
+    r = pyrender.OffscreenRenderer(viewport_width=960, viewport_height=540)
+    for f, mesh in enumerate(meshes):
+        scene = pyrender.Scene()
+        full = concatenate([mesh, static]) if static is not None else mesh
+        tm = trimesh.Trimesh(vertices=full.vertices, faces=full.faces,
+                             vertex_colors=full.vertex_colors)
+        scene.add(pyrender.Mesh.from_trimesh(tm, smooth=False))
+        cam = pyrender.PerspectiveCamera(yfov=np.pi / 3)
+        pose = np.eye(4)
+        pose[:3, 3] = [0, -3.0, 2.0]
+        scene.add(cam, pose=pose)
+        scene.add(pyrender.DirectionalLight(color=np.ones(3), intensity=3.0), pose=pose)
+        color, _ = r.render(scene)
+        Image.fromarray(color).save(os.path.join(save_dir, f"render_{f:04d}.png"))
+    r.delete()
+    subprocess.run(["ffmpeg", "-y", "-framerate", "20", "-i",
+                    os.path.join(save_dir, "render_%04d.png"),
+                    os.path.join(save_dir, f"animation.{ext}")],
+                   check=True, capture_output=True)
 
 
 class BaseVisualizer:

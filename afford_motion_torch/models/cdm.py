@@ -34,11 +34,11 @@ from .pointtransformer import (
     SCENEMAP_STRIDES,
     SEG_BLOCKS,
     SEG_PLANES,
-    PointNorm,
     PointTransformerEncoder,
     PointTransformerSeg,
     decode,
     decoder_stages,
+    point_norm,
 )
 from .text import get_lang_feat_dim_type
 
@@ -137,11 +137,13 @@ class ContactPerceiver(nn.Module):
 
 
 class _CtxMLP(nn.Sequential):
-    """Context injection: Linear, BatchNorm, ReLU, Linear (``.0/.1/.3``)."""
+    """Context injection: Linear, the ``norm`` (BatchNorm or LayerNorm), ReLU,
+    Linear (``.0/.1/.3``)."""
 
-    def __init__(self, in_dim: int, planes: int, dtype: torch.dtype = torch.float32):
-        super().__init__(Linear(in_dim, planes, dtype=dtype), PointNorm(planes, dtype), nn.ReLU(),
-                         Linear(planes, planes, dtype=dtype))
+    def __init__(self, in_dim: int, planes: int, dtype: torch.dtype = torch.float32,
+                 norm: str = "batch"):
+        super().__init__(Linear(in_dim, planes, dtype=dtype), point_norm(norm, planes, dtype),
+                         nn.ReLU(), Linear(planes, planes, dtype=dtype))
 
 
 class ContactPointTrans(PointTransformerEncoder):
@@ -155,9 +157,9 @@ class ContactPointTrans(PointTransformerEncoder):
 
     def __init__(self, in_dim: int, ctx_dim: int, blocks: Sequence[int] = (2, 2, 2, 2),
                  planes: Sequence[int] = CDM_PT_PLANES, v2: bool = False,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(3 + in_dim, planes, blocks, SCENEMAP_STRIDES, dtype=dtype)
-        for name, stage in decoder_stages(planes, dtype=dtype).items():
+                 dtype: torch.dtype = torch.float32, norm: str = "batch"):
+        super().__init__(3 + in_dim, planes, blocks, SCENEMAP_STRIDES, dtype=dtype, norm=norm)
+        for name, stage in decoder_stages(planes, dtype=dtype, norm=norm).items():
             self.add_module(name, stage)
         self.dtype, self.v2 = dtype, v2
         if v2:
@@ -165,9 +167,9 @@ class ContactPointTrans(PointTransformerEncoder):
                                                        activation="relu")
             for level in (4, 3, 2):
                 self.add_module(f"ctx{level}", _CtxMLP(planes[level - 1] + ctx_dim,
-                                                       planes[level - 1], dtype))
+                                                       planes[level - 1], dtype, norm))
         else:
-            self.ctx = _CtxMLP(planes[3] + ctx_dim, planes[3], dtype)
+            self.ctx = _CtxMLP(planes[3] + ctx_dim, planes[3], dtype, norm)
         self.out_dim = planes[0]
 
     def forward(self, x, point_feat, text_emb, time_emb, cond):
@@ -199,7 +201,8 @@ class CDM(nn.Module):
     ``use_openscene`` the dataset's ``point_feat_dim`` OpenScene features.
     ``knn_exact``, ``use_banded``, ``banded_window`` and ``banded_adaptive``
     choose how the point hierarchies are built (``conditioning.
-    add_hierarchies``)."""
+    add_hierarchies``). ``norm`` (``"batch"`` or ``"layer"``) is the
+    normalisation of the scene model and of the PointTrans backbones."""
 
     def __init__(self, contact_dim: int, time_emb_dim: int = 128, text_feat_dim: int = 512,
                  point_feat_dim: int = 0, use_scene_model: bool = False,
@@ -209,7 +212,7 @@ class CDM(nn.Module):
                  scene_planes: Sequence[int] = SEG_PLANES,
                  scene_blocks: Sequence[int] = SEG_BLOCKS, knn_exact: bool = False,
                  use_banded: bool = False, banded_window: int = 0,
-                 banded_adaptive: Optional[bool] = None):
+                 banded_adaptive: Optional[bool] = None, norm: str = "batch"):
         super().__init__()
         self.dtype, self.arch = dtype, arch
         self.use_scene_model, self.use_openscene = use_scene_model, use_openscene
@@ -219,7 +222,8 @@ class CDM(nn.Module):
         self.timestep_embedder = TimestepEmbedder(time_emb_dim, time_emb_dim, 1000, dtype)
         if self.needs_seg_hierarchy:
             # frozen, float32 and in eval mode always (see train())
-            self.scene_model = PointTransformerSeg(scene_in_dim, scene_planes, scene_blocks)
+            self.scene_model = PointTransformerSeg(scene_in_dim, scene_planes, scene_blocks,
+                                                   norm=norm)
             self.scene_model.requires_grad_(False)
             feat_dim = scene_planes[0]
         else:
@@ -233,7 +237,7 @@ class CDM(nn.Module):
             backbone = ContactPerceiver(in_dim, text_feat_dim, time_emb_dim, **ac, dtype=dtype)
         elif arch in ("PointTrans", "PointTransV2"):
             backbone = ContactPointTrans(in_dim, text_feat_dim + time_emb_dim, **ac,
-                                         v2=arch == "PointTransV2", dtype=dtype)
+                                         v2=arch == "PointTransV2", dtype=dtype, norm=norm)
         else:
             raise NotImplementedError(f"CDM arch {arch!r}")
         self.contact_model = backbone
@@ -336,4 +340,5 @@ def build_cdm(model_cfg: Any) -> CDM:
         use_banded=bool(model_cfg.get("use_banded", False)),
         banded_window=int(model_cfg.get("banded_window", 0) or 0),
         banded_adaptive=model_cfg.get("banded_adaptive", None),
+        norm=str(model_cfg.get("norm", "batch")),
     )

@@ -17,7 +17,9 @@ reference state_dict's (including its ``kv_mappling_layers``), so a
 converted checkpoint loads with ``strict=True``. Train or eval is the
 module's mode: ``.train()`` turns on the batch statistics of the contact
 encoder's BatchNorms and the dropout of the transformer (see
-``layers.set_dropout_generator``).
+``layers.set_dropout_generator``). ``norm="layer"`` (``model.norm`` of the
+config) builds the contact encoder with float32 LayerNorms in place of its
+BatchNorms, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ class CMDM(nn.Module):
         use_banded: bool = False,
         banded_window: int = 0,
         banded_adaptive: Optional[bool] = None,
+        norm: str = "batch",
     ):
         super().__init__()
         if arch not in ("trans_enc", "trans_dec"):
@@ -78,12 +81,13 @@ class CMDM(nn.Module):
         self.banded_adaptive = banded_adaptive
         self.timestep_embedder = TimestepEmbedder(latent_dim, time_emb_dim, 1000, dtype)
         if arch == "trans_enc":
-            self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype)
+            self.contact_encoder = SceneMapEncoder(contact_dim, planes, blocks, dtype, norm)
             self.contact_adapter = Linear(planes[-1], latent_dim, dtype=dtype)
             self.self_attn_layer = TransformerEncoder(sum(num_layers), latent_dim, num_heads,
                                                       dim_feedforward, dtype, dropout)
         else:
-            self.contact_encoder = SceneMapEncoderDecoder(contact_dim, planes, blocks, dtype)
+            self.contact_encoder = SceneMapEncoderDecoder(contact_dim, planes, blocks, dtype,
+                                                          norm)
             self.self_attn_layers = nn.ModuleList(
                 TransformerEncoder(n, latent_dim, num_heads, dim_feedforward, dtype, dropout)
                 for n in num_layers)
@@ -180,8 +184,6 @@ def build_cmdm(model_cfg: Any) -> CMDM:
     """A CMDM from the model YAML block (``configs/model/cmdm.yaml``)."""
     text_feat_dim, _ = get_lang_feat_dim_type(model_cfg.text_model.version)
     cm = model_cfg.contact_model
-    if str(model_cfg.get("norm", "batch")) != "batch":
-        raise NotImplementedError("only norm='batch' is ported")
     if bool(model_cfg.get("fused_qkv", False)):
         raise NotImplementedError("fused_qkv is not ported yet")
     return CMDM(
@@ -203,4 +205,5 @@ def build_cmdm(model_cfg: Any) -> CMDM:
         use_banded=bool(model_cfg.get("use_banded", False)),
         banded_window=int(model_cfg.get("banded_window", 0) or 0),
         banded_adaptive=model_cfg.get("banded_adaptive", None),
+        norm=str(model_cfg.get("norm", "batch")),
     )

@@ -8,7 +8,10 @@ writes. Every neighbourhood gather goes through :func:`bgather`, i.e. the
 row-gather kernel or, on a banded hierarchy, the windowed gather kernel (and,
 backward, their scatter-add kernels) for CUDA tensors.
 Train or eval is the module's mode (``.train()`` / ``.eval()``), which
-stands for the JAX package's ``train=`` argument.
+stands for the JAX package's ``train=`` argument. ``norm`` picks every
+normalisation of a module: ``"batch"`` (:class:`PointNorm`, the reference's
+BatchNorm) or ``"layer"`` (the JAX package's ``PointNorm(kind="layer")``, a
+float32 LayerNorm over the channels); see :func:`point_norm`.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from ..ops.cuda import banded as banded_ops
 from ..ops.cuda.gather import gather_rows
 from ..ops.hierarchy import LevelGeometry
 from ..utils.convert import load_torch_state_dict
-from .layers import Linear
+from .layers import LayerNorm, Linear
 
 SCENEMAP_STRIDES = (1, 4, 4, 4)
 SCENEMAP_NSAMPLES = (8, 16, 16, 16)
@@ -79,12 +82,28 @@ class PointNorm(nn.BatchNorm1d):
         return y.reshape(x.shape).to(self.compute_dtype)
 
 
+NORMS = ("batch", "layer")
+
+
+def point_norm(norm: str, num_features: int, dtype: torch.dtype = torch.float32) -> nn.Module:
+    """The normalisation ``norm`` names over the last axis of ``num_features``
+    channels: ``"batch"`` a :class:`PointNorm`, ``"layer"`` flax's
+    ``LayerNorm(dtype=float32)`` (epsilon 1e-6, scale and bias, no running
+    statistics), each computed in float32 and cast to ``dtype``. Any other
+    name raises, as the JAX package's ``PointNorm`` does."""
+    if norm == "batch":
+        return PointNorm(num_features, dtype)
+    if norm == "layer":
+        return LayerNorm(num_features, dtype)
+    raise ValueError(f"norm {norm!r}: expected one of {NORMS}")
+
+
 class PointTransformerLayer(nn.Module):
     """Vector self-attention over kNN neighbourhoods; xyz, k and v share one
     packed gather."""
 
     def __init__(self, planes: int, share_planes: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "batch"):
         super().__init__()
         self.planes, self.share_planes, self.dtype = planes, share_planes, dtype
         mid = planes // share_planes
@@ -92,12 +111,12 @@ class PointTransformerLayer(nn.Module):
         self.linear_k = Linear(planes, planes, dtype=dtype)
         self.linear_v = Linear(planes, planes, dtype=dtype)
         self.linear_p = nn.Sequential(
-            Linear(3, 3, dtype=dtype), PointNorm(3, dtype), nn.ReLU(),
+            Linear(3, 3, dtype=dtype), point_norm(norm, 3, dtype), nn.ReLU(),
             Linear(3, planes, dtype=dtype),
         )
         self.linear_w = nn.Sequential(
-            PointNorm(planes, dtype), nn.ReLU(), Linear(planes, mid, dtype=dtype),
-            PointNorm(mid, dtype), nn.ReLU(), Linear(mid, mid, dtype=dtype),
+            point_norm(norm, planes, dtype), nn.ReLU(), Linear(planes, mid, dtype=dtype),
+            point_norm(norm, mid, dtype), nn.ReLU(), Linear(mid, mid, dtype=dtype),
         )
 
     def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor,
@@ -125,12 +144,12 @@ class TransitionDown(nn.Module):
     point in the parent level, linear + BN + ReLU, max over the group."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "batch"):
         super().__init__()
         self.stride, self.dtype = stride, dtype
         in_ch = in_planes if stride == 1 else 3 + in_planes
         self.linear = Linear(in_ch, out_planes, bias=False, dtype=dtype)
-        self.bn = PointNorm(out_planes, dtype)
+        self.bn = point_norm(norm, out_planes, dtype)
 
     def forward(self, parent_xyz: torch.Tensor, x: torch.Tensor,
                 geom: LevelGeometry) -> torch.Tensor:
@@ -156,19 +175,19 @@ class TransitionUp(nn.Module):
     by its ``up_weight``."""
 
     def __init__(self, in_planes: int, out_planes: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "batch"):
         super().__init__()
         self.dtype = dtype
         self.is_head = out_planes is None
         if self.is_head:
             self.linear1 = nn.Sequential(Linear(2 * in_planes, in_planes, dtype=dtype),
-                                         PointNorm(in_planes, dtype), nn.ReLU())
+                                         point_norm(norm, in_planes, dtype), nn.ReLU())
             self.linear2 = nn.Sequential(Linear(in_planes, in_planes, dtype=dtype), nn.ReLU())
         else:
             self.linear1 = nn.Sequential(Linear(out_planes, out_planes, dtype=dtype),
-                                         PointNorm(out_planes, dtype), nn.ReLU())
+                                         point_norm(norm, out_planes, dtype), nn.ReLU())
             self.linear2 = nn.Sequential(Linear(in_planes, out_planes, dtype=dtype),
-                                         PointNorm(out_planes, dtype), nn.ReLU())
+                                         point_norm(norm, out_planes, dtype), nn.ReLU())
 
     def forward(self, x: torch.Tensor, coarse_x: Optional[torch.Tensor] = None,
                 coarse_geom: Optional[LevelGeometry] = None) -> torch.Tensor:
@@ -187,15 +206,15 @@ class PointTransformerBlock(nn.Module):
     """Residual bottleneck around the vector-attention layer."""
 
     def __init__(self, planes: int, share_planes: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "batch"):
         super().__init__()
         self.dtype = dtype
         self.linear1 = Linear(planes, planes, bias=False, dtype=dtype)
-        self.bn1 = PointNorm(planes, dtype)
-        self.transformer2 = PointTransformerLayer(planes, share_planes, dtype)
-        self.bn2 = PointNorm(planes, dtype)
+        self.bn1 = point_norm(norm, planes, dtype)
+        self.transformer2 = PointTransformerLayer(planes, share_planes, dtype, norm)
+        self.bn2 = point_norm(norm, planes, dtype)
         self.linear3 = Linear(planes, planes, bias=False, dtype=dtype)
-        self.bn3 = PointNorm(planes, dtype)
+        self.bn3 = point_norm(norm, planes, dtype)
 
     def forward(self, p: torch.Tensor, x: torch.Tensor, knn_idx: torch.Tensor,
                 banded: bool = False, window: int = 0) -> torch.Tensor:
@@ -212,12 +231,12 @@ class PointTransformerEncoder(nn.Module):
 
     def __init__(self, in_planes: int, planes: Sequence[int], blocks: Sequence[int],
                  strides: Sequence[int], share_planes: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "batch"):
         super().__init__()
         self.num_stages = len(planes)
         for i, (plane, nblocks, stride) in enumerate(zip(planes, blocks, strides), start=1):
-            stage = nn.ModuleList([TransitionDown(in_planes, plane, stride, dtype)])
-            stage.extend(PointTransformerBlock(plane, share_planes, dtype)
+            stage = nn.ModuleList([TransitionDown(in_planes, plane, stride, dtype, norm)])
+            stage.extend(PointTransformerBlock(plane, share_planes, dtype, norm)
                          for _ in range(1, nblocks))
             setattr(self, f"enc{i}", stage)
             in_planes = plane
@@ -238,15 +257,17 @@ class PointTransformerEncoder(nn.Module):
 
 
 def decoder_stages(planes: Sequence[int], share_planes: int = 8,
-                   dtype: torch.dtype = torch.float32) -> Dict[str, nn.ModuleList]:
+                   dtype: torch.dtype = torch.float32, norm: str = "batch"
+                   ) -> Dict[str, nn.ModuleList]:
     """The U-Net decoder's stages over an encoder of ``planes``: ``dec{L}``
     (the head, at the coarsest level) down to ``dec1``, each a TransitionUp
     and one PointTransformerBlock; a module adds them under these names."""
     L = len(planes)
     return {f"dec{i}": nn.ModuleList([
-        TransitionUp(planes[i - 1], None, dtype) if i == L
-        else TransitionUp(planes[i], planes[i - 1], dtype),
-        PointTransformerBlock(planes[i - 1], share_planes, dtype)]) for i in range(L, 0, -1)}
+        TransitionUp(planes[i - 1], None, dtype, norm) if i == L
+        else TransitionUp(planes[i], planes[i - 1], dtype, norm),
+        PointTransformerBlock(planes[i - 1], share_planes, dtype, norm)])
+        for i in range(L, 0, -1)}
 
 
 def decode(module: nn.Module, levels: List[LevelGeometry], enc_feats: List[torch.Tensor]
@@ -274,8 +295,9 @@ class PointTransformerEnc(PointTransformerEncoder):
     ``c > 3``); returns the coarsest level's points and features."""
 
     def __init__(self, c: int = 6, planes: Sequence[int] = SEG_PLANES,
-                 blocks: Sequence[int] = SEG_BLOCKS, dtype: torch.dtype = torch.float32):
-        super().__init__(c, planes, blocks, SEG_STRIDES[:len(planes)], dtype=dtype)
+                 blocks: Sequence[int] = SEG_BLOCKS, dtype: torch.dtype = torch.float32,
+                 norm: str = "batch"):
+        super().__init__(c, planes, blocks, SEG_STRIDES[:len(planes)], dtype=dtype, norm=norm)
         self.c = c
 
     def encode_input(self, levels: List[LevelGeometry], feats: torch.Tensor
@@ -294,9 +316,10 @@ class PointTransformerSeg(PointTransformerEnc):
     level."""
 
     def __init__(self, c: int = 6, planes: Sequence[int] = SEG_PLANES,
-                 blocks: Sequence[int] = SEG_BLOCKS, dtype: torch.dtype = torch.float32):
-        super().__init__(c, planes, blocks, dtype)
-        for name, stage in decoder_stages(planes, dtype=dtype).items():
+                 blocks: Sequence[int] = SEG_BLOCKS, dtype: torch.dtype = torch.float32,
+                 norm: str = "batch"):
+        super().__init__(c, planes, blocks, dtype, norm)
+        for name, stage in decoder_stages(planes, dtype=dtype, norm=norm).items():
             self.add_module(name, stage)
 
     def forward(self, levels: List[LevelGeometry], feats: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,10 @@ class SceneMapEncoder(PointTransformerEncoder):
     group tokens; the stages are this module's ``enc1..enc4``."""
 
     def __init__(self, contact_dim: int, planes: Sequence[int] = (32, 64, 128, 256),
-                 blocks: Sequence[int] = (2, 2, 2, 2), dtype: torch.dtype = torch.float32):
-        super().__init__(3 + contact_dim, planes, blocks, SCENEMAP_STRIDES, dtype=dtype)
+                 blocks: Sequence[int] = (2, 2, 2, 2), dtype: torch.dtype = torch.float32,
+                 norm: str = "batch"):
+        super().__init__(3 + contact_dim, planes, blocks, SCENEMAP_STRIDES, dtype=dtype,
+                         norm=norm)
 
     def encode_levels(self, levels: List[LevelGeometry], point_feats: torch.Tensor
                       ) -> List[torch.Tensor]:
@@ -39,9 +41,10 @@ class SceneMapEncoderDecoder(SceneMapEncoder):
     ``dec4`` (the head) .. ``dec1``."""
 
     def __init__(self, contact_dim: int, planes: Sequence[int] = (32, 64, 128, 256),
-                 blocks: Sequence[int] = (2, 2, 2, 2), dtype: torch.dtype = torch.float32):
-        super().__init__(contact_dim, planes, blocks, dtype)
-        for name, stage in decoder_stages(planes, dtype=dtype).items():
+                 blocks: Sequence[int] = (2, 2, 2, 2), dtype: torch.dtype = torch.float32,
+                 norm: str = "batch"):
+        super().__init__(contact_dim, planes, blocks, dtype, norm)
+        for name, stage in decoder_stages(planes, dtype=dtype, norm=norm).items():
             self.add_module(name, stage)
 
     def forward(self, levels: List[LevelGeometry], point_feats: torch.Tensor

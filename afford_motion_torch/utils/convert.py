@@ -39,25 +39,37 @@ def _bn(key: str, path: Path):
     yield f"{key}.running_var", ("batch_stats", *path, "BatchNorm_0", "var"), "v"
 
 
-def _pt_layer(key: str, path: Path):
+def _norm(key: str, path: Path, norm: str):
+    """A ``PointNorm_k`` at ``path``: its flax ``BatchNorm_0`` (scale, bias and
+    the running statistics) for ``norm="batch"``, its ``LayerNorm_0`` (scale
+    and bias, no statistics) for ``"layer"``."""
+    if norm == "batch":
+        yield from _bn(key, path)
+    elif norm == "layer":
+        yield from _layernorm(key, (*path, "LayerNorm_0"))
+    else:
+        raise ValueError(f"norm {norm!r}: expected 'batch' or 'layer'")
+
+
+def _pt_layer(key: str, path: Path, norm: str):
     for i, name in enumerate(("linear_q", "linear_k", "linear_v")):
         yield from _dense(f"{key}.{name}", (*path, f"Dense_{i}"))
     yield from _dense(f"{key}.linear_p.0", (*path, "Dense_3"))
-    yield from _bn(f"{key}.linear_p.1", (*path, "PointNorm_0"))
+    yield from _norm(f"{key}.linear_p.1", (*path, "PointNorm_0"), norm)
     yield from _dense(f"{key}.linear_p.3", (*path, "Dense_4"))
-    yield from _bn(f"{key}.linear_w.0", (*path, "PointNorm_1"))
+    yield from _norm(f"{key}.linear_w.0", (*path, "PointNorm_1"), norm)
     yield from _dense(f"{key}.linear_w.2", (*path, "Dense_5"))
-    yield from _bn(f"{key}.linear_w.3", (*path, "PointNorm_2"))
+    yield from _norm(f"{key}.linear_w.3", (*path, "PointNorm_2"), norm)
     yield from _dense(f"{key}.linear_w.5", (*path, "Dense_6"))
 
 
-def _pt_block(key: str, path: Path):
+def _pt_block(key: str, path: Path, norm: str):
     yield from _dense(f"{key}.linear1", (*path, "Dense_0"), bias=False)
-    yield from _bn(f"{key}.bn1", (*path, "PointNorm_0"))
-    yield from _pt_layer(f"{key}.transformer2", (*path, "PointTransformerLayer_0"))
-    yield from _bn(f"{key}.bn2", (*path, "PointNorm_1"))
+    yield from _norm(f"{key}.bn1", (*path, "PointNorm_0"), norm)
+    yield from _pt_layer(f"{key}.transformer2", (*path, "PointTransformerLayer_0"), norm)
+    yield from _norm(f"{key}.bn2", (*path, "PointNorm_1"), norm)
     yield from _dense(f"{key}.linear3", (*path, "Dense_1"), bias=False)
-    yield from _bn(f"{key}.bn3", (*path, "PointNorm_2"))
+    yield from _norm(f"{key}.bn3", (*path, "PointNorm_2"), norm)
 
 
 def _encoder_layer(key: str, path: Path):
@@ -83,19 +95,20 @@ def _decoder_layer(key: str, path: Path):
     yield from _dense(f"{key}.linear2", (*path, "Dense_1"))
 
 
-def _point_encoder(key: str, path: Path, blocks: Sequence[int]):
+def _point_encoder(key: str, path: Path, blocks: Sequence[int], norm: str):
     """``{key}enc{k}`` <-> ``PointEncoderStage_{k - 1}`` under ``path``: a
     TransitionDown and ``blocks[k - 1] - 1`` PointTransformerBlocks."""
     for k, nblocks in enumerate(blocks, start=1):
         stage = (*path, f"PointEncoderStage_{k - 1}")
         yield from _dense(f"{key}enc{k}.0.linear", (*stage, "TransitionDown_0", "Dense_0"),
                           bias=False)
-        yield from _bn(f"{key}enc{k}.0.bn", (*stage, "TransitionDown_0", "PointNorm_0"))
+        yield from _norm(f"{key}enc{k}.0.bn", (*stage, "TransitionDown_0", "PointNorm_0"), norm)
         for j in range(1, nblocks):
-            yield from _pt_block(f"{key}enc{k}.{j}", (*stage, f"PointTransformerBlock_{j - 1}"))
+            yield from _pt_block(f"{key}enc{k}.{j}", (*stage, f"PointTransformerBlock_{j - 1}"),
+                                 norm)
 
 
-def _point_decoder(key: str, path: Path, n_levels: int):
+def _point_decoder(key: str, path: Path, n_levels: int, norm: str):
     """``{key}dec{k}`` <-> ``PointDecoderStage_{n_levels - k}`` under
     ``path``; stage 0, ``dec{n_levels}``, is the head, whose ``Dense_0`` is
     ``linear2``."""
@@ -105,28 +118,30 @@ def _point_decoder(key: str, path: Path, n_levels: int):
         if k == n_levels:
             yield from _dense(f"{up}.linear2.0", (*tu, "Dense_0"))
             yield from _dense(f"{up}.linear1.0", (*tu, "Dense_1"))
-            yield from _bn(f"{up}.linear1.1", (*tu, "PointNorm_0"))
+            yield from _norm(f"{up}.linear1.1", (*tu, "PointNorm_0"), norm)
         else:
             for j, part in enumerate(("linear1", "linear2")):
                 yield from _dense(f"{up}.{part}.0", (*tu, f"Dense_{j}"))
-                yield from _bn(f"{up}.{part}.1", (*tu, f"PointNorm_{j}"))
-        yield from _pt_block(f"{key}dec{k}.1", (*stage, "PointTransformerBlock_0"))
+                yield from _norm(f"{up}.{part}.1", (*tu, f"PointNorm_{j}"), norm)
+        yield from _pt_block(f"{key}dec{k}.1", (*stage, "PointTransformerBlock_0"), norm)
 
 
-def pointtransformer_seg_entries(blocks: Sequence[int], key: str = "", path: Path = ()
-                                 ) -> Iterator[Tuple[str, Path, str]]:
+def pointtransformer_seg_entries(blocks: Sequence[int], key: str = "", path: Path = (),
+                                 norm: str = "batch") -> Iterator[Tuple[str, Path, str]]:
     """Every (state_dict key, flax path, kind) of a ``PointTransformerSeg``
-    of ``blocks`` (the scene model's are 2/3/4/6/3), its torch keys under
-    the prefix ``key`` and its flax tree under ``path``: ``enc{k}`` <->
-    ``enc/PointEncoderStage_{k - 1}``, ``dec{k}`` <-> ``dec/PointDecoderStage_*``."""
-    yield from _point_encoder(key, (*path, "enc"), blocks)
-    yield from _point_decoder(key, (*path, "dec"), len(blocks))
+    of ``blocks`` (the scene model's are 2/3/4/6/3) and ``norm``, its torch
+    keys under the prefix ``key`` and its flax tree under ``path``:
+    ``enc{k}`` <-> ``enc/PointEncoderStage_{k - 1}``, ``dec{k}`` <->
+    ``dec/PointDecoderStage_*``."""
+    yield from _point_encoder(key, (*path, "enc"), blocks, norm)
+    yield from _point_decoder(key, (*path, "dec"), len(blocks), norm)
 
 
-def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "trans_enc"
-                 ) -> Iterator[Tuple[str, Path, str]]:
+def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "trans_enc",
+                 norm: str = "batch") -> Iterator[Tuple[str, Path, str]]:
     """Every (state_dict key, flax path, kind) of a CMDM of ``arch``
-    (``trans_enc`` or ``trans_dec``)."""
+    (``trans_enc`` or ``trans_dec``) whose contact encoder has ``norm``
+    (``"batch"`` or ``"layer"``)."""
     if arch not in ("trans_enc", "trans_dec"):
         raise NotImplementedError(f"CMDM arch {arch!r}")
     yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
@@ -134,13 +149,13 @@ def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "
     adapters = ("language_adapter", "motion_adapter", "motion_layer")
     for name in adapters + (("contact_adapter",) if arch == "trans_enc" else ()):
         yield from _dense(name, (name,))
-    yield from _point_encoder("contact_encoder.", ("contact_encoder", "enc"), blocks)
+    yield from _point_encoder("contact_encoder.", ("contact_encoder", "enc"), blocks, norm)
     if arch == "trans_enc":
         for i in range(sum(num_layers)):
             yield from _encoder_layer(f"self_attn_layer.layers.{i}",
                                       ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
         return
-    yield from _point_decoder("contact_encoder.", ("contact_encoder", "dec"), len(blocks))
+    yield from _point_decoder("contact_encoder.", ("contact_encoder", "dec"), len(blocks), norm)
     for i, n in enumerate(num_layers):
         for j in range(n):
             yield from _encoder_layer(f"self_attn_layers.{i}.layers.{j}",
@@ -171,17 +186,20 @@ def _perceiver_layer(key: str, path: Path, cross: bool):
 
 def cdm_entries(arch: str = "Perceiver", *, self_attn_layers: int = 2, mlp_layers: int = 2,
                 mlp_bias: bool = True, blocks: Sequence[int] = (2, 2, 2, 2),
-                scene_blocks: Optional[Sequence[int]] = None) -> Iterator[Tuple[str, Path, str]]:
+                scene_blocks: Optional[Sequence[int]] = None, norm: str = "batch"
+                ) -> Iterator[Tuple[str, Path, str]]:
     """Every (state_dict key, flax path, kind) of a CDM: ``Perceiver`` with
     ``self_attn_layers`` latent layers, ``MLP`` with ``mlp_layers``
     point-scene MLPs, ``PointTrans`` / ``PointTransV2`` with ``blocks`` a
     stage; with ``scene_blocks`` also its frozen ``PointTransformerSeg``
-    (``scene_model.*``) of those blocks."""
+    (``scene_model.*``) of those blocks. ``norm`` is the normalisation of
+    the scene model and of the PointTrans backbones."""
     yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
     yield from _dense("timestep_embedder.time_embed.2", ("timestep_embedder", "Dense_1"))
     yield from _dense("contact_layer", ("contact_layer",))
     if scene_blocks is not None:
-        yield from pointtransformer_seg_entries(scene_blocks, "scene_model.", ("scene_model",))
+        yield from pointtransformer_seg_entries(scene_blocks, "scene_model.", ("scene_model",),
+                                                norm)
     cm = ("contact_model",)
     if arch == "MLP":
         for i in range(mlp_layers):
@@ -192,14 +210,14 @@ def cdm_entries(arch: str = "Perceiver", *, self_attn_layers: int = 2, mlp_layer
                 yield from _dense(f"{key}.{part}.3", (*path, f"Dense_{d1}"), bias=mlp_bias)
         return
     if arch in ("PointTrans", "PointTransV2"):
-        yield from _point_encoder("contact_model.", cm, blocks)
-        yield from _point_decoder("contact_model.", cm, len(blocks))
+        yield from _point_encoder("contact_model.", cm, blocks, norm)
+        yield from _point_decoder("contact_model.", cm, len(blocks), norm)
         # the context MLPs in the order the flax module makes them
         names = ("ctx4", "ctx3", "ctx2") if arch == "PointTransV2" else ("ctx",)
         for i, name in enumerate(names):
             ctx = (*cm, f"_CtxMLP_{i}")
             yield from _dense(f"contact_model.{name}.0", (*ctx, "Dense_0"))
-            yield from _bn(f"contact_model.{name}.1", (*ctx, "PointNorm_0"))
+            yield from _norm(f"contact_model.{name}.1", (*ctx, "PointNorm_0"), norm)
             yield from _dense(f"contact_model.{name}.3", (*ctx, "Dense_1"))
         if arch == "PointTransV2":
             yield from _encoder_layer("contact_model.self_attn_layers.layers.0",
@@ -288,23 +306,23 @@ def _jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], entries) -> Dict
 
 
 def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
-                             blocks: Sequence[int], arch: str = "trans_enc"
-                             ) -> Dict[str, torch.Tensor]:
+                             blocks: Sequence[int], arch: str = "trans_enc",
+                             norm: str = "batch") -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` of a CMDM of ``arch`` -> a
     state_dict that :class:`afford_motion_torch.models.cmdm.CMDM` loads with
     ``strict=True``, BatchNorm running stats included."""
-    return _state_dict_from_jax(variables_np, cmdm_entries(num_layers, blocks, arch))
+    return _state_dict_from_jax(variables_np, cmdm_entries(num_layers, blocks, arch, norm))
 
 
 def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
                                   num_layers: Sequence[int], blocks: Sequence[int],
-                                  arch: str = "trans_enc") -> Dict:
+                                  arch: str = "trans_enc", norm: str = "batch") -> Dict:
     """The inverse: a dict of tensors keyed like the state_dict (parameters,
     buffers, or the gradients of the parameters) -> the flax tree
     ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Keys that are
     missing from ``tensors`` (e.g. buffers, when gradients are carried) are
     left out of the tree."""
-    return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks, arch))
+    return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks, arch, norm))
 
 
 def cdm_state_dict_from_jax(variables_np: Dict, **arch) -> Dict[str, torch.Tensor]:
@@ -322,17 +340,18 @@ def cdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], **arch) -> Di
     return _jax_tree_from_state_dict(tensors, cdm_entries(**arch))
 
 
-def pointtransformer_seg_state_dict_from_jax(variables_np: Dict, *, blocks: Sequence[int]
-                                             ) -> Dict[str, torch.Tensor]:
+def pointtransformer_seg_state_dict_from_jax(variables_np: Dict, *, blocks: Sequence[int],
+                                             norm: str = "batch") -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` of a ``PointTransformerSeg`` -> a
     state_dict the port's loads with ``strict=True``."""
-    return _state_dict_from_jax(variables_np, pointtransformer_seg_entries(blocks))
+    return _state_dict_from_jax(variables_np, pointtransformer_seg_entries(blocks, norm=norm))
 
 
 def pointtransformer_seg_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
-                                                  blocks: Sequence[int]) -> Dict:
+                                                  blocks: Sequence[int], norm: str = "batch"
+                                                  ) -> Dict:
     """The inverse: a ``PointTransformerSeg`` state_dict -> its flax tree."""
-    return _jax_tree_from_state_dict(tensors, pointtransformer_seg_entries(blocks))
+    return _jax_tree_from_state_dict(tensors, pointtransformer_seg_entries(blocks, norm=norm))
 
 
 def regressor_state_dict_from_jax(variables_np: Dict, *, num_layers: int = 2

@@ -265,6 +265,33 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    checkpoints at batch 8, DDPM-500: one ``contact.npy`` of (8192, 9) finite
    f32 a case from stage 1 (no port kernel), one frame PLY a frame of each
    case from stage 2 (one encoding: ``PLAIN_STEP``), each chain's seconds.
+16. the raw-data chain (:func:`phase_raw_chain`): a synthetic raw HUMANISE
+   release (``data/synthetic.py``: 8 ScanNet-layout scenes of 150,000
+   points with segments and objects, 96 aligned motions of 40..196 frames;
+   SMPL-X at 10,475 vertices) through ``python -m
+   afford_motion_torch.prepare`` ``process``, ``smplx_to_vec``,
+   ``process_scene``, ``contact_data`` (8192 points, a 4 m region),
+   ``split`` and ``target_mask`` on the card, each stage also on the CPU on
+   a copy of the tree: the joints within RAW_JOINT_ATOL + RAW_JOINT_RTOL
+   |x| of the CPU's (whose copy then takes the card's), every file but
+   ``dist`` byte-equal, ``dist`` of both within its bound of the float64
+   brute force on the card (``contact_data.dist_excess``) and a pair alone
+   bit-equal to its batch row; ``contact_data``'s pairs a second and peak
+   memory, ``smplx_to_vec``'s sequences a second, the whole chain's
+   seconds; then ``sort`` (the target masks follow the rows), ``geometry``
+   (3 FPS and 8 kNN a chunk of B) and ``pack``, and 4 + 2 steps of
+   ``ts2m_contact_motion`` through the ``motionx`` store (``STORE_STEP``);
+   one PROX sequence of 120 frames through ``process --dataset PROX`` (the
+   pelvis on the card) against the CPU's; the root ``visualize.py``'s
+   counterpart through the LBS on the card (40 frames, the vertices against
+   the CPU's) and ``visualize_h3d``'s on a 263-d result;
+17. ``model.norm=layer`` (:func:`phase_norm_layer`): two float32 train
+   steps on the card through the kernels against the same steps on the CPU,
+   of the flagship CMDM ``trans_enc`` and of a ``PointTrans`` CDM with its
+   scene model, both built from the config at the published widths on 2 x
+   8192 points: the losses within 1e-3, the weights within 2 steps x 2 lr
+   and all but 2% within 2e-6 in each part of the model; the launches
+   exactly two steps' of FPS, kNN, the row gather and its scatter.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -2304,17 +2331,23 @@ def stage1_args(tree: dict, exp: Path) -> list:
 
 
 @contextlib.contextmanager
-def flash_switch(value: str):
-    """``AM_FLASH_ATTN`` set to ``value`` inside the block, restored after."""
-    saved = os.environ.get("AM_FLASH_ATTN")
-    os.environ["AM_FLASH_ATTN"] = value
+def environ(env: dict):
+    """The variables of ``env`` set inside the block, restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop("AM_FLASH_ATTN", None)
-        else:
-            os.environ["AM_FLASH_ATTN"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def flash_switch(value: str):
+    """``AM_FLASH_ATTN`` set to ``value`` inside the block, restored after."""
+    return environ({"AM_FLASH_ATTN": value})
 
 
 def reset(counters: dict) -> None:
@@ -2885,14 +2918,7 @@ def make_motionx_tree(counters: dict) -> tuple:
                        backward=False)
         for k in launches:
             launches[k] += counts[k]
-    for i, (xyz, mask) in before.items():
-        now = np.load(base / "contacts" / f"{i:05d}.npz")["points"][:, :3]
-        row = {p.tobytes(): r for r, p in enumerate(xyz)}
-        order = np.array([row[p.tobytes()] for p in now])
-        if (order == np.arange(N_POINTS)).all() or not np.array_equal(
-                np.load(base / "target_mask" / f"{i:05d}.npy"), mask[order]):
-            raise AssertionError(f"motionx prepare: item {i}'s target_mask does not follow "
-                                 "its sorted rows")
+    check_sorted_sidecar(base, before, "motionx prepare")
     meta = json.loads((base / "packed" / "meta.json").read_text())
     if not (meta["morton"] and meta["curve"] == "hilbert" and len(meta["bases"]) == MX_ITEMS
             and {"motion32", "motion_len", "rgb16", "geo_sm1_fps_idx"} <= set(meta["fields"])):
@@ -3097,6 +3123,367 @@ def phase_sample(tree: dict, counters: dict, s1_exp: Path, s2_exp: Path) -> dict
         for k in launches:
             launches[k] += counts[k]
     return launches
+
+
+# the raw-data preparation chain (afford_motion_torch.prepare process ..
+# target_mask, then sort|geometry|pack) on a synthetic raw HUMANISE release:
+# RAW_SCENES ScanNet-layout scenes of RAW_SCENE_POINTS points with their
+# segments and objects, MX_ITEMS motions of 40..196 frames, the SMPL-X body
+# model at the official mesh size; contact_data samples N_POINTS points in a
+# 4 m region. One PROX sequence of RAW_PROX_FRAMES frames goes through
+# PROXExtractor. The card's joints (smplx_to_vec, PROX's pelvis, the
+# visualizer's LBS vertices) are held to the CPU's float32 LBS within
+# RAW_JOINT_ATOL + RAW_JOINT_RTOL * |x|, the tests' tolerance against JAX
+RAW_SCENES, RAW_SCENE_POINTS, RAW_PROX_FRAMES = 8, 150_000, 120
+RAW_JOINT_ATOL = RAW_JOINT_RTOL = 1e-5
+RAW_VIS_FRAMES = 40
+
+
+def tree_files(root: Path) -> dict:
+    """Every file under ``root``: its path relative to it -> its bytes."""
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def joints_excess(card: np.ndarray, cpu: np.ndarray) -> float:
+    """The largest |card - cpu| in units of RAW_JOINT_ATOL + RAW_JOINT_RTOL *
+    |cpu|: at most 1 within tolerance."""
+    return float((np.abs(card - cpu) / (RAW_JOINT_ATOL + RAW_JOINT_RTOL * np.abs(cpu))).max())
+
+
+def check_sorted_sidecar(base: Path, before: dict, what: str) -> None:
+    """Each item of ``before`` (its points and target mask before ``sort``):
+    the sorted contacts hold a permutation of its rows, not the identity,
+    and its ``target_mask`` sidecar follows the same permutation."""
+    for i, (xyz, mask) in before.items():
+        now = np.load(base / "contacts" / f"{i:05d}.npz")["points"][:, :3]
+        row = {p.tobytes(): r for r, p in enumerate(xyz)}
+        order = np.array([row[p.tobytes()] for p in now])
+        if (order == np.arange(len(xyz))).all() or not np.array_equal(
+                np.load(base / "target_mask" / f"{i:05d}.npy"), mask[order]):
+            raise AssertionError(f"{what}: item {i}'s target_mask does not follow its sorted "
+                                 "rows")
+
+
+def prepare_stages(counters: dict, stages, data: Path, args: list, tag: str,
+                   per_chunk: dict | None = None, total: dict | None = None) -> dict:
+    """Each of ``stages`` through ``python -m afford_motion_torch.prepare``
+    with ``args``; its seconds and launches logged, the launches added to
+    ``total``. Only ``geometry`` may launch a kernel: one hierarchy with its
+    up kNN (``per_chunk``) a chunk of B scenes. Returns the seconds of each
+    stage."""
+    from afford_motion_torch import prepare
+
+    seconds = {}
+    for stage in stages:
+        reset(counters)
+        t0 = time.monotonic()
+        prepare.main([stage, "--out_dir", str(data), *args])
+        seconds[stage] = time.monotonic() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"{tag} {stage}: {seconds[stage]:.2f} s, launches {counts}")
+        if stage == "geometry":
+            check_launches(f"{tag} geometry", counts, per_chunk, -(-MX_ITEMS // B),
+                           backward=False)
+        elif any(counts.values()):
+            raise AssertionError(f"{tag} {stage}: launched {counts}")
+        for k in total or {}:
+            total[k] += counts[k]
+    return seconds
+
+
+def check_contact_data(card: Path, cpu: Path, dev: torch.device) -> None:
+    """``contact_motion/`` of the card's run against the CPU's on the same
+    ``motions_pos``: every file but ``dist`` byte-equal (``motions/``,
+    ``anno.csv``, the contacts' ``points`` and ``mask``); each pair's
+    ``dist`` of both within its bound of the float64 brute force on the card
+    (``contact_data.dist_excess`` at most 1); the first pair's row of its
+    batch bit-equal to the pair computed alone on the card."""
+    from afford_motion_torch.prepare import contact_data as cd
+
+    a, b = card / "HUMANISE" / "contact_motion", cpu / "HUMANISE" / "contact_motion"
+    if tree_files(a / "motions") != tree_files(b / "motions"):
+        raise AssertionError("raw chain contact_data: motions/ differs card vs CPU")
+    if (a / "anno.csv").read_bytes() != (b / "anno.csv").read_bytes():
+        raise AssertionError("raw chain contact_data: anno.csv differs card vs CPU")
+    worst = {"card": 0.0, "cpu": 0.0}
+    t_exact = 0.0
+    for i in range(MX_ITEMS):
+        za, zb = (np.load(d / "contacts" / f"{i:05d}.npz") for d in (a, b))
+        for key in ("points", "mask"):
+            if not np.array_equal(za[key], zb[key]) or za[key].dtype != zb[key].dtype:
+                raise AssertionError(f"raw chain contact_data: item {i}'s {key} differs")
+        pose = np.load(a / "motions" / f"{i:05d}.npy")
+        xyz = za["points"][:, :3]
+        t0 = time.monotonic()
+        exact = cd.joint_distance_map_plain(torch.from_numpy(pose).to(dev),
+                                            torch.from_numpy(xyz).to(dev)).cpu()
+        t_exact += time.monotonic() - t0
+        for side, z in (("card", za), ("cpu", zb)):
+            if z["dist"].shape != (N_POINTS, 22) or z["dist"].dtype != np.float32:
+                raise AssertionError(f"raw chain contact_data: item {i}'s dist is "
+                                     f"{z['dist'].dtype} {z['dist'].shape}")
+            worst[side] = max(worst[side], cd.dist_excess(z["dist"], exact, pose, xyz))
+        if i == 0:
+            alone = cd.joint_distance_map(pose, xyz, dev)
+            if not np.array_equal(alone, za["dist"]):
+                raise AssertionError("raw chain contact_data: item 0 alone differs from its "
+                                     "batch row on the card")
+    log(f"raw chain contact_data: card vs CPU files equal but dist; dist against the float64 "
+        f"brute force on the card ({t_exact:.2f} s for {MX_ITEMS} pairs): largest "
+        f"|d^2 - exact^2| {worst['card']:.3f} (card) and {worst['cpu']:.3f} (CPU) of the bound "
+        f"{cd.DIST_UNITS} u (|t|^2 + |s|^2); pair 0 alone bit-equal to its batch row")
+    if not max(worst.values()) <= 1.0:
+        raise AssertionError(f"raw chain contact_data: dist beyond its bound {worst}")
+
+
+def phase_raw_chain(dev: torch.device, counters: dict) -> list:
+    """The raw-data chain at full width on the card, each card stage also run
+    on the CPU on a copy of the same tree: ``process`` (HUMANISE), then
+    ``smplx_to_vec`` (the joints against the CPU's; the CPU's copy then takes
+    the card's joints), ``process_scene``, ``contact_data`` (its pairs a
+    second and peak memory; :func:`check_contact_data`), ``split`` and
+    ``target_mask``, every non-``dist`` file byte-equal to the CPU's; then
+    ``sort`` (the target masks follow the rows), ``geometry`` (3 FPS and 8
+    kNN a chunk of B) and ``pack``, and MX_STEPS + MX_STEPS / 2 steps of
+    ``ts2m_contact_motion`` through the ``motionx`` store. One PROX sequence
+    through ``process --dataset PROX`` (the pelvis on the card) against the
+    CPU's; ``visualize`` through the LBS on the card against the CPU and
+    ``visualize_h3d`` on a 263-d result. Returns the launches of the
+    geometry stage and of the training."""
+    from afford_motion_torch import visualize, visualize_h3d
+    from afford_motion_torch.data.synthetic import (
+        make_synthetic_raw_humanise,
+        make_synthetic_raw_prox,
+    )
+
+    work = WORK / "raw_chain"
+    raw, prox_raw, data, cpu = work / "raw", work / "prox_raw", work / "data", work / "data_cpu"
+    env = {"SMPLX_USE_SYNTHETIC": "1", "SMPLX_SYNTHETIC_VERTS": str(N_VERTS),
+           "SMPLX_SYNTHETIC_FACES": str(N_FACES)}
+    with environ(env):
+        t0 = time.monotonic()
+        scenes = make_synthetic_raw_humanise(str(raw), str(data), n_scenes=RAW_SCENES,
+                                             scene_points=RAW_SCENE_POINTS, n_motions=MX_ITEMS,
+                                             horizon_range=(40, L + 1), seed=SEED + 18)
+        make_synthetic_raw_prox(str(prox_raw), str(data), n_frames=(RAW_PROX_FRAMES,),
+                                scene_points=RAW_SCENE_POINTS // 3, seed=SEED + 18)
+        log(f"raw chain: synthetic raw release ({RAW_SCENES} scenes {scenes[0]}..{scenes[-1]} of "
+            f"{RAW_SCENE_POINTS} points, {MX_ITEMS} motions, one PROX sequence of "
+            f"{RAW_PROX_FRAMES} frames) in {time.monotonic() - t0:.1f} s")
+        args = ["--dataset", "HUMANISE", "--data_dir", str(raw), "--num_points", str(N_POINTS),
+                "--region_size", "4.0", "--batch_size", str(B)]
+        cpu_args = args + ["--device", "cpu"]
+        seconds = prepare_stages(counters, ("process",), data, args, "raw chain")
+        shutil.copytree(data, cpu)
+        seconds.update(prepare_stages(counters, ("smplx_to_vec",), data, args, "raw chain"))
+        prepare_stages(counters, ("smplx_to_vec",), cpu, cpu_args, "raw chain CPU")
+        pos = sorted((data / "HUMANISE" / "motions_pos").glob("*.npy"))
+        excess = max(joints_excess(np.load(p), np.load(cpu / "HUMANISE" / "motions_pos" / p.name))
+                     for p in pos)
+        log(f"raw chain smplx_to_vec: {len(pos) / seconds['smplx_to_vec']:.1f} sequences a second "
+            f"on the card ({N_VERTS}-vertex SMPL-X); joints card vs CPU {excess:.3f} of "
+            f"{RAW_JOINT_ATOL:.0e} + {RAW_JOINT_RTOL:.0e} |x|")
+        if len(pos) != MX_ITEMS or not excess <= 1.0:
+            raise AssertionError(f"raw chain smplx_to_vec: {len(pos)} sequences, joints card vs "
+                                 f"CPU {excess:.3f} of their tolerance")
+        shutil.rmtree(cpu / "HUMANISE" / "motions_pos")
+        shutil.copytree(data / "HUMANISE" / "motions_pos", cpu / "HUMANISE" / "motions_pos")
+        seconds.update(prepare_stages(counters, ("process_scene",), data, args, "raw chain"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        seconds.update(prepare_stages(counters, ("contact_data",), data, args, "raw chain"))
+        peak = torch.cuda.max_memory_allocated(dev)
+        seconds.update(prepare_stages(counters, ("split", "target_mask"), data, args, "raw chain"))
+        t0 = time.monotonic()
+        prepare_stages(counters, ("process_scene", "contact_data", "split", "target_mask"), cpu,
+                       cpu_args, "raw chain CPU")
+        log(f"raw chain contact_data: {MX_ITEMS / seconds['contact_data']:.1f} pairs a second on "
+            f"the card ({N_POINTS} points, chunks of 16, frames padded to 32), peak memory "
+            f"{peak / 2**30:.2f} GiB; the CPU's four stages {time.monotonic() - t0:.1f} s")
+        check_contact_data(data, cpu, dev)
+        for sub in ("HUMANISE/points", "HUMANISE/contact_motion/target_mask"):
+            if tree_files(data / sub) != tree_files(cpu / sub) or not tree_files(data / sub):
+                raise AssertionError(f"raw chain: {sub} differs card vs CPU")
+        for name in ("train.txt", "test.txt", "all.txt"):
+            if (data / "HUMANISE" / name).read_bytes() != (cpu / "HUMANISE" / name).read_bytes():
+                raise AssertionError(f"raw chain split: {name} differs card vs CPU")
+        base = data / "HUMANISE" / "contact_motion"
+        before = {i: (np.load(base / "contacts" / f"{i:05d}.npz")["points"][:, :3],
+                      np.load(base / "target_mask" / f"{i:05d}.npy")) for i in (0, MX_ITEMS - 1)}
+        prep = {k: 0 for k in counters}
+        seconds.update(prepare_stages(counters, ("sort", "geometry", "pack"), data, args,
+                                      "raw chain", dict(STAGE1_STEP, fps=3,
+                                                        knn=DEC_PLAIN_STEP["knn"]), prep))
+        check_sorted_sidecar(base, before, "raw chain sort")
+        meta = json.loads((base / "packed" / "meta.json").read_text())
+        if not (meta["morton"] and len(meta["bases"]) == MX_ITEMS
+                and "geo_sm1_fps_idx" in meta["fields"]):
+            raise AssertionError("raw chain pack: the store is not sorted, cached and whole")
+        log(f"raw chain: raw release -> packed store in {sum(seconds.values()):.1f} s on the "
+            f"card ({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+        tree = {"data": data, "packed": base / "packed", "exp": work / "exp_store"}
+        kinds: list = []
+        with record_store_kinds(kinds):
+            train = phase_train(tree, counters, STORE_STEP, tag="raw chain motionx store ",
+                                args=mx_args(tree, tree["exp"]), store=True, steps=MX_STEPS,
+                                geometry_cache=True)
+        if kinds != ["motionx"] * 2:
+            raise AssertionError(f"raw chain train: stores built {kinds}")
+        phase_raw_prox(data, cpu, prox_raw, counters)
+        phase_raw_visualize(work, dev, visualize, visualize_h3d)
+    return [prep, train]
+
+
+def phase_raw_prox(data: Path, cpu: Path, prox_raw: Path, counters: dict) -> None:
+    """``process --dataset PROX`` of one sequence on the card and on the CPU:
+    ``normalize_to_center.json`` byte-equal, the pickle's orients, body
+    poses, hands and betas equal and its translations (from the pelvis of
+    the LBS) within the joints' tolerance."""
+    import pickle
+
+    args = ["--dataset", "PROX", "--data_dir", str(prox_raw)]
+    t = prepare_stages(counters, ("process",), data, args, "raw chain PROX")["process"]
+    prepare_stages(counters, ("process",), cpu, args + ["--device", "cpu"], "raw chain PROX CPU")
+    a, b = data / "PROX", cpu / "PROX"
+    if (a / "normalize_to_center.json").read_bytes() != (b / "normalize_to_center.json"
+                                                        ).read_bytes():
+        raise AssertionError("raw chain PROX: normalize_to_center.json differs card vs CPU")
+    names = sorted(p.name for p in (a / "motions").glob("*.pkl"))
+    for name in names:
+        with open(a / "motions" / name, "rb") as f:
+            pa, ba = pickle.load(f)
+        with open(b / "motions" / name, "rb") as f:
+            pb, bb = pickle.load(f)
+        excess = joints_excess(pa[:, :3], pb[:, :3])
+        if not (pa.shape == (RAW_PROX_FRAMES, 159) and np.array_equal(pa[:, 3:], pb[:, 3:])
+                and np.array_equal(ba, bb) and excess <= 1.0):
+            raise AssertionError(f"raw chain PROX: {name} differs card vs CPU ({excess:.3f} of "
+                                 "the joints' tolerance in the translations)")
+    log(f"raw chain PROX: {names} ({RAW_PROX_FRAMES} frames) in {t:.2f} s on the card, the "
+        f"translations card vs CPU {excess:.3f} of the joints' tolerance, the rest equal")
+
+
+def phase_raw_visualize(work: Path, dev: torch.device, visualize, visualize_h3d) -> None:
+    """``visualize`` on a result pickle of RAW_VIS_FRAMES frames without
+    ``--render_joint``: one SMPL-X mesh a frame through the LBS on the card,
+    the vertices against the CPU run's within the joints' tolerance;
+    ``visualize_h3d`` on a 263-d result: one skeleton frame a frame."""
+    import pickle
+
+    from afford_motion_torch.utils.mesh import load_mesh_ply
+
+    rng = np.random.default_rng(SEED + 19)
+    res = work / "results"
+    res.mkdir()
+    with open(res / "00000.pkl", "wb") as f:
+        pickle.dump({"joints": rng.normal(size=(RAW_VIS_FRAMES, 66)).astype(np.float32),
+                     "params": rng.normal(scale=0.3, size=(RAW_VIS_FRAMES, 69)).astype(
+                         np.float32)}, f)
+    t0 = time.monotonic()
+    visualize.main(["--file", str(res / "00000.pkl"), "--out_dir", str(work / "vis_card")])
+    wall = time.monotonic() - t0
+    visualize.main(["--file", str(res / "00000.pkl"), "--out_dir", str(work / "vis_cpu"),
+                    "--device", "cpu"])
+    frames = sorted((work / "vis_card" / "00000").glob("frame_*.ply"))
+    excess = max(joints_excess(load_mesh_ply(str(p)).vertices,
+                               load_mesh_ply(str(work / "vis_cpu" / "00000" / p.name)).vertices)
+                 for p in frames)
+    if len(frames) != RAW_VIS_FRAMES or not excess <= 1.0:
+        raise AssertionError(f"raw chain visualize: {len(frames)} frames, vertices card vs CPU "
+                             f"{excess:.3f} of the joints' tolerance")
+    with open(res / "h3d.pkl", "wb") as f:
+        pickle.dump({"motion": rng.normal(scale=0.2, size=(L, D)).astype(np.float32),
+                     "m_len": 120, "text": "a person walks"}, f)
+    visualize_h3d.main(["--file", str(res / "h3d.pkl"), "--out_dir", str(work / "vis_h3d")])
+    h3d = len(list((work / "vis_h3d" / "h3d").glob("frame_*.ply")))
+    if h3d != 120:
+        raise AssertionError(f"raw chain visualize_h3d: {h3d} frames")
+    log(f"raw chain visualize: {RAW_VIS_FRAMES} SMPL-X frames ({N_VERTS} vertices) in {wall:.1f} "
+        f"s, vertices card vs CPU {excess:.3f} of the joints' tolerance; visualize_h3d 120 frames")
+
+
+def phase_norm_layer(dev: torch.device, counters: dict) -> list:
+    """``model.norm=layer``: two float32 train steps (dropout 0) of each model,
+    built from the config (``build_cmdm``/``build_cdm`` of ``load_config``
+    with ``model.norm=layer``), on the card through the kernels against the
+    same steps on the CPU through the plain versions, from the same weights,
+    batch, t and noise: the flagship CMDM ``trans_enc`` and a ``PointTrans``
+    CDM with its scene model, both at the published widths on 2 x 8192
+    points. The second loss follows the first update, so it reads the card's
+    backward. Limits as in the reference phase: each loss within 1e-3 (rel),
+    every weight within 2 steps x 2 lr, and all but 2% within 2e-6 in each
+    of the model's parts (the point encoder's weights apart from the
+    denoiser's); the card's launches exactly two steps' (``PLAIN_STEP``,
+    ``PT_SCENE_STEP``). Returns the launches."""
+    from afford_motion_torch.diffusion import create_gaussian_diffusion
+    from afford_motion_torch.models.cdm import build_cdm
+    from afford_motion_torch.models.cmdm import build_cmdm
+    from afford_motion_torch.models.layers import LayerNorm
+    from afford_motion_torch.train.loop import make_train_step
+    from afford_motion_torch.train.state import TrainState
+    from afford_motion_torch.utils.config import DictConfig, load_config
+
+    rng = np.random.default_rng(SEED + 20)
+    lr, lb, n, runs = 1e-4, 2, N_POINTS, []
+    layer = ["model.norm=layer", "model.dtype=float32"]
+    x_mask = np.zeros((lb, L), dtype=bool)
+    x_mask[1, 120:] = True
+    cmdm_cfg = load_config("configs", ["task=contact_motion_gen", "model=cmdm",
+                                       "model.arch=trans_enc", f"model.input_feats={D}",
+                                       "model.dropout=0.0", *layer]).model
+    cdm_cfg = load_config("configs", ["task=contact_gen", "model=cdm", "model.arch=PointTrans",
+                                      "model.input_feats=6", *layer]).model
+    cases = [
+        ("CMDM trans_enc", lambda: build_cmdm(cmdm_cfg), PLAIN_STEP, {
+            "c_pc_xyz": rng.normal(size=(lb, n, 3)).astype(np.float32),
+            "c_pc_contact": rng.uniform(size=(lb, n, 6)).astype(np.float32),
+            "text_emb": rng.normal(size=(lb, 1, 512)).astype(np.float32), "x_mask": x_mask},
+         rng.standard_normal((lb, L, D)).astype(np.float32)),
+        ("CDM PointTrans + scene", lambda: build_cdm(cdm_cfg), PT_SCENE_STEP, {
+            "c_pc_xyz": rng.normal(size=(lb, n, 3)).astype(np.float32),
+            "c_pc_feat": rng.uniform(size=(lb, n, 3)).astype(np.float32),
+            "text_emb": rng.normal(size=(lb, 1, 512)).astype(np.float32)},
+         rng.normal(size=(lb, n, 6)).astype(np.float32))]
+    for name, build, per_step, cond, x in cases:
+        torch.manual_seed(SEED + 20)
+        cpu_model = build()
+        norms = sum(isinstance(m, LayerNorm) for m in cpu_model.modules())
+        initial = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        ts = rng.integers(0, 1000, size=(2, lb))
+        noises = rng.standard_normal((2, *x.shape)).astype(np.float32)
+        losses, weights = [], []
+        for device in (torch.device("cpu"), dev):
+            model = build().to(device)
+            model.load_state_dict(initial, strict=True)
+            diffusion = create_gaussian_diffusion(DictConfig({"steps": 1000}), device)
+            state = TrainState.create(model, lr=lr)
+            step = make_train_step(model, diffusion)
+            c = {k: torch.from_numpy(v).to(device) for k, v in cond.items()}
+            reset(counters)
+            losses.append([float(step(state, torch.from_numpy(x).to(device), c, seed=i,
+                                      t=torch.from_numpy(ts[i]).to(device),
+                                      noise=torch.from_numpy(noises[i]).to(device))["loss"])
+                           for i in range(2)])
+            weights.append({part: torch.cat([p.detach().cpu().reshape(-1)
+                                             for p in child.parameters()])
+                            for part, child in model.named_children()
+                            if any(True for _ in child.parameters())})
+        launches = {k: fn.launches for k, fn in counters.items()}
+        diffs = {part: (weights[0][part] - weights[1][part]).abs() for part in weights[0]}
+        worst = max(d.max().item() for d in diffs.values())
+        far = {part: float((d > 2e-6).float().mean()) for part, d in diffs.items()}
+        rel = max(abs(a - b) / abs(a) for a, b in zip(losses[0], losses[1]))
+        log(f"norm=layer: two f32 train steps of the {name} ({norms} float32 LayerNorms in the "
+            f"point backbones and transformers), card vs CPU: losses {losses[1]} vs "
+            f"{losses[0]}, weights max abs diff {worst:.3e}, share beyond 2e-6 by part "
+            f"{ {part: f'{100 * v:.3f}%' for part, v in far.items()} }; card launches {launches}")
+        if not (np.isfinite(losses[1]).all() and rel <= 1e-3 and worst <= 4.004 * lr
+                and max(far.values()) <= 0.02):
+            raise AssertionError(f"norm=layer: the {name}'s train steps on the card disagree "
+                                 "with the CPU's")
+        check_launches(f"norm=layer {name}", launches, per_step, 2, backward=True)
+        runs.append(launches)
+    return runs
 
 
 def scene_args(tree: dict) -> list:
@@ -3624,6 +4011,10 @@ def main() -> int:
     # the MotionX route: prepare a HUMANISE tree, train stage 2 and stage 1
     # through their stores (and stage 2 on the host route), then sample.py
     phases += phase_motionx(dev, counters)
+    # the raw-data chain from a raw HUMANISE release to training steps, and
+    # the point backbones' norm=layer
+    phases += phase_raw_chain(dev, counters)
+    phases += phase_norm_layer(dev, counters)
     # the CDM with its frozen scene model and the point-transformer backbones
     phases += phase_cdm_scene(counters, banded_tree)
     t2m_launches, t2m_out = phase_t2m_chain(tree, counters, s1_tree["exp"])
