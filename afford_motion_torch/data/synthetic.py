@@ -8,6 +8,7 @@ texts, Mean.npy, Std.npy, contacts, train/test/all.txt}.
 """
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -545,3 +546,148 @@ def make_synthetic_raw_amass(root: str, seed: int = 0) -> tuple:
     index = base / "index.csv"
     index.write_text("\n".join(rows) + "\n")
     return str(smplx), str(index)
+
+
+# the published text towers' configurations (Hugging Face ``config.json``):
+# openai/clip-vit-base-patch32's ``text_config`` and bert-base-uncased
+CLIP_B32_TEXT = {
+    "model_type": "clip_text_model", "architectures": ["CLIPTextModelWithProjection"],
+    "vocab_size": 49408, "hidden_size": 512, "intermediate_size": 2048,
+    "num_hidden_layers": 12, "num_attention_heads": 8, "max_position_embeddings": 77,
+    "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5, "projection_dim": 512,
+    "bos_token_id": 49406, "eos_token_id": 49407, "pad_token_id": 1,
+}
+BERT_BASE_UNCASED = {
+    "model_type": "bert", "architectures": ["BertModel"], "vocab_size": 30522,
+    "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "hidden_act": "gelu", "max_position_embeddings": 512,
+    "type_vocab_size": 2, "layer_norm_eps": 1e-12, "position_embedding_type": "absolute",
+    "pad_token_id": 0,
+}
+# words every synthetic vocabulary spells whole: the synthetic captions'
+CAPTION_WORDS = tuple(sorted({t.split("/")[0] for t in SYNTHETIC_TOKENS}
+                             | {"walks", "strolls", "forward", "steps", "turns", "sits",
+                                "down", "stands", "from", "into", "around", "object",
+                                "number", "lifts", "picks", "over", "of", "is", "in"}))
+
+
+def _seeded_state(model, seed: int) -> dict:
+    """``model``'s float tensors drawn from ``seed``: N(0, 0.02) (the
+    towers' published initializer range), LayerNorm weights 1 + N(0, 0.02)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in model.state_dict().items():
+        v = torch.randn(t.shape, generator=gen) * 0.02
+        out[name] = v + 1.0 if "norm" in name.lower() and name.endswith("weight") else v
+    return out
+
+
+def _write_model_dir(path: Path, config: dict, model, seed: int) -> None:
+    from ..utils.hf_weights import write_safetensors
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config, indent=2))
+    write_safetensors(path / "model.safetensors", _seeded_state(model, seed))
+
+
+def synthetic_clip_vocab(vocab_size: int, seed: int = 0):
+    """(vocab.json's mapping, merges) of ``vocab_size`` tokens in CLIP's
+    layout: the 256 byte symbols, each again with ``</w>``, one token per
+    merge (first the merges that spell :data:`CAPTION_WORDS` left to right,
+    then seeded merges of short tokens), ``<|startoftext|>`` and
+    ``<|endoftext|>`` last."""
+    from ..models.tokenizers import bytes_to_unicode
+
+    byte_map = bytes_to_unicode()
+    vocab = list(byte_map.values()) + [s + "</w>" for s in byte_map.values()]
+    seen, merges, pairs = set(vocab), [], set()
+    budget = vocab_size - 2
+
+    def add(a: str, b: str) -> None:
+        if (a, b) in pairs or a + b in seen or len(vocab) >= budget:
+            return
+        pairs.add((a, b))
+        merges.append(f"{a} {b}")
+        seen.add(a + b)
+        vocab.append(a + b)
+
+    for word in CAPTION_WORDS:
+        sym = "".join(byte_map[b] for b in word.encode("utf-8"))
+        parts = list(sym[:-1]) + [sym[-1] + "</w>"]
+        while len(parts) > 1:
+            add(parts[0], parts[1])
+            parts = [parts[0] + parts[1]] + parts[2:]
+    rng = np.random.default_rng(seed)
+    short = [t for t in vocab if len(t) <= 2]
+    ends = [t for t in vocab if t.endswith("</w>")]
+    while len(vocab) < budget:
+        a = short[rng.integers(len(short))]
+        b = ends[rng.integers(len(ends))] if rng.random() < 0.5 else short[rng.integers(len(short))]
+        if a.endswith("</w>"):
+            continue
+        before = len(vocab)
+        add(a, b)
+        if len(vocab) > before and len(a + b) <= 6:
+            (ends if b.endswith("</w>") else short).append(a + b)
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    return {t: i for i, t in enumerate(vocab)}, merges
+
+
+def synthetic_bert_vocab(vocab_size: int, seed: int = 0) -> List[str]:
+    """vocab.txt's lines in bert-base-uncased's layout: ``[PAD]``, unused
+    slots, ``[UNK] [CLS] [SEP] [MASK]`` at 100-103, the printable ASCII
+    characters and their ``##`` continuations, :data:`CAPTION_WORDS`, then
+    seeded lower-case pieces and continuations."""
+    lines = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                "[MASK]"]
+    chars = [chr(c) for c in range(33, 127) if not chr(c).isupper()]
+    lines += chars + ["##" + c for c in chars]
+    lines += [w for w in CAPTION_WORDS if w not in set(lines)]
+    seen = set(lines)
+    rng = np.random.default_rng(seed)
+    while len(lines) < vocab_size:
+        for code, n, cont in zip(rng.integers(0, 26, size=(4096, 8)),
+                                 rng.integers(2, 9, size=4096), rng.random(4096) < 0.3):
+            piece = ("##" if cont else "") + "".join(chr(97 + c) for c in code[:n])
+            if piece not in seen:
+                seen.add(piece)
+                lines.append(piece)
+    return lines[:vocab_size]
+
+
+def make_synthetic_clip_dir(path: str, config: Optional[dict] = None, seed: int = 0) -> None:
+    """A CLIP text-tower directory (``config.json``, ``model.safetensors``,
+    ``vocab.json``, ``merges.txt``, ``tokenizer_config.json``) with seeded
+    weights and a synthetic vocabulary of ``config``'s size (default: the
+    published ViT-B/32 text tower)."""
+    from ..models.text_towers import ClipTextModel
+
+    config = dict(CLIP_B32_TEXT if config is None else config)
+    path = Path(path)
+    vocab, merges = synthetic_clip_vocab(int(config["vocab_size"]), seed)
+    _write_model_dir(path, config, ClipTextModel(config, int(config["projection_dim"])), seed)
+    (path / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n",
+                                     encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>",
+        "eos_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>"}))
+
+
+def make_synthetic_bert_dir(path: str, config: Optional[dict] = None, seed: int = 0) -> None:
+    """A BERT directory (``config.json``, ``model.safetensors`` with the
+    pooler, ``vocab.txt``, ``tokenizer_config.json``) with seeded weights and
+    a synthetic vocabulary of ``config``'s size (default: bert-base-uncased)."""
+    from ..models.text_towers import BertTextModel
+
+    config = dict(BERT_BASE_UNCASED if config is None else config)
+    path = Path(path)
+    _write_model_dir(path, config, BertTextModel(config), seed)
+    (path / "vocab.txt").write_text(
+        "\n".join(synthetic_bert_vocab(int(config["vocab_size"]), seed)) + "\n",
+        encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "BertTokenizer", "do_lower_case": True}))

@@ -1,20 +1,32 @@
 """Frozen text encoders, host side (counterpart of
 ``afford_motion_tpu/models/text.py``, whose package import loads jax).
 
-Captions become float32 embeddings on the host before sampling. Ported
-providers: the precomputed ``.npz`` table and the deterministic hash
-encoder. Running local CLIP or BERT weights is not ported yet; a config that
-points at existing weights is refused instead of silently hashed.
+Captions become float32 embeddings before the model sees them. Providers:
+the precomputed ``.npz`` table, the deterministic hash encoder, and the
+local CLIP and BERT towers (``models/text_towers.py`` with the tokenizers
+of ``models/tokenizers.py``), read from a Hugging Face model directory
+without ``transformers`` and run on the caller's device (the card unless the
+caller names the CPU), f32 with TF32 off.
+
+The JAX encoders run one caption a call. The towers here encode a call's
+uncached captions together, in chunks of ``ENCODE_CHUNK`` padded with
+``""``: every launch has the same shapes, so a caption's embedding is bit
+for bit the same whatever else shares its call (a resumed run re-encodes
+with an empty cache and must match the straight run).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..utils.io import get_logger
+from .text_towers import BertTextModel, ClipTextModel
+from .tokenizers import BertTokenizer, ClipTokenizer
 
 logger = get_logger()
 
@@ -102,29 +114,147 @@ class TableTextEncoder(TextEncoder):
         return self._fallback._encode_one(text)
 
 
+
+
+ENCODE_CHUNK = 32  # captions a tower launch: the flagship's batch
+
+
+@contextlib.contextmanager
+def f32_matmuls():
+    """TF32 off for cuBLAS and cuDNN inside the block, the caller's flags
+    back after it."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    flags = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = flags
+
+
+class _TowerEncoder(TextEncoder):
+    """A frozen tower on ``device`` behind a memo cache: new captions are
+    tokenized and run in fixed chunks of ``ENCODE_CHUNK``."""
+
+    def __init__(self, model: torch.nn.Module, tokenizer, dim: int, max_length: int,
+                 device: Union[str, torch.device]):
+        super().__init__(dim)
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.tokenizer = tokenizer
+        self.max_length = int(max_length)
+
+    def _run(self, texts: List[str], fn: Callable) -> Tuple[np.ndarray, np.ndarray]:
+        """``fn(ids, mask)`` over ``texts`` chunk by chunk: (its outputs
+        (n, ...) f32, the attention masks (n, L))."""
+        outs, masks = [], []
+        for s in range(0, len(texts), ENCODE_CHUNK):
+            chunk = texts[s:s + ENCODE_CHUNK]
+            n = len(chunk)
+            ids, mask = self.tokenizer(chunk + [""] * (ENCODE_CHUNK - n), self.max_length)
+            with torch.no_grad(), f32_matmuls():
+                out = fn(torch.from_numpy(ids).to(self.device),
+                         torch.from_numpy(mask).to(self.device))
+            outs.append(out[:n].to(torch.float32).cpu().numpy())
+            masks.append(mask[:n])
+        return np.concatenate(outs), np.concatenate(masks)
+
+    def _pooled(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        """(B,) strings -> (B, dim) float32; the uncached ones run together."""
+        new = list(dict.fromkeys(t for t in texts if t not in self._cache))
+        if new:
+            self._cache.update(zip(new, self._run(new, self._pooled)[0]))
+        out = np.empty((len(texts), self.dim), dtype=np.float32)
+        for i, t in enumerate(texts):
+            out[i] = self._cache[t]
+        return out
+
+
+class ClipTextEncoder(_TowerEncoder):
+    """CLIP's projected text embedding (``CLIPTextModelWithProjection``'s
+    ``text_embeds``) from a model directory: the JAX encoder's
+    ``min(max_length + 2, 77)`` tokens, then zeros to 77."""
+
+    def __init__(self, weights_dir: str, max_length: int = 32,
+                 device: Union[str, torch.device] = "cuda"):
+        model = ClipTextModel.from_pretrained(weights_dir)
+        super().__init__(model, ClipTokenizer(weights_dir), model.dim, max_length, device)
+
+    def _pooled(self, ids, mask):
+        return self.model(ids, mask)
+
+
+class BertTextEncoder(_TowerEncoder):
+    """BERT from a model directory, as the reference's ``encode_text_bert``:
+    ``pooled=True`` gives ``pooler_output`` (the CDM's sentence feature);
+    ``pooled=False`` (``per_token``) gives ``last_hidden_state`` over
+    ``max_length`` tokens and the inverted attention mask (True = padding,
+    the CMDM's text tokens)."""
+
+    def __init__(self, weights_dir: str, max_length: int = 32, pooled: bool = True,
+                 device: Union[str, torch.device] = "cuda"):
+        model = BertTextModel.from_pretrained(weights_dir, require_pooler=pooled)
+        super().__init__(model, BertTokenizer(weights_dir), model.width, max_length, device)
+        self.per_token = not pooled
+        # token-feature memo: caption -> (tokens (L, dim), pad (L,) bool)
+        self._tok_cache: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+
+    def _pooled(self, ids, mask):
+        pooled = self.model(ids, mask)[1]
+        if pooled is None:
+            raise ValueError("this BERT directory holds no pooler: pooled features unavailable")
+        return pooled
+
+    def encode_tokens(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        if not self.per_token:
+            return super().encode_tokens(texts)
+        new = list(dict.fromkeys(t for t in texts if t not in self._tok_cache))
+        if new:
+            emb, mask = self._run(new, lambda ids, m: self.model(ids, m)[0])
+            self._tok_cache.update(zip(new, zip(emb, mask == 0)))
+        emb = np.empty((len(texts), self.max_length, self.dim), dtype=np.float32)
+        pad = np.empty((len(texts), self.max_length), dtype=bool)
+        for i, t in enumerate(texts):
+            emb[i], pad[i] = self._tok_cache[t]
+        return emb, pad
+
+
 def create_text_encoder(version: str, *, table_path: Optional[str] = None,
-                        weights_dir: Optional[str] = None,
-                        per_token: bool = False,
-                        strict_table: bool = False) -> TextEncoder:
-    """The JAX package's provider choice minus the local-weights encoders:
-    existing CLIP/BERT weights are refused, not hashed. A pooled table does
-    not serve per-token BERT features. ``strict_table`` (the training
-    default): a table's unknown captions raise, and a BERT model without
-    weights is an error; no provider at all still hashes, with a warning."""
+                        weights_dir: Optional[str] = None, max_length: int = 32,
+                        strict_table: bool = False, per_token: bool = False,
+                        device: Union[str, torch.device] = "cuda") -> TextEncoder:
+    """The JAX package's provider choice. BERT family: its weights, else a
+    pooled table (not for ``per_token``), else an error with
+    ``strict_table`` (the training default), else hash with a warning. CLIP
+    family: the table, else its weights, else hash with a warning. A
+    weights directory that exists but cannot be loaded raises, naming the
+    missing or bad file (JAX falls through to hash for CLIP). The towers run
+    on ``device``; ``max_length`` is ``model.text_model.max_length``."""
     dim, family = get_lang_feat_dim_type(version)
-    if weights_dir and Path(weights_dir).exists():
-        raise NotImplementedError(
-            f"running local {family} weights ({weights_dir}) is not ported yet; "
-            "export an embedding table or point text_encoder.weights_dir elsewhere"
-        )
-    if table_path and Path(table_path).exists() and not (family == "bert" and per_token):
+    weights = bool(weights_dir) and Path(weights_dir).exists()
+    table = bool(table_path) and Path(table_path).exists()
+    if family == "bert":
+        if weights:
+            return BertTextEncoder(weights_dir, max_length=max_length, pooled=not per_token,
+                                   device=device)
+        if table and not per_token:
+            return TableTextEncoder(table_path, strict=strict_table)
+        if strict_table:
+            raise FileNotFoundError(
+                f"text_model.version={version!r} needs local BERT weights "
+                f"(text_encoder.weights_dir={weights_dir!r} not found"
+                + ("" if per_token else f"; table_path={table_path!r} not found")
+                + "); set text_encoder.allow_fallback=true to use hash embeddings (tests only)")
+        logger.warning(f"no BERT weights at {weights_dir!r}; using HASH text embeddings — "
+                       "test/bench use only")
+        return HashTextEncoder(dim)
+    if table:
         return TableTextEncoder(table_path, strict=strict_table)
-    if strict_table and family == "bert":
-        raise FileNotFoundError(
-            f"text_model.version={version!r} needs local BERT weights, which the "
-            "port cannot run yet; set text_encoder.allow_fallback=true to use "
-            "hash embeddings (tests only)"
-        )
-    logger.warning(f"no embedding table at {table_path!r}; using HASH text "
-                   "embeddings — test/bench use only")
+    if weights:
+        return ClipTextEncoder(weights_dir, max_length=max_length, device=device)
+    logger.warning(f"no embedding table at {table_path!r} and no local CLIP weights at "
+                   f"{weights_dir!r}; using HASH text embeddings — test/bench use only")
     return HashTextEncoder(dim)

@@ -72,7 +72,9 @@ def sample(cfg: DictConfig, device: torch.device) -> str:
         cfg.model.text_model.version,
         table_path=te_cfg.get("table_path"),
         weights_dir=te_cfg.get("weights_dir"),
+        max_length=int(cfg.model.text_model.max_length),
         per_token=str(cfg.model.name) == "CMDM",
+        device=device,
     )
     ckpt = latest_ckpt(os.path.join(cfg.exp_dir, "ckpt"))
     if ckpt is None:

@@ -54,7 +54,9 @@ def train(cfg: DictConfig, device: torch.device) -> Dict[str, Any]:
         cfg.model.text_model.version,
         table_path=te_cfg.get("table_path"),
         weights_dir=te_cfg.get("weights_dir"),
+        max_length=int(cfg.model.text_model.max_length),
         per_token=str(cfg.model.name) == "CMDM",
+        device=device,
         # training is strict: a stale table must not silently train on hash
         # embeddings (escape hatch: text_encoder.allow_fallback=true)
         strict_table=not bool(te_cfg.get("allow_fallback", False)),

@@ -264,7 +264,8 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    ``python -m afford_motion_torch.sample``'s two stages from those
    checkpoints at batch 8, DDPM-500: one ``contact.npy`` of (8192, 9) finite
    f32 a case from stage 1 (no port kernel), one frame PLY a frame of each
-   case from stage 2 (one encoding: ``PLAIN_STEP``), each chain's seconds.
+   case from stage 2 (one encoding: ``PLAIN_STEP``), each chain's seconds;
+   both stages encode their captions with the CLIP directory of phase 18.
 16. the raw-data chain (:func:`phase_raw_chain`): a synthetic raw HUMANISE
    release (``data/synthetic.py``: 8 ScanNet-layout scenes of 150,000
    points with segments and objects, 96 aligned motions of 40..196 frames;
@@ -292,6 +293,19 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    8192 points: the losses within 1e-3, the weights within 2 steps x 2 lr
    and all but 2% within 2e-6 in each part of the model; the launches
    exactly two steps' of FPS, kNN, the row gather and its scatter.
+18. the local text towers (:func:`phase_text`, after the plain train and
+   slice phases): seeded CLIP ViT-B/32 text-tower and bert-base-uncased
+   directories at the published widths, each tower's load time; CLIP,
+   pooled BERT and per-token BERT on 256 captions on the card against the
+   CPU within TEXT_LIMIT of the largest entry; a caption alone bit-equal to
+   its row in the mixed call; captions a second at one caption a call and
+   at 256; then the flagship CMDM ``trans_enc`` with per-token BERT (20
+   tokens) on a tree whose items have captions of their own, 8 steps and 4
+   resumed bit-exact with ``PLAIN_STEP`` launches, the tower's seconds a
+   step; the t2m test entry (DDIM-50) with the CLIP directory and no table;
+   4 + 2 steps of the stage-1 CDM-Perceiver with pooled BERT (and, in
+   phase 15, ``sample.py``'s two stages with the CLIP directory). No port
+   kernel runs in the towers.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -3071,8 +3085,11 @@ def phase_sample(tree: dict, counters: dict, s1_exp: Path, s2_exp: Path) -> dict
     (``ContactMotionExampleDataset`` through ``task.sample.contact_folder``,
     the CMDM) one skeleton PLY a frame of each case. Stage 1 launches none of
     the kernels; stage 2's chain one encoding (``PLAIN_STEP``: the example
-    clouds carry no cached geometry). Returns the launches of both."""
+    clouds carry no cached geometry). Both stages encode their captions with
+    the CLIP directory :func:`phase_text` wrote (:func:`text_dir`), which
+    must have run first, and no table. Returns the launches of both."""
     from afford_motion_torch import sample as entry
+    from afford_motion_torch.models.text import ClipTextEncoder
 
     ex = WORK / "mx_examples"
     ex.mkdir(exist_ok=True)
@@ -3082,21 +3099,27 @@ def phase_sample(tree: dict, counters: dict, s1_exp: Path, s2_exp: Path) -> dict
     (ex / "motion.txt").write_text("".join(
         f"{t}#HUMANISE#{i}#{n}\n" for t, i, n in zip(texts, idx, MX_FRAMES)))
     launches = {k: 0 for k in counters}
+    clip = f"text_encoder.weights_dir={text_dir('clip')}"
     stage1 = mx_stage1_args(tree, s1_exp) + [f"task.sample.data_path={ex / 'contact.txt'}",
-                                             f"task.sample.batch_size={MX_SAMPLE}"]
+                                             f"task.sample.batch_size={MX_SAMPLE}", clip]
     stage2 = mx_args(tree, s2_exp) + [f"task.sample.data_path={ex / 'motion.txt'}",
-                                      f"task.sample.batch_size={MX_SAMPLE}"]
+                                      f"task.sample.batch_size={MX_SAMPLE}", clip]
     out1 = None
     for name, args, per_chain in (("stage 1", stage1, STAGE1_STEP),
                                   ("stage 2", stage2, PLAIN_STEP)):
         if out1 is not None:
             args = args + [f"task.sample.contact_folder={out1}"]
         reset(counters)
+        seen: list = []
         t0 = time.monotonic()
-        out = Path(entry.main(args))
+        with record_encodes(ClipTextEncoder, "encode", seen):
+            out = Path(entry.main(args))
         wall = time.monotonic() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
         check_launches(f"sample {name}", counts, per_chain, 1, backward=False)
+        if not seen or seen[0][1] != len(texts):
+            raise AssertionError(f"sample {name}: the CLIP tower's calls {seen}, expected "
+                                 f"{len(texts)} new captions first")
         cases = sorted(p.name for p in out.iterdir() if p.is_dir())
         if cases != [f"{i:03d}-{t}" for i, t in enumerate(texts)]:
             raise AssertionError(f"sample {name}: cases {cases}")
@@ -3119,7 +3142,8 @@ def phase_sample(tree: dict, counters: dict, s1_exp: Path, s2_exp: Path) -> dict
         log(f"sample {name}: DDPM-500 chain of {MX_SAMPLE} "
             f"{chain['prepare_s'] + chain['loop_s']:.3f} s (prepare {chain['prepare_s']:.3f} s, "
             f"{1e3 * chain['loop_s'] / chain['steps']:.3f} ms a step), visualizer "
-            f"{timing['visualize_s'][0]:.3f} s, entry {wall:.1f} s; {detail}; launches {counts}")
+            f"{timing['visualize_s'][0]:.3f} s, entry {wall:.1f} s; {detail}; the CLIP tower's "
+            f"calls (captions, new, s) {seen}; launches {counts}")
         for k in launches:
             launches[k] += counts[k]
     return launches
@@ -3400,6 +3424,203 @@ def phase_raw_visualize(work: Path, dev: torch.device, visualize, visualize_h3d)
         raise AssertionError(f"raw chain visualize_h3d: {h3d} frames")
     log(f"raw chain visualize: {RAW_VIS_FRAMES} SMPL-X frames ({N_VERTS} vertices) in {wall:.1f} "
         f"s, vertices card vs CPU {excess:.3f} of the joints' tolerance; visualize_h3d 120 frames")
+
+
+# the local text towers (afford_motion_torch/models/text.py): seeded
+# directories at the published widths, card against CPU within TEXT_LIMIT of
+# the largest entry (float32 on both sides with TF32 off, 12 layers whose
+# GEMMs sum 512..3072 products in another order on each side)
+TEXT_LIMIT = 1e-4
+TEXT_CAPTIONS = 256
+TEXT_BERT = ("model.text_model.version=bert-base-uncased",)
+
+
+def text_dir(name: str = "") -> Path:
+    """Where :func:`phase_text` writes the seeded tower directories."""
+    return WORK / "text" / name
+
+
+def text_captions(rng, n: int) -> list:
+    """``n`` distinct captions of 2..30 words of the synthetic vocabulary,
+    some capitalised, with commas and a full stop (over 20 tokens they are
+    cut: ``max_length`` 20)."""
+    from afford_motion_torch.data.synthetic import synthetic_caption
+
+    out: dict = {}
+    while len(out) < n:
+        cap, _ = synthetic_caption(rng, int(rng.integers(2, 31)))
+        words = cap.split()
+        if rng.random() < 0.3:
+            words[0] = words[0].capitalize()
+        if len(words) > 4 and rng.random() < 0.5:
+            words[len(words) // 2] += ","
+        out[" ".join(words) + ("." if rng.random() < 0.5 else "")] = None
+    return list(out)
+
+
+def make_caption_tree(tree: dict) -> dict:
+    """A copy of the plain tree whose every item has two captions of its own
+    (the synthetic tree's items share two), so that a first epoch meets new
+    captions at every step, as HumanML3D's 44,970 captions do."""
+    from afford_motion_torch.data.synthetic import synthetic_caption
+
+    data = WORK / "data_captions"
+    shutil.copytree(tree["data"], data)
+    rng = np.random.default_rng(SEED + 19)
+    for f in sorted((data / "H3D" / "texts").glob("*.txt")):
+        lines = []
+        for _ in range(2):
+            cap, toks = synthetic_caption(rng, int(rng.integers(4, 25)))
+            lines.append(f"{cap}#{' '.join(toks)}#0.0#0.0")
+        f.write_text("\n".join(lines) + "\n")
+    return dict(tree, data=data)
+
+
+@contextlib.contextmanager
+def record_encodes(cls, name: str, seen: list):
+    """Inside the block each ``cls.name`` call appends (captions asked,
+    captions new to its cache, seconds) to ``seen``."""
+    real, own = getattr(cls, name), name in vars(cls)
+
+    def timed(self, texts):
+        cache = self._tok_cache if name == "encode_tokens" else self._cache
+        new = len(set(texts) - set(cache))
+        t0 = time.perf_counter()
+        out = real(self, texts)
+        seen.append((len(texts), new, time.perf_counter() - t0))
+        return out
+
+    setattr(cls, name, timed)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(cls, name, real)
+        else:
+            delattr(cls, name)
+
+
+def phase_text(tree: dict, counters: dict, dev: torch.device) -> list:
+    """The local CLIP and BERT text towers (:mod:`afford_motion_torch.models.
+    text`). Writes seeded directories at the published widths
+    (``data/synthetic.py``: ViT-B/32's text tower, vocab 49,408, width 512, 12
+    layers of 8 heads, FFN 2,048, 77 positions, projection 512, quick_gelu,
+    EOS 49,407; bert-base-uncased, vocab 30,522, width 768, 12 layers of 12
+    heads, FFN 3,072, 512 positions, eps 1e-12; synthetic vocabularies of
+    those sizes) and logs each tower's load time. On TEXT_CAPTIONS captions
+    at ``max_length`` 20: CLIP, pooled BERT and per-token BERT on the card
+    against the CPU within TEXT_LIMIT of the largest entry (the pad masks
+    equal); a caption alone bit-equal to the same caption in the mixed call;
+    captions a second at one caption a call and in one call (chunks of
+    ``ENCODE_CHUNK``). Then through the entries: the flagship CMDM
+    ``trans_enc`` with per-token BERT (``bert-base-uncased``, 20 tokens) on
+    the plain route of a tree whose items have captions of their own, 8
+    steps and 4 resumed bit-exact, ``PLAIN_STEP`` launches a step exactly,
+    the tower's seconds and new captions a step logged; the t2m test entry
+    (DDIM-50) from the plain train phase's checkpoint with the CLIP
+    directory and no table; and 4 + 2 steps of the stage-1 CDM-Perceiver
+    with pooled BERT. Returns the launches of the entry runs."""
+    from afford_motion_torch.data.synthetic import make_synthetic_bert_dir, make_synthetic_clip_dir
+    from afford_motion_torch.models import text
+
+    root = text_dir()
+    clip, bert = text_dir("clip"), text_dir("bert")
+    t0 = time.monotonic()
+    make_synthetic_clip_dir(str(clip), seed=SEED)
+    make_synthetic_bert_dir(str(bert), seed=SEED)
+    size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    log(f"text: seeded CLIP ViT-B/32 text tower and bert-base-uncased directories written "
+        f"({size / 1e6:.1f} MB) in {time.monotonic() - t0:.1f} s")
+
+    kinds = {"clip": (text.ClipTextEncoder, str(clip), {}),
+             "bert pooled": (text.BertTextEncoder, str(bert), {"pooled": True}),
+             "bert per-token": (text.BertTextEncoder, str(bert), {"pooled": False})}
+
+    def make(kind: str, device):
+        cls, path, kw = kinds[kind]
+        return cls(path, max_length=20, device=device, **kw)
+
+    def run(enc, texts):
+        return enc.encode_tokens(texts) if enc.per_token else (enc.encode(texts),)
+
+    captions = text_captions(np.random.default_rng(SEED), TEXT_CAPTIONS)
+    for kind in kinds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = make(kind, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = run(card, captions)
+        want = run(make(kind, "cpu"), captions)
+        if kind == "bert per-token" and not np.array_equal(got[1], want[1]):
+            raise AssertionError("text: per-token BERT's pad masks differ card vs CPU")
+        scale = float(np.abs(want[0]).max())
+        err = float(np.abs(got[0] - want[0]).max())
+        log(f"text {kind}: load {load_s:.3f} s (config, weights, tokenizer, to the card); "
+            f"card vs CPU on {len(captions)} captions {got[0].shape}: largest difference "
+            f"{err:.3e} = {err / scale:.3e} of the largest entry (limit {TEXT_LIMIT:.0e})")
+        if not (np.isfinite(got[0]).all() and err <= TEXT_LIMIT * scale):
+            raise AssertionError(f"text {kind}: card vs CPU {err:.3e} of {scale:.3e}")
+        for i in (0, 37, text.ENCODE_CHUNK + 5, len(captions) - 1):
+            alone = run(make(kind, dev), [captions[i]])
+            if not all(np.array_equal(a[0].view(np.uint8), g[i].view(np.uint8))
+                       for a, g in zip(alone, got)):
+                raise AssertionError(f"text {kind}: caption {i} alone differs from its row "
+                                     "in the mixed call")
+        rates = {}
+        for per_call in (1, len(captions)):
+            enc = make(kind, dev)
+            run(enc, ["warm up"])
+            batch = captions[:32] if per_call == 1 else captions
+            t0 = time.perf_counter()
+            for s in range(0, len(batch), per_call):
+                run(enc, batch[s:s + per_call])
+            rates[per_call] = len(batch) / (time.perf_counter() - t0)
+        log(f"text {kind}: {rates[1]:.1f} captions/s at one caption a call, "
+            f"{rates[len(captions)]:.1f} captions/s at {len(captions)} a call (chunks of "
+            f"{text.ENCODE_CHUNK}); a caption alone bit-equal to its row in the mixed call")
+
+    launches = {k: 0 for k in counters}
+    caption_tree = dict(make_caption_tree(tree), exp=WORK / "exp_bert")
+    seen: list = []
+    with record_encodes(text.BertTextEncoder, "encode_tokens", seen):
+        runs = phase_train(caption_tree, counters, PLAIN_STEP,
+                           (*TEXT_BERT, f"text_encoder.weights_dir={bert}"),
+                           tag="bert per-token ")
+    # a call a megabatch (4 steps) on the producer thread, beside the steps
+    tower_s, new = sum(s for _, _, s in seen), sum(n for _, n, _ in seen)
+    log(f"bert per-token train: the tower {tower_s:.3f} s for {new} new captions over the "
+        f"two runs' 12 steps ({tower_s / 12 * 1e3:.1f} ms a step, on the producer thread "
+        f"beside the steps); calls (captions, new, s) {seen}")
+    if not any(n for _, n, _ in seen):
+        raise AssertionError("bert per-token train: the tower encoded no new caption")
+    for k in launches:
+        launches[k] += runs[k]
+
+    seen = []
+    ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
+    with record_encodes(text.ClipTextEncoder, "encode", seen):
+        runs = phase_slice(tree, counters, {
+            "clip ddim50": ([*ddim, f"text_encoder.weights_dir={clip}"], PLAIN_STEP)})
+    log(f"slice clip ddim50: the CLIP tower's calls (captions, new, s) {seen}")
+    if not seen or seen[0][1] == 0:
+        raise AssertionError("slice clip ddim50: the CLIP tower encoded nothing")
+    for k in launches:
+        launches[k] += runs[k]
+
+    seen = []
+    s1 = dict(caption_tree, exp=WORK / "exp_bert_stage1")
+    with record_encodes(text.BertTextEncoder, "encode", seen):
+        runs = phase_train(s1, counters, STAGE1_STEP,
+                           (*TEXT_BERT, f"text_encoder.weights_dir={bert}"),
+                           tag="stage-1 bert pooled ", args=stage1_args(s1, s1["exp"]),
+                           store=False, steps=4)
+    log(f"stage-1 bert pooled: the tower's calls (captions, new, s) {seen}")
+    if not seen:
+        raise AssertionError("stage-1 bert pooled: the BERT tower encoded nothing")
+    for k in launches:
+        launches[k] += runs[k]
+    return [launches]
 
 
 def phase_norm_layer(dev: torch.device, counters: dict) -> list:
@@ -3958,6 +4179,8 @@ def main() -> int:
         phase_slice(tree, counters, {"ddim50": (ddim, PLAIN_STEP),
                                      "ddpm1000": (["task.test.sampler=ddpm"], PLAIN_STEP)}),
     ]
+    # the local CLIP and BERT towers, and the entries through them
+    phases += phase_text(tree, counters, dev)
     # training through the fused attention: dropout 0 and the switch on
     # route every layer's attention, forward and backward, to the kernels;
     # in float32 (the reference-parity dtype of configs/model/cmdm.yaml)

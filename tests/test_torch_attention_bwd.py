@@ -39,6 +39,7 @@ from jax.experimental.pallas import tpu as pltpu
 from afford_motion_tpu.models import layers as jlayers
 from afford_motion_torch.models import layers as tlayers
 from afford_motion_torch.ops.cuda import attention as tattn
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF16_ULP = 2.0 ** -7
 

@@ -256,7 +256,7 @@ def test_create_model_builds_the_published_cdm_and_refuses_the_rest(tmp_path):
         build_cdm(_cfg("model.arch=Perceiver"))
     from afford_motion_torch import prepare
     from afford_motion_torch.models.text import create_text_encoder
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         create_text_encoder("ViT-B/32", weights_dir=str(tmp_path))
     # prepare takes the MotionX sets: a tree without HUMANISE contacts is
     # refused for that, not for the set (tests/test_torch_motionx_store.py)

@@ -13,6 +13,7 @@ from afford_motion_tpu.utils.torch_convert import (
     convert_cmdm_checkpoint,
     convert_pointtransformer_seg,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 rng = np.random.default_rng(0)
 

@@ -49,6 +49,7 @@ from afford_motion_torch.train.device_store import DeviceStore, index_stream, ma
 from afford_motion_torch.train.loop import make_train_step
 from afford_motion_torch.train.state import TrainState
 from afford_motion_torch.utils.config import DictConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 N_POINTS, N_ITEMS = 128, 12

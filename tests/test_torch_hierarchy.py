@@ -28,6 +28,7 @@ from afford_motion_tpu.ops.pallas import knn as jknn
 from afford_motion_tpu.ops.pallas.fps import fps_pallas
 from afford_motion_torch.ops import hierarchy as th
 from afford_motion_torch.ops.curves import curve_order
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STRIDES, NSAMPLES = (1, 4, 4, 4), (8, 16, 16, 16)
 INDEX_FIELDS = ("knn_idx", "fps_idx", "down_knn_idx", "up_idx")

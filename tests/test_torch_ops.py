@@ -332,7 +332,7 @@ def test_port_imports_without_jax():
         "assert nc.shape == (3,) and bool(torch.isfinite(nc).all())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('afford_motion_tpu', 'h3d_eval', 'jax', 'jaxlib', 'flax', 'optax',\n"
-        "              'orbax'))\n"
+        "              'orbax', 'transformers', 'safetensors', 'regex', 'ftfy'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -226,7 +226,8 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv`` and a CDM's local CLIP weights.
+    not run some other way: ``fused_qkv``; a CDM's local CLIP directory
+    that holds no ``config.json`` raises, naming the file.
     Every dataset of the MotionX family builds. The CMDM's ``trans_dec``
     builds, with its U-Net and its decoder layers, and so does every CDM
     backbone, with the frozen scene model and without. ``use_banded``, a packed dataset tree under the training
@@ -262,7 +263,7 @@ def test_port_refuses_what_is_not_ported(tmp_path):
     assert len(dec.cross_attn_layers) == len(dec.self_attn_layers) - 1 == 4
 
     # stage 1: every CDM backbone, with the frozen scene model (the shipped
-    # default) and without; a local text encoder's weights are not ported
+    # default) and without; an empty local text-encoder directory raises
     from afford_motion_torch.models.cdm import CDM, build_cdm
     from afford_motion_torch.models.text import create_text_encoder
     from afford_motion_torch.eval import ContactEvaluator
@@ -279,7 +280,7 @@ def test_port_refuses_what_is_not_ported(tmp_path):
         scene = build_cdm(cdm_cfg(f"model.arch={arch}").model)
         assert scene.needs_seg_hierarchy and scene.scene_model.enc1[0].linear.in_features == 6
     (tmp_path / "clip").mkdir()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         create_text_encoder(cdm_cfg().model.text_model.version, weights_dir=str(tmp_path / "clip"))
     assert isinstance(create_evaluator(cdm_cfg().task, device="cpu"), ContactEvaluator)
 

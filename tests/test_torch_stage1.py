@@ -58,6 +58,7 @@ from afford_motion_torch.train.sampling import make_sample_fn, parity_noise
 from afford_motion_torch.utils.config import DictConfig, load_config
 from afford_motion_torch.utils.convert import cdm_state_dict_from_jax
 from test_torch_device_store import _cfg, _gens, _HashText, tree  # noqa: F401  (a fixture)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 N_POINTS = 64

@@ -59,6 +59,7 @@ from afford_motion_torch.utils.convert import (
     cmdm_jax_tree_from_state_dict,
     cmdm_state_dict_from_jax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N, L, D, TEXT = 4, 512, 24, 263, 32
 PLANES, BLOCKS, LAYERS = (16, 32, 64, 128), (2, 2, 2, 2), (1, 1)

@@ -56,6 +56,7 @@ from afford_motion_torch.utils.convert import (
 from test_torch_cmdm import _perturb_bn
 from test_torch_device_store import _cfg, _HashText, tree  # noqa: F401  (a fixture)
 from test_torch_train import _assert_trees_close, _compare_train_steps
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N, L, D, TEXT = 2, 1024, 24, 263, 64
 PLANES, BLOCKS, LAYERS = (16, 32, 64, 128), (2, 2, 2, 2), (1, 1, 1, 1, 1)
