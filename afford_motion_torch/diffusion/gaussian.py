@@ -238,6 +238,13 @@ class GaussianDiffusion:
         return torch.randn(tuple(shape), generator=generator, device=self.device,
                            dtype=torch.float32)
 
+    def randn_rows(self, shape, generator: Optional[torch.Generator],
+                    rows: Optional[slice]) -> torch.Tensor:
+        """A draw of the whole batch's ``shape``, and of it the ``rows`` one
+        process of a data-parallel chain computes (all of it for None)."""
+        draw = self._randn(shape, generator)
+        return draw if rows is None else draw[rows]
+
     def _timestep(self, idx: int, batch: int) -> torch.Tensor:
         return torch.full((batch,), idx, dtype=torch.long, device=self.device)
 
@@ -255,23 +262,30 @@ class GaussianDiffusion:
                       generator: Optional[torch.Generator] = None,
                       noise: Optional[torch.Tensor] = None,
                       noise_seq: Optional[torch.Tensor] = None,
-                      clip_denoised: bool = True) -> torch.Tensor:
+                      clip_denoised: bool = True, rows: Optional[slice] = None) -> torch.Tensor:
         """Ancestral DDPM chain t = T-1..0. ``noise_seq`` (T, *shape) replaces
         the per-step draws in chain order (the parity hook of
-        ``train/sampling.py parity_noise``)."""
-        x = noise if noise is not None else self._randn(shape, generator)
+        ``train/sampling.py parity_noise``). ``rows``: the chain runs these
+        rows of a batch of ``shape``, every draw made for the whole batch
+        (a data-parallel chain); ``noise`` and ``noise_seq`` hold these rows
+        only."""
+        x = noise if noise is not None else self.randn_rows(shape, generator, rows)
         for step, idx in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            if noise_seq is not None:
+                step_noise = noise_seq[step]
+            else:
+                step_noise = None if rows is None else self.randn_rows(shape, generator, rows)
             out = self.p_sample(
-                model_fn, x, self._timestep(idx, shape[0]), generator=generator,
-                clip_denoised=clip_denoised,
-                noise=None if noise_seq is None else noise_seq[step],
+                model_fn, x, self._timestep(idx, x.shape[0]), generator=generator,
+                clip_denoised=clip_denoised, noise=step_noise,
             )
             x = out["sample"]
         return x
 
     def ddim_sample(self, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None, clip_denoised: bool = True,
-                    eta: float = 0.0) -> Dict[str, torch.Tensor]:
+                    eta: float = 0.0,
+                    noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         out = self.p_mean_variance(model_fn, x, t, clip_denoised=clip_denoised)
         nd = x.ndim
         eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
@@ -284,7 +298,8 @@ class GaussianDiffusion:
         alpha_bar = _extract(self.alphas_cumprod, t, nd)
         sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
                  * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
-        noise = self._randn(x.shape, generator)
+        if noise is None:
+            noise = self._randn(x.shape, generator)
         mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
                      + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
         nonzero_mask = (t != 0).to(x.dtype).reshape(-1, *([1] * (nd - 1)))
@@ -294,12 +309,15 @@ class GaussianDiffusion:
     def ddim_sample_loop(self, model_fn: ModelFn, shape: Sequence[int], *,
                          generator: Optional[torch.Generator] = None,
                          noise: Optional[torch.Tensor] = None, clip_denoised: bool = True,
-                         eta: float = 0.0) -> torch.Tensor:
-        x = noise if noise is not None else self._randn(shape, generator)
+                         eta: float = 0.0, rows: Optional[slice] = None) -> torch.Tensor:
+        """DDIM chain; ``rows`` as in :meth:`p_sample_loop`."""
+        x = noise if noise is not None else self.randn_rows(shape, generator, rows)
         for idx in range(self.num_timesteps - 1, -1, -1):
-            x = self.ddim_sample(model_fn, x, self._timestep(idx, shape[0]),
+            step_noise = (self.randn_rows(shape, generator, rows)
+                          if rows is not None and eta != 0.0 else None)
+            x = self.ddim_sample(model_fn, x, self._timestep(idx, x.shape[0]),
                                  generator=generator, clip_denoised=clip_denoised,
-                                 eta=eta)["sample"]
+                                 eta=eta, noise=step_noise)["sample"]
         return x
 
 

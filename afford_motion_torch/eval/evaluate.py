@@ -65,6 +65,11 @@ class Eval:
     def evaluate(self, sample_list, k_samples_list, save_dir, dataloader, **kwargs):
         pass
 
+    def assist(self, sample_list, k_samples_list, dataloader) -> None:
+        """What a rank other than 0 of a data-parallel test runs while rank 0
+        runs :meth:`evaluate`: its share of the collective steps, on the same
+        samples. Writes nothing."""
+
     def report(self, save_dir: str) -> None:
         """metrics.txt + metrics.json, byte for byte the JAX package's."""
         path = os.path.join(save_dir, "metrics.txt")
@@ -248,6 +253,19 @@ class Text2MotionInSceneEvaluator(Eval):
                 joints[a: a + self.fit_batch], masks[a: a + self.fit_batch]))
         return np.concatenate(out, axis=0)
 
+    def _fits(self, sample_list) -> bool:
+        """Whether :meth:`evaluate` fits SMPL-X to ``sample_list``: the same
+        answer on every rank, whose fit is one sharded call."""
+        wants_physics = any(
+            m in self.eval_metrics for m in ("dist", "non_collision", "contact"))
+        return self._fitter is not None and bool(sample_list) and (
+            wants_physics or self.save_results)
+
+    def assist(self, sample_list, k_samples_list, dataloader) -> None:
+        """The sharded SMPL-X fit, beside rank 0's :meth:`evaluate`."""
+        if self._fits(sample_list):
+            self._fit_all(sample_list, dataloader)
+
     def evaluate(self, sample_list, k_samples_list, save_dir, dataloader, **kwargs):
         self.timing = {}
         for item in sample_list:
@@ -256,7 +274,7 @@ class Text2MotionInSceneEvaluator(Eval):
 
         wants_physics = any(
             m in self.eval_metrics for m in ("dist", "non_collision", "contact"))
-        if self._fitter is not None and sample_list and (wants_physics or self.save_results):
+        if self._fits(sample_list):
             self._fit_cache = self._timed("fit_s", self._fit_all, sample_list, dataloader)
 
         if wants_physics and self._fitter is not None:

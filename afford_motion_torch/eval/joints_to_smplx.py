@@ -9,6 +9,13 @@ parameter names (``utils/joints_to_smplx/060.pt`` loads with
 ``strict=True``); natively trained weights come as an ``.npz`` in the JAX
 package's flat-key layout and cross through ``utils/convert.py``. The body
 model is the LBS of ``smplx_lbs.py``.
+
+In a data-parallel run (``parallel.current()``) :meth:`JointsToSMPLXFitter.fit`
+splits the rows over the ranks (the JAX package's fit shards them over the
+mesh): each rank regresses and refines its share, both loss denominators
+count the valid frames of the whole batch, all-reduced once before the Adam
+steps, so that each row's gradient is the one-process fit's, and the results
+are gathered.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from torch import nn
 
 from ..models.layers import Linear, PositionalEncoding, TransformerEncoder
+from ..parallel.mesh import current
 from ..utils.convert import regressor_state_dict_from_jax
 from ..utils.device import resolve_device
 from .smplx_lbs import SMPLXModel, params_to_joints, params_to_verts_joints
@@ -88,30 +96,41 @@ def make_refine_fn(model: SMPLXModel, lr: float, steps: int) -> Callable:
     smooth_start = int(0.6 * steps)
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def loss_fn(params, joints, valid, use_smooth: bool):
+    def acc_valid_of(valid):
+        return valid[:, 2:] * valid[:, 1:-1] * valid[:, :-2]
+
+    def loss_fn(params, joints, valid, use_smooth: bool, denominators):
         B, L, _ = params.shape
         j = params_to_joints(model, params.reshape(B * L, PARAM_DIM)).reshape(B, L, NJOINTS * 3)
         # masked mean over (valid frames, joints, 3)
-        loss = torch.sum(((j - joints) ** 2) * valid) / torch.clamp_min(
-            torch.sum(valid) * (NJOINTS * 3), 1.0)
+        loss = torch.sum(((j - joints) ** 2) * valid) / denominators[0]
         if use_smooth:
             vel = params[:, 1:] - params[:, :-1]
             acc = vel[:, 1:] - vel[:, :-1]
-            acc_valid = valid[:, 2:] * valid[:, 1:-1] * valid[:, :-2]
-            sl = torch.sum((acc ** 2) * acc_valid) / torch.clamp_min(
-                torch.sum(acc_valid) * PARAM_DIM, 1.0)
+            sl = torch.sum((acc ** 2) * acc_valid_of(valid)) / denominators[1]
             loss = loss + 0.1 * sl
         return loss
 
-    def refine(init_params: torch.Tensor, joints: torch.Tensor, x_mask: torch.Tensor):
-        """init_params (B, L, 69), joints (B, L, 66), x_mask (B, L) True = pad."""
+    def refine(init_params: torch.Tensor, joints: torch.Tensor, x_mask: torch.Tensor,
+               dp=None):
+        """init_params (B, L, 69), joints (B, L, 66), x_mask (B, L) True = pad.
+        ``dp``: these are one rank's rows of a data-parallel fit, whose
+        denominators are summed over the ranks."""
         valid = (~x_mask).to(torch.float32)[..., None]
+        counts = torch.stack([torch.sum(valid), torch.sum(acc_valid_of(valid))])
+        if dp is not None:
+            counts = dp.all_reduce(counts)
+        denominators = (torch.clamp_min(counts[0] * (NJOINTS * 3), 1.0),
+                        torch.clamp_min(counts[1] * PARAM_DIM, 1.0))
         params = init_params.detach().clone()
+        if params.shape[0] == 0:
+            return params
         mu, nu = torch.zeros_like(params), torch.zeros_like(params)
         for i in range(steps):
             p = params.requires_grad_(True)
             with torch.enable_grad():
-                g, = torch.autograd.grad(loss_fn(p, joints, valid, i >= smooth_start), p)
+                g, = torch.autograd.grad(
+                    loss_fn(p, joints, valid, i >= smooth_start, denominators), p)
             with torch.no_grad():
                 mu = b1 * mu + (1.0 - b1) * g
                 nu = b2 * nu + (1.0 - b2) * (g * g)
@@ -147,12 +166,24 @@ class JointsToSMPLXFitter:
         return self.body_model.faces
 
     def fit(self, joints: np.ndarray, x_mask: np.ndarray) -> np.ndarray:
-        """(B, L, 66) + (B, L) -> refined params (B, L, 69)."""
-        joints_t = torch.as_tensor(np.asarray(joints, dtype=np.float32), device=self.device)
-        mask_t = torch.as_tensor(np.asarray(x_mask, dtype=bool), device=self.device)
-        with torch.no_grad():
-            pred = self.regressor(joints_t, mask_t)
-        return self._refine(pred, joints_t, mask_t).cpu().numpy()
+        """(B, L, 66) + (B, L) -> refined params (B, L, 69); in a
+        data-parallel run each rank fits its share of the rows (every rank
+        calls with the same batch) and every rank returns all of them."""
+        dp = current()
+        dp = dp if dp is not None and dp.world > 1 else None
+        rows = dp.chunk(len(joints)) if dp is not None else slice(0, len(joints))
+        joints_t = torch.as_tensor(np.asarray(joints, dtype=np.float32)[rows],
+                                   device=self.device)
+        mask_t = torch.as_tensor(np.asarray(x_mask, dtype=bool)[rows], device=self.device)
+        if joints_t.shape[0] == 0:
+            pred = joints_t.new_zeros(joints_t.shape[:2] + (PARAM_DIM,))
+        else:
+            with torch.no_grad():
+                pred = self.regressor(joints_t, mask_t)
+        out = self._refine(pred, joints_t, mask_t, dp).cpu().numpy()
+        if dp is None:
+            return out
+        return np.concatenate(dp.gather_objects(out), axis=0)
 
     def vertices(self, params: np.ndarray) -> np.ndarray:
         """Fitted params (L, 69) -> body vertices (L, V, 3) (one sequence per

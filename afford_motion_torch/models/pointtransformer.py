@@ -25,6 +25,7 @@ from torch import nn
 from ..ops.cuda import banded as banded_ops
 from ..ops.cuda.gather import gather_rows
 from ..ops.hierarchy import LevelGeometry
+from ..parallel.mesh import current
 from ..utils.convert import load_torch_state_dict
 from .layers import LayerNorm, Linear
 
@@ -57,7 +58,15 @@ class PointNorm(nn.BatchNorm1d):
     run over all other axes, the variance is flax's ``max(E[x^2] - E[x]^2,
     0)`` and it is the biased one both for normalising and for the running
     update ``ra = 0.9 * ra + 0.1 * batch`` (torch's own BatchNorm would store
-    the unbiased variance)."""
+    the unbiased variance).
+
+    In a data-parallel run of more than one process (``parallel.current()``)
+    the train-mode statistics are the global batch's, as under the JAX
+    package's mesh (``afford_motion_tpu/parallel/mesh.py``): the count, the
+    sum and the sum of squares are summed over the ranks in float32, so the
+    running statistics agree on every rank; at world 1 and without a group
+    the code is the one-process code. The count is exact in float32 up to
+    2^24 rows a call."""
 
     FLAX_MOMENTUM = 0.9
 
@@ -71,8 +80,19 @@ class PointNorm(nn.BatchNorm1d):
             y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.reshape(x.shape).to(self.compute_dtype)
-        mean = xf.mean(dim=0)
-        var = ((xf * xf).mean(dim=0) - mean * mean).clamp_min(0.0)
+        dp = current()
+        if dp is None or dp.world == 1:
+            mean = xf.mean(dim=0)
+            var = ((xf * xf).mean(dim=0) - mean * mean).clamp_min(0.0)
+        else:
+            # the global batch's statistics (SyncBN): one autograd-aware
+            # all-reduce of (sum x, sum x^2, count), so that the backward
+            # carries the global statistics' gradient to every rank too
+            c = xf.shape[1]
+            stats = dp.all_reduce_autograd(torch.cat(
+                [xf.sum(dim=0), (xf * xf).sum(dim=0), xf.new_full((1,), xf.shape[0])]))
+            mean = stats[:c] / stats[2 * c]
+            var = (stats[c:2 * c] / stats[2 * c] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             keep = self.FLAX_MOMENTUM
             self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)

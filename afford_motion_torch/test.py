@@ -15,6 +15,15 @@ and their case ids) and ``timing.json`` to ``<eval_dir>/test-<ts>/``.
 It runs on ``cuda:<gpu>`` unless the caller names another device (the
 ``device=cpu`` override, or ``main(argv, device=...)``), and raises when the
 card is asked for and absent.
+
+Under ``torchrun`` (``torchrun --nproc_per_node <cards> -m
+afford_motion_torch.test ...``), or inside an open ``parallel.session``, the
+chain is sharded as the root ``test.py`` shards it over the mesh: each rank
+samples a contiguous share of every batch (shares may be unequal or empty),
+every draw made for the whole batch and sliced, so that a row comes out as
+in one process; the samples are all-gathered, rank 0 alone writes and runs
+the evaluator, and the other ranks take part in its collective steps (the
+scene evaluator's sharded SMPL-X fit, ``Eval.assist``).
 """
 from __future__ import annotations
 
@@ -32,7 +41,9 @@ from .eval import create_evaluator
 from .models.base import create_model_and_diffusion
 from .models.conditioning import cond_to_device, host_prepare_cond
 from .models.text import create_text_encoder
+from .parallel import current, launched, session
 from .train.checkpoint import latest_ckpt, load_ckpt
+from .train.loop import take_rows
 from .train.sampling import make_sample_fn, parity_noise
 from .utils.config import DictConfig, load_config
 from .utils.device import resolve_device
@@ -43,10 +54,15 @@ logger = get_logger()
 
 
 def test(cfg: DictConfig, device: torch.device) -> str:
-    """Generate for the test split; returns the output directory."""
+    """Generate for the test split; returns the output directory (rank 0's,
+    on every rank of a data-parallel run)."""
+    dp = current()
     test_dir = os.path.join(cfg.eval_dir, "test-" + time_str())
-    mkdir_if_not_exists(test_dir)
-    add_file_handler(os.path.join(test_dir, "test.log"))
+    if dp is not None:
+        test_dir = dp.broadcast_object(test_dir)
+    if dp is None or dp.rank == 0:
+        mkdir_if_not_exists(test_dir)
+        add_file_handler(os.path.join(test_dir, "test.log"))
     logger.info(f"[Test] ==> Begin testing on {device}..")
     timing: dict = {"device": str(device), "batches_s": [], "chains": []}
     if device.type == "cuda":
@@ -104,24 +120,33 @@ def test(cfg: DictConfig, device: torch.device) -> str:
         t_batch = time.monotonic()
         use_k = i in k_batches
         logger.info(f"batch {i}, k_sample={use_k}, cases={data['info_index']}")
-        x, cond = host_prepare_cond(data, text_encoder)
-        cond = cond_to_device(cond, device)
-        shape = tuple(x.shape)
+        shape = tuple(np.shape(data["x"]))
+        rows = dp.chunk(shape[0]) if dp is not None else None
+        cond = {}
+        if rows is None or rows.stop > rows.start:  # an empty share runs no model
+            _, cond = host_prepare_cond(data if rows is None else take_rows(
+                data, np.arange(rows.start, rows.stop)), text_encoder)
+            cond = cond_to_device(cond, device)
         per_k = []
         for k in range(k_samples if use_k else 1):
             cond_k = dict(cond)
-            if is_cmdm and cond_k["c_pc_contact"].ndim == 4:
+            if is_cmdm and "c_pc_contact" in cond_k and cond_k["c_pc_contact"].ndim == 4:
                 cond_k["c_pc_contact"] = cond_k["c_pc_contact"][:, k]
             noise = noise_seq = None
             if noise_seed is not None:
                 init_n, seq_n = parity_noise(noise_seed, chain_idx, shape,
                                              diffusion.num_timesteps)
-                noise = torch.from_numpy(init_n).to(device)
-                noise_seq = torch.from_numpy(seq_n).to(device)
+                if rows is not None:
+                    init_n, seq_n = init_n[rows], seq_n[:, rows]
+                noise = torch.from_numpy(np.ascontiguousarray(init_n)).to(device)
+                noise_seq = torch.from_numpy(np.ascontiguousarray(seq_n)).to(device)
             chain = {"steps": diffusion.num_timesteps}
             t_chain = time.monotonic()
-            x0 = sample_fn(shape, cond_k, generator, noise, noise_seq, timing=chain)
-            per_k.append(x0.cpu().numpy())
+            x0 = sample_fn(shape, cond_k, generator, noise, noise_seq, timing=chain,
+                           rows=rows).cpu().numpy()
+            if dp is not None:  # the ranks' shares, in row order, on every rank
+                x0 = np.concatenate(dp.gather_objects(x0), axis=0)
+            per_k.append(x0)
             chain["chain_s"] = time.monotonic() - t_chain
             timing["chains"].append(chain)
             chain_idx += 1
@@ -137,6 +162,10 @@ def test(cfg: DictConfig, device: torch.device) -> str:
 
     timing["generation_loop_s"] = time.monotonic() - t_loop
     timing["n_motions"] = len(timing["chains"]) * B
+    if dp is not None and dp.rank != 0:
+        evaluator.assist(sample_list, k_samples_list, test_dataloader)
+        dp.barrier()  # returns once rank 0 has written the directory
+        return test_dir
     out = {"sample": np.stack([s["sample"] for s in sample_list])}
     for key in ("x_mask", "info_index", "info_caption_index", "info_set", "c_text"):
         if sample_list and key in sample_list[0]:
@@ -158,6 +187,8 @@ def test(cfg: DictConfig, device: torch.device) -> str:
     logger.info(f"[Test] {timing['n_motions']} motions in "
                 f"{timing['generation_loop_s']:.2f}s, evaluator {timing['evaluator_s']:.2f}s; "
                 f"results in {test_dir}")
+    if dp is not None:
+        dp.barrier()
     return test_dir
 
 
@@ -170,7 +201,11 @@ def main(argv=None, device=None) -> str:
     # f32 stays f32 on the card: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return test(cfg, resolve_device(cfg, device))
+    dev = resolve_device(cfg, device)
+    if launched() and current() is None:
+        with session(dev):
+            return test(cfg, dev)
+    return test(cfg, dev)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 torch state_dict, the natsort-latest one is loaded for testing. What a
 resumed training run needs besides (optimizer moments, step count, the
 schedule sampler's history) goes into ``train_state{step:06d}.pt`` beside
-it."""
+it. In a data-parallel run rank 0 alone writes (every rank holds the same
+state); every rank loads, onto its own device."""
 from __future__ import annotations
 
 import glob
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import is_main
 from ..utils.convert import load_torch_state_dict
 from ..utils.misc import natsorted
 
@@ -25,10 +27,12 @@ def latest_ckpt(ckpt_dir: str) -> Optional[str]:
 
 
 def save_ckpt(model: nn.Module, ckpt_dir: str, step: int) -> str:
-    """Write the model's state_dict as ``model{step:06d}.pt``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write the model's state_dict as ``model{step:06d}.pt`` (rank 0 of a
+    data-parallel run; the others return the path only)."""
     path = os.path.join(ckpt_dir, f"model{step:06d}.pt")
-    torch.save(model.state_dict(), path)
+    if is_main():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save(model.state_dict(), path)
     return path
 
 
@@ -51,9 +55,10 @@ def save_train_state(state, ckpt_dir: str) -> str:
     :class:`~afford_motion_torch.train.state.TrainState`); returns the model
     file's path."""
     path = save_ckpt(state.model, ckpt_dir, state.step)
-    torch.save({"step": int(state.step),
-                "optimizer": state.optimizer.state_dict(),
-                "sampler_state": state.sampler_state}, _train_state_path(path))
+    if is_main():
+        torch.save({"step": int(state.step),
+                    "optimizer": state.optimizer.state_dict(),
+                    "sampler_state": state.sampler_state}, _train_state_path(path))
     return path
 
 

@@ -48,11 +48,12 @@ from __future__ import annotations
 import os
 import random
 import warnings
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import from_bits, to_bits
 from ..utils.io import get_logger
 
 logger = get_logger()
@@ -82,6 +83,13 @@ _FLAG_TRANSFORMS = {
 
 # scenes a hierarchy build of the geometry cache takes at once
 GEOMETRY_CHUNK = 64
+
+# arrays of at most this many bytes stay replicated when the store shards
+# its rows over the ranks, as in the JAX store (``shard_over_mesh``); the
+# item -> scene table stays replicated at any size, since it addresses the
+# scene arrays
+SHARD_MIN_BYTES = 1 << 20
+REPLICATED = ("scene_row",)
 
 # the MotionX train chains the stores replay: the rotation (stage 2 moves
 # points and motion, stage 1 points only) or nothing
@@ -131,11 +139,20 @@ def _to_device(v, device: torch.device) -> torch.Tensor:
 
 class DeviceStore:
     """The corpus's arrays (host numpy until :meth:`ensure_device`) and what
-    the host needs to draw batches from it (``meta``)."""
+    the host needs to draw batches from it (``meta``).
+
+    In a data-parallel run (``dp``, a :class:`~..parallel.mesh.DataParallel`)
+    every rank holds the index batch of the global batch and :meth:`fetch`
+    returns this rank's rows of ``arrays[key][rows]``: from a replicated
+    array by a local gather, from one :meth:`shard_rows` split over the
+    ranks by the owners' gathers and a sum-reduce-scatter. ``sharded`` maps
+    each split array to (the rows a rank holds, the rows of the whole)."""
 
     def __init__(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
         self.arrays = arrays
         self.meta = meta
+        self.dp = None
+        self.sharded: Dict[str, Tuple[int, int]] = {}
 
     def ensure_device(self, device="cuda") -> None:
         """Upload every array still on the host to ``device`` (the card
@@ -148,25 +165,89 @@ class DeviceStore:
             torch.cuda.synchronize(dev)
 
     def nbytes(self) -> int:
+        """Bytes this process holds (its shard of a sharded array)."""
         return sum(int(np.prod(v.shape)) * v.dtype.itemsize if isinstance(v, np.ndarray)
                    else v.numel() * v.element_size() for v in self.arrays.values())
 
+    def shard_rows(self, dp, min_bytes: Optional[int] = None) -> None:
+        """Split the corpus's rows over the ranks of ``dp`` (counterpart of
+        the JAX store's ``shard_over_mesh``), before the upload: an array of
+        more than ``min_bytes`` is padded with zero rows to a multiple of the
+        world and each rank keeps rows ``[r n, (r + 1) n)`` of it, host-staged,
+        so that the whole corpus never passes through one card; smaller ones,
+        and the item -> scene table that addresses other arrays, stay
+        replicated. The pad rows are never addressed: every index comes from
+        the real item and scene tables. :meth:`add_geometry_cache` then
+        computes the cache of this rank's scenes only. ``min_bytes``
+        defaults to ``SHARD_MIN_BYTES``."""
+        min_bytes = SHARD_MIN_BYTES if min_bytes is None else min_bytes
+        self.dp = dp
+        W, r = dp.world, dp.rank
+        for k, v in list(self.arrays.items()):
+            if W == 1 or k in REPLICATED or v.ndim == 0 or v.nbytes <= min_bytes:
+                continue
+            n = -(-v.shape[0] // W)
+            local = np.zeros((n,) + v.shape[1:], v.dtype)
+            real = v[r * n:min((r + 1) * n, v.shape[0])]
+            local[:real.shape[0]] = real
+            self.arrays[k] = local
+            self.sharded[k] = (n, v.shape[0])
+        if self.sharded:
+            logger.info(f"device store: {len(self.sharded)} arrays sharded over {W} ranks, "
+                        f"{self.nbytes() / 1e9:.3f}GB on this rank")
+
+    def local_block(self, key: str, n_rows: int) -> np.ndarray:
+        """The rows of host array ``key`` that this rank owns when an array of
+        ``n_rows`` rows is split over the ranks: its own shard, or the same
+        range of a replicated array, the pad rows left out."""
+        n = -(-n_rows // self.dp.world)
+        lo = self.dp.rank * n
+        v = self.arrays[key]
+        if key in self.sharded:
+            return v[:max(0, min(n, n_rows - lo))]
+        return v[lo:min(lo + n, n_rows)]
+
     def fetch(self, key: str, rows: torch.Tensor) -> torch.Tensor:
-        """``arrays[key][rows]`` on the store's device."""
+        """This process's rows of ``arrays[key][rows]`` on the store's
+        device, ``rows`` the index list of the global batch: all of it
+        without a group. A sharded array: each rank gathers the rows it owns
+        for the whole list and zeros elsewhere, as integers of the rows'
+        bits, and a sum-reduce-scatter hands each rank its slice. One owner
+        a row, so the result is the replicated fetch's bit for bit."""
+        A = self.arrays[key]
+        if self.dp is None:
+            return A.index_select(0, rows)
+        if key not in self.sharded:
+            return A.index_select(0, rows[self.dp.local_rows(rows.shape[0])])
+        n = self.sharded[key][0]
+        local = rows.long() - self.dp.rank * n
+        owned = (local >= 0) & (local < n)
+        picked = to_bits(A.index_select(0, local.clamp(0, n - 1)))
+        picked = torch.where(owned.reshape((-1,) + (1,) * (picked.ndim - 1)), picked,
+                             torch.zeros((), dtype=picked.dtype, device=picked.device))
+        return from_bits(self.dp.reduce_scatter_rows(picked), A.dtype)
+
+    def lookup(self, key: str, rows: torch.Tensor) -> torch.Tensor:
+        """``arrays[key][rows]`` whole, for a replicated table that addresses
+        other arrays (the item -> scene rows)."""
+        if key in self.sharded:
+            raise KeyError(f"{key} is sharded; lookup reads replicated tables only")
         return self.arrays[key].index_select(0, rows)
 
     # -------------------------------------------------------------- build
     @classmethod
-    def try_build(cls, dataset) -> Optional["DeviceStore"]:
+    def try_build(cls, dataset, max_bytes: Optional[int] = None) -> Optional["DeviceStore"]:
         """The store of ``dataset`` (by its exact class: the sample-mode
         subclasses do not match), or None where the requirements do not
-        hold; the caller then takes the host pipeline."""
+        hold or the corpus exceeds ``max_bytes`` (default: one card's
+        budget); the caller then takes the host pipeline."""
         builders = {"ContactMotionHumanML3DDataset": cls._try_build_h3d,
                     "ContactMotionDataset": cls._try_build_motionx,
                     "ContactHumanML3DDataset": cls._try_build_h3d_contact,
                     "ContactMapDataset": cls._try_build_motionx_contact}
         build = builders.get(type(dataset).__name__)
-        return build(dataset, max_bytes_from_env()) if build else None
+        budget = max_bytes_from_env() if max_bytes is None else max_bytes
+        return build(dataset, budget) if build else None
 
     @staticmethod
     def _common_gate(dataset, allowed_transforms) -> bool:
@@ -431,31 +512,42 @@ class DeviceStore:
         knobs = dict(banded=bool(model.use_banded),
                      knn_method="exact" if model.knn_exact else None,
                      window=int(model.banded_window or 0), adaptive=model.banded_adaptive)
-        xyz = self.arrays["xyz16"]
-        n_sc = xyz.shape[0]
+        # a sharded cloud array: the cache of this rank's scenes, sharded
+        # with them (pad rows zero, never addressed)
+        shard = "xyz16" in self.sharded
+        n_sc = self.sharded["xyz16"][1] if shard else self.arrays["xyz16"].shape[0]
+        xyz = self.local_block("xyz16", n_sc) if shard else self.arrays["xyz16"]
 
         outs: Dict[str, list] = {}
         with torch.no_grad():
             for prefix, strides, nsamples, with_up in specs:
                 fps_keys = [k for k in self.arrays
                             if k.startswith(prefix) and k.endswith("_fps_idx")]
-                for a in range(0, n_sc, GEOMETRY_CHUNK):
-                    b = min(a + GEOMETRY_CHUNK, n_sc)
-                    fps = {k: _to_device(self.arrays[k][a:b], dev) for k in fps_keys}
+                fps_host = {k: self.local_block(k, n_sc) if shard else self.arrays[k]
+                            for k in fps_keys}
+                for a in range(0, xyz.shape[0], GEOMETRY_CHUNK):
+                    b = min(a + GEOMETRY_CHUNK, xyz.shape[0])
+                    fps = {k: _to_device(v[a:b], dev) for k, v in fps_host.items()}
                     levels = build_point_hierarchy_from_fps(
                         _to_device(xyz[a:b], dev).float(), fps, strides, nsamples,
                         prefix=prefix, with_up=with_up, **knobs)
                     for k, v in geometry_to_arrays(levels, prefix=prefix).items():
                         if k.endswith("_fps_idx"):
                             continue  # stored already: the wire itself
-                        arr = v.cpu().numpy()
-                        if k.endswith("_idx"):
-                            n_parent = int(arr.max(initial=0)) + 1
-                            arr = arr.astype(np.int16 if n_parent < (1 << 15) else np.int32)
-                        outs.setdefault(k, []).append(arr)
+                        outs.setdefault(k, []).append(v.cpu().numpy())
         new_host = {k: np.concatenate(parts, axis=0) for k, parts in outs.items()}
         if not new_host:
             return False
+        # index fields as int16 below 2^15 parents, the same type on every rank
+        top = {k: int(v.max(initial=0)) for k, v in new_host.items() if k.endswith("_idx")}
+        if shard:
+            top = {k: max(t[k] for t in self.dp.gather_objects(top)) for k in top}
+        for k, t in top.items():
+            new_host[k] = new_host[k].astype(np.int16 if t + 1 < (1 << 15) else np.int32)
+        if shard:  # pad to the rows a rank holds
+            n = self.sharded["xyz16"][0]
+            for k, v in new_host.items():
+                new_host[k] = np.concatenate([v, np.zeros((n - len(v),) + v.shape[1:], v.dtype)])
 
         # partial caching under the budget, deepest levels first: at the
         # real corpus's scale the full cache may not fit beside the corpus;
@@ -488,11 +580,14 @@ class DeviceStore:
                     + (f"; {dropped} shallow-level fields rebuilt in-step (budget)"
                        if dropped else ""))
         self.arrays.update(kept)
+        if shard:
+            self.sharded.update({k: self.sharded["xyz16"] for k in kept})
         return True
 
     # ---------------------------------------------------------- host side
     def draw_batch(self, dataset, item_ids, py_rng: random.Random,
-                   np_rng: np.random.RandomState) -> Dict[str, Any]:
+                   np_rng: np.random.RandomState,
+                   own: Optional[np.ndarray] = None) -> Dict[str, Any]:
         """The host's random choices for a batch of dataset item ids, with
         the dataset's ``__getitem__`` semantics and generator order: per
         item the caption and the crop start from ``py_rng``, then one
@@ -500,9 +595,15 @@ class DeviceStore:
         the flag chain; for the MotionX sets the caption from ``py_rng``,
         then from ``np_rng`` the mix draw (stage 2) and the rotation angle.
         Explicit generators keep the stream a function of the caller's seed
-        whatever other threads draw."""
+        whatever other threads draw. ``own`` (positions in ``item_ids``): the
+        rows this process keeps; every draw is made for every row, but a
+        mix file is read for these rows only (the others' stay zero)."""
+        loads = np.ones((len(item_ids),), bool)
+        if own is not None:
+            loads[:] = False
+            loads[own] = True
         if self.meta["kind"] == "motionx":
-            return self._draw_batch_motionx(dataset, item_ids, py_rng, np_rng)
+            return self._draw_batch_motionx(dataset, item_ids, py_rng, np_rng, loads)
         if self.meta["kind"] == "h3d_contact":
             return self._draw_batch_contact(dataset, item_ids, py_rng)
         if self.meta["kind"] == "motionx_contact":
@@ -534,7 +635,9 @@ class DeviceStore:
                 if cands:
                     from .. import native as nio
 
-                    mix_contact[j] = nio.load(npr.choice(cands)).squeeze(0).astype(np.float16)
+                    path = npr.choice(cands)
+                    if loads[j]:
+                        mix_contact[j] = nio.load(path).squeeze(0).astype(np.float16)
                     mix_mask[j] = True
             _draw_flags(chain, j, captions, flags, npr)
         out = {
@@ -560,7 +663,8 @@ class DeviceStore:
         return {"item_row": rows, "c_text": captions}
 
     def _draw_batch_motionx(self, dataset, item_ids, py_rng: random.Random,
-                            np_rng: np.random.RandomState) -> Dict[str, Any]:
+                            np_rng: np.random.RandomState,
+                            loads: np.ndarray) -> Dict[str, Any]:
         """Stage 2 over the MotionX sets. Per item: the caption from
         ``py_rng``; from ``np_rng`` the mix draw (``_load_contact``), where
         it hits, the item's ``pred_contact`` file, if there is one, as its
@@ -586,7 +690,8 @@ class DeviceStore:
                 if os.path.exists(f):
                     from .. import native as nio
 
-                    mix_contact[j] = nio.load(f).squeeze(0).astype(np.float16)
+                    if loads[j]:
+                        mix_contact[j] = nio.load(f).squeeze(0).astype(np.float16)
                     mix_mask[j] = True
             if angle is not None:
                 angle[j] = np_rng.uniform(-1.0, 1.0) * np.pi
@@ -694,8 +799,8 @@ def make_assemble_fn(store: DeviceStore, device="cuda"):
     L_max, D = A["motion16"].shape[1:]
 
     def assemble(batch: Dict[str, torch.Tensor]):
-        rows = batch["item_row"]
-        s_rows = store.fetch("scene_row", rows)
+        rows = batch["item_row"]  # the global batch's; every other field this rank's
+        s_rows = store.lookup("scene_row", rows)
         src = batch["crop_start"][:, None] + t_idx[None]             # (B, H)
         valid = t_idx[None] < batch["crop_len"][:, None]              # (B, H)
         motions = store.fetch("motion16", rows)                       # (B, L_max, D)
@@ -762,8 +867,8 @@ def _make_assemble_motionx(store: DeviceStore):
 
     def assemble(batch: Dict[str, torch.Tensor]):
         rows = batch["item_row"]
-        B = rows.shape[0]
         motion = store.fetch("motion32", rows)
+        B = motion.shape[0]
         motion = (torch.nn.functional.pad(motion, (0, 0, 0, H - L_max)) if L_max < H
                   else motion[:, :H])
         valid = t_idx[None] < store.fetch("length", rows)[:, None]          # (B, H)
@@ -813,7 +918,7 @@ def _make_assemble_contact(store: DeviceStore):
     std = torch.as_tensor(store.meta["std"], device=dev)
 
     def assemble(batch: Dict[str, torch.Tensor]):
-        s_rows = store.fetch("scene_row", batch["item_row"])
+        s_rows = store.lookup("scene_row", batch["item_row"])
         contact = store.fetch("dist32", s_rows)
         if not use_raw:
             contact = torch.exp(-0.5 * (contact * contact) / sigma2)

@@ -23,6 +23,7 @@ import torch
 from ..data import create_dataset
 from ..models.base import create_model_and_diffusion
 from ..models.text import create_text_encoder
+from ..parallel.mesh import is_main
 from ..utils.config import DictConfig, load_config, save_config
 from ..utils.device import resolve_device
 from ..utils.io import Board, add_file_handler, get_logger, mkdir_if_not_exists
@@ -68,23 +69,29 @@ def train(cfg: DictConfig, device: torch.device) -> Dict[str, Any]:
 
 def main(argv=None, device=None) -> Dict[str, Any]:
     cfg = load_config("configs", argv if argv is not None else sys.argv[1:])
+    return run(cfg, resolve_device(cfg, device))
+
+
+def run(cfg: DictConfig, dev: torch.device) -> Dict[str, Any]:
+    """The entry after its configuration and device: seeds, TF32 off, the
+    experiment's directories, config, log and board (rank 0 of a
+    data-parallel run writes them), then :func:`train`."""
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
     cfg.model.input_feats = compute_repr_dimension(cfg.model.data_repr)
     # f32 stays f32 on the card: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = resolve_device(cfg, device)
 
     mkdir_if_not_exists(cfg.log_dir)
     mkdir_if_not_exists(cfg.ckpt_dir)
     mkdir_if_not_exists(cfg.eval_dir)
-    add_file_handler(os.path.join(cfg.log_dir, "runtime.log"))
-    save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))
-    Board().create_board(cfg.platform, log_dir=cfg.log_dir)
+    if is_main():
+        add_file_handler(os.path.join(cfg.log_dir, "runtime.log"))
+        save_config(cfg, os.path.join(cfg.exp_dir, "config.yaml"))
+        Board().create_board(cfg.platform, log_dir=cfg.log_dir)
     logger.info(f"[Train] experiment dir: {cfg.exp_dir}")
     try:
         return train(cfg, dev)
     finally:
         Board().close()
-

@@ -28,7 +28,19 @@ phase at every logged step. A CDM's frozen scene model takes the
 pretrained weights of ``model.scene_model.pretrained_weight`` where that
 file exists (``_maybe_load_pretrained_scene``).
 
-Not ported yet: the device mesh (one device).
+Data parallelism (``parallel/mesh.py``; launched by ``torchrun`` through
+``afford_motion_torch.train_ddp``): ``task.train.batch_size`` is the global
+batch, which the world must divide, and rank ``r`` of ``W`` trains on rows
+``[r B / W, (r + 1) B / W)`` of every step's batch, in
+``DistributedDataParallel`` with the ``PointNorm`` statistics taken over
+the global batch, so that a world-W run computes what a world-1 run does up
+to the order of sums. Every rank draws the same global megabatch; on the
+host route it loads it whole and keeps its rows (the per-item draws chain
+through the global generators), on the store route it loads only its rows'
+mix files; captions are encoded for its rows only. The device store shards
+its rows over the ranks (``task.train.device_store_shard``, ``auto`` or
+``off``; the budget is then the world's). Rank 0 writes the checkpoints,
+the logs and the board, with a barrier after each save.
 """
 from __future__ import annotations
 
@@ -47,10 +59,10 @@ from ..models.conditioning import add_hierarchies, encode_text, host_prepare_con
 from ..models.layers import set_dropout_generator
 from ..models.pointtransformer import load_pretrained_scene
 from ..models.text import TextEncoder
-from ..parallel.mesh import DevicePrefetcher
+from ..parallel.mesh import DataParallel, DevicePrefetcher, current
 from ..utils.io import Board, get_logger, mkdir_if_not_exists
 from .checkpoint import load_train_state, save_train_state
-from .device_store import DeviceStore, index_stream, make_assemble_fn
+from .device_store import DeviceStore, index_stream, make_assemble_fn, max_bytes_from_env
 from .state import TrainState, annealed_lr
 
 logger = get_logger()
@@ -62,8 +74,30 @@ def step_seed(base_seed: int, step: int) -> int:
     return (int(base_seed) * 2654435761 + int(step)) & 0xFFFFFFFF
 
 
+def take_rows(batch: Dict[str, Any], idx: np.ndarray) -> Dict[str, Any]:
+    """The rows ``idx`` of a collated batch or an index batch: arrays by
+    their first axis, lists item by item, anything else as it is."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray) and v.ndim > 0:
+            out[k] = v[idx]
+        elif isinstance(v, (list, tuple)):
+            out[k] = [v[i] for i in idx]
+        else:
+            out[k] = v
+    return out
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """Seed of a rank's dropout generator in a step of a data-parallel run
+    of more than one process: the step's seed mixed with the rank, so that
+    no two ranks draw the same masks over their different rows."""
+    return (int(seed) * 0x9E3779B1 + (int(rank) + 1) * 0x85EBCA77) & 0xFFFFFFFF
+
+
 def make_train_step(model, diffusion: GaussianDiffusion, sampler=None,
-                    assemble: Optional[Callable] = None) -> Callable:
+                    assemble: Optional[Callable] = None, dp: Optional[DataParallel] = None,
+                    forward: Optional[torch.nn.Module] = None) -> Callable:
     """Returns ``train_step(state, x, cond, seed, t=None, noise=None) ->
     metrics``. ``state`` (a :class:`TrainState` around ``model``) is updated
     in place. ``cond`` holds tensors on the diffusion's device; ``t`` (B,)
@@ -72,8 +106,23 @@ def make_train_step(model, diffusion: GaussianDiffusion, sampler=None,
     store's index batch and ``x`` is None: the step assembles both on the
     device first. ``metrics`` are 0-d tensors on the device (``loss``,
     ``mse``, ``grad_norm``), so the step itself never waits for the
-    device."""
+    device.
+
+    ``dp`` (a data-parallel context, :mod:`..parallel.mesh`): ``x`` and
+    ``cond`` hold this rank's rows of the global batch (the index batch's
+    ``item_row`` all of them), ``forward`` is ``model`` in
+    ``DistributedDataParallel``. ``t`` and the noise are drawn for the
+    global batch from the step's generator and sliced (injected ones are
+    the global batch's too); each rank's loss is the mean over its equal
+    share, which the averaged gradients make the global mean's; ``loss`` and
+    ``mse`` are all-reduced; ``grad_norm`` is the averaged gradients'; a
+    loss-second-moment sampler folds in the all-gathered ``t`` and losses in
+    global row order. Above one process the dropout masks come from a
+    generator of :func:`rank_seed`; at world 1 from the step's generator,
+    as without a group."""
     sampler = sampler if sampler is not None else UniformSampler(diffusion.num_timesteps)
+    forward = model if forward is None else forward
+    world, rank = (dp.world, dp.rank) if dp is not None else (1, 0)
 
     def train_step(state: TrainState, x: torch.Tensor, cond: Dict[str, Any], seed: int,
                    t: Optional[torch.Tensor] = None,
@@ -83,16 +132,23 @@ def make_train_step(model, diffusion: GaussianDiffusion, sampler=None,
             x, cond = assemble(cond)
         model.train()
         generator = torch.Generator(device=dev).manual_seed(int(seed))
-        set_dropout_generator(model, generator)
         x = x.float()  # a half-precision wire target; q_sample and the loss run in f32
+        b = x.shape[0]
+        rows = slice(rank * b, (rank + 1) * b)
         if t is None:
-            t, weights = sampler.sample(generator, x.shape[0], dev, state.sampler_state)
+            t, weights = sampler.sample(generator, world * b, dev, state.sampler_state)
+            t, weights = t[rows], weights[rows]
         else:
-            weights = torch.ones((x.shape[0],), dtype=torch.float32, device=dev)
+            t = t[rows]
+            weights = torch.ones((b,), dtype=torch.float32, device=dev)
+        noise = (diffusion.randn_rows((world * b,) + tuple(x.shape[1:]), generator, rows)
+                 if noise is None else noise[rows])
+        set_dropout_generator(model, generator if world == 1 else torch.Generator(
+            device=dev).manual_seed(rank_seed(seed, rank)))
         cond_h = add_hierarchies(model, cond)
 
         def model_fn(x_t, ts):
-            return model(x_t, ts, cond_h)
+            return forward(x_t, ts, cond_h)
 
         terms = diffusion.training_losses(model_fn, x, t, generator=generator,
                                           x_mask=cond_h.get("x_mask"), noise=noise)
@@ -107,9 +163,14 @@ def make_train_step(model, diffusion: GaussianDiffusion, sampler=None,
             group["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        state.sampler_state = sampler.update(state.sampler_state, t, terms["loss"])
-        return {"loss": loss.detach(),
-                "mse": terms.get("mse", terms["loss"]).mean().detach(),
+        losses = terms["loss"].detach()
+        metrics = torch.stack([loss.detach(), terms.get("mse", terms["loss"]).mean().detach()])
+        if world > 1:
+            metrics = dp.all_reduce(metrics) / world
+            if state.sampler_state is not None:
+                t, losses = dp.all_gather_rows(t), dp.all_gather_rows(losses)
+        state.sampler_state = sampler.update(state.sampler_state, t, losses)
+        return {"loss": metrics[0], "mse": metrics[1],
                 "grad_norm": torch.linalg.vector_norm(torch.stack(norms))}
 
     return train_step
@@ -117,7 +178,9 @@ def make_train_step(model, diffusion: GaussianDiffusion, sampler=None,
 
 class TrainLoop:
     """Step-driven training with resume, periodic save and board logging. No
-    EMA, gradient clipping or accumulation, as in the reference's trainer."""
+    EMA, gradient clipping or accumulation, as in the reference's trainer.
+    Inside a data-parallel session (``parallel.current()``) it trains this
+    rank's share, as the module's docstring says."""
 
     def __init__(self, cfg: Any, model, diffusion: GaussianDiffusion, dataloader,
                  text_encoder: TextEncoder, *, device: torch.device,
@@ -126,6 +189,8 @@ class TrainLoop:
         self.model, self.diffusion = model, diffusion
         self.dataloader, self.text_encoder = dataloader, text_encoder
         self.device = device
+        self.dp = current()
+        self.world, self.rank = (self.dp.world, self.dp.rank) if self.dp else (1, 0)
         self.max_steps = int(tcfg.max_steps)
         self.log_every_step = int(tcfg.get("log_every_step", 100))
         self.save_every_step = int(tcfg.get("save_every_step", 10000))
@@ -134,7 +199,11 @@ class TrainLoop:
         self.ckpt_dir = mkdir_if_not_exists(os.path.join(exp_dir, "ckpt"))
         self._base_seed = int(seed)
         # what the run measured, for the caller: one entry per logged window
-        self.summary: Dict[str, Any] = {"device": str(device), "logged": []}
+        self.summary: Dict[str, Any] = {"device": str(device), "logged": [],
+                                        "rank": self.rank, "world": self.world}
+        # the global batch's rows of this rank (raises where W does not divide it)
+        self.batch_size = B = int(dataloader.batch_size)
+        self._rows = self.dp.local_rows(B) if self.dp else slice(0, B)
         self._maybe_enable_banded()
         self._maybe_load_pretrained_scene(cfg)
 
@@ -156,13 +225,16 @@ class TrainLoop:
         logger.info(f"Model initialized: {n_params / 1e6:.2f}M params")
         resume = str(tcfg.get("resume_ckpt", "") or "")
         if resume:
-            load_train_state(self.state, resume)
+            load_train_state(self.state, resume)  # on every rank
             logger.info(f"Resumed from {resume} at step {self.state.step}")
+        self._forward = model
+        if self.dp is not None:
+            self.dp.broadcast_module(model)
+            self._forward = self.dp.wrap(model)
 
         # steps_per_dispatch survives as the megabatch draw of the data
         # stream: one (G*B)-item batch per G steps, as the JAX loop draws it
         self.steps_per_dispatch = int(tcfg.get("steps_per_dispatch", 4))
-        self.batch_size = B = int(dataloader.batch_size)
         if (self.steps_per_dispatch > self.max_steps
                 or len(dataloader.dataset) < self.steps_per_dispatch * B
                 or not getattr(dataloader, "drop_last", False)):
@@ -171,25 +243,39 @@ class TrainLoop:
         self._store = self._assemble = None
         # 'off' on the command line reads as YAML's false
         if str(tcfg.get("device_store", "auto")).lower() not in ("off", "false"):
-            self._build_store()
-        self.train_step = make_train_step(model, diffusion, self._sampler, self._assemble)
+            self._build_store(str(tcfg.get("device_store_shard", "auto")).lower()
+                              not in ("off", "false"))
+        self.train_step = make_train_step(model, diffusion, self._sampler, self._assemble,
+                                          dp=self.dp, forward=self._forward)
 
-    def _build_store(self) -> None:
+    def _build_store(self, shard: bool = True) -> None:
         """The device-resident corpus, where ``DeviceStore.try_build``
-        accepts the dataset: its hierarchy cached from the fps wire, then
-        uploaded to the loop's device."""
-        store = DeviceStore.try_build(self.dataloader.dataset)
+        accepts the dataset: above one process its rows sharded over the
+        ranks (``shard``: ``task.train.device_store_shard`` not ``off``)
+        within the world's budget, as the JAX loop shards it over the mesh;
+        then its hierarchy cached from the fps wire and uploaded to the
+        loop's device."""
+        sharded = shard and self.world > 1
+        budget = max_bytes_from_env() * (self.world if sharded else 1)
+        store = DeviceStore.try_build(self.dataloader.dataset, max_bytes=budget)
         if store is None:
             return
         t0 = time.monotonic()
+        if sharded:
+            store.shard_rows(self.dp)
+        elif self.dp is not None:
+            store.dp = self.dp  # replicated: a rank fetches its rows of the batch
         cached = store.add_geometry_cache(self.model, self.device)
         store.ensure_device(self.device)
         seconds = time.monotonic() - t0
         self._store, self._assemble = store, make_assemble_fn(store, self.device)
-        self.summary["store"] = {"bytes": store.nbytes(), "seconds": seconds}
+        self.summary["store"] = {"bytes": store.nbytes(), "seconds": seconds,
+                                 "sharded": sorted(store.sharded)}
         logger.info(f"device store: {store.nbytes() / 1e9:.3f}GB in {len(store.arrays)} arrays "
-                    f"on {self.device} (geometry cache {'on' if cached else 'off'}), "
-                    f"{seconds:.2f} s for the cache and the upload")
+                    f"on {self.device} (geometry cache {'on' if cached else 'off'}"
+                    + (f", {len(store.sharded)} arrays sharded over {self.world} ranks"
+                       if store.sharded else "")
+                    + f"), {seconds:.2f} s for the cache and the upload")
 
     def _maybe_load_pretrained_scene(self, cfg: Any) -> None:
         """A CDM's frozen scene model from ``model.scene_model.pretrained_weight``
@@ -266,12 +352,23 @@ class TrainLoop:
             return ()
         return ("_up_idx", "_up_weight")
 
+    def _local_positions(self, n: int) -> np.ndarray:
+        """This rank's positions in a megabatch of ``n`` rows, G steps of B:
+        its rows of each step in step order (all of them without a group)."""
+        B, r = self.batch_size, self._rows
+        return np.concatenate([np.arange(g + r.start, g + r.stop) for g in range(0, n, B)])
+
     def _host_stream(self, start_step: int):
         """(megabatches, prepare) of the host route: collated items ->
-        {"x", cond arrays}."""
+        {"x", cond arrays}. Above one process every rank loads the whole
+        megabatch, since each item's draws continue the global generators
+        where the item before left them, and keeps its rows before the
+        captions are encoded."""
         drop = self._drop_cond_suffixes()
 
         def prepare(batch):
+            if self.world > 1:
+                batch = take_rows(batch, self._local_positions(len(batch["c_text"])))
             x, cond = host_prepare_cond(batch, self.text_encoder, drop)
             return {"x": x, **cond}
 
@@ -281,7 +378,10 @@ class TrainLoop:
         """(megabatches, prepare) of the device-store route: index chunks of
         ``index_stream`` -> the index batch, whose random choices come from
         generators seeded by (base seed, megabatch), as the JAX loop seeds
-        them, and whose captions are encoded to an f16 ``text_emb``."""
+        them, and whose captions are encoded to an f16 ``text_emb``. Above
+        one process each rank draws for the whole megabatch, loads the mix
+        files of its rows only and keeps its rows of every field but
+        ``item_row``, the global index list the sharded ``fetch`` takes."""
         G, B = self.steps_per_dispatch, self.batch_size
         dataset, store = self.dataloader.dataset, self._store
         group = [start_step // G]  # the producer thread calls prepare in stream order
@@ -292,7 +392,14 @@ class TrainLoop:
             py_rng = random.Random((self._base_seed * 1000003 + gi) & 0xFFFFFFFF)
             np_rng = np.random.RandomState((self._base_seed * 69069 + gi * 40503 + 12345)
                                            & 0x7FFFFFFF)
-            meta = store.draw_batch(dataset, ids, py_rng, np_rng)
+            if self.world > 1:
+                own = self._local_positions(len(ids))
+                meta = store.draw_batch(dataset, ids, py_rng, np_rng, own=own)
+                item_row = meta.pop("item_row")
+                meta = take_rows(meta, own)
+                meta["item_row"] = item_row
+            else:
+                meta = store.draw_batch(dataset, ids, py_rng, np_rng)
             text = encode_text(self.text_encoder, meta.pop("c_text"))
             meta["text_emb"] = text.pop("text_emb").astype(np.float16)
             meta.update(text)
@@ -304,6 +411,7 @@ class TrainLoop:
 
     def run_loop(self) -> Dict[str, Any]:
         G, B = self.steps_per_dispatch, self.batch_size
+        b = B // self.world  # this rank's rows of a step
         state, board = self.state, Board()
         steps_per_epoch = max(len(self.dataloader.dataset) // B, 1)
         if state.step % G:
@@ -349,14 +457,15 @@ class TrainLoop:
                     elif profiler is not None and state.step >= profile_stop:
                         self._stop_profiler(profiler)
                         profiler = None
-                    cond = {k: v[g * B:(g + 1) * B] for k, v in mega.items()}
+                    cond = {k: v[g * B:(g + 1) * B] if k == "item_row" else v[g * b:(g + 1) * b]
+                            for k, v in mega.items()}
                     x = cond.pop("x", None)
                     metrics = self.train_step(state, x, cond,
                                               step_seed(self._base_seed, state.step))
                     mark("dispatch")
                     steps_window += 1
                     step = state.step
-                    if step % self.log_every_step == 0:
+                    if step % self.log_every_step == 0:  # every rank: metrics are global
                         m = {k: float(v) for k, v in metrics.items()}  # waits for the device
                         mark("metrics_get")
                         dt = time.monotonic() - t_window
@@ -364,10 +473,11 @@ class TrainLoop:
                         logger.info(
                             f"step {step}/{self.max_steps} | epoch {epoch} | loss {m['loss']:.6f} "
                             f"| mse {m['mse']:.6f} | {steps_window / max(dt, 1e-9):.2f} steps/s")
-                        board.write({"train/loss": m["loss"], "train/mse": m["mse"],
-                                     "train/epoch": epoch,
-                                     "train/steps_per_sec": steps_window / max(dt, 1e-9),
-                                     "step": step})
+                        if self.rank == 0:
+                            board.write({"train/loss": m["loss"], "train/mse": m["mse"],
+                                         "train/epoch": epoch,
+                                         "train/steps_per_sec": steps_window / max(dt, 1e-9),
+                                         "step": step})
                         self.summary["logged"].append(
                             {"step": step, **m, "steps": steps_window, "seconds": dt})
                         if timing:
@@ -407,11 +517,17 @@ class TrainLoop:
 
     def _stop_profiler(self, profiler) -> None:
         profiler.stop()
+        if self.rank != 0:
+            return
         out = mkdir_if_not_exists(os.path.join(self.exp_dir, "log", "profile"))
         profiler.export_chrome_trace(os.path.join(out, "trace.json"))
         logger.info("profiler trace written to log/profile")
 
     def save(self) -> str:
+        """Rank 0 writes ``model{step}.pt`` and ``train_state{step}.pt``; every
+        rank waits for it at a barrier, then returns the model file's path."""
         path = save_train_state(self.state, self.ckpt_dir)
+        if self.dp is not None:
+            self.dp.barrier()
         logger.info(f"Saved checkpoint to {path}")
         return path

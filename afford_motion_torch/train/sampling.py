@@ -31,10 +31,14 @@ def _sync(device: torch.device) -> None:
 def make_sample_fn(model, diffusion: GaussianDiffusion, *, clip_denoised: bool = False,
                    sampler: str = "ddpm", eta: float = 0.0):
     """Returns ``sample(shape, cond, generator=None, noise=None,
-    noise_seq=None, timing=None) -> x0``. ``cond`` holds tensors on the
-    diffusion's device. A ``timing`` dict receives ``prepare_s`` (hierarchy
-    + contact encoding) and ``loop_s`` (the denoising loop), each measured
-    to a device synchronize."""
+    noise_seq=None, timing=None, rows=None) -> x0``. ``cond`` holds tensors
+    on the diffusion's device. A ``timing`` dict receives ``prepare_s``
+    (hierarchy + contact encoding) and ``loop_s`` (the denoising loop), each
+    measured to a device synchronize. ``rows`` (a slice of the batch of
+    ``shape``): one process's share of a data-parallel chain, whose ``cond``,
+    ``noise`` and ``noise_seq`` hold those rows while every draw is made for
+    the whole batch, so that the rows come out as in one process; an empty
+    share runs no model and makes the same draws."""
     if sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown sampler {sampler!r}")
 
@@ -43,14 +47,19 @@ def make_sample_fn(model, diffusion: GaussianDiffusion, *, clip_denoised: bool =
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
                noise_seq: Optional[torch.Tensor] = None,
-               timing: Optional[Dict[str, float]] = None) -> torch.Tensor:
+               timing: Optional[Dict[str, float]] = None,
+               rows: Optional[slice] = None) -> torch.Tensor:
         dev = diffusion.device
         t0 = time.perf_counter()
-        cond_h = add_hierarchies(model, cond)
-        enc = encode_conditions(model, cond_h)
+        if rows is not None and rows.stop == rows.start:
+            def model_fn(x, t):
+                return torch.zeros_like(x)
+        else:
+            cond_h = add_hierarchies(model, cond)
+            enc = encode_conditions(model, cond_h)
 
-        def model_fn(x, t):
-            return model.denoise(x, t, cond_h, enc)
+            def model_fn(x, t):
+                return model.denoise(x, t, cond_h, enc)
 
         if timing is not None:
             _sync(dev)
@@ -62,10 +71,11 @@ def make_sample_fn(model, diffusion: GaussianDiffusion, *, clip_denoised: bool =
                                  "no per-step noise and eta>0 would not consume it")
             x0 = diffusion.ddim_sample_loop(model_fn, shape, generator=generator,
                                             noise=noise, clip_denoised=clip_denoised,
-                                            eta=eta)
+                                            eta=eta, rows=rows)
         else:
             x0 = diffusion.p_sample_loop(model_fn, shape, generator=generator, noise=noise,
-                                         noise_seq=noise_seq, clip_denoised=clip_denoised)
+                                         noise_seq=noise_seq, clip_denoised=clip_denoised,
+                                         rows=rows)
         if timing is not None:
             _sync(dev)
             timing["loop_s"] = time.perf_counter() - t1

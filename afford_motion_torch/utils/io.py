@@ -30,6 +30,30 @@ def get_logger() -> logging.Logger:
     return logger
 
 
+class _RankFilter(logging.Filter):
+    """Drops the records below ERROR of a rank other than 0, so that one
+    process of a data-parallel run speaks for all."""
+
+    def __init__(self):
+        super().__init__()
+        self.rank = 0
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        return self.rank == 0 or record.levelno >= logging.ERROR
+
+
+_RANK_FILTER = _RankFilter()
+
+
+def set_log_rank(rank: int) -> None:
+    """The process's rank in a data-parallel run (0 without one): the
+    logger speaks on rank 0 only, and errors on any rank."""
+    _RANK_FILTER.rank = int(rank)
+    logger = get_logger()
+    if _RANK_FILTER not in logger.filters:
+        logger.addFilter(_RANK_FILTER)
+
+
 def add_file_handler(path: str) -> None:
     """Mirror the reference's per-experiment runtime.log (train.py:67)."""
     logger = get_logger()

@@ -306,6 +306,21 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    4 + 2 steps of the stage-1 CDM-Perceiver with pooled BERT (and, in
    phase 15, ``sample.py``'s two stages with the CLIP directory). No port
    kernel runs in the towers.
+19. data parallelism (:func:`phase_ddp`, after the store phases; its kernel
+   check :func:`phase_kernels_ddp` with the kernel phases, every kernel of
+   the DDP step at one rank's 16 clouds): (a) world 2 over gloo with both
+   ranks on the card (NCCL refuses two ranks on one device), started by
+   ``torchrun`` as ``chip_smoke.py --ddp-rank <spec>``, each through
+   ``afford_motion_torch.train_ddp``: 4 steps on the plain tree
+   (float32, the f32 attention kernels) and 4 through the prepared tree's
+   sharded store, float32, dropout 0 and ``AM_FLASH_ATTN=1``, against one
+   process from the same seed (losses, checkpoints), both ranks' weights
+   and buffers bit-equal, the sharded fetch bit-equal to a replicated store
+   built anew, each rank's launches exact; (b) world 1 over NCCL through
+   ``torchrun`` against the run without a group, every checkpoint tensor
+   bit-equal; (c) a DDPM-50 test chain and the SMPL-X fit at world 2
+   against one process. Each rank's ms a step,
+   its collectives' ms a step (replayed alone) and peak memory are logged.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -322,6 +337,7 @@ import contextlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2882,8 +2898,8 @@ def record_store_kinds(kinds: list):
     raw = DeviceStore.__dict__["try_build"]
     real = DeviceStore.try_build
 
-    def recorded(dataset):
-        store = real(dataset)
+    def recorded(dataset, *args, **kwargs):
+        store = real(dataset, *args, **kwargs)
         kinds.append(None if store is None else store.meta["kind"])
         return store
 
@@ -4114,6 +4130,536 @@ def phase_scene_humanml(seen: dict, out: Path, counters: dict, assets: dict) -> 
         raise AssertionError(f"scene humanml: metrics {metrics}, launches {h3d}")
 
 
+# data parallelism (the DDP slice): one process a rank, global batch B. One
+# card here: world DDP_WORLD over gloo with every rank on cuda:0 (NCCL
+# refuses two ranks on one device), and world 1 over NCCL through torchrun.
+DDP_WORLD, DDP_STEPS = 2, 4
+# a rank's train step with AM_FLASH_ATTN=1, dropout 0 and model.dtype=float32
+# (the parity dtype: in bf16 a PointNorm statistic summed in another order
+# moves some activations by a bf16 ulp, and the losses part by up to 6e-5 at
+# the tests' width): on the plain tree and through the prepared tree's store
+DDP_PLAIN_STEP = FLASH_F32_STEP
+DDP_STORE_STEP = dict(STORE_STEP, attention=CMDM_LAYERS, attention_bwd_f32=CMDM_LAYERS)
+# the world-DDP_WORLD test chain's largest difference from one process's, a
+# share of the largest |sample|: the ranks' products run at 16 rows, one
+# process's at 32, and cuBLAS may sum them in another order
+DDP_CHAIN_LIMIT = 1e-3
+
+
+def phase_kernels_ddp(dev: torch.device, rep: KernelReport) -> None:
+    """Every kernel of the DDP train step against its plain version at one
+    rank's shapes (B / DDP_WORLD clouds): FPS, the kNN, the row gather and
+    its scatter on a random cloud; the banded kNN, gather and scatter on a
+    sorted one; the fused attention forward and backward at the rank's train
+    shape in both types. Checks only: the kernels' times are the B-cloud
+    phases'."""
+    from afford_motion_torch.ops.cuda import banded
+    from afford_motion_torch.ops.cuda.fps import fps_cuda, fps_plain
+    from afford_motion_torch.ops.cuda.gather import (gather_rows, gather_rows_plain,
+                                                     scatter_add_rows, scatter_add_rows_plain)
+    from afford_motion_torch.ops.cuda.knn import knn_cuda, knn_plain
+    from afford_motion_torch.ops.curves import curve_order
+    from afford_motion_torch.ops.pointops import knn as knn_exact
+
+    nb, w0 = B // DDP_WORLD, 128
+    rng = np.random.default_rng(SEED + 20)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    cloud = rng.normal(size=(nb, N_POINTS, 3)).astype(np.float32)
+    for route in ("plain", "banded"):
+        if route == "banded":
+            cloud = np.stack([c[curve_order(c, "morton")] for c in cloud])
+        levels, fps = [torch.from_numpy(cloud).to(dev)], [None]
+        for n_out in (2048, 512, 128):
+            got = fps_cuda(levels[-1], n_out)
+            rep.check("fps", f"rank shape ({nb},{levels[-1].shape[1]},3)->{n_out}", [got],
+                      [fps_plain(levels[-1], n_out)])
+            if route == "banded":
+                got = torch.sort(got, dim=-1).values
+            fps.append(got)
+            levels.append(torch.gather(levels[-1], 1, got.long()[..., None].expand(-1, -1, 3)))
+        knn_idx, starts = {}, {}
+        for qi, si, k in KNN_CALLS:
+            q, sup = levels[qi], levels[si]
+            label = f"rank shape q{tuple(q.shape)} s{tuple(sup.shape)} k={k}"
+            if route == "plain":
+                got = knn_cuda(q, sup, k)
+                rep.check("knn", label, got, knn_plain(q, sup, k))
+            else:
+                m, n = q.shape[1], sup.shape[1]
+                st = (banded._starts_tensor(m, n, w0, dev) if qi == si
+                      else banded.adaptive_down_starts(fps[qi], n, w0))
+                size = banded.window_starts(m, n, banded.window_width(n, w0))[1]
+                got = banded.knn_banded(q, sup, k, st, w0)
+                check_banded_knn(rep, label, q, sup, k, st, size, got)
+                starts[(qi, si)] = st
+            knn_idx[(qi, si)] = got[0]
+        if route == "banded":
+            knn_idx[(3, 3)] = knn_exact(levels[3], levels[3], 16)[0].contiguous()
+            starts[(3, 3)] = banded._starts_tensor(128, 128, w0, dev)
+        for (qi, si), c in GATHER_CALLS:
+            idx = knn_idx.get((qi, si))
+            if idx is None:  # the 128-point level: any in-range neighbours will do
+                idx = torch.randint(0, 128, (nb, 128, 16), device=dev, dtype=torch.int32,
+                                    generator=gen)
+            n_src = levels[si].shape[1]
+            m, k = idx.shape[1:]
+            x = torch.randn(nb, n_src, c, device=dev, generator=gen).to(torch.bfloat16)
+            g = torch.randn(nb, m, k, c, device=dev, generator=gen).to(torch.bfloat16)
+            label = f"rank shape x({nb},{n_src},{c}) idx{tuple(idx.shape)} bf16"
+            if route == "plain":
+                rep.check("gather", label, [gather_rows(x, idx)], [gather_rows_plain(x, idx)])
+                rep.check("scatter", label, [scatter_add_rows(g, idx, n_src)],
+                          [scatter_add_rows_plain(g, idx, n_src)])
+            else:
+                st = starts[(qi, si)]
+                size = banded.window_starts(m, n_src, banded.window_width(n_src, w0))[1]
+                rep.check("banded_gather", label, [banded.gather_banded(x, idx, st, w0)],
+                          [banded.gather_banded_plain(x, idx, st, size)])
+                rep.check("banded_scatter", label, [banded.scatter_banded(g, idx, st, n_src, size)],
+                          [banded.scatter_banded_plain(g, idx, st, n_src, size)])
+    seq, heads = 1 + 1 + 128 + L, 8
+    lengths = rng.integers(40, L + 1, size=nb)
+    pad = torch.cat([torch.zeros((nb, seq - L), dtype=torch.bool),
+                     torch.from_numpy(np.arange(L)[None, :] >= lengths[:, None])], dim=1).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(nb, seq, heads * 64)).astype(np.float32))
+                       .to(dev).to(dtype) for _ in range(4))
+        label = f"rank shape ({nb},{seq},{heads}x64) {str(dtype)[6:]}"
+        check_attention(rep, label, q, k, v, heads, pad)
+        check_attention_bwd(rep, label, q, k, v, do, heads, pad)
+    log(f"  ddp: every kernel of the DDP train step bit-equal to (attention: within the "
+        f"tolerance of) its plain version at one rank's shapes, {nb} clouds")
+
+
+def ddp_train_args(tree: dict, exp: Path, dtype: str | None = None) -> list:
+    """The flagship trans_enc at the global batch B, dropout 0, a checkpoint
+    and a logged loss every step."""
+    return base_args(dict(tree, exp=exp)) + [
+        f"task.train.batch_size={B}", "model.dropout=0",
+        "task.dataset.train_transforms=['RandomEraseLang','RandomEraseContact','NumpyToTensor']",
+        "task.train.save_every_step=1", "task.train.log_every_step=1",
+        f"task.train.max_steps={DDP_STEPS}", *([f"model.dtype={dtype}"] if dtype else [])]
+
+
+def ddp_runs(tree: dict, banded_tree: dict, world: int) -> dict:
+    """The two train runs of the DDP phase at ``world``: name -> (args,
+    environment, per-step launches, whether through the store)."""
+    return {"plain": (ddp_train_args(tree, WORK / f"exp_ddp_plain_w{world}", "float32"),
+                      {"AM_FLASH_ATTN": "1"}, DDP_PLAIN_STEP, False),
+            "store": (ddp_train_args(banded_tree, WORK / f"exp_ddp_store_w{world}", "float32"),
+                      {"AM_FLASH_ATTN": "1"}, DDP_STORE_STEP, True)}
+
+
+def ddp_test_args(tree: dict, exp: Path) -> list:
+    """A respaced DDPM-50 test chain (a draw every step) of the float32
+    checkpoint, one batch of B."""
+    return base_args(dict(tree, exp=exp)) + ["model.dtype=float32",
+                                             "diffusion.timestep_respacing=ddim50",
+                                             "task.test.sampler=ddpm"]
+
+
+def ddp_fit_inputs():
+    """FIT_BATCH joint sequences of lengths 40..L and a seeded regressor."""
+    from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXRegressor
+
+    rng = np.random.default_rng(SEED + 21)
+    lengths = rng.integers(40, L + 1, size=FIT_BATCH)
+    mask = np.arange(L)[None, :] >= lengths[:, None]
+    path = WORK / "ddp_regressor.pt"
+    torch.manual_seed(SEED + 21)
+    torch.save(JointsToSMPLXRegressor().state_dict(), path)
+    return rng.normal(size=(FIT_BATCH, L, D_POS)).astype(np.float32) * 0.5, mask, path
+
+
+FIT_ENV = {"SMPLX_USE_SYNTHETIC": "1", "SMPLX_SYNTHETIC_VERTS": str(N_VERTS),
+           "SMPLX_SYNTHETIC_FACES": str(N_FACES)}
+
+
+@contextlib.contextmanager
+def capture_loops(seen: list):
+    """Inside the block every ``TrainLoop`` built is appended to ``seen``."""
+    from afford_motion_torch.train.loop import TrainLoop
+
+    real = TrainLoop.__init__
+
+    def init(self, *args, **kwargs):
+        real(self, *args, **kwargs)
+        seen.append(self)
+
+    TrainLoop.__init__ = init
+    try:
+        yield
+    finally:
+        TrainLoop.__init__ = real
+
+
+def state_digest(model) -> str:
+    """sha256 over the bits of every parameter and buffer, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def replay_collectives_ms(dp, trace: list, grad_bytes: int, dev) -> float:
+    """ms of one step's collectives, each run alone after the run: those the
+    step issued through the context (``trace``: PointNorm statistics, the
+    metrics, the store's fetch) and DDP's gradient all-reduce, as buckets of
+    25 MB of float32."""
+    import torch.distributed as dist
+
+    calls = list(trace) + [("all_reduce", min(25 << 20, grad_bytes - a))
+                           for a in range(0, grad_bytes, 25 << 20)]
+    total = 0.0
+    for name, nbytes in calls:
+        n = max(DDP_WORLD, -(-nbytes // 4 // DDP_WORLD) * DDP_WORLD)
+        t = torch.zeros(n, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if name == "reduce_scatter":
+            dp.reduce_scatter_rows(t)
+        else:
+            dist.all_reduce(t)
+        torch.cuda.synchronize(dev)
+        total += time.perf_counter() - t0
+    return 1e3 * total
+
+
+def check_sharded_fetch(loop, dev) -> dict:
+    """The loop's sharded store against a replicated one built anew from the
+    same dataset and model: every array's fetch, for a whole pass of global
+    batches over the items, bit for bit; and the fetch of one batch's arrays
+    timed each way (ms, host clock to a synchronize)."""
+    from afford_motion_torch.train.device_store import DeviceStore
+
+    store, dp = loop._store, loop.dp
+    if not store.sharded:
+        raise AssertionError("the DDP store route sharded nothing")
+    whole = DeviceStore.try_build(loop.dataloader.dataset)
+    whole.add_geometry_cache(loop.model, dev)
+    whole.ensure_device(dev)
+    if set(whole.arrays) != set(store.arrays):
+        raise AssertionError(f"sharded store arrays {sorted(store.arrays)} != "
+                             f"{sorted(whole.arrays)}")
+    n_items = whole.arrays["scene_row"].shape[0]
+    order = torch.from_numpy(np.random.default_rng(SEED + 22).permutation(n_items)).to(dev)
+    rows_of = lambda k, items: (items if whole.arrays[k].shape[0] == n_items  # noqa: E731
+                                else whole.arrays["scene_row"].index_select(0, items))
+    for a in range(0, n_items - B + 1, B):
+        items = order[a:a + B]
+        for k in store.arrays:
+            rows = rows_of(k, items)
+            got = store.fetch(k, rows)
+            want = whole.arrays[k].index_select(0, rows[dp.local_rows(B)])
+            if got.dtype != want.dtype or not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"sharded fetch of {k} differs from the replicated one")
+    items = order[:B]
+
+    def fetch_all(s):
+        for k in s.arrays:
+            rows = rows_of(k, items)
+            s.fetch(k, rows) if s is store else s.arrays[k].index_select(
+                0, rows[dp.local_rows(B)])
+
+    out = {}
+    for name, s in (("sharded", store), ("replicated", whole)):
+        fetch_all(s)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fetch_all(s)
+        torch.cuda.synchronize(dev)
+        out[name] = 1e3 * (time.perf_counter() - t0) / 10
+    out["bytes_sharded"], out["bytes_replicated"] = store.nbytes(), whole.nbytes()
+    return out
+
+
+def ddp_worker(spec_path: str) -> int:
+    """One rank of the DDP phase (``chip_smoke.py --ddp-rank <spec.json>``,
+    started by ``torchrun``): both train runs through
+    ``afford_motion_torch.train_ddp``, the sharded fetch against a
+    replicated store, the test chain through ``afford_motion_torch.test`` and
+    the SMPL-X fit, each rank's launches counted, its results written as
+    ``rank{r}.json`` beside the spec."""
+    import hashlib
+
+    from afford_motion_torch import test as test_entry
+    from afford_motion_torch import train_ddp
+    from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXFitter
+    from afford_motion_torch.ops.cuda import build
+    from afford_motion_torch.parallel import session
+
+    spec = json.loads(Path(spec_path).read_text())
+    os.chdir(ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec.get("device", "cuda:0"))
+    if dev.type == "cuda":
+        build.library()
+    counters = launch_counters()
+    out = {}
+    with session(dev, backend=spec["backend"]) as dp:
+        for name, (args, env, _per_step, _store) in spec["runs"].items():
+            loops, uploads = [], []
+            reset(counters)
+            dp.trace = []
+            with environ(env), capture_loops(loops), count_uploads(counters, uploads):
+                summary = train_ddp.main(args, device=dev)
+            trace, dp.trace = dp.trace, None
+            counts = {k: fn.launches for k, fn in counters.items()}
+            loop = loops[0]
+            grads = sum(p.numel() * 4 for p in loop.model.parameters() if p.requires_grad)
+            res = {"counts": counts, "uploads": uploads, "digest": state_digest(loop.model),
+                   "logged": summary["logged"], "peak": summary.get("peak_memory_bytes", float("nan")),
+                   "collectives_ms": replay_collectives_ms(
+                       dp, trace[:len(trace) // DDP_STEPS], grads, dev),
+                   "collectives": len(trace) // DDP_STEPS, "grad_bytes": grads,
+                   "sharded": sorted(loop._store.sharded) if loop._store else []}
+            if loop._store is not None:
+                res["fetch"] = check_sharded_fetch(loop, dev)
+            out[name] = res
+        reset(counters)
+        test_dir = test_entry.main(spec["test"], device=dev)
+        out["test"] = {"counts": {k: fn.launches for k, fn in counters.items()}}
+        if dp.rank == 0:
+            out["test"]["sample"] = str(Path(test_dir) / "samples.npz")
+        joints, mask = np.load(spec["fit"]["joints"]), np.load(spec["fit"]["mask"])
+        with environ(FIT_ENV):
+            fitter = JointsToSMPLXFitter(spec["fit"]["weights"], device=dev)
+            t0 = time.perf_counter()
+            params = fitter.fit(joints, mask)
+            out["fit"] = {"seconds": time.perf_counter() - t0}
+        out["fit"]["digest"] = hashlib.sha256(params.tobytes()).hexdigest()
+        if dp.rank == 0:
+            np.save(Path(spec_path).with_name("fit_w2.npy"), params)
+        (Path(spec_path).with_name(f"rank{dp.rank}.json")).write_text(json.dumps(out))
+    return 0
+
+
+def ddp_params_excess(a: Path, b: Path) -> tuple:
+    """(largest |difference| of the floating parameters, share of their
+    entries beyond 1e-6, largest difference of the running statistics as a
+    share of max(1, |value|)) of two checkpoints."""
+    sa, sb = (torch.load(p, weights_only=True) for p in (a, b))
+    big, n, beyond, stats = 0.0, 0, 0, 0.0
+    for k, v in sa.items():
+        if not v.is_floating_point():
+            continue
+        d = (v.double() - sb[k].double()).abs()
+        if "running_" in k:
+            stats = max(stats, float((d / sb[k].double().abs().clamp_min(1.0)).max()))
+        else:
+            big, n, beyond = max(big, float(d.max())), n + d.numel(), beyond + int((d > 1e-6).sum())
+    return big, beyond / max(n, 1), stats
+
+
+def torchrun(argv: list, nproc: int, log: Path, timeout_s: float,
+             env: dict | None = None) -> str:
+    """Run ``argv`` (a script and its arguments, or ``-m`` and a module) as
+    ``nproc`` ranks under ``python -m torch.distributed.run --standalone``
+    from the repository's root, output to ``log``; returns the output. The
+    launcher stops every rank when one fails and exits non-zero; past
+    ``timeout_s`` the launcher and its ranks are killed. Either raises with
+    the output's tail."""
+    env = dict(os.environ, AM_DDP_TIMEOUT_S="300", **(env or {}))
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", str(nproc), *argv], cwd=ROOT, env=env,
+                                stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = f"not done within {timeout_s:.0f} s"
+    text = Path(log).read_text()
+    if rc != 0:
+        raise AssertionError(f"torchrun of {nproc} rank(s) failed ({rc}):\n{text[-6000:]}")
+    return text
+
+
+def phase_ddp(tree: dict, banded_tree: dict, counters: dict, dev: torch.device,
+              card: str) -> list:
+    """Data parallelism through the entries a user calls, at full width (the
+    flagship trans_enc, global batch B, 8192-point clouds, 196 x 263
+    motions), against one process from the same seed. (a) World DDP_WORLD
+    over gloo, both ranks on cuda:0, through ``afford_motion_torch.train_ddp``:
+    DDP_STEPS steps on the plain tree and through the prepared tree's sharded
+    store, in float32 with dropout 0 and ``AM_FLASH_ATTN=1``: each step's
+    loss within 1e-5 (rel) of one process's at the first step and 1e-4
+    after; after the first step every
+    parameter within 2 lr (Adam's first update is +-lr on both sides) and
+    all but 1% within 1e-6, the running statistics within 1e-5 of max(1,
+    |value|), after the last within 2 lr a step; both ranks' weights and
+    buffers bit-equal; the sharded fetch bit-equal to a replicated store's;
+    each rank's launches exactly the route's per step (the store's upload
+    apart: the cache of its own scenes). (b) World 1 over NCCL through
+    ``torchrun`` against the run without a group: every checkpoint tensor
+    bit-equal and the losses equal. (c) The DDPM-50 test chain through
+    ``afford_motion_torch.test`` at world DDP_WORLD against one process
+    (within DDP_CHAIN_LIMIT), and the SMPL-X fit (within
+    ``tests/test_torch_fit.py``'s bound). Each rank's ms a step, collectives'
+    ms a step and peak memory are logged beside the card.
+    Returns the launches of every run."""
+    from afford_motion_torch import test as test_entry
+    from afford_motion_torch import train as entry
+    from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXFitter
+
+    t_phase = time.monotonic()
+    work = WORK / "ddp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = []
+    lr = 1e-4  # configs/task/text_to_motion_contact_motion_gen.yaml
+    n_scenes = len(json.loads((banded_tree["data"] / "H3D" / "packed" / "meta.json")
+                              .read_text())["bases"])
+    ref = {}
+    for name, (args, env, per_step, store) in ddp_runs(tree, banded_tree, 1).items():
+        reset(counters)
+        uploads: list = []
+        t0 = time.monotonic()
+        with environ(env), count_uploads(counters, uploads):
+            ref[name] = entry.main(args)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        if uploads != ([store_upload(n_scenes)] if store else []):
+            raise AssertionError(f"ddp world 1 {name}: upload launches {uploads}")
+        check_launches(f"ddp world 1 {name}", {k: v - sum(u[k] for u in uploads)
+                                               for k, v in counts.items()},
+                       per_step, DDP_STEPS, backward=True)
+        launches.append(counts)
+        rest = [e["seconds"] / e["steps"] for e in ref[name]["logged"][1:]]
+        log(f"ddp world 1 {name}: losses {[round(e['loss'], 5) for e in ref[name]['logged']]}, "
+            f"{np.mean(rest) * 1e3:.1f} ms/step, peak memory "
+            f"{ref[name].get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB, entry "
+            f"{time.monotonic() - t0:.1f} s [{card}]")
+    w1_exp = WORK / "exp_ddp_plain_w1"
+    test_exp = WORK / "exp_ddp_test_w2"
+    shutil.copytree(w1_exp / "ckpt", test_exp / "ckpt")
+    reset(counters)
+    w1_sample = np.load(Path(test_entry.main(ddp_test_args(tree, w1_exp))) / "samples.npz")
+    counts = {k: fn.launches for k, fn in counters.items()}
+    check_launches("ddp world 1 test chain", counts, PLAIN_STEP, 1, backward=False)
+    launches.append(counts)
+    joints, mask, regressor = ddp_fit_inputs()
+    np.save(work / "joints.npy", joints)
+    np.save(work / "mask.npy", mask)
+    with environ(FIT_ENV):
+        fit_w1 = JointsToSMPLXFitter(str(regressor), device=dev).fit(joints, mask)
+
+    # (a) + (c): world DDP_WORLD over gloo, every rank on cuda:0
+    spec = {"backend": "gloo",
+            "runs": {name: [[str(a) for a in args], env, per_step, store] for name, (
+                args, env, per_step, store) in ddp_runs(tree, banded_tree, DDP_WORLD).items()},
+            "test": [str(a) for a in ddp_test_args(tree, test_exp)],
+            "fit": {"joints": str(work / "joints.npy"), "mask": str(work / "mask.npy"),
+                    "weights": str(regressor)}}
+    (work / "spec.json").write_text(json.dumps(spec))
+    t0 = time.monotonic()
+    torchrun([str(ROOT / "chip_smoke.py"), "--ddp-rank", str(work / "spec.json")], DDP_WORLD,
+             work / "ranks.log", timeout_s=900)
+    log(f"ddp world {DDP_WORLD} over gloo on one card: every rank's work in "
+        f"{time.monotonic() - t0:.1f} s")
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DDP_WORLD)]
+    local_scenes = -(-n_scenes // DDP_WORLD)
+    for name, (_, _, per_step, store) in ddp_runs(tree, banded_tree, DDP_WORLD).items():
+        want_up = [store_upload(min(local_scenes, n_scenes - r * local_scenes))
+                   for r in range(DDP_WORLD)]
+        for r, res in enumerate(ranks):
+            run = res[name]
+            ups = [u for u in run["uploads"]]
+            if ups != ([want_up[r]] if store else []):
+                raise AssertionError(f"ddp rank {r} {name}: upload launches {ups}")
+            check_launches(f"ddp rank {r} {name}", {k: v - sum(u[k] for u in ups)
+                                                    for k, v in run["counts"].items()},
+                           per_step, DDP_STEPS, backward=True)
+            launches.append(run["counts"])
+            rest = [e["seconds"] / e["steps"] for e in run["logged"][1:]]
+            log(f"ddp rank {r} {name}: {np.mean(rest) * 1e3:.1f} ms/step (min "
+                f"{min(rest) * 1e3:.1f}, max {max(rest) * 1e3:.1f}), collectives "
+                f"{run['collectives_ms']:.1f} ms a step replayed alone ({run['collectives']} "
+                f"issued by the step + DDP's gradient all-reduce of "
+                f"{run['grad_bytes'] / 2**20:.1f} MiB), peak memory {run['peak'] / 2**30:.2f} "
+                f"GiB [{card}]")
+            if store:
+                f = run["fetch"]
+                log(f"ddp rank {r} {name}: store {f['bytes_sharded'] / 1e6:.1f} MB on the rank "
+                    f"(replicated {f['bytes_replicated'] / 1e6:.1f} MB), one batch's fetches "
+                    f"sharded {f['sharded']:.2f} ms, replicated {f['replicated']:.2f} ms; "
+                    f"sharded arrays {run['sharded']} [{card}]")
+        if any(res[name]["digest"] != ranks[0][name]["digest"] for res in ranks):
+            raise AssertionError(f"ddp {name}: the ranks' weights or buffers differ")
+        losses = [e["loss"] for e in ranks[0][name]["logged"]]
+        if any([e["loss"] for e in res[name]["logged"]] != losses for res in ranks):
+            raise AssertionError(f"ddp {name}: the ranks logged different global losses")
+        want = [e["loss"] for e in ref[name]["logged"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        w1 = WORK / f"exp_ddp_{name}_w1" / "ckpt"
+        w2 = WORK / f"exp_ddp_{name}_w{DDP_WORLD}" / "ckpt"
+        first = ddp_params_excess(w2 / "model000001.pt", w1 / "model000001.pt")
+        last = ddp_params_excess(w2 / f"model{DDP_STEPS:06d}.pt", w1 / f"model{DDP_STEPS:06d}.pt")
+        log(f"ddp world {DDP_WORLD} {name} against world 1: loss rel diffs "
+            f"{[f'{x:.2e}' for x in rel]}; after step 1 params max {first[0]:.3e} "
+            f"({first[1]:.5f} of the entries beyond 1e-6), running stats {first[2]:.3e}; "
+            f"after step {DDP_STEPS} params max {last[0]:.3e}, running stats {last[2]:.3e}")
+        if not (len(losses) == len(want) == DDP_STEPS and rel[0] <= 1e-5
+                and all(x <= 1e-4 for x in rel[1:]) and first[0] <= 2 * lr * 1.001
+                and first[1] <= 0.01 and first[2] <= 1e-5
+                and last[0] <= 2 * lr * DDP_STEPS * 1.001):
+            raise AssertionError(f"ddp world {DDP_WORLD} {name} differs from world 1")
+    for r, res in enumerate(ranks):
+        check_launches(f"ddp rank {r} test chain", res["test"]["counts"], PLAIN_STEP, 1,
+                       backward=False)
+        launches.append(res["test"]["counts"])
+    w2_sample = np.load(ranks[0]["test"]["sample"])["sample"]
+    chain = float(np.abs(w2_sample - w1_sample["sample"]).max())
+    scale = float(np.abs(w1_sample["sample"]).max())
+    fit_w2 = np.load(work / "fit_w2.npy")
+    fit_diff = np.abs(fit_w2 - fit_w1)[~mask]
+    log(f"ddp world {DDP_WORLD} test chain (DDPM-50, {B} rows, shares of {B // DDP_WORLD}): "
+        f"largest difference from one process {chain:.3e} of max |x| {scale:.3f}; fit of "
+        f"{FIT_BATCH} sequences: largest difference {float(fit_diff.max()):.3e}, "
+        f"{float((fit_diff > 1e-4).mean()):.5f} of the entries beyond 1e-4, "
+        f"{ranks[0]['fit']['seconds']:.2f} s at world {DDP_WORLD} [{card}]")
+    if not (w2_sample.shape == w1_sample["sample"].shape and np.isfinite(w2_sample).all()
+            and chain <= DDP_CHAIN_LIMIT * scale):
+        raise AssertionError("ddp test chain differs from one process's")
+    if any(res["fit"]["digest"] != ranks[0]["fit"]["digest"] for res in ranks) or not (
+            fit_diff.max() <= 2 * 0.02 * 200 and (fit_diff > 1e-4).mean() <= 0.01):
+        raise AssertionError("ddp fit differs from one process's")
+
+    # (b): world 1 over NCCL through torchrun
+    args = [a for a in ddp_runs(tree, banded_tree, 1)["plain"][0] if not a.startswith("exp_dir=")]
+    nccl_exp = WORK / "exp_ddp_nccl"
+    t0 = time.monotonic()
+    out = torchrun(["-m", "afford_motion_torch.train_ddp", *map(str, args), f"exp_dir={nccl_exp}"],
+                   1, work / "nccl.log", timeout_s=600, env={"AM_FLASH_ATTN": "1"})
+    if "rank 0 of 1 on cuda:0 over nccl" not in out:
+        raise AssertionError(f"torchrun world 1 did not run over NCCL:\n{out[-4000:]}")
+    nccl_losses, want = ([e["value"] for e in map(json.loads, (
+        d / "log" / "scalars.jsonl").read_text().splitlines()) if e["tag"] == "train/loss"]
+        for d in (nccl_exp, w1_exp))
+    same = []
+    for s in range(1, DDP_STEPS + 1):
+        a, b = (torch.load(d / "ckpt" / f"model{s:06d}.pt", weights_only=True)
+                for d in (nccl_exp, w1_exp))
+        same += [a[k].dtype == v.dtype and torch.equal(a[k].reshape(-1).view(torch.uint8),
+                                                       v.reshape(-1).view(torch.uint8))
+                 for k, v in b.items()]
+    log(f"ddp world 1 over NCCL (torchrun): {time.monotonic() - t0:.1f} s; losses "
+        f"{[round(x, 5) for x in nccl_losses]} against {[round(x, 5) for x in want]} without a "
+        f"group; checkpoints bit-equal: {all(same)} ({sum(same)} of {len(same)} tensors)")
+    # one process in a group runs the same kernels in the same order as one
+    # without: DDP's average over one rank and PointNorm's world-1 path are
+    # exact, so every bit must agree
+    if len(nccl_losses) != DDP_STEPS or nccl_losses != want or not all(same):
+        raise AssertionError("torchrun world 1 over NCCL differs from the run without a group")
+    log(f"ddp phase: {time.monotonic() - t_phase:.1f} s")
+    return launches
+
+
 def launch_counters() -> dict:
     """Each kernels-line row's wrapper, whose ``launches`` it reads. One
     wrapper call launches one backward kernel for dq, dk and dv: the bf16
@@ -4163,6 +4709,7 @@ def main() -> int:
     phase_kernels_attention_bwd(dev, rep)
     phase_kernels_trans_dec(dev, rep)
     phase_kernels_cdm_scene(dev, rep)
+    phase_kernels_ddp(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
     phase_reference_scene(dev)
@@ -4215,6 +4762,8 @@ def main() -> int:
                     ("task.train.device_store=off",), tag="banded host "),
     ]
     phase_store_megabatch(banded_tree, dev)
+    # data parallelism: world 2 over gloo on the card, world 1 over NCCL
+    phases += phase_ddp(tree, banded_tree, counters, dev, card)
     # trans_dec through the device store: the upload caches the up kNN too
     phases.append(phase_train(dict(banded_tree, exp=WORK / "exp_dec_store"), counters,
                               DEC_STORE_STEP, DEC_ARCH, tag="trans_dec store ", store=True,
@@ -4274,4 +4823,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_worker(sys.argv[2]))
     sys.exit(main())

@@ -16,14 +16,16 @@ hierarchy on the exact kNN, read by both sides) and the same inputs from a
 numpy seed. Tolerances: forwards float32 1e-5 and bfloat16 5e-2 of the
 output's largest entry (as ``tests/test_torch_cdm.py``); one train step
 each through ``tests/test_torch_train.py``'s ``_compare_train_steps``,
-gradients to 5e-3 of a tensor's largest entry for the U-Nets (their
-float32 ReLU kinks, see ``tests/test_torch_trans_dec.py``); hierarchies and
+gradients to 5e-3 of a tensor's largest entry for the U-Nets, plus, at
+the entries the step's float32 ReLU kinks reach, a bound derived from those
+kinks (``_kink_bound``); hierarchies and
 the name table bit for bit. V2's bottleneck dropout is 0.1 in both packages
 and their draws never agree: its train step runs with that dropout forced
 to 0 on both sides (the JAX side's ``TransformerEncoder`` patched in this
 file), its eval forward with the module as it is.
 """
 import contextlib
+import copy
 import logging
 from types import SimpleNamespace
 from typing import Sequence
@@ -33,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from afford_motion_tpu.models import cdm as jax_cdm
 from afford_motion_tpu.models import conditioning as jax_conditioning
@@ -72,6 +75,7 @@ from afford_motion_torch.utils.convert import (
 from test_torch_cmdm import _perturb_bn
 from test_torch_hierarchy import _assert_same
 from test_torch_train import _assert_trees_close, _compare_train_steps
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N, C, TEXT, TIME = 2, 1024, 6, 64, 32
 SEG_P, SEG_B, SEG_NS = (16, 32, 32, 64, 64), (1, 2, 1, 1, 1), (8, 16, 16, 16, 4)
@@ -79,6 +83,10 @@ PT_P, PT_B = (16, 32, 32, 64), (1, 2, 1, 1)
 SM_STRIDES, SM_NSAMPLES = (1, 4, 4, 4), (8, 16, 16, 16)
 TOL_F32, TOL_BF16 = 1e-5, 5e-2   # of the output's largest entry
 PT_GRAD_REL = 5e-3
+# a ReLU input within this share of its tensor's largest entry is a kink:
+# the forward tolerance, within which the two packages' float32 values may
+# put it on either side of 0
+KINK_REL = TOL_F32
 PERCEIVER = dict(point_pos_emb=True, encoder_q_input_channels=64, encoder_kv_input_channels=32,
                  encoder_num_heads=2, encoder_self_attn_num_layers=1,
                  decoder_q_input_channels=32, decoder_kv_input_channels=64,
@@ -360,6 +368,53 @@ def train_batch():
                 ts=ts, noises=noises)
 
 
+def _kink_bound(tm, x, cond, t, noise, monkeypatch):
+    """Per trainable parameter, the most its first-step gradient can move if
+    the JAX side puts any of the step's float32 ReLU kinks on the other side
+    of 0: every ReLU input within ``KINK_REL`` of its tensor's largest
+    entry whose output gradient is not 0 is a kink ``k``, and flipping it
+    changes the gradient by ``g_k * d x_k / d theta`` (``g_k`` the gradient
+    at the ReLU's output, ``x_k`` its input), so the bound is the sum of
+    ``|g_k| |d x_k / d theta|`` over the kinks: 0 where no kink reaches.
+    Computed on a copy of the port's model in float32, the step's loss with
+    its t and noise; returns (the bound as a state_dict, the kink count)."""
+    from afford_motion_torch.diffusion import create_gaussian_diffusion
+
+    model = copy.deepcopy(tm).train()
+    seen = []
+    real = F.relu
+
+    def relu(inp, inplace=False):
+        out = real(inp)
+        if out.requires_grad:
+            out.retain_grad()
+            seen.append((inp, out))
+        return out
+
+    td = create_gaussian_diffusion(DictConfig({"steps": 1000}))  # as _compare_train_steps
+    with monkeypatch.context() as m:
+        m.setattr(F, "relu", relu)
+        cond_h = conditioning.add_hierarchies(model, cond)
+        loss = td.training_losses(lambda x_t, ts: model(x_t, ts, cond_h), x, t, noise=noise,
+                                  x_mask=cond_h.get("x_mask"))["loss"].mean()
+    loss.backward(retain_graph=True)
+    names = [k for k, q in model.named_parameters() if q.requires_grad]
+    params = [q for q in model.parameters() if q.requires_grad]
+    bound = [torch.zeros_like(q) for q in params]
+    kinks = 0
+    for inp, out in seen:
+        a = inp.detach().abs()
+        for idx in ((a <= KINK_REL * a.max()) & (out.grad != 0)).nonzero().tolist():
+            reach = torch.autograd.grad(inp[tuple(idx)], params, retain_graph=True,
+                                        allow_unused=True)
+            g = out.grad[tuple(idx)].abs()
+            for b_, r in zip(bound, reach):
+                if r is not None:
+                    b_ += g * r.abs()
+            kinks += 1
+    return {k: b_ for k, b_ in zip(names, bound)}, kinks
+
+
 @pytest.mark.parametrize("arch, scene", [("MLP", True), ("PointTrans", False),
                                          ("PointTransV2", False)],
                          ids=["MLP+scene", "PointTrans", "PointTransV2"])
@@ -369,7 +424,10 @@ def test_train_step_matches_jax(train_batch, arch, scene, monkeypatch):
     scene model's: none in the port, exactly zero in JAX), the parameters
     and BatchNorm buffers after it (the scene model's unchanged on both
     sides), the next two losses. PointTrans and V2 on the H3D form (no
-    scene model), V2 with its bottleneck dropout at 0 on both sides."""
+    scene model), V2 with its bottleneck dropout at 0 on both sides. The
+    U-Nets' gradients: 5e-3 of a tensor's largest entry, plus the kink
+    bound (``_kink_bound``) at the entries the step's ReLU kinks reach; the
+    bound holds in any summation order the CPU's thread count gives."""
     s = train_batch
     if arch == "PointTransV2":
         real = jax_cdm.TransformerEncoder
@@ -388,10 +446,16 @@ def test_train_step_matches_jax(train_batch, arch, scene, monkeypatch):
                                                                              **names))
     tm.load_state_dict(cdm_state_dict_from_jax(variables, **names), strict=True)
     before = {k: v.clone() for k, v in tm.state_dict().items() if k.startswith("scene_model.")}
+    extra = None
+    if arch != "MLP":
+        extra, kinks = _kink_bound(tm, torch.from_numpy(s["x"]), s["tcond"],
+                                   torch.from_numpy(s["ts"][0]),
+                                   torch.from_numpy(s["noises"][0]), monkeypatch)
+        assert kinks > 0
     _compare_train_steps(dict(s, jm=jm), variables, s["jcond"], s["tcond"], s["x"], tm, 0.0, 0,
                          to_tree=lambda t: cdm_jax_tree_from_state_dict(t, **names),
                          grad_rel_of_max=1e-3 if arch == "MLP" else PT_GRAD_REL,
-                         expect_noise=arch != "MLP")
+                         expect_noise=arch != "MLP", grad_extra=extra)
     assert scene == bool(before)
     for k, v in tm.state_dict().items():
         if k.startswith("scene_model."):
