@@ -9,7 +9,10 @@
 // `_flash_attention_bwd_dq`): per batch item b, head h and query i,
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h] * scale) . v[b, j, h]
 // over the keys j whose mask[b, j] is 0. q, k, v and out keep the projections'
-// layout (B, L, heads * hd), f32 or bf16; logits, the softmax and the
+// layout (B, L, heads * hd), f32 or bf16, where q, k and v (and the
+// backward's dq, dk and dv) may be views of one packed projection whose rows
+// lie further apart (`Pitch`: the fused q/k/v projection of a self-attention,
+// the fused k/v of a cross-attention); logits, the softmax and the
 // accumulators are f32 whatever the input type, and the result is rounded to
 // the input type once. A query all of whose keys are masked gets a zero row
 // (the JAX package leaves that case undefined). Given a pointer, the forward
@@ -151,6 +154,23 @@ constexpr int kHD = 64;  // the largest head dimension; every attention in the r
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// the row pitch, in elements, of q, k and v and of the backward's dq, dk and
+// dv: row r of item b of a (B, L, heads * hd) tensor starts (b L + r) pitch
+// elements from its base, and head h hd elements into that row. A contiguous
+// tensor's pitch is heads * hd; a view of a packed projection (q, k, v of one
+// (B, L, 3 D) qkv, or k, v of one (B, Lk, 2 D) kv) has 3 D or 2 D, so the
+// kernels read and write such views where they lie, without a copy. Only
+// the step from one row to the next changes: a head still reads and writes
+// hd consecutive elements of a row. The forward's out and lse and the
+// backward's o and dout are contiguous. The f32 backward kernel takes the
+// pitches as an argument of its own beside BwdF32Args: with them inside that
+// struct the contiguous f32 backward ran 2.5% slower on an H100 (the same
+// device code; the argument struct's layout alone). The bf16 backward keeps
+// them in BwdArgs, where taking them apart measured no faster.
+struct Pitch {
+  size_t q, k, v, dq, dk, dv;
+};
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -206,7 +226,7 @@ __global__ void __launch_bounds__(QB * 4)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const unsigned char* __restrict__ mask, int lq,
                      int lk, int heads, int hd, float scale, bool vec, float* __restrict__ out,
-                     float* __restrict__ lse) {
+                     float* __restrict__ lse, Pitch ld) {
   constexpr int kNT = QB * 4, kW = QB / 8;
   __shared__ __align__(16) float sq[QB * kFLd];
   __shared__ __align__(16) float sk[2][kFK * kFLd];
@@ -218,10 +238,10 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = lane & 15, row0 = warp * 8 + (lane >> 4) * 4;
-  const size_t width = static_cast<size_t>(heads) * hd;
-  const float* qb = q + (static_cast<size_t>(b) * lq + q0) * width + h * hd;
-  const float* kb = k + static_cast<size_t>(b) * lk * width + h * hd;
-  const float* vb = v + static_cast<size_t>(b) * lk * width + h * hd;
+  const size_t width = static_cast<size_t>(heads) * hd;  // out's rows
+  const float* qb = q + (static_cast<size_t>(b) * lq + q0) * ld.q + h * hd;
+  const float* kb = k + static_cast<size_t>(b) * lk * ld.k + h * hd;
+  const float* vb = v + static_cast<size_t>(b) * lk * ld.v + h * hd;
   const unsigned char* mb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * lk;
   float* ob = out + (static_cast<size_t>(b) * lq + q0) * width + h * hd;
   const int q_rows = min(QB, lq - q0);
@@ -246,9 +266,9 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     return;
   }
-  load_f32<kNT>(sq, kFLd, QB, qb, width, q_rows, hd, vec);
-  load_f32<kNT>(sk[0], kFLd, kFK, kb, width, min(kFK, lk), hd, vec);
-  load_f32<kNT>(sv[0], kHD, kFK, vb, width, min(kFK, lk), hd, vec);
+  load_f32<kNT>(sq, kFLd, QB, qb, ld.q, q_rows, hd, vec);
+  load_f32<kNT>(sk[0], kFLd, kFK, kb, ld.k, min(kFK, lk), hd, vec);
+  load_f32<kNT>(sv[0], kHD, kFK, vb, ld.v, min(kFK, lk), hd, vec);
 
   const bool live = warp * 8 < q_rows;  // a warp whose rows all lie past Lq idles
   float acc[4][4];                      // O: rows row0 + i, columns 4c + e
@@ -273,9 +293,9 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (t + 1 < tiles) {
       const int next = base + kFK;
-      load_f32<kNT>(sk[buf ^ 1], kFLd, kFK, kb + next * width, width, min(kFK, lk - next), hd,
+      load_f32<kNT>(sk[buf ^ 1], kFLd, kFK, kb + next * ld.k, ld.k, min(kFK, lk - next), hd,
                     vec);
-      load_f32<kNT>(sv[buf ^ 1], kHD, kFK, vb + next * width, width, min(kFK, lk - next), hd,
+      load_f32<kNT>(sv[buf ^ 1], kHD, kFK, vb + next * ld.v, ld.v, min(kFK, lk - next), hd,
                     vec);
     }
     const unsigned keep = s_keep[buf];
@@ -388,13 +408,14 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int QB>
 int launch_f32(const float* q, const float* k, const float* v, const unsigned char* mask, int b,
-               int lq, int lk, int heads, int hd, float scale, float* out, float* lse,
+               int lq, int lk, int heads, int hd, float scale, float* out, float* lse, Pitch ld,
                cudaStream_t stream) {
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool vec = hd % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const bool vec = hd % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(out) &&
+                   ld.q % 4 == 0 && ld.k % 4 == 0 && ld.v % 4 == 0;
   const dim3 grid((lq + QB - 1) / QB, heads, b);
   attention_f32_kernel<QB><<<grid, QB * 4, 0, stream>>>(q, k, v, mask, lq, lk, heads, hd, scale,
-                                                        vec, out, lse);
+                                                        vec, out, lse, ld);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -553,7 +574,7 @@ __global__ void __launch_bounds__(kTC, 3)
 attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const unsigned char* __restrict__ mask, int lq,
                       int lk, int heads, int hd, float scale_log2, bf16* __restrict__ out,
-                      float* __restrict__ lse) {
+                      float* __restrict__ lse, Pitch ld) {
   __shared__ __align__(128) bf16 sq[kBQ * kHD];
   __shared__ __align__(128) bf16 sk[2][kBK * kHD];
   __shared__ __align__(128) bf16 sv[2][kBK * kHD];
@@ -563,10 +584,10 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;  // the mma fragments' row and column pair
-  const size_t width = static_cast<size_t>(heads) * hd;
-  const bf16* qb = q + (static_cast<size_t>(b) * lq + q0) * width + h * hd;
-  const bf16* kb = k + static_cast<size_t>(b) * lk * width + h * hd;
-  const bf16* vb = v + static_cast<size_t>(b) * lk * width + h * hd;
+  const size_t width = static_cast<size_t>(heads) * hd;  // out's rows
+  const bf16* qb = q + (static_cast<size_t>(b) * lq + q0) * ld.q + h * hd;
+  const bf16* kb = k + static_cast<size_t>(b) * lk * ld.k + h * hd;
+  const bf16* vb = v + static_cast<size_t>(b) * lk * ld.v + h * hd;
   const unsigned char* mb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * lk;
   bf16* ob = out + (static_cast<size_t>(b) * lq + q0) * width + h * hd;
   const int q_rows = min(kBQ, lq - q0);
@@ -593,9 +614,9 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     return;
   }
-  load_tile(sq, qb, width, q_rows, hd);
-  load_tile(sk[0], kb, width, min(kBK, lk), hd);
-  load_tile(sv[0], vb, width, min(kBK, lk), hd);
+  load_tile(sq, qb, ld.q, q_rows, hd);
+  load_tile(sk[0], kb, ld.k, min(kBK, lk), hd);
+  load_tile(sv[0], vb, ld.v, min(kBK, lk), hd);
 
   const bool live = warp * 16 < q_rows;  // a warp whose rows all lie past Lq idles
   unsigned qf[4][4];                     // Q's A fragments, one a 16-wide slice of hd
@@ -618,8 +639,8 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (t + 1 < tiles) {
       const int next = base + kBK;
-      load_tile(sk[buf ^ 1], kb + next * width, width, min(kBK, lk - next), hd);
-      load_tile(sv[buf ^ 1], vb + next * width, width, min(kBK, lk - next), hd);
+      load_tile(sk[buf ^ 1], kb + next * ld.k, ld.k, min(kBK, lk - next), hd);
+      load_tile(sv[buf ^ 1], vb + next * ld.v, ld.v, min(kBK, lk - next), hd);
     }
     if (t == 0 && live) load_a_rows(sq, warp * 16, lane, qf);
     const unsigned long long keep =
@@ -705,11 +726,12 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const unsigned char* mask, int b,
-                int lq, int lk, int heads, int hd, float scale, void* out, float* lse,
+                int lq, int lk, int heads, int hd, float scale, void* out, float* lse, Pitch ld,
                 cudaStream_t stream) {
   const dim3 grid((lq + kBQ - 1) / kBQ, heads, b);
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (hd % 8 != 0 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(out)) {
+  if (hd % 8 != 0 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
+      ld.q % 8 != 0 || ld.k % 8 != 0 || ld.v % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
@@ -718,7 +740,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const unsigned char
   const bf16* vv = static_cast<const bf16*>(v);
   bf16* oo = static_cast<bf16*>(out);
   attention_bf16_kernel<<<grid, kTC, 0, stream>>>(qq, kk, vv, mask, lq, lk, heads, hd,
-                                                  scale_log2, oo, lse);
+                                                  scale_log2, oo, lse, ld);
   return static_cast<int>(cudaGetLastError());
 }
 // ------------------------------------------------ backward: bf16, tensor cores
@@ -765,6 +787,7 @@ struct BwdArgs {
   bf16* ds;
   int* sync;
   bf16 *dq, *dk, *dv;
+  Pitch ld;  // rows of q, k, v, dq, dk, dv; o and dout are (B, L, heads * hd)
 };
 
 __device__ __forceinline__ int load_acquire(const int* p) {
@@ -845,9 +868,9 @@ __device__ void bwd_dkv(const BwdArgs& a, int bh, int kt, unsigned char* smem) {
   const size_t head_off = static_cast<size_t>(h) * hd;
   const int k_rows = min(kBK, lk - k0);
   const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
-  bf16* dkb = a.dk + (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  bf16* dvb = a.dv + (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  const bf16* qb = a.q + static_cast<size_t>(b) * lq * width + head_off;
+  bf16* dkb = a.dk + (static_cast<size_t>(b) * lk + k0) * a.ld.dk + head_off;
+  bf16* dvb = a.dv + (static_cast<size_t>(b) * lk + k0) * a.ld.dv + head_off;
+  const bf16* qb = a.q + static_cast<size_t>(b) * lq * a.ld.q + head_off;
   const bf16* dob = a.dout + static_cast<size_t>(b) * lq * width + head_off;
   const float* lse_b = a.lse + static_cast<size_t>(bh) * lq;
   const float* di_b = a.di + static_cast<size_t>(bh) * lq;
@@ -857,8 +880,8 @@ __device__ void bwd_dkv(const BwdArgs& a, int bh, int kt, unsigned char* smem) {
   if (tid < kBK) attended = tid < k_rows && (mb == nullptr || !mb[k0 + tid]);
   if (!__syncthreads_or(attended)) {  // no key of the tile attended: zero rows
     for (int i = tid; i < k_rows * hd; i += kTC) {
-      dkb[(i / hd) * width + i % hd] = __float2bfloat16_rn(0.f);
-      dvb[(i / hd) * width + i % hd] = __float2bfloat16_rn(0.f);
+      dkb[(i / hd) * a.ld.dk + i % hd] = __float2bfloat16_rn(0.f);
+      dvb[(i / hd) * a.ld.dv + i % hd] = __float2bfloat16_rn(0.f);
     }
     for (int t = tid; t < nqt; t += kTC) atomicAdd(done + t, 1);  // no dS^T to see
     return;
@@ -869,9 +892,11 @@ __device__ void bwd_dkv(const BwdArgs& a, int bh, int kt, unsigned char* smem) {
     const int key = k0 + warp * 16 + g + 8 * r;
     keep[r] = key < lk && (mb == nullptr || !mb[key]);
   }
-  load_tile(sk, a.k + (static_cast<size_t>(b) * lk + k0) * width + head_off, width, k_rows, hd);
-  load_tile(sv, a.v + (static_cast<size_t>(b) * lk + k0) * width + head_off, width, k_rows, hd);
-  load_tile(sq[0], qb, width, min(kBQ, lq), hd);
+  load_tile(sk, a.k + (static_cast<size_t>(b) * lk + k0) * a.ld.k + head_off, a.ld.k, k_rows,
+            hd);
+  load_tile(sv, a.v + (static_cast<size_t>(b) * lk + k0) * a.ld.v + head_off, a.ld.v, k_rows,
+            hd);
+  load_tile(sq[0], qb, a.ld.q, min(kBQ, lq), hd);
   load_tile(sdo[0], dob, width, min(kBQ, lq), hd);
   wait_for(a.sync + 1 + bh, nqt);  // every di tile of the (item, head) is out
   if (tid < kBQ) {
@@ -895,7 +920,7 @@ __device__ void bwd_dkv(const BwdArgs& a, int bh, int kt, unsigned char* smem) {
     }
     if (t + 1 < nqt) {
       const int next = q0 + kBQ, next_rows = min(kBQ, lq - next);
-      load_tile(sq[buf ^ 1], qb + next * width, width, next_rows, hd);
+      load_tile(sq[buf ^ 1], qb + next * a.ld.q, a.ld.q, next_rows, hd);
       load_tile(sdo[buf ^ 1], dob + next * width, width, next_rows, hd);
       if (tid < kBQ) {
         s_lse[buf ^ 1][tid] = tid < next_rows ? lse_b[next + tid] * kLog2e : INFINITY;
@@ -969,8 +994,8 @@ __device__ void bwd_dkv(const BwdArgs& a, int bh, int kt, unsigned char* smem) {
     }
   }
   count_up(done + nqt - 1);
-  store_rows(dkb, width, warp * 16, k_rows, hd, adk, g, tig);
-  store_rows(dvb, width, warp * 16, k_rows, hd, adv, g, tig);
+  store_rows(dkb, a.ld.dk, warp * 16, k_rows, hd, adk, g, tig);
+  store_rows(dvb, a.ld.dv, warp * 16, k_rows, hd, adv, g, tig);
 }
 
 // stages of the dQ work's stream of dS^T and K tiles
@@ -992,13 +1017,12 @@ __device__ void bwd_dq(const BwdArgs& a, int bh, int t, unsigned char* smem) {
   const int nkt = (lk + kBK - 1) / kBK, nqt = (lq + kBQ - 1) / kBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const size_t width = static_cast<size_t>(a.heads) * hd;
   const size_t head_off = static_cast<size_t>(h) * hd;
   const int q_rows = min(kBQ, lq - q0);
-  const bf16* kb = a.k + static_cast<size_t>(b) * lk * width + head_off;
+  const bf16* kb = a.k + static_cast<size_t>(b) * lk * a.ld.k + head_off;
   const bf16* dst = a.ds + (static_cast<size_t>(bh) * nqt + t) * nkt * kTile;
   const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
-  bf16* dqb = a.dq + (static_cast<size_t>(b) * lq + q0) * width + head_off;
+  bf16* dqb = a.dq + (static_cast<size_t>(b) * lq + q0) * a.ld.dq + head_off;
 
   int end = 0;  // one past the last attended key
   for (int j = threadIdx.x; j < lk; j += kTC) {
@@ -1012,7 +1036,7 @@ __device__ void bwd_dq(const BwdArgs& a, int bh, int t, unsigned char* smem) {
   const int tiles = (end + kBK - 1) / kBK;
   if (tiles == 0) {  // no key attended: zero rows
     for (int i = threadIdx.x; i < q_rows * hd; i += kTC) {
-      dqb[(i / hd) * width + i % hd] = __float2bfloat16_rn(0.f);
+      dqb[(i / hd) * a.ld.dq + i % hd] = __float2bfloat16_rn(0.f);
     }
     return;
   }
@@ -1024,7 +1048,7 @@ __device__ void bwd_dq(const BwdArgs& a, int bh, int t, unsigned char* smem) {
                    "l"(dst + kt * kTile + 8 * i)
                    : "memory");
     }
-    load_tile(sk[buf], kb + kt * kBK * width, width, min(kBK, lk - kt * kBK), hd);
+    load_tile(sk[buf], kb + kt * kBK * a.ld.k, a.ld.k, min(kBK, lk - kt * kBK), hd);
   };
   for (int kt = 0; kt < kDqStages - 1 && kt < tiles; ++kt) fetch(kt, kt);
   float adq[8][4];
@@ -1042,7 +1066,7 @@ __device__ void bwd_dq(const BwdArgs& a, int bh, int t, unsigned char* smem) {
     if (kt + kDqStages - 1 < tiles) fetch(kt + kDqStages - 1, (kt + kDqStages - 1) % kDqStages);
     if (any && warp * 16 < q_rows) mma_at_t(adq, sds[stage], warp * 16, sk[stage], lane);
   }
-  store_rows(dqb, width, warp * 16, q_rows, hd, adq, g, tig);
+  store_rows(dqb, a.ld.dq, warp * 16, q_rows, hd, adq, g, tig);
 }
 
 // the whole bf16 backward in one launch: each block draws a ticket and takes
@@ -1085,7 +1109,7 @@ struct BwdF32Args {
   const unsigned char* mask;
   int b, lq, lk, heads, hd;
   float scale, scale_log2;  // hd^-1/2, and times log2(e)
-  bool vec;  // hd a multiple of 4 and every tensor 16-byte aligned
+  bool vec;  // hd and every row pitch multiples of 4, every tensor 16-byte aligned
   float* ds;
   int* sync;
   float *dq, *dk, *dv;
@@ -1187,7 +1211,8 @@ __device__ __forceinline__ void stats_finish(const StatRow& r, float* s_lse, flo
 // memory. A key tile with no attended key writes zero rows and no dS (and
 // still counts); a warp whose 32 keys are none attended writes zero dS and
 // leaves its products out.
-__device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
+__device__ void bwd_f32_dkv(const BwdF32Args& a, const Pitch& ld, int bh, int kt,
+                            float* smem) {
   constexpr int kQPT = kFQT / 16;
   float* skt = smem;  // K^T, V^T: 64 dimensions x kTLd
   float* svt = skt + kHD * kTLd;
@@ -1208,9 +1233,9 @@ __device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
   const size_t head_off = static_cast<size_t>(h) * hd;
   const int k_rows = min(kFBK, lk - k0);
   const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
-  float* dkb = a.dk + (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  float* dvb = a.dv + (static_cast<size_t>(b) * lk + k0) * width + head_off;
-  const float* qb = a.q + static_cast<size_t>(b) * lq * width + head_off;
+  float* dkb = a.dk + (static_cast<size_t>(b) * lk + k0) * ld.dk + head_off;
+  float* dvb = a.dv + (static_cast<size_t>(b) * lk + k0) * ld.dv + head_off;
+  const float* qb = a.q + static_cast<size_t>(b) * lq * ld.q + head_off;
   const float* dob = a.dout + static_cast<size_t>(b) * lq * width + head_off;
   const float* ob = a.o + static_cast<size_t>(b) * lq * width + head_off;
   const float* lse_b = a.lse + static_cast<size_t>(bh) * lq;
@@ -1221,8 +1246,8 @@ __device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
   if (tid < kFBK) attended = tid < k_rows && (mb == nullptr || !mb[k0 + tid]);
   if (!__syncthreads_or(attended)) {  // no key of the tile attended: zero rows
     for (int i = tid; i < k_rows * hd; i += kFBThreads) {
-      dkb[(i / hd) * width + i % hd] = 0.f;
-      dvb[(i / hd) * width + i % hd] = 0.f;
+      dkb[(i / hd) * ld.dk + i % hd] = 0.f;
+      dvb[(i / hd) * ld.dv + i % hd] = 0.f;
     }
     for (int t = tid; t < nqt; t += kFBThreads) atomicAdd(done + t, 1);  // no dS to see
     return;
@@ -1235,11 +1260,11 @@ __device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
   }
   // any of the warp's 32 keys attended (the same keys in both products)
   const bool half = __any_sync(0xFFFFFFFFu, keep[0] || keep[1] || keep[2] || keep[3]);
-  load_f32<kFBThreads>(sq[0], kRLd, kFQT, qb, width, min(kFQT, lq), hd, a.vec, false);
+  load_f32<kFBThreads>(sq[0], kRLd, kFQT, qb, ld.q, min(kFQT, lq), hd, a.vec, false);
   load_f32<kFBThreads>(sdo[0], kRLd, kFQT, dob, width, min(kFQT, lq), hd, a.vec);
-  fill_transposed(skt, a.k + (static_cast<size_t>(b) * lk + k0) * width + head_off, width,
+  fill_transposed(skt, a.k + (static_cast<size_t>(b) * lk + k0) * ld.k + head_off, ld.k,
                   k_rows, hd, a.vec);
-  fill_transposed(svt, a.v + (static_cast<size_t>(b) * lk + k0) * width + head_off, width,
+  fill_transposed(svt, a.v + (static_cast<size_t>(b) * lk + k0) * ld.v + head_off, ld.v,
                   k_rows, hd, a.vec);
   StatRow next;
   if (tid < 4 * kFQT) {
@@ -1266,7 +1291,7 @@ __device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
     const bool more = t + 1 < nqt;
     if (more) {
       const int nq0 = q0 + kFQT, nrows = min(kFQT, lq - nq0);
-      load_f32<kFBThreads>(sq[buf ^ 1], kRLd, kFQT, qb + nq0 * width, width, nrows, hd, a.vec,
+      load_f32<kFBThreads>(sq[buf ^ 1], kRLd, kFQT, qb + nq0 * ld.q, ld.q, nrows, hd, a.vec,
                            false);
       load_f32<kFBThreads>(sdo[buf ^ 1], kRLd, kFQT, dob + nq0 * width, width, nrows, hd, a.vec);
       if (tid < 4 * kFQT) stats_load(next, a, ob, dob, lse_b, nq0, nrows, width);
@@ -1382,8 +1407,8 @@ __device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
   for (int c = 0; c < 4; ++c) {
     const int key = key0 + c;
     if (key >= k_rows || d >= hd) continue;
-    float* pk = dkb + key * width + d;
-    float* pv = dvb + key * width + d;
+    float* pk = dkb + key * ld.dk + d;
+    float* pv = dvb + key * ld.dv + d;
     if (a.vec) {
       *reinterpret_cast<float4*>(pk) = make_float4(adk[c][0], adk[c][1], adk[c][2], adk[c][3]);
       *reinterpret_cast<float4*>(pv) = make_float4(adv[c][0], adv[c][1], adv[c][2], adv[c][3]);
@@ -1408,7 +1433,8 @@ __device__ void bwd_f32_dkv(const BwdF32Args& a, int bh, int kt, float* smem) {
 // first waits until every key tile counted the dS of the last
 // query tile of kFQT (the dK/dV work's) that holds its queries: each key tile
 // counts its query tiles in order.
-__device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
+__device__ void bwd_f32_dq(const BwdF32Args& a, const Pitch& ld, int bh, int qd,
+                           float* smem) {
   constexpr int kQPT = kFDq / 16, kStage = kFDq * kRLd + kFBK * kHD;
   __shared__ int s_end[kFBThreads / 32];
   const int b = bh / a.heads, h = bh % a.heads, q0 = qd * kFDq, lq = a.lq, lk = a.lk, hd = a.hd;
@@ -1416,13 +1442,12 @@ __device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int dim0 = 32 * (warp & 1) + 4 * (lane & 7);       // this thread's 4 dimensions
   const int row0 = (warp >> 1) * 4 * kQPT + (lane >> 3);   // its queries row0 + 4r
-  const size_t width = static_cast<size_t>(a.heads) * hd;
   const size_t head_off = static_cast<size_t>(h) * hd;
   const int q_rows = min(kFDq, lq - q0);
-  const float* kb = a.k + static_cast<size_t>(b) * lk * width + head_off;
+  const float* kb = a.k + static_cast<size_t>(b) * lk * ld.k + head_off;
   const float* dsb = a.ds + static_cast<size_t>(bh) * nkt * lq * kFBK;
   const unsigned char* mb = a.mask == nullptr ? nullptr : a.mask + static_cast<size_t>(b) * lk;
-  float* dqb = a.dq + (static_cast<size_t>(b) * lq + q0) * width + head_off;
+  float* dqb = a.dq + (static_cast<size_t>(b) * lq + q0) * ld.dq + head_off;
 
   int end = 0;  // one past the last attended key
   for (int j = tid; j < lk; j += kFBThreads) {
@@ -1435,7 +1460,7 @@ __device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
   for (int w = 0; w < kFBThreads / 32; ++w) end = max(end, s_end[w]);
   const int tiles = (end + kFBK - 1) / kFBK;
   if (tiles == 0) {  // no key attended: zero rows
-    for (int i = tid; i < q_rows * hd; i += kFBThreads) dqb[(i / hd) * width + i % hd] = 0.f;
+    for (int i = tid; i < q_rows * hd; i += kFBThreads) dqb[(i / hd) * ld.dq + i % hd] = 0.f;
     return;
   }
   wait_for(a.sync + 1 + static_cast<size_t>(bh) * nqt + min(nqt - 1, (q0 + q_rows - 1) / kFQT),
@@ -1444,7 +1469,7 @@ __device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
     float* s = smem + stage * kStage;
     load_f32<kFBThreads>(s, kRLd, kFDq, dsb + (static_cast<size_t>(kt) * lq + q0) * kFBK, kFBK,
                          q_rows, kFBK, true, false);
-    load_f32<kFBThreads>(s + kFDq * kRLd, kHD, kFBK, kb + kt * kFBK * width, width,
+    load_f32<kFBThreads>(s + kFDq * kRLd, kHD, kFBK, kb + kt * kFBK * ld.k, ld.k,
                          min(kFBK, lk - kt * kFBK), hd, a.vec);
   };
   for (int kt = 0; kt < kFDqStages - 1 && kt < tiles; ++kt) fetch(kt, kt);
@@ -1494,7 +1519,7 @@ __device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
   for (int r = 0; r < kQPT; ++r) {
     const int row = row0 + 4 * r;
     if (row >= q_rows || d >= hd) continue;
-    float* pq = dqb + row * width + d;
+    float* pq = dqb + row * ld.dq + d;
     if (a.vec) {
       *reinterpret_cast<float4*>(pq) = make_float4(adq[r][0], adq[r][1], adq[r][2], adq[r][3]);
     } else {
@@ -1510,7 +1535,8 @@ __device__ void bwd_f32_dq(const BwdF32Args& a, int bh, int qd, float* smem) {
 // key tile's dK/dV first, then every block of kFDq queries' dQ (which waits
 // for its dS from every key tile; a dQ block waits only on dK/dV work of a
 // lower ticket, drawn by a block that had started, so every wait ends)
-__global__ void __launch_bounds__(kFBThreads, 2) attention_bwd_f32_kernel(const BwdF32Args a) {
+__global__ void __launch_bounds__(kFBThreads, 2)
+    attention_bwd_f32_kernel(const BwdF32Args a, const Pitch ld) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nkt = (a.lk + kFBK - 1) / kFBK, nqd = (a.lq + kFDq - 1) / kFDq;
   const int n_kv = a.b * a.heads * nkt;
@@ -1520,9 +1546,9 @@ __global__ void __launch_bounds__(kFBThreads, 2) attention_bwd_f32_kernel(const 
   const int work = s_ticket;
   float* fsmem = reinterpret_cast<float*>(smem);
   if (work < n_kv) {
-    bwd_f32_dkv(a, work / nkt, work % nkt, fsmem);
+    bwd_f32_dkv(a, ld, work / nkt, work % nkt, fsmem);
   } else {
-    bwd_f32_dq(a, (work - n_kv) / nqd, (work - n_kv) % nqd, fsmem);
+    bwd_f32_dq(a, ld, (work - n_kv) / nqd, (work - n_kv) % nqd, fsmem);
   }
 }
 
@@ -1569,8 +1595,8 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
 }
 
 // the f32 backward: a memset of the counters, then one launch
-cudaError_t launch_bwd_f32(BwdF32Args a, const BwdScratch& at, unsigned char* base,
-                           cudaStream_t st) {
+cudaError_t launch_bwd_f32(BwdF32Args a, const Pitch& ld, const BwdScratch& at,
+                           unsigned char* base, cudaStream_t st) {
   const long long nkt = (a.lk + kFBK - 1) / kFBK, nqt = (a.lq + kFQT - 1) / kFQT;
   const long long nqd = (a.lq + kFDq - 1) / kFDq;
   const long long n_kv = static_cast<long long>(a.b) * a.heads * nkt;
@@ -1583,7 +1609,7 @@ cudaError_t launch_bwd_f32(BwdF32Args a, const BwdScratch& at, unsigned char* ba
   a.sync = reinterpret_cast<int*>(base + at.sync);
   e = cudaMemsetAsync(a.sync, 0, (1 + static_cast<size_t>(a.b) * a.heads * nqt) * sizeof(int), st);
   if (e != cudaSuccess) return e;
-  attention_bwd_f32_kernel<<<static_cast<unsigned>(n_kv + n_q), kFBThreads, smem, st>>>(a);
+  attention_bwd_f32_kernel<<<static_cast<unsigned>(n_kv + n_q), kFBThreads, smem, st>>>(a, ld);
   return cudaGetLastError();
 }
 
@@ -1596,38 +1622,47 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// q (B, Lq, heads*hd), k, v (B, Lk, heads*hd), mask (B, Lk) bytes or null,
-// out (B, Lq, heads*hd); elem_bytes 4 = f32, 2 = bf16; lse (B, heads, Lq) f32
-// or null; config: 0 for the default launch, or for f32 the queries a block
-// (8, 16 or 32)
+// q (B, Lq, heads*hd), k, v (B, Lk, heads*hd), rows q_ld, k_ld, v_ld elements
+// apart (Pitch; each at least heads*hd), mask (B, Lk) bytes or null, out
+// (B, Lq, heads*hd) contiguous; elem_bytes 4 = f32, 2 = bf16; lse (B, heads,
+// Lq) f32 or null; config: 0 for the default launch, or for f32 the queries a
+// block (8, 16 or 32)
 extern "C" int amt_attention_config(const void* q, const void* k, const void* v,
                                     const unsigned char* mask, int b, int lq, int lk, int heads,
                                     int hd, float scale, int elem_bytes, void* out, float* lse,
-                                    int config, void* stream) {
-  if (!valid_shape(b, lq, lk, heads, hd, elem_bytes)) {
+                                    long long q_ld, long long k_ld, long long v_ld, int config,
+                                    void* stream) {
+  const long long width = static_cast<long long>(heads) * hd;
+  if (!valid_shape(b, lq, lk, heads, hd, elem_bytes) || q_ld < width || k_ld < width ||
+      v_ld < width) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Pitch ld{static_cast<size_t>(q_ld), static_cast<size_t>(k_ld), static_cast<size_t>(v_ld),
+                 0, 0, 0};
   auto st = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2) {
     if (config != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_bf16(q, k, v, mask, b, lq, lk, heads, hd, scale, out, lse, st);
+    return launch_bf16(q, k, v, mask, b, lq, lk, heads, hd, scale, out, lse, ld, st);
   }
   const float *qq = static_cast<const float*>(q), *kk = static_cast<const float*>(k),
               *vv = static_cast<const float*>(v);
   float* oo = static_cast<float*>(out);
   switch (config == 0 ? kF32Rows : config) {
-    case 8: return launch_f32<8>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, st);
-    case 16: return launch_f32<16>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, st);
-    case 32: return launch_f32<32>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, st);
+    case 8: return launch_f32<8>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, ld, st);
+    case 16:
+      return launch_f32<16>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, ld, st);
+    case 32:
+      return launch_f32<32>(qq, kk, vv, mask, b, lq, lk, heads, hd, scale, oo, lse, ld, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int amt_attention(const void* q, const void* k, const void* v,
                              const unsigned char* mask, int b, int lq, int lk, int heads, int hd,
-                             float scale, int elem_bytes, void* out, float* lse, void* stream) {
-  return amt_attention_config(q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, 0,
-                              stream);
+                             float scale, int elem_bytes, void* out, float* lse, long long q_ld,
+                             long long k_ld, long long v_ld, void* stream) {
+  return amt_attention_config(q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse,
+                              q_ld, k_ld, v_ld, 0, stream);
 }
 
 // bytes of scratch amt_attention_bwd needs
@@ -1638,15 +1673,29 @@ extern "C" long long amt_attention_bwd_scratch(int b, int lq, int lk, int heads,
 // The backward of amt_attention: q, o, dout, dq (B, Lq, heads*hd), k, v, dk,
 // dv (B, Lk, heads*hd), lse (B, heads, Lq) f32 from the forward, mask (B, Lk)
 // bytes or null, scratch of amt_attention_bwd_scratch bytes (16-byte
-// aligned). A memset of the counters and one kernel, bf16 or f32.
+// aligned); ld: the six row pitches of q, k, v, dq, dk, dv in elements (each
+// at least heads*hd; o and dout contiguous). A memset of the counters and one
+// kernel, bf16 or f32.
 extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                  const void* dout, const float* lse, const unsigned char* mask,
                                  int b, int lq, int lk, int heads, int hd, float scale,
                                  int elem_bytes, void* scratch, void* dq, void* dk, void* dv,
-                                 void* stream) {
-  if (!valid_shape(b, lq, lk, heads, hd, elem_bytes) || !aligned16(scratch)) {
+                                 const long long* ld_in, void* stream) {
+  if (!valid_shape(b, lq, lk, heads, hd, elem_bytes) || !aligned16(scratch) ||
+      ld_in == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long width = static_cast<long long>(heads) * hd;
+  for (int i = 0; i < 6; ++i) {
+    if (ld_in[i] < width) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Pitch ld{static_cast<size_t>(ld_in[0]), static_cast<size_t>(ld_in[1]),
+                 static_cast<size_t>(ld_in[2]), static_cast<size_t>(ld_in[3]),
+                 static_cast<size_t>(ld_in[4]), static_cast<size_t>(ld_in[5])};
+  const auto pitches_of = [&](size_t m) {
+    return ld.q % m == 0 && ld.k % m == 0 && ld.v % m == 0 && ld.dq % m == 0 &&
+           ld.dk % m == 0 && ld.dv % m == 0;
+  };
   auto st = static_cast<cudaStream_t>(stream);
   const BwdScratch at = bwd_scratch(b, lq, lk, heads, elem_bytes);
   unsigned char* base = static_cast<unsigned char*>(scratch);
@@ -1655,7 +1704,7 @@ extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, co
     const long long blocks = static_cast<long long>(b) * heads * (2 * nqt + nkt);
     if (hd % 8 != 0 || blocks > 0x7FFFFFFFLL || !aligned16(q) || !aligned16(k) ||
         !aligned16(v) || !aligned16(o) || !aligned16(dout) || !aligned16(dq) ||
-        !aligned16(dk) || !aligned16(dv)) {
+        !aligned16(dk) || !aligned16(dv) || !pitches_of(8)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const BwdArgs args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1664,7 +1713,7 @@ extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, co
                        scale * kLog2e, scale, static_cast<float*>(scratch),
                        reinterpret_cast<bf16*>(base + at.ds),
                        reinterpret_cast<int*>(base + at.sync), static_cast<bf16*>(dq),
-                       static_cast<bf16*>(dk), static_cast<bf16*>(dv)};
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), ld};
     cudaError_t e = cudaMemsetAsync(args.sync, 0, at.n_sync * sizeof(int), st);
     if (e == cudaSuccess) {
       e = allow_smem(reinterpret_cast<const void*>(attention_bwd_bf16_kernel), kBwdSmem);
@@ -1674,11 +1723,12 @@ extern "C" int amt_attention_bwd(const void* q, const void* k, const void* v, co
     return static_cast<int>(cudaGetLastError());
   }
   const bool vec = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
-                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
+                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv) &&
+                   pitches_of(4);
   const BwdF32Args args{static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<const float*>(o),
                         static_cast<const float*>(dout), lse, mask, b, lq, lk, heads, hd, scale,
                         scale * kLog2e, vec, nullptr, nullptr, static_cast<float*>(dq),
                         static_cast<float*>(dk), static_cast<float*>(dv)};
-  return static_cast<int>(launch_bwd_f32(args, at, base, st));
+  return static_cast<int>(launch_bwd_f32(args, ld, at, base, st));
 }

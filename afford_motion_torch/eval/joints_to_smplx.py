@@ -7,7 +7,9 @@ acceleration-smoothness term over the last 40% of the steps, for a whole
 padded batch at once. The regressor keeps the reference checkpoint's
 parameter names (``utils/joints_to_smplx/060.pt`` loads with
 ``strict=True``); natively trained weights come as an ``.npz`` in the JAX
-package's flat-key layout and cross through ``utils/convert.py``. The body
+package's flat-key layout and cross through ``utils/convert.py``, both ways
+(:func:`save_regressor_npz` writes what :func:`load_regressor_weights`
+reads, and what the JAX package's fitter reads). The body
 model is the LBS of ``smplx_lbs.py``.
 
 In a data-parallel run (``parallel.current()``) :meth:`JointsToSMPLXFitter.fit`
@@ -28,7 +30,7 @@ from torch import nn
 
 from ..models.layers import Linear, PositionalEncoding, TransformerEncoder
 from ..parallel.mesh import current
-from ..utils.convert import regressor_state_dict_from_jax
+from ..utils.convert import regressor_jax_tree_from_state_dict, regressor_state_dict_from_jax
 from ..utils.device import resolve_device
 from .smplx_lbs import SMPLXModel, params_to_joints, params_to_verts_joints
 
@@ -67,6 +69,26 @@ def load_regressor_npz(path: str) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = flat[name]
     return tree
+
+
+def save_regressor_npz(path: str, regressor: JointsToSMPLXRegressor) -> None:
+    """The regressor's weights as the JAX package's ``save_regressor_npz``
+    writes them: its flax params (through the name table), one float32
+    array a leaf under the '/'-joined path of the leaf. The inverse of
+    :func:`load_regressor_weights` for an ``.npz``."""
+    tree = regressor_jax_tree_from_state_dict(
+        regressor.state_dict(), num_layers=len(regressor.TransEncoder.layers))["params"]
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node: Dict, prefix: str) -> None:
+        for name, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{name}/")
+            else:
+                flat[prefix + name] = np.ascontiguousarray(v, dtype=np.float32)
+
+    walk(tree, "")
+    np.savez(path, **flat)
 
 
 def load_regressor_weights(regressor: JointsToSMPLXRegressor, path: str) -> None:

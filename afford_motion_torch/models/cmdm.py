@@ -19,7 +19,10 @@ module's mode: ``.train()`` turns on the batch statistics of the contact
 encoder's BatchNorms and the dropout of the transformer (see
 ``layers.set_dropout_generator``). ``norm="layer"`` (``model.norm`` of the
 config) builds the contact encoder with float32 LayerNorms in place of its
-BatchNorms, as the JAX package does.
+BatchNorms, as the JAX package does. Every attention computes its
+projections fused (``layers.TorchMultiHeadAttention``), so ``model.fused_qkv``
+builds the same model; the flag names only the JAX tree's layout
+(``utils/convert.py``).
 """
 from __future__ import annotations
 
@@ -181,11 +184,10 @@ class CMDM(nn.Module):
 
 
 def build_cmdm(model_cfg: Any) -> CMDM:
-    """A CMDM from the model YAML block (``configs/model/cmdm.yaml``)."""
+    """A CMDM from the model YAML block (``configs/model/cmdm.yaml``).
+    ``model.fused_qkv`` is not read: either value builds the same model."""
     text_feat_dim, _ = get_lang_feat_dim_type(model_cfg.text_model.version)
     cm = model_cfg.contact_model
-    if bool(model_cfg.get("fused_qkv", False)):
-        raise NotImplementedError("fused_qkv is not ported yet")
     return CMDM(
         motion_dim=int(model_cfg.input_feats),
         latent_dim=int(model_cfg.latent_dim),

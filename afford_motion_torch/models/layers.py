@@ -22,10 +22,22 @@ through the fused kernels (``ops/cuda/attention.py``) wherever the weights'
 dropout is inactive, as the JAX package's flash path does on its device; the
 default is the float32-softmax :func:`_attention`. An item whose keys are
 all masked gets that function's uniform rows on the fused route too
-(:func:`_uniform_where_all_masked`; the kernels give it zeros). The fused
-route carries gradients (its backward is the library's, in kernels too),
-so a train step with ``model.dropout=0``, which reaches every Dropout here,
-differentiates through it. Self- and cross-attention both take it.
+(``uniform_where_all_masked`` of ``ops/cuda/attention.py``; the kernels give
+it zeros). The fused route carries gradients (its backward is the
+library's, in kernels too), so a train step with ``model.dropout=0``, which
+reaches every Dropout here, differentiates through it. Self- and
+cross-attention both take it.
+
+Every attention computes its projections fused, as the JAX package's
+``fused_qkv=True`` does: a self-attention (query is key is value) q, k and v
+as one projection over the whole ``in_proj_weight``, and a cross-attention,
+whose key is always its value, q alone and k, v as one projection over
+``in_proj_weight[D:]``. The parameters stay torch's packed
+``in_proj_weight`` / ``in_proj_bias``, so the state_dict is the same whatever
+the JAX model's flag; the flag names only the JAX tree's layout
+(``utils/convert.py``). Both routes read q, k and v as views of the packed
+projections: the kernels through ``attention_qkv_cuda`` /
+``attention_q_kv_cuda``, whose backward writes one packed gradient.
 """
 from __future__ import annotations
 
@@ -38,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.attention import MAX_HEAD_DIM, attention_cuda
+from ..ops.cuda.attention import MAX_HEAD_DIM, attention_q_kv_cuda, attention_qkv_cuda
 
 
 def sinusoidal_table(max_len: int, dim: int) -> np.ndarray:
@@ -161,21 +173,6 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int
     return o.transpose(1, 2).reshape(B, Lq, -1)
 
 
-def _uniform_where_all_masked(o: torch.Tensor, v: torch.Tensor,
-                              pad_mask: torch.Tensor) -> torch.Tensor:
-    """The rows of the items whose keys are all masked replaced by what
-    :func:`_attention` gives them: every logit ``finfo.min``, so uniform
-    weights ``1 / Lk`` (rounded to v's type) over all ``Lk`` keys, and each
-    row the mean of v. The fused kernels give such an item zero rows; a
-    cross-attention reaches the case whenever ``c_pc_mask`` drops an item's
-    whole memory. Differentiable: those items' v gets the weights' share of
-    the rows' gradient, their q and k none, as on the einsum route."""
-    Lk = v.shape[1]
-    w = float(torch.tensor(1.0 / Lk).to(v.dtype))
-    mean = (v.sum(dim=1, keepdim=True, dtype=torch.float32) * w).to(o.dtype)
-    return torch.where(pad_mask.all(dim=1)[:, None, None], mean, o)
-
-
 def _flash_enabled(t: torch.Tensor) -> bool:
     """The fused-kernel switch: ``AM_FLASH_ATTN=1`` (read at call time) and
     tensors on a CUDA device, as the JAX package's is its variable and its
@@ -185,8 +182,11 @@ def _flash_enabled(t: torch.Tensor) -> bool:
 
 class TorchMultiHeadAttention(nn.Module):
     """``torch.nn.MultiheadAttention``'s parameters (``in_proj_weight`` packs
-    q, k, v; ``out_proj``), computed as three separate projections, as the
-    unfused flax module does."""
+    q, k, v; ``out_proj``), computed as the fused flax module does: one
+    projection for a self-attention (``query``, ``key`` and ``value`` one
+    tensor), q plus one k/v projection for a cross-attention (``key`` and
+    ``value`` one tensor, the memory). Another ``value`` than ``key`` is
+    refused."""
 
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0):
@@ -199,25 +199,29 @@ class TorchMultiHeadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query, key, value, pad_mask=None):
+        if value is not key:
+            raise ValueError("TorchMultiHeadAttention: key and value must be one tensor")
         dt, D = self.dtype, self.d_model
         w = self.in_proj_weight.to(dt)
         b = self.in_proj_bias.to(dt)
-        q = F.linear(query.to(dt), w[:D], b[:D])
-        k = F.linear(key.to(dt), w[D:2 * D], b[D:2 * D])
-        v = F.linear(value.to(dt), w[2 * D:], b[2 * D:])
         use_flash = (
-            _flash_enabled(q)
+            _flash_enabled(query)
             and (not self.training or self.dropout.p == 0.0)
             and (D // self.num_heads) % 8 == 0
             and D // self.num_heads <= MAX_HEAD_DIM
         )
-        if use_flash:
-            o = attention_cuda(q, k, v, self.num_heads, pad_mask)
-            if pad_mask is not None:
-                o = _uniform_where_all_masked(o, v, pad_mask)
+        if key is query:
+            qkv = F.linear(query.to(dt), w, b)
+            if use_flash:
+                return self.out_proj(attention_qkv_cuda(qkv, self.num_heads, pad_mask))
+            q, k, v = qkv.chunk(3, dim=-1)
         else:
-            o = _attention(q, k, v, self.num_heads, pad_mask, self.dropout)
-        return self.out_proj(o)
+            q = F.linear(query.to(dt), w[:D], b[:D])
+            kv = F.linear(key.to(dt), w[D:], b[D:])
+            if use_flash:
+                return self.out_proj(attention_q_kv_cuda(q, kv, self.num_heads, pad_mask))
+            k, v = kv.chunk(2, dim=-1)
+        return self.out_proj(_attention(q, k, v, self.num_heads, pad_mask, self.dropout))
 
 
 class TransformerEncoderLayer(nn.Module):

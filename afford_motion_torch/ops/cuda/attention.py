@@ -63,9 +63,26 @@ that differ from the plain version's at all does: the kernels round P as the
 plain version does, so only the sums' order moves dv (0.2% of the entries
 emulated, 0.09% on an H100), where an unrounded P moves 13% to 43%; bf16
 is held to :data:`DV_DIFFER_SHARE`.
+
+Packed projections. A fused q/k/v projection gives q, k and v as views of
+one (B, L, 3D) tensor, and a fused k/v projection k and v as views of one
+(B, Lk, 2D) tensor: rows 3D or 2D elements apart. The kernels take each of
+q, k, v (and in the backward dq, dk, dv) with a row pitch of its own, so
+:func:`attention_qkv_cuda` and :func:`attention_q_kv_cuda` (through
+:class:`PackedFlashAttention`, the route of ``models/layers.py``'s
+attention) read those views where they lie, and the backward writes the
+gradients of both parts into one packed gradient of the packed input's
+shape: nothing is copied, split or concatenated in either direction. These
+two also give an item all of whose keys are masked what the einsum route
+gives it (:func:`uniform_where_all_masked`), its v's share of the gradient
+added to the packed gradient in place. On the card a view the kernels cannot take (a last dimension
+that is not unit-strided, items that are not L rows apart, a bf16 pitch
+that is not a multiple of 8) raises; it is not copied. The plain versions
+take the views as they are.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -192,17 +209,45 @@ def _check_qkv(q, k, v, num_heads, pad_mask, name) -> None:
                          f"{tuple(pad_mask.shape)} {pad_mask.dtype}")
 
 
-def _check_cuda(tensors, q, num_heads, name) -> None:
+def row_pitch(t: torch.Tensor) -> Optional[int]:
+    """The elements between one row and the next of a (B, L, D) tensor whose
+    row r of item b starts ``(b L + r) pitch`` elements from its first
+    element and holds D consecutive ones (a contiguous tensor: D; a view of
+    one part of a packed projection: the packed width), or None where the
+    kernels cannot address it so."""
+    B, L, D = t.shape
+    if D > 1 and t.stride(2) != 1:
+        return None
+    pitch = t.stride(1) if L > 1 else (t.stride(0) if B > 1 else D)
+    if pitch < D or (B > 1 and t.stride(0) != L * pitch):
+        return None
+    return pitch
+
+
+def _check_cuda(tensors, q, num_heads, name, rows=()) -> Tuple[int, ...]:
     """What the kernels take beyond the shapes: one CUDA device, contiguous
-    tensors, and for bfloat16 a head dimension that is a multiple of 8 and
-    16-byte aligned rows."""
+    tensors but for ``rows``, which may lie row-strided (:func:`row_pitch`),
+    and for bfloat16 a head dimension that is a multiple of 8, 16-byte
+    aligned tensors and row pitches of 16-byte multiples. Returns the row
+    pitches of ``rows``."""
     build.require_cuda(q, name)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the tensors must be contiguous")
+    pitches = tuple(row_pitch(t) for t in rows)
+    if None in pitches:
+        raise ValueError(f"{name}: q, k, v and their gradients must be contiguous or row-strided "
+                         f"views (unit last stride, items L rows apart), got strides "
+                         f"{[t.stride() for t in rows]}")
     if q.dtype == torch.bfloat16 and ((q.shape[-1] // num_heads) % 8 != 0 or any(
-            t.data_ptr() % 16 for t in tensors if t.dtype == torch.bfloat16)):
+            t.data_ptr() % 16 for t in (*tensors, *rows) if t.dtype == torch.bfloat16)
+            or any(p % 8 for p in pitches)):
         raise ValueError(f"{name}: bfloat16 needs a head dimension that is a multiple of 8 "
-                         "and 16-byte aligned tensors")
+                         "and 16-byte aligned tensors and rows")
+    return pitches
+
+
+def _strided(*tensors) -> bool:
+    return any(not t.is_contiguous() for t in tensors)
 
 
 def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
@@ -213,26 +258,30 @@ def attention_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nu
     Launches the kernel for CUDA tensors; CPU tensors take the plain
     versions. The kernel's o is the same with and without ``stats``.
     ``config``: 0 for the default launch, or for float32 one of
-    :data:`F32_ROWS` (queries a block)."""
+    :data:`F32_ROWS` (queries a block). q, k and v may be row-strided views
+    (:func:`row_pitch`); o is contiguous."""
     _check_qkv(q, k, v, num_heads, pad_mask, "attention_cuda")
     if q.device.type == "cpu":
         lse = attention_lse_plain(q, k, num_heads, pad_mask) if stats else None
         return attention_plain(q, k, v, num_heads, pad_mask), lse
-    tensors = [q, k, v] + ([] if pad_mask is None else [pad_mask])
-    _check_cuda(tensors, q, num_heads, "attention_cuda")
+    tensors = [] if pad_mask is None else [pad_mask]
+    pitches = _check_cuda(tensors, q, num_heads, "attention_cuda", rows=(q, k, v))
     B, Lq, D = q.shape
     hd = D // num_heads
-    out = torch.empty_like(q)
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=q.device) if stats else None
     lib = build.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad_mask is None else pad_mask.data_ptr(), B, Lq, k.shape[1], num_heads, hd,
-            hd ** -0.5, q.element_size(), out.data_ptr(), None if lse is None else lse.data_ptr())
+            hd ** -0.5, q.element_size(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            *pitches)
     with torch.cuda.device(q.device):
         code = (lib.amt_attention_config(*args, config, build.stream_of(q)) if config
                 else lib.amt_attention(*args, build.stream_of(q)))
     build.check(code, "amt_attention")
     attention_cuda.launches += 1
+    if _strided(q, k, v):
+        forward_packed.launches += 1
     return out, lse
 
 
@@ -264,9 +313,7 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
     :class:`FlashAttention`. Launches the kernels for CUDA tensors; CPU
     tensors take the plain versions."""
     _check_qkv(q, k, v, num_heads, pad_mask, "attention_cuda")
-    tensors = [q, k, v] + ([] if pad_mask is None else [pad_mask])
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("attention_cuda: the inputs lie on different devices")
+    _same_device([q, k, v, pad_mask], "attention_cuda")
     with_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return FlashAttention.apply(q, k, v, num_heads, pad_mask, with_grad)
 
@@ -274,15 +321,136 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
 attention_cuda.launches = 0
 
 
+def _same_device(tensors, name) -> None:
+    tensors = [t for t in tensors if t is not None]
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: the inputs lie on different devices")
+
+
+def _unpack(x: torch.Tensor, kv: Optional[torch.Tensor]):
+    """(q, k, v) as views: of one packed ``x`` (B, L, 3D) when ``kv`` is
+    None, else ``x`` itself and the two halves of ``kv`` (B, Lk, 2D)."""
+    if kv is None:
+        return x.chunk(3, dim=-1)
+    return (x, *kv.chunk(2, dim=-1))
+
+
+def uniform_where_all_masked(o: torch.Tensor, v: torch.Tensor,
+                             pad_mask: torch.Tensor) -> torch.Tensor:
+    """``o`` with the rows of the items whose keys are all masked replaced by
+    what the einsum route (``models/layers._attention``) gives them: every
+    logit ``finfo.min``, so uniform weights ``1 / Lk`` (rounded to v's type)
+    over all ``Lk`` keys, and each row the mean of v. The kernels and the
+    plain versions give such an item zero rows; a cross-attention reaches
+    the case whenever ``c_pc_mask`` drops an item's whole memory.
+    Differentiable: those items' v gets the weights' share of the rows'
+    gradient, their q and k none, as on the einsum route."""
+    w = float(torch.tensor(1.0 / v.shape[1]).to(v.dtype))
+    mean = (v.sum(dim=1, keepdim=True, dtype=torch.float32) * w).to(o.dtype)
+    return torch.where(pad_mask.all(dim=1)[:, None, None], mean, o)
+
+
+def _uniform_grad(do: torch.Tensor, lk: int, dtype: torch.dtype,
+                  pad_mask: torch.Tensor) -> torch.Tensor:
+    """v's gradient through :func:`uniform_where_all_masked`, as its autograd
+    gives it: for an item with no attended key the sum of its rows of ``do``
+    times ``1 / Lk``, the same at every key; zero for the other items.
+    (B, 1, D) in ``dtype``, to be added at every key."""
+    w = float(torch.tensor(1.0 / lk).to(dtype))
+    empty = pad_mask.all(dim=1)[:, None, None]
+    g = torch.where(empty, do.sum(dim=1, keepdim=True), torch.zeros((), dtype=do.dtype,
+                                                                    device=do.device))
+    return (g.float() * w).to(dtype)
+
+
+class PackedFlashAttention(torch.autograd.Function):
+    """:class:`FlashAttention` on packed projections, with the all-masked
+    items of :func:`uniform_where_all_masked`: ``x`` (B, L, 3D), q, k and v
+    side by side, with ``kv`` None (a self-attention); or ``x`` the queries
+    (B, Lq, D) and ``kv`` (B, Lk, 2D), k and v side by side (a
+    cross-attention whose key is its value). The kernels read q, k and v as
+    row-strided views of the inputs, and the backward hands them views of one
+    gradient a packed input as dq, dk and dv, and adds the all-masked items'
+    share to the dv view in place: no copy, split, slice or concatenation of
+    an input or its gradient in either direction."""
+
+    @staticmethod
+    def forward(ctx, x, kv, num_heads: int, pad_mask, with_grad: bool):
+        q, k, v = _unpack(x, kv)
+        o, lse = attention_forward_cuda(q, k, v, num_heads, pad_mask, with_grad)
+        if pad_mask is not None:
+            o = uniform_where_all_masked(o, v, pad_mask)
+        if with_grad:
+            # the repaired rows are those of items with no attended key,
+            # which the backward's kernels leave at zero whatever o holds
+            ctx.save_for_backward(x, kv, o, lse, pad_mask)
+            ctx.num_heads = num_heads
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        x, kv, o, lse, pad_mask = ctx.saved_tensors
+        dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        dkv = None if kv is None else torch.empty(kv.shape, dtype=kv.dtype, device=kv.device)
+        grads = _unpack(dx, dkv)
+        do = do.contiguous()
+        attention_backward_cuda(*_unpack(x, kv), o, do, lse, ctx.num_heads, pad_mask,
+                                grads=grads)
+        if pad_mask is not None:
+            dv = grads[2]
+            dv.add_(_uniform_grad(do, dv.shape[1], dv.dtype, pad_mask))
+        return dx, dkv, None, None, None
+
+
+def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int,
+                       pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention from one packed projection ``qkv`` (B, L, 3D): q, k, v
+    its thirds, in that order (``in_proj_weight``'s). The contract of
+    :func:`attention_cuda` on those views, an item with no attended key
+    given :func:`uniform_where_all_masked`'s rows, differentiable through
+    :class:`PackedFlashAttention`: the gradient is one (B, L, 3D) tensor.
+    Launches the kernels for CUDA tensors; CPU tensors take the plain
+    versions."""
+    if qkv.ndim != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"attention_qkv_cuda: qkv {tuple(qkv.shape)} is not (B, L, 3D)")
+    _check_qkv(*_unpack(qkv, None), num_heads, pad_mask, "attention_qkv_cuda")
+    _same_device([qkv, pad_mask], "attention_qkv_cuda")
+    with_grad = torch.is_grad_enabled() and qkv.requires_grad
+    return PackedFlashAttention.apply(qkv, None, num_heads, pad_mask, with_grad)
+
+
+def attention_q_kv_cuda(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
+                        pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-attention of ``q`` (B, Lq, D) to one packed projection ``kv``
+    (B, Lk, 2D): k, v its halves, in that order. The contract of
+    :func:`attention_cuda` on those views, an item with no attended key
+    given :func:`uniform_where_all_masked`'s rows, differentiable through
+    :class:`PackedFlashAttention`: kv's gradient is one (B, Lk, 2D) tensor.
+    Launches the kernels for CUDA tensors; CPU tensors take the plain
+    versions."""
+    if kv.ndim != 3 or q.ndim != 3 or kv.shape[-1] != 2 * q.shape[-1]:
+        raise ValueError(f"attention_q_kv_cuda: q {tuple(q.shape)} and kv {tuple(kv.shape)} "
+                         "are not (B, Lq, D) and (B, Lk, 2D)")
+    _check_qkv(*_unpack(q, kv), num_heads, pad_mask, "attention_q_kv_cuda")
+    _same_device([q, kv, pad_mask], "attention_q_kv_cuda")
+    with_grad = torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad)
+    return PackedFlashAttention.apply(q, kv, num_heads, pad_mask, with_grad)
+
+
 def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, num_heads: int,
-                            pad_mask: Optional[torch.Tensor] = None):
+                            pad_mask: Optional[torch.Tensor] = None, grads=None):
     """Same contract as :func:`attention_backward_plain`. Launches the
     kernels for CUDA tensors (bf16: one kernel for dq, dk and dv after a
     memset of its counters; float32: one kernel, dK/dV then dQ by ticket,
     after a memset of its counters; one count a call, and one on
-    :data:`backward_bf16` or :data:`backward_f32`); CPU tensors take the
-    plain version."""
+    :data:`backward_bf16` or :data:`backward_f32`, and on
+    :data:`backward_packed` where a tensor is row-strided); CPU tensors take
+    the plain version. q, k and v may be row-strided views
+    (:func:`row_pitch`); ``grads``: (dq, dk, dv) to write into, shaped and
+    typed as q, k, v and also possibly row-strided (views of one packed
+    gradient), else they are allocated; returns them."""
     _check_qkv(q, k, v, num_heads, pad_mask, "attention_backward_cuda")
     B, Lq, D = q.shape
     Lk = k.shape[1]
@@ -292,28 +460,42 @@ def attention_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
     if tuple(lse.shape) != (B, num_heads, Lq) or lse.dtype != torch.float32:
         raise ValueError(f"attention_backward_cuda: lse must be ({B}, {num_heads}, {Lq}) float32, "
                          f"got {tuple(lse.shape)} {lse.dtype}")
-    tensors = [q, k, v, o, do, lse] + ([] if pad_mask is None else [pad_mask])
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("attention_backward_cuda: the inputs lie on different devices")
+    if grads is not None and any(g.shape != t.shape or g.dtype != t.dtype
+                                 for g, t in zip(grads, (q, k, v))):
+        raise ValueError("attention_backward_cuda: grads must be shaped and typed as q, k, v")
+    tensors = [o, do, lse] + ([] if pad_mask is None else [pad_mask])
+    _same_device([q, k, v, *tensors, *(grads or ())], "attention_backward_cuda")
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, do, lse, num_heads, pad_mask)
-    _check_cuda(tensors, q, num_heads, "attention_backward_cuda")
+        got = attention_backward_plain(q, k, v, o, do, lse, num_heads, pad_mask)
+        if grads is None:
+            return got
+        for g, x in zip(grads, got):
+            g.copy_(x)
+        return tuple(grads)
+    pitches = _check_cuda(tensors, q, num_heads, "attention_backward_cuda",
+                          rows=(q, k, v, *(grads or ())))
     lib = build.library()
     # bf16: di, the kernel's counters and the dS^T tiles its dK/dV work hands
     # its dQ work; f32: the counters and the dS tiles
     scratch = torch.empty(lib.amt_attention_bwd_scratch(B, Lq, Lk, num_heads, q.element_size()),
                           dtype=torch.uint8, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if grads is None:
+        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+        pitches = (*pitches, D, D, D)
+    ld = (ctypes.c_longlong * 6)(*pitches)
+    dq, dk, dv = grads
     hd = D // num_heads
     with torch.cuda.device(q.device):
         code = lib.amt_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), None if pad_mask is None else pad_mask.data_ptr(), B, Lq, Lk,
             num_heads, hd, hd ** -0.5, q.element_size(), scratch.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), build.stream_of(q))
+            dk.data_ptr(), dv.data_ptr(), ld, build.stream_of(q))
     build.check(code, "amt_attention_bwd")
     attention_backward_cuda.launches += 1
     (backward_f32 if q.dtype == torch.float32 else backward_bf16).launches += 1
+    if _strided(q, k, v, *grads):
+        backward_packed.launches += 1
     return dq, dk, dv
 
 
@@ -329,3 +511,7 @@ attention_backward_cuda.launches = 0
 # attention_backward_cuda's launches by instance
 backward_bf16 = LaunchCount()
 backward_f32 = LaunchCount()
+# the launches on row-strided views (packed projections), forward and
+# backward, counted also on the wrappers and instances above
+forward_packed = LaunchCount()
+backward_packed = LaunchCount()

@@ -46,6 +46,7 @@ SMEM_BYTES = 232448 - 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # (xyz, b, n, m, out, stream)
     "amt_fps": [_P, _I, _I, _I, _P, _P],
@@ -70,15 +71,17 @@ _SIGNATURES = {
     "amt_scatter_banded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # (points, verts, l, o, h, scratch, d2, idx, visits, stream)
     "amt_nn1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, stream)
-    "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P],
+    # (q, k, v, mask, b, lq, lk, heads, hd, scale, elem_bytes, out, lse, q_ld, k_ld, v_ld,
+    #  stream): the row pitches of q, k and v in elements
+    "amt_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _L, _L,
+                      _L, _P],
     # the same with a launch configuration before the stream
     "amt_attention_config": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P,
-                             _I, _P],
+                             _L, _L, _L, _I, _P],
     # (q, k, v, o, dout, lse, mask, b, lq, lk, heads, hd, scale, elem_bytes, scratch, dq, dk,
-    #  dv, stream)
+    #  dv, ld, stream): ld points at the six row pitches of q, k, v, dq, dk, dv (long long)
     "amt_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-                          _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P],
 }
 # entry points that return something other than a CUDA error code:
 # {name: (argtypes, restype)}

@@ -54,7 +54,11 @@ go to ``profile_train_step_stage1.txt`` and
 instead the CDM of that backbone with its frozen scene model, as
 ``task=contact_gen model=cdm`` builds it (``MLP`` is the shipped default),
 on 64 coloured clouds; the hierarchies are built in the step, and the table
-goes to ``profile_train_step_stage1_scene_<ARCH>.txt``. Every table ends with the traced
+goes to ``profile_train_step_stage1_scene_<ARCH>.txt``; with ``--store`` also,
+each step assembling that batch from the HUMANISE tree's ``motionx_contact``
+store of 64 Hilbert-sorted scenes (colours, the fps wire of each hierarchy
+the model reads, the rest cached at upload through the banded kNN), table
+``profile_train_step_stage1_scene_<ARCH>_store.txt``. Every table ends with the traced
 step's device time by kernel class (GEMMs, elementwise, reductions, norms,
 softmax, the optimizer, copies, the port's kernels).
 """
@@ -143,15 +147,17 @@ def _stage1(rng, dev, store: bool, scene: str | None = None):
     """The published CDM-Perceiver (or, with ``scene``, the CDM of that
     backbone with its scene model) on the card and one stage-1 batch of
     ``B_STAGE1`` items: (model, x, cond, assemble); with ``store`` x is None
-    and cond the index batch of a stage-1 store of ``B_STAGE1`` scenes."""
+    and cond the index batch of a stage-1 store of ``B_STAGE1`` scenes. A
+    scene model's store is the HUMANISE tree's ``motionx_contact`` store, as
+    ``prepare sort|geometry|pack`` leaves it: Hilbert-sorted clouds with
+    their f16 colours and the fps wire of each hierarchy the model reads,
+    the rest of each hierarchy cached at upload through the banded kNN."""
     from ..models.base import create_model
     from ..train.device_store import DeviceStore, make_assemble_fn
     from ..utils.config import load_config
     from .kernel_ab import _smoke
 
     smoke = _smoke()
-    if scene and store:
-        raise ValueError("--scene trains on the host route: the HUMANISE store is not ported")
     args = (["task=contact_gen", "model=cdm", "diffusion.steps=500", f"model.arch={scene}"]
             if scene else ["task=text_to_motion_contact_gen", *smoke.STAGE1_MODEL])
     cfg = load_config(str(smoke.ROOT / "configs"), args)
@@ -172,9 +178,40 @@ def _stage1(rng, dev, store: bool, scene: str | None = None):
               "dist32": rng.uniform(0, 2, size=(nb, N, 6)).astype(np.float32)}
     meta = {"kind": "h3d_contact", "n_items": nb, "sigma": 0.8, "use_raw_dist": False,
             "mean": np.full((1, 6), 0.3, np.float32), "std": np.full((1, 6), 0.2, np.float32)}
-    assemble = make_assemble_fn(DeviceStore(arrays, meta), dev)
+    if scene:
+        arrays.update(_scene_wire(model, xyz, dev))
+        arrays["rgb16"] = rng.uniform(-1, 1, size=(nb, N, 3)).astype(np.float16)
+        meta.update(kind="motionx_contact", rotate=False, use_color=True,
+                    item_store_row=np.arange(nb, dtype=np.int32))
+    device_store = DeviceStore(arrays, meta)
+    if scene:
+        model.use_banded = True
+        if not device_store.add_geometry_cache(model, dev):
+            raise RuntimeError("the store's geometry cache was not built")
+    assemble = make_assemble_fn(device_store, dev)
     batch = {"item_row": rng.permutation(nb).astype(np.int32), "text_emb": text}
     return model, None, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, assemble
+
+
+def _scene_wire(model, xyz: np.ndarray, dev) -> dict:
+    """Hilbert-sorts the clouds ``xyz`` (f16, in place) and returns the fps
+    wire of every hierarchy ``model`` reads, as ``prepare geometry --kind
+    seg`` (the scene model's) and ``--kind sm`` (PointTrans's) write it."""
+    from ..models.conditioning import hierarchy_specs
+    from ..ops.curves import curve_order
+    from ..ops.hierarchy import build_point_hierarchy
+
+    pts = xyz.astype(np.float32)
+    pts = np.stack([p[curve_order(p, "hilbert")] for p in pts])
+    xyz[...] = pts.astype(np.float16)
+    wire = {}
+    for _, prefix, strides, nsamples, _ in hierarchy_specs(model):
+        with torch.no_grad():
+            levels = build_point_hierarchy(torch.from_numpy(pts).to(dev), strides, nsamples,
+                                           with_up=False, sort_fps=True)
+        wire.update({f"{prefix}{li}_fps_idx": lvl.fps_idx.to(torch.int16).cpu().numpy()
+                     for li, lvl in enumerate(levels) if lvl.fps_idx is not None})
+    return wire
 
 
 # the port's kernels (csrc/*.cu), by name
@@ -227,10 +264,14 @@ def _attention_shapes(model) -> list:
 def _attention_alone(smoke, model, x_mask, dev) -> list:
     """One call of each of the model's attention shapes (batch 32, 8 heads,
     the motions' padding masked; a cross-attention's memory unmasked) in the
-    model's type, forward and backward, fused and einsum, by
-    ``chip_smoke.time_ms``: lines of the table."""
+    model's type, forward and backward, fused and einsum, on q, k and v as
+    the layers give them (views of one packed projection: a self-attention's
+    (B, L, 3D) qkv, a cross-attention's q and (B, Lk, 2D) kv), by
+    ``chip_smoke.time_ms``: lines of the table. The fused route is the
+    layers' whole: the kernels and, with a mask, the all-masked items'
+    repair (``uniform_where_all_masked`` and its gradient)."""
     from ..models import layers
-    from ..ops.cuda.attention import attention_cuda
+    from ..ops.cuda.attention import attention_q_kv_cuda, attention_qkv_cuda
 
     mha = (model.self_attn_layer.layers[0] if model.arch == "trans_enc"
            else model.self_attn_layers[0].layers[0]).self_attn
@@ -241,22 +282,29 @@ def _attention_alone(smoke, model, x_mask, dev) -> list:
              f"per call (chip_smoke.time_ms: median of {smoke.TIME_BLOCKS} blocks of 20 calls):"]
     total = {"fused": 0.0, "einsum": 0.0}
     for label, lq, lk, calls in _attention_shapes(model):
-        q = torch.randn(B, lq, width, device=dev, generator=gen).to(dtype).requires_grad_(True)
-        k, v = (torch.randn(B, lk, width, device=dev, generator=gen).to(dtype)
-                .requires_grad_(True) for _ in range(2))
+        def randn(*shape):
+            return torch.randn(*shape, device=dev, generator=gen).to(dtype).requires_grad_(True)
+
         do = torch.randn(B, lq, width, device=dev, generator=gen).to(dtype)
         pad = None
         if lq == lk:
             pad = torch.cat([torch.zeros((B, lk - L), dtype=torch.bool, device=dev), x_mask],
                             dim=1)
-        routes = {"fused": lambda: attention_cuda(q, k, v, heads, pad),
-                  "einsum": lambda: layers._attention(q, k, v, heads, pad, mha.dropout)}
+            leaves = (randn(B, lq, 3 * width),)
+            fused = lambda: attention_qkv_cuda(leaves[0], heads, pad)  # noqa: E731
+            parts = lambda: leaves[0].chunk(3, dim=-1)  # noqa: E731
+        else:
+            leaves = (randn(B, lq, width), randn(B, lk, 2 * width))
+            fused = lambda: attention_q_kv_cuda(*leaves, heads, pad)  # noqa: E731
+            parts = lambda: (leaves[0], *leaves[1].chunk(2, dim=-1))  # noqa: E731
+        routes = {"fused": fused,
+                  "einsum": lambda: layers._attention(*parts(), heads, pad, mha.dropout)}
         for name, fwd in routes.items():
             with torch.no_grad():
                 f_ms = smoke.time_ms(fwd, 20)[0]
             out = fwd()
             b_ms = smoke.time_ms(
-                lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), 20)[0]
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 20)[0]
             total[name] += calls * (f_ms + b_ms)
             lines.append(f"  {label} ({lq} x {lk}) {name}: forward {f_ms:.4f}, backward "
                          f"{b_ms:.4f}, both {f_ms + b_ms:.4f}; x {calls} a step: "
@@ -374,7 +422,8 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
         parts["optimizer"].append(ms)
     route = "store" if store else "banded" if banded else "non-banded"
     if stage1:
-        route = "stage-1 store" if store else f"stage-1 scene {scene}" if scene else "stage-1"
+        route = "stage-1 " + (f"scene {scene} " if scene else "") + ("store" if store else "")
+        route = route.rstrip()
     if not stage1:
         route = f"{arch} {route}"
     lines = [f"{route} step, batch {nb}, peak memory of the first three {peak:.2f} GiB; parts "
@@ -398,7 +447,9 @@ def main(out_dir: str = "build/profile", banded: bool = False, flash: bool = Fal
     out.mkdir(parents=True, exist_ok=True)
     name = {"store": "_store", "banded": "_banded", "non-banded": "", "stage-1": "_stage1",
             "stage-1 store": "_stage1_store",
-            f"stage-1 scene {scene}": f"_stage1_scene_{scene}"}[route.removeprefix(f"{arch} ")]
+            f"stage-1 scene {scene}": f"_stage1_scene_{scene}",
+            f"stage-1 scene {scene} store": f"_stage1_scene_{scene}_store"}[
+        route.removeprefix(f"{arch} ")]
     (out / f"profile_train_step{name}{suffix}.txt").write_text(text + "\n")
 
 

@@ -8,7 +8,11 @@ three state dicts; and the SMPL-X body model's arrays.
 One table of (state_dict key, flax path, kind) entries drives both
 directions, so they are inverses by construction. Kinds: ``w`` a Dense
 kernel (transposed), ``v`` a vector copied as is, ``qkv_w`` / ``qkv_b`` the
-three separate q/k/v Dense layers packed into torch's ``in_proj``.
+three separate q/k/v Dense layers packed into torch's ``in_proj``, and
+``q_kv_w`` / ``q_kv_b`` the q Dense and the packed k/v Dense of a
+cross-attention whose key is its value, packed likewise. With ``fused_qkv``
+a self-attention's ``in_proj`` is its one packed Dense, whole: kinds ``w``
+and ``v`` (the flax module's ``fused_qkv=True`` layout).
 Numpy only; the leaves may be numpy or jax arrays.
 """
 from __future__ import annotations
@@ -72,23 +76,37 @@ def _pt_block(key: str, path: Path, norm: str):
     yield from _norm(f"{key}.bn3", (*path, "PointNorm_2"), norm)
 
 
-def _encoder_layer(key: str, path: Path):
-    mha = (*path, "TorchMultiHeadAttention_0")
-    yield f"{key}.self_attn.in_proj_weight", ("params", *mha), "qkv_w"
-    yield f"{key}.self_attn.in_proj_bias", ("params", *mha), "qkv_b"
-    yield from _dense(f"{key}.self_attn.out_proj", (*mha, "Dense_3"))
+def _mha(key: str, path: Path, packing: str = "qkv"):
+    """A ``TorchMultiHeadAttention`` at ``path``: ``"qkv"`` three Dense layers
+    (``Dense_0..2``) and ``Dense_3`` out; ``"fused"`` one packed Dense
+    (``Dense_0``, in_proj whole) and ``Dense_1`` out, a fused self-attention;
+    ``"q_kv"`` the q Dense, the packed k/v Dense and ``Dense_2`` out, a fused
+    cross-attention whose key is its value."""
+    if packing == "fused":
+        yield f"{key}.in_proj_weight", ("params", *path, "Dense_0", "kernel"), "w"
+        yield f"{key}.in_proj_bias", ("params", *path, "Dense_0", "bias"), "v"
+        yield from _dense(f"{key}.out_proj", (*path, "Dense_1"))
+        return
+    kinds, out = {"qkv": (("qkv_w", "qkv_b"), "Dense_3"),
+                  "q_kv": (("q_kv_w", "q_kv_b"), "Dense_2")}[packing]
+    yield f"{key}.in_proj_weight", ("params", *path), kinds[0]
+    yield f"{key}.in_proj_bias", ("params", *path), kinds[1]
+    yield from _dense(f"{key}.out_proj", (*path, out))
+
+
+def _encoder_layer(key: str, path: Path, fused_qkv: bool = False):
+    yield from _mha(f"{key}.self_attn", (*path, "TorchMultiHeadAttention_0"),
+                    "fused" if fused_qkv else "qkv")
     yield from _layernorm(f"{key}.norm1", (*path, "LayerNorm_0"))
     yield from _dense(f"{key}.linear1", (*path, "Dense_0"))
     yield from _dense(f"{key}.linear2", (*path, "Dense_1"))
     yield from _layernorm(f"{key}.norm2", (*path, "LayerNorm_1"))
 
 
-def _decoder_layer(key: str, path: Path):
-    for j, name in enumerate(("self_attn", "multihead_attn")):
-        mha = (*path, f"TorchMultiHeadAttention_{j}")
-        yield f"{key}.{name}.in_proj_weight", ("params", *mha), "qkv_w"
-        yield f"{key}.{name}.in_proj_bias", ("params", *mha), "qkv_b"
-        yield from _dense(f"{key}.{name}.out_proj", (*mha, "Dense_3"))
+def _decoder_layer(key: str, path: Path, fused_qkv: bool = False):
+    for j, (name, packing) in enumerate((("self_attn", "fused"), ("multihead_attn", "q_kv"))):
+        yield from _mha(f"{key}.{name}", (*path, f"TorchMultiHeadAttention_{j}"),
+                        packing if fused_qkv else "qkv")
     for j in range(3):
         yield from _layernorm(f"{key}.norm{j + 1}", (*path, f"LayerNorm_{j}"))
     yield from _dense(f"{key}.linear1", (*path, "Dense_0"))
@@ -138,10 +156,12 @@ def pointtransformer_seg_entries(blocks: Sequence[int], key: str = "", path: Pat
 
 
 def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "trans_enc",
-                 norm: str = "batch") -> Iterator[Tuple[str, Path, str]]:
+                 norm: str = "batch", fused_qkv: bool = False
+                 ) -> Iterator[Tuple[str, Path, str]]:
     """Every (state_dict key, flax path, kind) of a CMDM of ``arch``
     (``trans_enc`` or ``trans_dec``) whose contact encoder has ``norm``
-    (``"batch"`` or ``"layer"``)."""
+    (``"batch"`` or ``"layer"``); ``fused_qkv``: the flax tree of a model
+    built with the flag (the state_dict is the same either way)."""
     if arch not in ("trans_enc", "trans_dec"):
         raise NotImplementedError(f"CMDM arch {arch!r}")
     yield from _dense("timestep_embedder.time_embed.0", ("timestep_embedder", "Dense_0"))
@@ -153,19 +173,22 @@ def cmdm_entries(num_layers: Sequence[int], blocks: Sequence[int], arch: str = "
     if arch == "trans_enc":
         for i in range(sum(num_layers)):
             yield from _encoder_layer(f"self_attn_layer.layers.{i}",
-                                      ("self_attn_layer", f"TransformerEncoderLayer_{i}"))
+                                      ("self_attn_layer", f"TransformerEncoderLayer_{i}"),
+                                      fused_qkv)
         return
     yield from _point_decoder("contact_encoder.", ("contact_encoder", "dec"), len(blocks), norm)
     for i, n in enumerate(num_layers):
         for j in range(n):
             yield from _encoder_layer(f"self_attn_layers.{i}.layers.{j}",
-                                      (f"self_attn_layers_{i}", f"TransformerEncoderLayer_{j}"))
+                                      (f"self_attn_layers_{i}", f"TransformerEncoderLayer_{j}"),
+                                      fused_qkv)
     for i in range(len(num_layers) - 1):
         # the reference's own spelling on the torch side
         yield from _dense(f"kv_mappling_layers.{i}.0", (f"kv_mapping_layers_{i}", "Dense_0"))
         yield from _layernorm(f"kv_mappling_layers.{i}.1",
                               (f"kv_mapping_layers_{i}", "LayerNorm_0"))
-        yield from _decoder_layer(f"cross_attn_layers.{i}", (f"cross_attn_layers_{i}",))
+        yield from _decoder_layer(f"cross_attn_layers.{i}", (f"cross_attn_layers_{i}",),
+                                  fused_qkv)
 
 
 def _perceiver_layer(key: str, path: Path, cross: bool):
@@ -270,17 +293,18 @@ def _put(tree: Dict, path: Path, value: np.ndarray) -> None:
     tree[path[-1]] = value
 
 
+# the Dense layers a packed in_proj gathers from, in order
+_PACKED = {"qkv_w": 3, "qkv_b": 3, "q_kv_w": 2, "q_kv_b": 2}
+
+
 def _state_dict_from_jax(variables_np: Dict, entries) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key, path, kind in entries:
-        if kind == "qkv_w":
+        if kind in _PACKED:
             mha = _get(variables_np, path)
-            v = np.concatenate([np.asarray(mha[f"Dense_{i}"]["kernel"], np.float32).T
-                                for i in range(3)])
-        elif kind == "qkv_b":
-            mha = _get(variables_np, path)
-            v = np.concatenate([np.asarray(mha[f"Dense_{i}"]["bias"], np.float32)
-                                for i in range(3)])
+            leaf = "kernel" if kind.endswith("_w") else "bias"
+            v = np.concatenate([np.asarray(mha[f"Dense_{i}"][leaf], np.float32).T
+                                for i in range(_PACKED[kind])])
         else:
             v = np.asarray(_get(variables_np, path), np.float32)
             v = v.T if kind == "w" else v
@@ -296,10 +320,12 @@ def _jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], entries) -> Dict
         if key not in tensors:
             continue
         v = tensors[key].detach().cpu().float().numpy()
-        if kind in ("qkv_w", "qkv_b"):
-            leaf = "kernel" if kind == "qkv_w" else "bias"
-            for i, part in enumerate(np.split(v, 3, axis=0)):
-                _put(tree, (*path, f"Dense_{i}", leaf), part.T if kind == "qkv_w" else part)
+        if kind in _PACKED:
+            leaf = "kernel" if kind.endswith("_w") else "bias"
+            d = v.shape[0] // 3
+            cuts = [d, 2 * d] if _PACKED[kind] == 3 else [d]
+            for i, part in enumerate(np.split(v, cuts, axis=0)):
+                _put(tree, (*path, f"Dense_{i}", leaf), part.T)
         else:
             _put(tree, path, v.T if kind == "w" else v)
     return tree
@@ -307,22 +333,27 @@ def _jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], entries) -> Dict
 
 def cmdm_state_dict_from_jax(variables_np: Dict, *, num_layers: Sequence[int],
                              blocks: Sequence[int], arch: str = "trans_enc",
-                             norm: str = "batch") -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of a CMDM of ``arch`` -> a
-    state_dict that :class:`afford_motion_torch.models.cmdm.CMDM` loads with
-    ``strict=True``, BatchNorm running stats included."""
-    return _state_dict_from_jax(variables_np, cmdm_entries(num_layers, blocks, arch, norm))
+                             norm: str = "batch", fused_qkv: bool = False
+                             ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a CMDM of ``arch`` (built with
+    ``fused_qkv``) -> a state_dict that
+    :class:`afford_motion_torch.models.cmdm.CMDM` loads with ``strict=True``,
+    BatchNorm running stats included."""
+    return _state_dict_from_jax(variables_np,
+                                cmdm_entries(num_layers, blocks, arch, norm, fused_qkv))
 
 
 def cmdm_jax_tree_from_state_dict(tensors: Dict[str, torch.Tensor], *,
                                   num_layers: Sequence[int], blocks: Sequence[int],
-                                  arch: str = "trans_enc", norm: str = "batch") -> Dict:
+                                  arch: str = "trans_enc", norm: str = "batch",
+                                  fused_qkv: bool = False) -> Dict:
     """The inverse: a dict of tensors keyed like the state_dict (parameters,
     buffers, or the gradients of the parameters) -> the flax tree
-    ``{"params": ..., "batch_stats": ...}`` with numpy leaves. Keys that are
-    missing from ``tensors`` (e.g. buffers, when gradients are carried) are
-    left out of the tree."""
-    return _jax_tree_from_state_dict(tensors, cmdm_entries(num_layers, blocks, arch, norm))
+    ``{"params": ..., "batch_stats": ...}`` of a CMDM built with
+    ``fused_qkv``, numpy leaves. Keys that are missing from ``tensors``
+    (e.g. buffers, when gradients are carried) are left out of the tree."""
+    return _jax_tree_from_state_dict(tensors,
+                                     cmdm_entries(num_layers, blocks, arch, norm, fused_qkv))
 
 
 def cdm_state_dict_from_jax(variables_np: Dict, **arch) -> Dict[str, torch.Tensor]:

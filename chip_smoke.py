@@ -321,6 +321,36 @@ Phases; any failure exits non-zero, and nothing falls back to the CPU:
    bit-equal; (c) a DDPM-50 test chain and the SMPL-X fit at world 2
    against one process. Each rank's ms a step,
    its collectives' ms a step (replayed alone) and peak memory are logged.
+20. ``model.fused_qkv=true`` (:func:`phase_kernels_fused_qkv` with the
+   kernel phases, :func:`phase_fused_qkv` after the ``trans_dec`` phases):
+   the four attention kernels (bf16 and f32, forward and backward) on
+   row-strided views of packed projections, at ``trans_enc``'s
+   self-attention (q, k, v the thirds of one (32, 326, 1536) qkv) and
+   ``trans_dec``'s cross-attention (k, v the halves of one (32, Lk, 1024) kv,
+   Lk 512 and 8,192, an item with every key masked): o, the row statistics
+   and the packed gradient bit-equal to the same kernels on contiguous
+   copies, within ``TOLERANCE`` / ``TOLERANCE_BWD`` of the plain versions,
+   timed in turns against the copies; then 8 + 4 train steps of
+   ``trans_enc`` with the flag, dropout 0 and ``AM_FLASH_ATTN=1``
+   (``FLASH_STEP``: every launch on packed views, as on every model path,
+   :func:`with_packed`), and for both archs a DDIM-50 chain with the flag
+   bit-equal to the chain without it from the same checkpoint (the flag
+   builds the same model), ms a step each way.
+21. the SMPL-X regressor's trainer (:func:`phase_regressor_train`, after the
+   raw chain): ``afford_motion_torch.tools.train_joints_to_smplx``,
+   ``REGRESSOR_STEPS`` steps at batch 16 on the raw chain's pickles with the
+   synthetic SMPL-X of the official mesh size, s/step, no port kernel; its
+   npz loaded by the port's fitter, which fits 16 of the sequences with the
+   fused attention (2 launches).
+22. the shipped stage-1 default through its store
+   (:func:`phase_cdm_scene_store`, after the CDM scene phases): the CDM's
+   HUMANISE tree prepared (``sort``, ``geometry`` of both kinds, ``pack``;
+   each geometry stage's launches exact), the ``motionx_contact`` store
+   staging both hierarchies' fps wire, the upload's banded kNN for the MLP
+   (the scene model's hierarchy) and for PointTrans (both), the first train
+   step through the store against the host route on the same 64 items
+   (``SCENE_STORE_LOSS_RTOL``), and 4 + 2 steps through the train entry
+   (``SCENE_STORE_STEP``, ``SCENE_UPLOAD``), the scene model unchanged.
 
 The line before the last is a JSON object with, for each kernel, its
 launches over the driven paths (every train run and chain above), its
@@ -374,16 +404,30 @@ REPLACES = {
     # the f32 instance of both (dK/dV and dQ in one launch)
     "attention_bwd_f32": ("afford_motion_torch/csrc/attention.cu",
                           "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    # the same kernels on row-strided views of packed projections
+    # (model.fused_qkv): the forward, and the backward writing one packed
+    # gradient
+    "attention_packed": ("afford_motion_torch/csrc/attention.cu",
+                         "afford_motion_tpu/models/layers.py:122"),
+    "attention_bwd_packed": ("afford_motion_torch/csrc/attention.cu",
+                             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
 }
 # what the kernels line's numbers mean where a row's differ from the others'
 _WHOLE = ("both backward rows read one kernel, which computes dq, dk and dv: launches are "
           "calls of attention_backward_cuda, each launching it once; ms, bound_ms, plain_ms and "
           "library_ms (the whole backward of scaled_dot_product_attention) are the whole "
           "backward's, the same in both rows, not to be added")
+_PACKED = ("launches on row-strided views of a packed projection (model.fused_qkv; the JAX "
+           "package's fused_qkv=True), counted also in the rows of their instance; ms, "
+           "plain_ms, bound_ms and library_ms at trans_enc's bf16 self-attention on views of "
+           "one (32, 326, 1536) qkv")
 NOTES = {"attention_bwd_dkv": _WHOLE, "attention_bwd_dq": _WHOLE,
          "attention_bwd_f32": "the float32 backward, one launch for dq, dk and dv: the two "
                               "library kernels at flash_attention.py:1121 (dK/dV) and :1456 (dQ); "
-                              "the bf16 rows count bf16 calls only"}
+                              "the bf16 rows count bf16 calls only",
+         "attention_packed": "the forward's " + _PACKED,
+         "attention_bwd_packed": "the whole backward's (one launch for dq, dk and dv, the bf16 "
+                                 "or the f32 instance) " + _PACKED}
 # the packed-kNN calls of one SceneMap hierarchy, (query level, support
 # level, k), level 0 the 8192-point cloud and each next one its FPS to
 # 2048, 512, 128 (the 128x128 level is below the kernel's range and takes
@@ -399,7 +443,7 @@ GATHER_CALLS = (((0, 0), 67), ((1, 0), 35), ((1, 1), 131), ((2, 1), 67), ((2, 2)
 PLAIN_STEP = {"fps": 3, "knn": 6, "gather": 7, "scatter": 7,
               "banded_knn": 0, "banded_gather": 0, "banded_scatter": 0,
               "nn1": 0, "attention": 0, "attention_bwd_dkv": 0, "attention_bwd_dq": 0,
-              "attention_bwd_f32": 0}
+              "attention_bwd_f32": 0, "attention_packed": 0, "attention_bwd_packed": 0}
 BANDED_STEP = dict(PLAIN_STEP, fps=0, knn=0, gather=0, scatter=0, banded_knn=6, banded_gather=7,
                    banded_scatter=7)
 # the device store's route on the sorted tree: the hierarchy comes from the
@@ -489,6 +533,9 @@ FLASH_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_dkv=CMDM_LAYE
 # the same in float32 (model.dtype=float32): the f32 forward and the f32
 # backward (dK/dV and dQ in one launch) once per denoiser layer
 FLASH_F32_STEP = dict(PLAIN_STEP, attention=CMDM_LAYERS, attention_bwd_f32=CMDM_LAYERS)
+# model.fused_qkv=true: the JAX package's flag, which builds the model the
+# default builds (every attention's projections fused either way)
+FUSED = ("model.fused_qkv=true",)
 # stage 1, the CDM-Perceiver of every published scripts/*_contact/train_ddp.sh
 # (no scene model, 500 diffusion steps): its train batch (its chains run at
 # B); it builds no point hierarchy and its attention is the einsum route, so
@@ -1566,7 +1613,9 @@ def phase_kernels_trans_dec(dev: torch.device, rep: KernelReport) -> None:
     8192 keys, bf16 and f32, with an item whose keys are all masked and one
     with its last 40% masked, within ``TOLERANCE`` / ``TOLERANCE_BWD``; and the
     all-masked item through the module's fused route
-    (``layers._uniform_where_all_masked``) against the einsum route,
+    (``attention_q_kv_cuda``: k and v the halves of one packed kv, the
+    all-masked item given ``uniform_where_all_masked``'s rows) against the
+    einsum route,
     forward and the gradient of v."""
     import torch.nn.functional as F
 
@@ -1716,28 +1765,29 @@ def phase_kernels_trans_dec(dev: torch.device, rep: KernelReport) -> None:
             # einsum route: the mean of v, and v's share of the gradient
             atol, rtol = attn.TOLERANCE[dtype]
             v_max = float(v.float().abs().max())
-            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-            fused = layers._uniform_where_all_masked(
-                attn.attention_cuda(*leaves, heads, pad), leaves[2], pad)
+            q_leaf = q.detach().clone().requires_grad_(True)
+            kv_leaf = torch.cat([k, v], dim=-1).requires_grad_(True)
+            fused = attn.attention_q_kv_cuda(q_leaf, kv_leaf, heads, pad)
             fused.backward(do)
+            grads = (q_leaf.grad, *kv_leaf.grad.chunk(2, dim=-1))
             e_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
             einsum = layers._attention(*e_leaves, heads, pad, identity)
             einsum.backward(do)
             diff = (fused[1].float() - einsum[1].float()).abs()
-            dv_diff = (leaves[2].grad[1].float() - e_leaves[2].grad[1].float()).abs()
+            dv_diff = (grads[2][1].float() - e_leaves[2].grad[1].float()).abs()
             dv_max = float(e_leaves[2].grad[1].float().abs().max())
             log(f"  attention {label}, all-masked item through the fused route: rows "
                 f"{diff.max().item():.3e} from the einsum route's (limit {atol:.1e} max|v| + "
                 f"{rtol:.1e} |einsum|), dv {dv_diff.max().item():.3e} of max {dv_max:.3e}; "
                 f"dq, dk of the item zero: "
-                f"{not bool(leaves[0].grad[1].any() or leaves[1].grad[1].any())}")
+                f"{not bool(grads[0][1].any() or grads[1][1].any())}")
             if not (bool((diff <= atol * v_max + rtol * einsum[1].float().abs()).all())
                     and bool((dv_diff <= atol * dv_max
                               + rtol * e_leaves[2].grad[1].float().abs()).all())
-                    and not bool(leaves[0].grad[1].any() or leaves[1].grad[1].any())):
+                    and not bool(grads[0][1].any() or grads[1][1].any())):
                 raise AssertionError(f"attention {label}: the fused route's all-masked item "
                                      "differs from the einsum route's")
-            del leaves, e_leaves, fused, einsum
+            del q_leaf, kv_leaf, grads, e_leaves, fused, einsum
             # timed: the forward against SDPA with the same mask, and the
             # whole backward against SDPA's gradient; the bound counts the
             # attended pairs
@@ -1774,6 +1824,136 @@ def phase_kernels_trans_dec(dev: torch.device, rep: KernelReport) -> None:
         f"2^{np.log2(max(rep.attention_bf16_atol, 1e-30)):.2f}, backward bf16 "
         f"2^{np.log2(max(rep.attention_bwd_need['bf16'], 1e-30)):.2f}, f32 "
         f"2^{np.log2(max(rep.attention_bwd_need['f32'], 1e-30)):.2f}")
+
+
+def phase_kernels_fused_qkv(dev: torch.device, rep: KernelReport) -> None:
+    """The attention kernels on row-strided views of packed projections, as
+    ``model.fused_qkv`` gives them: q, k, v the thirds of one (B, L, 3D)
+    qkv at ``trans_enc``'s self-attention (32 x 326 tokens, 8 heads of 64,
+    the motions' padding masked), and q beside k, v the halves of one
+    (B, Lk, 2D) kv at ``trans_dec``'s cross-attention (198 queries against
+    512 and 8,192 keys, item 0's last 40% of keys masked, item 1's all), in
+    bf16 and f32. The forward (o and the row statistics) and the backward
+    (dq, dk, dv written into views of one packed gradient) bit-equal to the
+    same kernels on contiguous copies, and within ``TOLERANCE`` /
+    ``TOLERANCE_BWD`` of the plain versions on the views; each launch counted
+    on ``forward_packed`` / ``backward_packed``. Timed in turns (contiguous,
+    packed, packed, contiguous) beside the bound and SDPA on the same views;
+    the bf16 self-attention sets the kernels line's packed rows."""
+    import torch.nn.functional as F
+
+    from afford_motion_torch.ops.cuda import attention as attn
+
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    heads, width = 8, 512
+    hd = width // heads
+    seq = 2 + 128 + L
+    lengths = rng.integers(40, L + 1, size=B)
+    frames = torch.from_numpy(np.arange(L)[None, :] >= lengths[:, None])
+    cases = [("self", seq, seq, torch.cat([torch.zeros((B, seq - L), dtype=torch.bool), frames],
+                                          dim=1))]
+    for lk in (512, 8192):
+        pad = torch.zeros((B, lk), dtype=torch.bool)
+        pad[0, int(0.6 * lk):] = True
+        pad[1] = True
+        cases.append((f"cross to {lk}", DEC_QUERIES, lk, pad))
+    for what, lq, lk, pad in cases:
+        pad = pad.to(dev)
+        keep = ~pad[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            def randn(*shape):
+                return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+            if what == "self":
+                x, kv = randn(B, lq, 3 * width), None
+                q, k, v = x.chunk(3, dim=-1)
+            else:
+                x, kv = randn(B, lq, width), randn(B, lk, 2 * width)
+                q, (k, v) = x, kv.chunk(2, dim=-1)
+            do = randn(B, lq, width)
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            label = f"{what} ({B},{lq}x{lk},{heads}x{hd}) {str(dtype)[6:]}, packed"
+            before = (attn.forward_packed.launches, attn.backward_packed.launches)
+            o, lse = attn.attention_forward_cuda(q, k, v, heads, pad, stats=True)
+            oc, lsec = attn.attention_forward_cuda(qc, kc, vc, heads, pad, stats=True)
+            if not (torch.equal(bits(o), bits(oc)) and torch.equal(bits(lse), bits(lsec))):
+                raise AssertionError(f"attention {label}: o or lse differs from the contiguous "
+                                     "copies'")
+            atol, rtol = attn.TOLERANCE[dtype]
+            v_max = float(v.float().abs().max())
+            rep.check_close("attention_packed", label, o,
+                            attn.attention_plain(q, k, v, heads, pad), atol * v_max, rtol)
+            dx = torch.empty_like(x)
+            dkv = None if kv is None else torch.empty_like(kv)
+            grads = dx.chunk(3, dim=-1) if kv is None else (dx, *dkv.chunk(2, dim=-1))
+            got = attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad, grads=grads)
+            want_c = attn.attention_backward_cuda(qc, kc, vc, oc, do, lsec, heads, pad)
+            if not all(g.data_ptr() == t.data_ptr() for g, t in zip(got, grads)) or not all(
+                    torch.equal(bits(a), bits(b)) for a, b in zip(got, want_c)):
+                raise AssertionError(f"attention backward {label}: the packed gradient differs "
+                                     "from the contiguous copies'")
+            if (attn.forward_packed.launches - before[0],
+                    attn.backward_packed.launches - before[1]) != (1, 1):
+                raise AssertionError(f"attention {label}: the packed launches were not counted")
+            want = attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad)
+            b_atol, b_rtol = attn.TOLERANCE_BWD[dtype]
+            need = attn.backward_excess(got, want, b_rtol)
+            differ = float((got[2] != want[2]).float().mean())
+            log(f"  attention {label}: o, lse, dq, dk, dv bit-equal to the contiguous copies'; "
+                f"backward needs {need:.3e} of the largest gradient entry (limit {b_atol:.3e}), "
+                f"{differ:.4f} of dv's entries differ from plain")
+            if need > b_atol or (dtype == torch.bfloat16 and differ > attn.DV_DIFFER_SHARE):
+                raise AssertionError(f"attention backward {label}: kernel differs from plain")
+            rep.err["attention_bwd_packed"] = max(rep.err["attention_bwd_packed"], max(
+                (g.double() - w.double()).abs().max().item() for g, w in zip(got, want)))
+            # timed in turns against the contiguous copies; the bf16
+            # self-attention is the kernels line's shape
+            path = what == "self" and dtype == torch.bfloat16
+            bf16 = dtype == torch.bfloat16
+            peak = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+            size = q.element_size()
+            pairs = float(lq * (~pad).sum()) * heads
+            io = (2 * q.numel() + 2 * k.numel()) * size + pad.numel()
+            qh, kh, vh = (t.reshape(B, -1, heads, hd).transpose(1, 2) for t in (q, k, v))
+            contiguous = time_ms(lambda: attn.attention_forward_cuda(qc, kc, vc, heads, pad), 10)
+            packed = rep.timed(
+                "attention_packed", label, lambda: attn.attention_forward_cuda(q, k, v, heads, pad),
+                lambda: attn.attention_plain(q, k, v, heads, pad), 10, path, nbytes=io,
+                flops=4.0 * hd * pairs, peak=peak,
+                library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keep))[0]
+            again = time_ms(lambda: attn.attention_forward_cuda(q, k, v, heads, pad), 10)
+            contiguous_2 = time_ms(lambda: attn.attention_forward_cuda(qc, kc, vc, heads, pad), 10)
+            log(f"  attention {label}, forward in turns: contiguous {contiguous[0]:.4f}, packed "
+                f"{packed:.4f}, packed {again[0]:.4f}, contiguous {contiguous_2[0]:.4f} ms")
+            stats = B * heads * lq * 4
+            nbytes = (4 * q.numel() + 4 * k.numel()) * size + stats + pad.numel()
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
+            out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+            doh = do.reshape(B, lq, heads, hd).transpose(1, 2)
+            turns = [time_ms(fn, 10) for fn in (
+                lambda: attn.attention_backward_cuda(qc, kc, vc, oc, do, lsec, heads, pad),
+                lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad,
+                                                     grads=grads),
+                lambda: attn.attention_backward_cuda(q, k, v, o, do, lse, heads, pad,
+                                                     grads=grads),
+                lambda: attn.attention_backward_cuda(qc, kc, vc, oc, do, lsec, heads, pad))]
+            plain = time_ms(lambda: attn.attention_backward_plain(q, k, v, o, do, lse, heads, pad),
+                            2, PLAIN_BLOCKS)
+            lib = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), doh, retain_graph=True),
+                          10)
+            rep.record("attention_bwd_packed", label, turns[1][0],
+                       f"the whole backward, median of {TIME_BLOCKS} blocks; {turns[1][1]:.4f}-"
+                       f"{turns[1][2]:.4f}", plain[0], path, nbytes=nbytes,
+                       flops=5.0 * 2 * hd * pairs, peak=peak,
+                       line=f", SDPA's whole backward {lib[0]:.4f} ms")
+            if path:
+                rep.library_ms["attention_bwd_packed"] = lib[0]
+            log(f"  attention backward {label}, in turns: contiguous {turns[0][0]:.4f}, packed "
+                f"{turns[1][0]:.4f}, packed {turns[2][0]:.4f}, contiguous {turns[3][0]:.4f} ms")
+            del out, qg, kg, vg, x, kv, dx, dkv, grads, got, want, want_c
+    log("  packed projections: every kernel bit-equal on the views to the contiguous copies, "
+        "within TOLERANCE and TOLERANCE_BWD of the plain versions")
 
 
 def phase_kernels_cdm_scene(dev: torch.device, rep: KernelReport) -> None:
@@ -2385,10 +2565,22 @@ def reset(counters: dict) -> None:
         fn.launches = 0
 
 
+def with_packed(want: dict) -> dict:
+    """``want`` with the packed rows a model's path gives: every attention of
+    the models reads q, k and v as views of its packed projections
+    (``models/layers.py``), so each of its launches, forward and backward,
+    counts on ``attention_packed`` / ``attention_bwd_packed`` too."""
+    return dict(want, attention_packed=want.get("attention", 0),
+                attention_bwd_packed=want.get("attention_bwd_dkv", 0)
+                + want.get("attention_bwd_f32", 0))
+
+
 def check_launches(name: str, counts: dict, per_pass: dict, passes: int, backward: bool) -> None:
     """The launches of one driven path must be exactly ``passes`` times the
-    route's count per pass (the scatters only where there is a backward)."""
-    want = {k: v * passes * (backward or "scatter" not in k) for k, v in per_pass.items()}
+    route's count per pass (the scatters only where there is a backward),
+    the packed rows as :func:`with_packed` gives them."""
+    want = with_packed({k: v * passes * (backward or "scatter" not in k)
+                        for k, v in per_pass.items()})
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
@@ -2600,30 +2792,36 @@ def phase_slice(tree: dict, counters: dict, runs: dict) -> dict:
     phase wrote under the tree's ``exp`` (the natsort-latest,
     ``model000008.pt``). ``runs``: name -> (extra arguments, the launches one
     chain must make)."""
-    from afford_motion_torch import test as entry
-
-    base = base_args(tree)
     launches = {k: 0 for k in counters}
     for name, (extra, per_chain) in runs.items():
-        reset(counters)
-        out = Path(entry.main(base + extra))
-        counts = {k: fn.launches for k, fn in counters.items()}
-        z = np.load(out / "samples.npz")
-        timing = json.loads((out / "timing.json").read_text())
-        x0 = z["sample"]
-        log(f"slice {name}: x0 {x0.shape} finite={bool(np.isfinite(x0).all())} "
-            f"launches {counts}")
-        if x0.shape != (B, L, D) or not np.isfinite(x0).all():
-            raise AssertionError(f"{name}: bad x0 {x0.shape}")
-        check_launches(f"slice {name}", counts, per_chain, 1, backward=False)
-        chain = timing["chains"][0]
-        log(f"slice {name}: chain {chain['chain_s']:.3f} s (hierarchy + contact encoding "
-            f"{chain['prepare_s']:.3f} s, {chain['steps']} denoiser steps "
-            f"{chain['loop_s']:.3f} s = {1e3 * chain['loop_s'] / chain['steps']:.3f} ms/step), "
-            f"peak memory {timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB")
+        counts, _, _ = run_chain(tree, counters, name, extra, per_chain)
         for k in launches:
             launches[k] += counts[k]
     return launches
+
+
+def run_chain(tree: dict, counters: dict, name: str, extra: list, per_chain: dict) -> tuple:
+    """One chain of :func:`phase_slice`: (its launches, x0, the chain's
+    timing record)."""
+    from afford_motion_torch import test as entry
+
+    reset(counters)
+    out = Path(entry.main(base_args(tree) + extra))
+    counts = {k: fn.launches for k, fn in counters.items()}
+    z = np.load(out / "samples.npz")
+    timing = json.loads((out / "timing.json").read_text())
+    x0 = z["sample"]
+    log(f"slice {name}: x0 {x0.shape} finite={bool(np.isfinite(x0).all())} "
+        f"launches {counts}")
+    if x0.shape != (B, L, D) or not np.isfinite(x0).all():
+        raise AssertionError(f"{name}: bad x0 {x0.shape}")
+    check_launches(f"slice {name}", counts, per_chain, 1, backward=False)
+    chain = timing["chains"][0]
+    log(f"slice {name}: chain {chain['chain_s']:.3f} s (hierarchy + contact encoding "
+        f"{chain['prepare_s']:.3f} s, {chain['steps']} denoiser steps "
+        f"{chain['loop_s']:.3f} s = {1e3 * chain['loop_s'] / chain['steps']:.3f} ms/step), "
+        f"peak memory {timing.get('peak_memory_bytes', float('nan')) / 2**30:.2f} GiB")
+    return counts, x0, chain
 
 
 def phase_t2m_chain(tree: dict, counters: dict, s1_exp: Path) -> dict:
@@ -3831,6 +4029,7 @@ def phase_scene_slice(dev: torch.device, counters: dict, assets: dict | None = N
         want["nn1"] = B
         want["attention"] = (CMDM_LAYERS * 500 * len(chains)
                              + REGRESSOR_LAYERS * -(-B // FIT_BATCH))
+        want = with_packed(want)
         log(f"scene slice: launches {launches}")
         if len(chains) != 2 or launches != want:
             raise AssertionError(f"scene slice: {len(chains)} chains, launches {launches}, "
@@ -3876,6 +4075,7 @@ def phase_scene_slice(dev: torch.device, counters: dict, assets: dict | None = N
             counts = {k: fn.launches for k, fn in counters.items()}
             want = {k: v * ("scatter" not in k) for k, v in PLAIN_STEP.items()}
             want["attention"] = CMDM_LAYERS * 50 * (flash == "1")
+            want = with_packed(want)
             if counts != want:
                 raise AssertionError(f"DDIM-50 AM_FLASH_ATTN={flash}: launches {counts}, "
                                      f"expected {want}")
@@ -4660,13 +4860,283 @@ def phase_ddp(tree: dict, banded_tree: dict, counters: dict, dev: torch.device,
     return launches
 
 
+def phase_fused_qkv(tree: dict, dec_tree: dict, counters: dict) -> list:
+    """``model.fused_qkv=true`` at the shipped widths: 8 + 4 train steps of
+    ``trans_enc`` through the train entry with dropout 0 and
+    ``AM_FLASH_ATTN=1`` (``FLASH_STEP``: every layer's forward and backward
+    on packed views), bit-exact resume; then for ``trans_enc`` and
+    ``trans_dec`` a DDIM-50 chain through the test entry under
+    ``AM_FLASH_ATTN=1`` from the checkpoint of a model trained without the
+    flag, with and without it: the same x0 bit for bit (the flag builds the
+    same model), each chain's attention launches exact (all on packed
+    views), ms a denoiser step each way. Returns the launches of every
+    run."""
+    ddim = ["diffusion.timestep_respacing=ddim50", "task.test.sampler=ddim"]
+    runs = []
+    with flash_switch("1"):
+        runs.append(phase_train(dict(tree, exp=WORK / "exp_fused_flash"), counters,
+                                FLASH_STEP, ("model.dropout=0", *FUSED),
+                                tag="fused_qkv flash "))
+        for arch, t, extra, plain, calls in (
+                ("trans_enc", tree, (), PLAIN_STEP, CMDM_LAYERS),
+                ("trans_dec", dec_tree, DEC_ARCH, DEC_PLAIN_STEP, DEC_ATTENTION)):
+            per_chain = dict(plain, attention=50 * calls)
+            x0, ms = {}, {}
+            for fused in (False, True):
+                counts, x0[fused], chain = run_chain(
+                    t, counters, f"{arch} ddim50 fused attention" + (", fused_qkv" * fused),
+                    [*extra, *ddim, *(FUSED if fused else ())], per_chain)
+                ms[fused] = 1e3 * chain["loop_s"] / chain["steps"]
+                runs.append(counts)
+            same = x0[True].dtype == x0[False].dtype and np.array_equal(
+                x0[True].view(np.uint8), x0[False].view(np.uint8))
+            log(f"{arch} fused_qkv: DDIM-50 x0 bit-equal to the chain without the flag: {same}; "
+                f"ms a denoiser step with the flag {ms[True]:.3f}, without {ms[False]:.3f}")
+            if not same:
+                raise AssertionError(f"{arch} fused_qkv: the chain differs from the one without "
+                                     "the flag")
+    return runs
+
+
+# the regressor's trainer on the card: steps at its published batch
+REGRESSOR_STEPS, REGRESSOR_BATCH = 300, 16
+
+
+def phase_regressor_train(dev: torch.device, counters: dict) -> list:
+    """``afford_motion_torch.tools.train_joints_to_smplx`` on the card:
+    REGRESSOR_STEPS steps at batch REGRESSOR_BATCH on the SMPL-X pickles of
+    the raw chain's ``prepare process`` (:func:`phase_raw_chain`) with the
+    synthetic SMPL-X of the official mesh size (``FIT_ENV``): every loss
+    finite and the last below the first, no port kernel launched (the
+    regressor trains on the einsum route: dropout 0.1), s/step logged; the
+    npz it writes loaded by the port's ``JointsToSMPLXFitter`` on the card,
+    which fits FIT_BATCH of the training sequences with ``AM_FLASH_ATTN=1``
+    (the fused attention once a regressor layer), finite params, the joint
+    error of the fit logged. Returns the launches of both."""
+    from afford_motion_torch.eval.joints_to_smplx import JointsToSMPLXFitter
+    from afford_motion_torch.eval.smplx_lbs import params_to_joints
+    from afford_motion_torch.tools import train_joints_to_smplx as tool
+
+    data = WORK / "raw_chain" / "data"
+    sets = sorted(p.parent.name for p in data.glob("*/motions"))
+    out = WORK / "regressor" / "regressor.npz"
+    launches = []
+    with environ(FIT_ENV):
+        reset(counters)
+        t0 = time.monotonic()
+        summary = tool.main(["--data_dir", str(data), "--sets", *sets, "--steps",
+                             str(REGRESSOR_STEPS), "--batch_size", str(REGRESSOR_BATCH), "--out",
+                             str(out)])
+        counts = {k: fn.launches for k, fn in counters.items()}
+        losses = [e["loss"] for e in summary["logged"]]
+        log(f"regressor train: {summary['pairs']} sequences of {sets}, {REGRESSOR_STEPS} steps "
+            f"at batch {REGRESSOR_BATCH}: {summary['s_per_step']:.4f} s/step, losses "
+            f"{[round(v, 5) for v in losses]}, entry {time.monotonic() - t0:.1f} s, "
+            f"launches {counts}")
+        check_launches("regressor train", counts, STAGE1_STEP, 1, backward=True)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"regressor train: losses {losses}")
+        launches.append(counts)
+        reset(counters)
+        with flash_switch("1"):
+            fitter = JointsToSMPLXFitter(str(out), device=dev)
+            pairs = tool.build_pairs(str(data), sets, fitter.body_model)
+            n = min(FIT_BATCH, len(pairs))
+            joints, _, mask = tool.pad_batch(pairs, range(n))
+            t0 = time.monotonic()
+            params = fitter.fit(joints, mask)
+            fit_s = time.monotonic() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        check_launches("regressor fit", counts, dict(STAGE1_STEP, attention=REGRESSOR_LAYERS), 1,
+                       backward=False)
+        if params.shape != (n, L, 69) or not np.isfinite(params).all():
+            raise AssertionError(f"regressor fit: params {params.shape}")
+        with torch.no_grad():
+            got = params_to_joints(fitter.body_model, torch.from_numpy(params.reshape(-1, 69))
+                                   .to(dev)).reshape(n, L, 66).cpu().numpy()
+        err = np.linalg.norm((got - joints).reshape(n, L, 22, 3), axis=-1)[~mask]
+        log(f"regressor fit: the trained npz on the card, {n} sequences in {fit_s:.3f} s, mean "
+            f"joint error after the fit {err.mean():.4e} (max {err.max():.4e}), launches {counts}")
+        launches.append(counts)
+    return launches
+
+
+def make_cdm_store_tree(counters: dict) -> tuple:
+    """The CDM's synthetic HUMANISE tree (:func:`make_cdm_tree`) copied and
+    taken through ``afford_motion_torch.prepare`` ``sort``, ``geometry``
+    (``--kind sm``, PointTrans's 4 levels: 3 FPS and 8 kNN a chunk of B
+    scenes), ``geometry --kind seg`` (the scene model's 5 levels: 4 FPS and
+    8 kNN a chunk) and ``pack`` on the card. Returns the tree and the
+    launches."""
+    from afford_motion_torch import prepare
+
+    data = WORK / "cdm_data_store"
+    shutil.copytree(WORK / "cdm_data", data)
+    base = data / "HUMANISE" / "contact_motion"
+    n = len(list((base / "contacts").glob("*.npz")))
+    launches = {k: 0 for k in counters}
+    for stage, per_chunk in ((["sort"], None), (["geometry"], dict(fps=3, knn=8)),
+                             (["geometry", "--kind", "seg"], dict(fps=4, knn=8)), (["pack"], None)):
+        reset(counters)
+        prepare.main([*stage, "--dataset", "HUMANISE", "--out_dir", str(data),
+                      "--batch_size", str(B)])
+        counts = {k: fn.launches for k, fn in counters.items()}
+        check_launches(f"cdm store prepare {' '.join(stage)}", counts,
+                       dict(STAGE1_STEP, **(per_chunk or {})), -(-n // B) if per_chunk else 0,
+                       backward=False)
+        for k in launches:
+            launches[k] += counts[k]
+    meta = json.loads((base / "packed" / "meta.json").read_text())
+    need = {"rgb16", "dist32", "geo_seg1_fps_idx", "geo_seg4_fps_idx", "geo_sm1_fps_idx"}
+    if not (meta["morton"] and meta["curve"] == "hilbert" and len(meta["bases"]) == n
+            and need <= set(meta["fields"])):
+        raise AssertionError(f"cdm store prepare: the packed store lacks a wire: "
+                             f"{ {k: v for k, v in meta.items() if k != 'bases'} }")
+    log(f"cdm store prepare: {n} scenes sorted, both hierarchies' fps wire cached, packed")
+    return {"data": data, "packed": base / "packed"}, launches
+
+
+# the MLP + scene CDM on the sorted HUMANISE tree, whose packed store
+# carries the fps wire: the host route's pass rebuilds the scene model's
+# hierarchy from it through the banded kNN (8; the levels below 256 points
+# take the exact path), and the banded routing sends 21 of its 26 gathers to
+# the banded gather and 5 to the row gather; the store's upload caches that
+# hierarchy
+# (SCENE_UPLOAD a chunk of STORE_CHUNK scenes; PointTrans also its own), so
+# its step launches no kNN
+SCENE_BANDED_PASS = dict(SCENE_PASS, fps=0, knn=0, gather=5, banded_gather=21, banded_knn=8)
+SCENE_STORE_STEP = dict(SCENE_BANDED_PASS, banded_knn=0)
+SCENE_UPLOAD = dict(STAGE1_STEP, banded_knn=8)
+PT_SCENE_UPLOAD = dict(STAGE1_STEP, banded_knn=8 + 8)
+# the first step's loss through the store against the host route's on the
+# same items, weights, t and noise (tests/test_torch_train.py's first-step
+# tolerance): the inputs are equal but for the contact kernel's f32 exp
+SCENE_STORE_LOSS_RTOL = 1e-5
+
+
+def phase_cdm_scene_store(dev: torch.device, counters: dict) -> list:
+    """The shipped stage-1 default (``task=contact_gen model=cdm``: MLP and
+    the frozen scene model) through the ``motionx_contact`` store of a
+    prepared HUMANISE tree (:func:`make_cdm_store_tree`). In process, at the
+    shipped widths: the store staged with the fps wire of both hierarchies,
+    its geometry cache for the MLP (the scene model's 5 levels) and for
+    PointTrans (both hierarchies), each upload's launches counted; the first
+    train step through the store against the host route on the same
+    B_STAGE1 items (no rotation, the same weights, t and noise) within
+    SCENE_STORE_LOSS_RTOL. Then 4 + 2 steps through the train entry
+    (``SCENE_STORE_STEP`` a step, ``SCENE_UPLOAD`` at upload), bit-exact
+    resume, the scene model unchanged. Returns the launches."""
+    import copy
+    import random
+
+    from afford_motion_torch.data import create_dataset
+    from afford_motion_torch.data.loader import collate_fn_general
+    from afford_motion_torch.diffusion import create_gaussian_diffusion
+    from afford_motion_torch.models.base import create_model
+    from afford_motion_torch.models.conditioning import cond_to_device, host_prepare_cond
+    from afford_motion_torch.train.device_store import DeviceStore, make_assemble_fn
+    from afford_motion_torch.train.loop import make_train_step
+    from afford_motion_torch.train.state import TrainState
+    from afford_motion_torch.utils.config import DictConfig, load_config
+    from afford_motion_torch.utils.misc import compute_repr_dimension
+
+    tree, prep = make_cdm_store_tree(counters)
+    runs = [prep]
+    exp = WORK / "exp_cdm_store"
+    cfg = load_config("configs", cdm_args(tree, exp) + ["task.dataset.train_transforms="
+                                                        "['NumpyToTensor']"])
+    cfg.model.input_feats = compute_repr_dimension(cfg.model.data_repr)
+    ds = create_dataset(cfg.task.dataset, "train")
+    store = DeviceStore.try_build(ds)
+    if store is None or store.meta["kind"] != "motionx_contact" or not all(
+            f"{p}1_fps_idx" in store.arrays for p in ("geo_seg", "geo_sm")):
+        raise AssertionError("cdm store: the motionx_contact store did not stage both wires")
+    n_sc = store.arrays["xyz16"].shape[0]
+    models = {}
+    for arch in ("PointTrans", "MLP"):
+        torch.manual_seed(SEED)
+        c = copy.deepcopy(cfg.model)
+        c.arch = arch
+        models[arch] = create_model(c, dev)
+        models[arch].use_banded = True   # as the loop sets it for the sorted packed tree
+        st = DeviceStore(dict(store.arrays), dict(store.meta)) if arch == "PointTrans" else store
+        reset(counters)
+        t0 = time.monotonic()
+        if not st.add_geometry_cache(models[arch], dev):
+            raise AssertionError(f"cdm store: no geometry cache for {arch}")
+        counts = {k: fn.launches for k, fn in counters.items()}
+        cached = sorted({k.split("_")[1][:-1] for k in st.arrays if k.endswith("_knn_idx")})
+        log(f"cdm store upload for {arch}: {time.monotonic() - t0:.3f} s, hierarchies cached "
+            f"{cached}, launches {counts}")
+        check_launches(f"cdm store upload {arch}", counts,
+                       PT_SCENE_UPLOAD if arch == "PointTrans" else SCENE_UPLOAD,
+                       -(-n_sc // STORE_CHUNK), backward=False)
+        runs.append(counts)
+    model = models["MLP"]
+    host_model = copy.deepcopy(model)
+    assemble = make_assemble_fn(store, dev)
+
+    class Text:  # the same caption embeddings on both routes
+        per_token = False
+
+        def encode(self, texts):
+            return np.stack([np.random.default_rng(len(t)).normal(size=512) for t in texts]
+                            ).astype(np.float32)
+
+    ids, seed = list(range(B_STAGE1)), SEED + 9
+    meta = store.draw_batch(ds, ids, random.Random(seed), np.random.RandomState(seed + 1))
+    meta["text_emb"] = Text().encode(meta.pop("c_text"))[:, None, :].astype(np.float16)
+    index_batch = {k: torch.from_numpy(v).to(dev) for k, v in meta.items()}
+    random.seed(seed)
+    np.random.seed(seed + 1)
+    hx, hcond = host_prepare_cond(collate_fn_general([ds[i] for i in ids]), Text())
+    hcond["text_emb"] = hcond["text_emb"].astype(np.float16)
+    diffusion = create_gaussian_diffusion(DictConfig({"steps": 500}), dev)
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy(rng.integers(0, 500, size=B_STAGE1)).to(dev)
+    noise = torch.from_numpy(rng.standard_normal(hx.shape).astype(np.float32)).to(dev)
+    losses = {}
+    for route, m, step_args in (
+            ("store", model, (None, index_batch)),
+            ("host", host_model, (torch.from_numpy(hx).to(dev), cond_to_device(hcond, dev)))):
+        reset(counters)
+        step = make_train_step(m, diffusion, assemble=assemble if route == "store" else None)
+        out = step(TrainState.create(m, lr=1e-4), *step_args, 0, t=t, noise=noise)
+        losses[route] = float(out["loss"])
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"cdm store first step, {route} route: loss {losses[route]:.7f}, launches {counts}")
+        check_launches(f"cdm store first step {route}", counts,
+                       SCENE_STORE_STEP if route == "store" else SCENE_BANDED_PASS, 1,
+                       backward=True)
+        runs.append(counts)
+    rel = abs(losses["store"] - losses["host"]) / abs(losses["host"])
+    log(f"cdm store: the first step's loss through the store {rel:.3e} (rel) from the host "
+        f"route's on the same {B_STAGE1} items (limit {SCENE_STORE_LOSS_RTOL:.0e})")
+    if not rel <= SCENE_STORE_LOSS_RTOL:
+        raise AssertionError("cdm store: the store's first loss differs from the host route's")
+    del models, model, host_model, store
+    args = cdm_args(tree, exp)
+    runs.append(phase_train(dict(tree, exp=exp), counters, SCENE_STORE_STEP,
+                            tag="cdm MLP + scene store ", args=args, store=True,
+                            upload_knn=SCENE_UPLOAD["banded_knn"], steps=4,
+                            geometry_cache=True))
+    check_scene_frozen("cdm MLP + scene store", args, exp, 4)
+    return runs
+
+
 def launch_counters() -> dict:
     """Each kernels-line row's wrapper, whose ``launches`` it reads. One
     wrapper call launches one backward kernel for dq, dk and dv: the bf16
     instance's count stands in both bf16 rows, the f32 instance's in its
     own."""
     from afford_motion_torch.ops.cuda import banded
-    from afford_motion_torch.ops.cuda.attention import attention_cuda, backward_bf16, backward_f32
+    from afford_motion_torch.ops.cuda.attention import (
+        attention_cuda,
+        backward_bf16,
+        backward_f32,
+        backward_packed,
+        forward_packed,
+    )
     from afford_motion_torch.ops.cuda.fps import fps_cuda
     from afford_motion_torch.ops.cuda.gather import gather_rows, scatter_add_rows
     from afford_motion_torch.ops.cuda.knn import knn_cuda
@@ -4677,7 +5147,8 @@ def launch_counters() -> dict:
             "banded_gather": banded.gather_banded, "banded_scatter": banded.scatter_banded,
             "nn1": nn1_cuda, "attention": attention_cuda,
             "attention_bwd_dkv": backward_bf16, "attention_bwd_dq": backward_bf16,
-            "attention_bwd_f32": backward_f32}
+            "attention_bwd_f32": backward_f32, "attention_packed": forward_packed,
+            "attention_bwd_packed": backward_packed}
 
 
 def main() -> int:
@@ -4710,6 +5181,7 @@ def main() -> int:
     phase_kernels_trans_dec(dev, rep)
     phase_kernels_cdm_scene(dev, rep)
     phase_kernels_ddp(dev, rep)
+    phase_kernels_fused_qkv(dev, rep)
     phase_autograd(dev)
     phase_reference(dev)
     phase_reference_scene(dev)
@@ -4754,6 +5226,8 @@ def main() -> int:
         phases.append(phase_train(dict(tree, exp=WORK / "exp_dec_flash"), counters,
                                   DEC_FLASH_STEP, (*DEC_ARCH, "model.dropout=0"),
                                   tag="trans_dec flash "))
+    # model.fused_qkv=true: training and both archs' chains on packed views
+    phases += phase_fused_qkv(tree, dec_tree, counters)
     banded_tree = make_banded_tree(tree)
     phases += [
         # the flagship configuration's default on a prepared tree: the store
@@ -4786,9 +5260,14 @@ def main() -> int:
     # the raw-data chain from a raw HUMANISE release to training steps, and
     # the point backbones' norm=layer
     phases += phase_raw_chain(dev, counters)
+    # the SMPL-X regressor's trainer on the raw chain's pickles, and the fit
+    # with its npz
+    phases += phase_regressor_train(dev, counters)
     phases += phase_norm_layer(dev, counters)
     # the CDM with its frozen scene model and the point-transformer backbones
     phases += phase_cdm_scene(counters, banded_tree)
+    # the shipped stage-1 default through its store on a prepared HUMANISE tree
+    phases += phase_cdm_scene_store(dev, counters)
     t2m_launches, t2m_out = phase_t2m_chain(tree, counters, s1_tree["exp"])
     phases.append(t2m_launches)
     phase_t2m_scored(tree, t2m_out, counters, assets)

@@ -17,7 +17,11 @@ torch and held to ``TOLERANCE``, the figure ``chip_smoke.py`` holds the
 kernel to on the card, with a margin of 2; the same emulation with a fault
 planted (an attended key left out, the last tile skipped) must break it. So
 is the f32 instance's order (32-key tiles, an online softmax in base e), to
-half of ``TOLERANCE[float32]``, with the last tile skipped breaking it.
+half of ``TOLERANCE[float32]``, with the last tile skipped breaking it. The
+kernels address q, k and v by a row pitch each (views of one packed
+projection, ``model.fused_qkv``): the bf16 emulation on rows read from a
+packed buffer by that rule gives the contiguous bits, and a pitch left out
+breaks the tolerance.
 """
 import math
 
@@ -202,6 +206,49 @@ def test_tiled_bf16_with_a_fault_breaks_tolerance(fault, masked):
     assert _excess(got, want, v) > 4 * atol
 
 
+def _rows_at(flat, b, length, pitch, offset, width):
+    """The (b, length, width) tensor whose row r of item i the kernels read at
+    ``flat[offset + (i length + r) pitch + c]`` (``Pitch`` in
+    csrc/attention.cu)."""
+    i = torch.arange(b)[:, None, None]
+    r = torch.arange(length)[None, :, None]
+    c = torch.arange(width)[None, None, :]
+    return flat[offset + (i * length + r) * pitch + c]
+
+
+def _packed_qkv_rows(q, k, v, fault=None):
+    """q, k, v stored side by side in one packed (B, L, 3D) buffer and read
+    back by the address rule at pitch 3D; ``fault`` "read pitch" reads k and
+    v at the contiguous pitch D, as a kernel that ignores the pitch would."""
+    b, length, d = q.shape
+    flat = torch.cat([q, k, v], dim=-1).reshape(-1)
+    return [_rows_at(flat, b, length, d if fault and n else 3 * d, n * d, d) for n in range(3)]
+
+
+def test_tiled_bf16_on_packed_rows_gives_the_contiguous_bits():
+    """The bf16 order on q, k, v read from one packed projection by the row
+    pitch: the rows are the views' (bit for bit), so the result is the
+    contiguous one's, within half of ``TOLERANCE`` of the plain version."""
+    q, k, v, heads, pad = _denoiser_qkv(7, True)
+    rows = _packed_qkv_rows(q, k, v)
+    assert all(torch.equal(a, b) for a, b in zip(rows, (q, k, v)))
+    got = _tiled_bf16_attention(*rows, heads, pad)
+    assert torch.equal(got, _tiled_bf16_attention(q, k, v, heads, pad))
+    want = tattn.attention_plain(*torch.cat([q, k, v], -1).chunk(3, dim=-1), heads, pad)
+    atol, _ = tattn.TOLERANCE[torch.bfloat16]
+    assert _excess(got, want, v) <= atol / 2
+
+
+def test_tiled_bf16_with_the_pitch_left_out_breaks_tolerance():
+    """k and v read at the contiguous pitch instead of the packed one break
+    the tolerance by more than 4 times."""
+    q, k, v, heads, pad = _denoiser_qkv(7, True)
+    got = _tiled_bf16_attention(*_packed_qkv_rows(q, k, v, fault="read pitch"), heads, pad)
+    want = tattn.attention_plain(q, k, v, heads, pad)
+    atol, _ = tattn.TOLERANCE[torch.bfloat16]
+    assert _excess(got, want, v) > 4 * atol
+
+
 def _tiled_f32_attention(q, k, v, num_heads, pad_mask, tile=32, fault=None):
     """The order of csrc/attention.cu's f32 instance in torch: tiles of 32
     keys, a tile with no attended key skipped (and none past the last
@@ -324,13 +371,13 @@ def test_flash_gate_conditions(monkeypatch):
     switch, no active dropout on the weights, a head dimension that is a
     multiple of 8. The switch itself is the variable AND a CUDA tensor."""
     calls = []
-    real = tattn.attention_cuda
+    real = tattn.attention_qkv_cuda
 
     def counting(*args):
         calls.append(1)
         return real(*args)
 
-    monkeypatch.setattr(tlayers, "attention_cuda", counting)
+    monkeypatch.setattr(tlayers, "attention_qkv_cuda", counting)
     x, _, _, pad = (torch.from_numpy(a) for a in _qkv(4, 2, 12, 12, 32))
     torch.manual_seed(0)
     mha = tlayers.TorchMultiHeadAttention(32, 4, dropout=0.1).eval()
@@ -356,7 +403,8 @@ def test_flash_gate_conditions(monkeypatch):
     mha0(x, x, x, pad)                           # train mode with dropout 0: fused
     assert len(calls) == 2
     odd = tlayers.TorchMultiHeadAttention(24, 2).eval()   # head dim 12
-    odd(x[..., :24], x[..., :24], x[..., :24], pad)
+    narrow = x[..., :24]
+    odd(narrow, narrow, narrow, pad)
     assert len(calls) == 2
 
 
@@ -368,11 +416,11 @@ def test_flash_gate_routes_wide_heads_to_einsum(hd, fused, monkeypatch):
     kernel's route."""
     calls = []
 
-    def recording(q, k, v, num_heads, pad_mask=None):
-        calls.append(q.shape[-1] // num_heads)
-        return tattn.attention_plain(q, k, v, num_heads, pad_mask)
+    def recording(qkv, num_heads, pad_mask=None):
+        calls.append(qkv.shape[-1] // 3 // num_heads)
+        return tattn.attention_plain(*qkv.chunk(3, dim=-1), num_heads, pad_mask)
 
-    monkeypatch.setattr(tlayers, "attention_cuda", recording)
+    monkeypatch.setattr(tlayers, "attention_qkv_cuda", recording)
     monkeypatch.setenv("AM_FLASH_ATTN", "1")
     # CPU tensors: the switch stands in for the variable on a card
     monkeypatch.setattr(tlayers, "_flash_enabled", lambda t: True)

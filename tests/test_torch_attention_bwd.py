@@ -401,10 +401,10 @@ def test_cmdm_train_step_with_flash_matches_jax(monkeypatch):
     setup = dict(jm=jm, ts=ts, noises=noises)
 
     calls, traced = [], []
-    real, real_jax = tattn.FlashAttention.apply, jlayers._flash_attention
+    real, real_jax = tattn.PackedFlashAttention.apply, jlayers._flash_attention
 
     def counting(*args):
-        calls.append(args[5])
+        calls.append(args[4])  # with_grad
         return real(*args)
 
     def tracing(*args):
@@ -414,7 +414,7 @@ def test_cmdm_train_step_with_flash_matches_jax(monkeypatch):
     monkeypatch.setattr(jlayers, "_flash_attention", tracing)
     monkeypatch.setattr(jlayers, "_flash_enabled", lambda: True)
     monkeypatch.setattr(tlayers, "_flash_enabled", lambda t: True)
-    monkeypatch.setattr(tattn.FlashAttention, "apply", counting)
+    monkeypatch.setattr(tattn.PackedFlashAttention, "apply", counting)
     with pltpu.force_tpu_interpret_mode():
         ttt._compare_train_steps(setup, variables, jcond, tcond, x, ttt._torch_model(variables),
                                  0.0, 0)

@@ -23,7 +23,10 @@ So every gradient element has one writer and a fixed order: the result
 does not depend on the order in which the blocks run, and two calls give
 the same bits. Planted faults (di left
 out, a key tile's dQ part dropped, masked keys attended) must break the
-tolerance.
+tolerance. The kernels address q, k, v, dq, dk and dv by a row pitch each
+(views of one packed projection and its gradient, ``model.fused_qkv``):
+the model reads and writes a packed buffer by that rule, gives the
+contiguous bits, and a pitch left out breaks the tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -197,3 +200,65 @@ def test_a_planted_fault_breaks_the_tolerance(fault, case):
     q, k, v, do, heads, pad = _case(case)
     o, lse, want = _plain(q, k, v, do, heads, pad)
     assert _need(model_backward(q, k, v, o, do, lse, heads, pad, fault=fault), want) > 4
+
+
+def rows_at(flat, b, length, pitch, offset, width):
+    """The (b, length, width) tensor whose row r of item i the kernels read at
+    ``flat[offset + (i length + r) pitch + c]``: the address rule of a row
+    pitch (``Pitch`` in csrc/attention.cu)."""
+    i, r, c = np.ix_(np.arange(b), np.arange(length), np.arange(width))
+    return flat[offset + (i * length + r) * pitch + c]
+
+
+def put_rows(flat, x, pitch, offset):
+    """Write ``x`` (b, length, width) into ``flat`` by the same rule."""
+    b, length, width = x.shape
+    i, r, c = np.ix_(np.arange(b), np.arange(length), np.arange(width))
+    flat[offset + (i * length + r) * pitch + c] = x
+
+
+def model_backward_packed(qkv, do, heads, pad, fault=None):
+    """The model on a packed (B, L, 3D) projection as the kernels address it:
+    q, k, v read from the flat buffer at pitch 3D and offsets 0, D, 2D; dq,
+    dk, dv written into one flat packed gradient the same way. ``fault``:
+    "read pitch" reads k and v at the contiguous pitch D (a kernel that
+    ignores the pitch), "write pitch" writes dk at pitch D."""
+    b, length, width3 = qkv.shape
+    d = width3 // 3
+    flat = qkv.reshape(-1)
+    read = [d if fault == "read pitch" and n else width3 for n in range(3)]
+    q, k, v = (rows_at(flat, b, length, read[n], n * d, d) for n in range(3))
+    o, lse, _ = _plain(q, k, v, do, heads, pad)
+    grads = model_backward(q, k, v, o, do, lse, heads, pad)
+    packed = np.zeros(flat.shape, F32)
+    for n, g in enumerate(grads):
+        put_rows(packed, g, d if fault == "write pitch" and n == 1 else width3, n * d)
+    return packed.reshape(qkv.shape), (q, k, v, o, lse)
+
+
+def test_packed_rows_give_the_contiguous_bits():
+    """With a row pitch the kernels read q, k, v as views of one packed
+    projection and write dq, dk, dv into one packed gradient: the model on
+    those addresses gives, third for third, the bits of the model on
+    contiguous copies, within half of the tolerance of the plain version."""
+    q, k, v, do, heads, pad = _case("train")
+    qkv = np.concatenate([q, k, v], axis=-1)
+    packed, (pq, pk, pv, o, lse) = model_backward_packed(qkv, do, heads, pad)
+    for a, b in zip((pq, pk, pv), (q, k, v)):
+        np.testing.assert_array_equal(a, b)
+    want = model_backward(q, k, v, o, do, lse, heads, pad)
+    got = np.split(packed, 3, axis=-1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+    assert _need(got, _plain(q, k, v, do, heads, pad)[2]) <= 0.5
+
+
+@pytest.mark.parametrize("fault", ["read pitch", "write pitch"])
+def test_a_pitch_fault_breaks_the_tolerance(fault):
+    """A kernel that reads k, v, or writes dk, at the contiguous pitch breaks
+    the tolerance by more than 4 times."""
+    q, k, v, do, heads, pad = _case("train")
+    qkv = np.concatenate([q, k, v], axis=-1)
+    packed, _ = model_backward_packed(qkv, do, heads, pad, fault=fault)
+    want = _plain(q, k, v, do, heads, pad)[2]
+    assert _need(np.split(packed, 3, axis=-1), want) > 4

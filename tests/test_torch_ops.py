@@ -309,7 +309,8 @@ def test_port_imports_without_jax():
         "             'ops.cuda.sdf', 'ops.cuda.attention', 'data.motionx', 'eval.smplx_lbs',\n"
         "             'eval.joints_to_smplx', 'eval.physics', 'eval.evaluate', 'native',\n"
         "             'train.device_store', 'parallel.mesh', 'eval.eval_humanml',\n"
-        "             'eval.t2m_models', 'h3d_eval.eval_h3d_offline'):\n"
+        "             'eval.t2m_models', 'h3d_eval.eval_h3d_offline',\n"
+        "             'tools.train_joints_to_smplx'):\n"
         "    assert 'afford_motion_torch.' + name in sys.modules, name\n"
         "from afford_motion_torch.models.cmdm import CMDM\n"
         "from afford_motion_torch.diffusion import create_gaussian_diffusion\n"

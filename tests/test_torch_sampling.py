@@ -226,8 +226,11 @@ def test_entry_runs_without_jax(tmp_path):
 
 def test_port_refuses_what_is_not_ported(tmp_path):
     """The configurations the port does not run yet are refused by name,
-    not run some other way: ``fused_qkv``; a CDM's local CLIP directory
-    that holds no ``config.json`` raises, naming the file.
+    not run some other way: a CDM's local CLIP directory that holds no
+    ``config.json`` raises, naming the file. ``fused_qkv`` builds for
+    ``trans_enc`` and ``trans_dec`` the model the default builds (every
+    attention computes its projections fused either way): the same modules
+    and, from one seed, the same state_dict.
     Every dataset of the MotionX family builds. The CMDM's ``trans_dec``
     builds, with its U-Net and its decoder layers, and so does every CDM
     backbone, with the frozen scene model and without. ``use_banded``, a packed dataset tree under the training
@@ -256,11 +259,17 @@ def test_port_refuses_what_is_not_ported(tmp_path):
     banded = build_cmdm(model_cfg("model.use_banded=true", "model.banded_window=256",
                                   "model.banded_adaptive=false"))
     assert (banded.use_banded, banded.banded_window, banded.banded_adaptive) == (True, 256, False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_cmdm(model_cfg("model.fused_qkv=true"))
     dec = build_cmdm(model_cfg("model.arch=trans_dec"))
     assert dec.arch == "trans_dec" and dec.needs_up_interpolation
     assert len(dec.cross_attn_layers) == len(dec.self_attn_layers) - 1 == 4
+    for arch in ("trans_enc", "trans_dec"):
+        torch.manual_seed(0)
+        default = build_cmdm(model_cfg(f"model.arch={arch}")).eval()
+        torch.manual_seed(0)
+        fused = build_cmdm(model_cfg("model.fused_qkv=true", f"model.arch={arch}")).eval()
+        want, got = default.state_dict(), fused.state_dict()
+        assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+        assert repr(fused) == repr(default)
 
     # stage 1: every CDM backbone, with the frozen scene model (the shipped
     # default) and without; an empty local text-encoder directory raises

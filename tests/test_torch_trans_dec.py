@@ -224,33 +224,34 @@ def _jax_einsum(q, k, v, mask):
 @pytest.mark.parametrize("route", ["einsum", "fused"])
 def test_all_masked_memory_matches_jax_einsum(monkeypatch, route):
     """The einsum route and the fused route's wrapper (on the CPU its plain
-    version, which gives zero rows) against JAX's einsum: the item with no
-    attended key gets the mean of v, and its v the weights' share of the
-    gradient, forward and backward; the other items as they were."""
-    q, k, v, mask = _masked_attention_inputs()
+    version, which gives zero rows) against JAX's einsum, a cross-attention
+    whose key and value are one memory: the item with no attended key gets
+    the mean of v, and its memory the weights' share of the gradient,
+    forward and backward; the other items as they were."""
+    q, m, _, mask = _masked_attention_inputs()
     g = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
-    want, vjp = jax.vjp(lambda a, b, c: _jax_einsum(a, b, c, jnp.asarray(mask)),
-                        *map(jnp.asarray, (q, k, v)))
+    want, vjp = jax.vjp(lambda a, b: _jax_einsum(a, b, b, jnp.asarray(mask)),
+                        *map(jnp.asarray, (q, m)))
     want_grads = vjp(jnp.asarray(g))
-    np.testing.assert_allclose(np.asarray(want)[1], np.broadcast_to(v[1].mean(0), (7, 64)),
+    np.testing.assert_allclose(np.asarray(want)[1], np.broadcast_to(m[1].mean(0), (7, 64)),
                                rtol=1e-5, atol=1e-6)
     monkeypatch.setattr(layers, "_flash_enabled", lambda t: route == "fused")
     mha = layers.TorchMultiHeadAttention(64, 4).eval()
-    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    tq, tm = (torch.tensor(a, requires_grad=True) for a in (q, m))
     tmask = torch.from_numpy(mask)
     if route == "fused":
-        assert float(attention_plain(tq, tk, tv, 4, tmask)[1].abs().max()) == 0.0
+        assert float(attention_plain(tq, tm, tm, 4, tmask)[1].abs().max()) == 0.0
     # the module's projections as identities, to reach the attention itself
     with torch.no_grad():
         mha.in_proj_weight.copy_(torch.cat([torch.eye(64)] * 3))
         mha.out_proj.weight.copy_(torch.eye(64))
         mha.out_proj.bias.zero_()
-    got = mha(tq, tk, tv, tmask)
+    got = mha(tq, tm, tm, tmask)
     got.backward(torch.from_numpy(g))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
-    for t, w in zip((tq, tk, tv), want_grads):
+    for t, w in zip((tq, tm), want_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
-    assert float(tq.grad[1].abs().max()) == 0.0 and float(tk.grad[1].abs().max()) == 0.0
+    assert float(tq.grad[1].abs().max()) == 0.0 and float(tm.grad[1].abs().max()) > 0.0
 
 
 # ------------------------------------------------------------ train and chain
