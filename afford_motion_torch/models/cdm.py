@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..utils.trace import span
 from .layers import LayerNorm, Linear, TimestepEmbedder, TransformerEncoder
 from .perceiver import GELU, CrossAttentionLayer, SelfAttentionBlock
 from .pointtransformer import (
@@ -295,7 +296,10 @@ class CDM(nn.Module):
         return self.contact_layer(h.float())
 
     def forward(self, x, timesteps, cond):
-        return self.denoise(x, timesteps, cond, self.encode_scene(cond))
+        with span("model: condition encoder"):
+            scene_feat = self.encode_scene(cond)
+        with span("model: denoiser"):
+            return self.denoise(x, timesteps, cond, scene_feat)
 
 
 def _unresolved(value: Any) -> bool:

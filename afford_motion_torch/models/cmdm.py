@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..utils.misc import compute_repr_dimension
+from ..utils.trace import span
 from .layers import (
     LayerNorm,
     Linear,
@@ -180,7 +181,10 @@ class CMDM(nn.Module):
         return self.motion_layer(h.float())
 
     def forward(self, x, timesteps, cond):
-        return self.denoise(x, timesteps, cond, self.encode_contact(cond))
+        with span("model: condition encoder"):
+            cont_emb = self.encode_contact(cond)
+        with span("model: denoiser"):
+            return self.denoise(x, timesteps, cond, cont_emb)
 
 
 def build_cmdm(model_cfg: Any) -> CMDM:

@@ -15,6 +15,7 @@ from ..ops.hierarchy import (
     build_point_hierarchy_from_fps,
     geometry_from_arrays,
 )
+from ..utils.trace import span
 from .cdm import CDM
 from .cmdm import CMDM
 from .pointtransformer import SCENEMAP_NSAMPLES, SCENEMAP_STRIDES, SEG_NSAMPLES, SEG_STRIDES
@@ -31,10 +32,11 @@ _FLAG_KEYS = ("c_text_mask", "c_text_erase", "c_pc_mask", "c_pc_erase")
 def encode_text(text_encoder: TextEncoder, captions) -> Dict[str, np.ndarray]:
     """Captions -> ``text_emb`` (B, Lt, D), plus ``text_token_mask`` (True =
     padding) from a per-token encoder; (B, 1, D) from a pooled one."""
-    if getattr(text_encoder, "per_token", False):
-        emb, pad = text_encoder.encode_tokens(captions)
-        return {"text_emb": emb, "text_token_mask": pad}
-    return {"text_emb": text_encoder.encode(captions)[:, None, :]}
+    with span("text: encode"):
+        if getattr(text_encoder, "per_token", False):
+            emb, pad = text_encoder.encode_tokens(captions)
+            return {"text_emb": emb, "text_token_mask": pad}
+        return {"text_emb": text_encoder.encode(captions)[:, None, :]}
 
 
 def host_prepare_cond(batch: Dict[str, Any], text_encoder: TextEncoder,

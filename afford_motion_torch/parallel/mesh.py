@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import itertools
 import os
 import queue
 import threading
@@ -39,7 +40,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from ..utils.io import get_logger, set_log_rank
+from ..utils.trace import span
 
 logger = get_logger()
 
@@ -259,11 +262,12 @@ class DevicePrefetcher:
     JOIN_TIMEOUT_S = 120.0
 
     def __init__(self, batch_iter_fn: Callable[[], Iterable[Any]],
-                 prepare_fn: Callable[[Any], Dict[str, np.ndarray]], device):
+                 prepare_fn: Callable[[Any], Dict[str, np.ndarray]], device, first: int = 0):
         self._device = torch.device(device)
         self._q: "queue.Queue" = queue.Queue(maxsize=self.DEPTH)
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._work, args=(batch_iter_fn, prepare_fn),
+        self._thread = threading.Thread(target=self._work,
+                                        args=(batch_iter_fn, prepare_fn, int(first)),
                                         name="device-prefetcher", daemon=True)
         self._thread.start()
 
@@ -279,6 +283,8 @@ class DevicePrefetcher:
 
     def _upload(self, host: Dict[str, np.ndarray], stream):
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()}
+        if trace.enabled():
+            trace.count("producer: bytes uploaded", sum(v.nbytes for v in arrays.values()))
         if stream is None:
             return arrays, None
         with torch.cuda.stream(stream):
@@ -288,13 +294,21 @@ class DevicePrefetcher:
             event.record(stream)
         return out, event
 
-    def _work(self, batch_iter_fn, prepare_fn) -> None:
+    def _work(self, batch_iter_fn, prepare_fn, first: int) -> None:
         try:
             stream = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
-            for batch in batch_iter_fn():
+            batches = iter(batch_iter_fn())
+            for i in itertools.count(first):
                 if self._stop.is_set():
                     return
-                if not self._put(self._upload(prepare_fn(batch), stream)):
+                with span("producer: prepare", megabatch=i):  # the host route loads in next()
+                    batch = next(batches, _END)
+                    host = batch if batch is _END else prepare_fn(batch)
+                if host is _END:
+                    break
+                with span("producer: upload", megabatch=i):
+                    item = self._upload(host, stream)
+                if not self._put(item):
                     return
             self._put(_END)
         except BaseException as e:  # handed to the consumer, which raises it
@@ -302,6 +316,8 @@ class DevicePrefetcher:
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         while True:
+            if trace.enabled() and self._q.empty():
+                trace.count("loop: empty-queue waits")
             item = self._q.get()
             if item is _END:
                 return

@@ -31,10 +31,11 @@ chain, one step a megabatch: 96 items hold no four batches) through the
 CDM-Perceiver (batch 64) through the ``motionx_contact`` store and on the
 host route (``motionx stage-1 store`` / ``host``).
 
-With ``AM_LOOP_TIMING=1`` and a log every 4 steps, it reports s/step over
-the windows after the first two (set-up, the first megabatch's load and the
-libraries' warm-up left out), the share of that wall time the loop waited
-for a batch (where the loop records it), the store's bytes and its cache and
+With ``task.train.trace=true`` and a log every 4 steps, it reports s/step
+over the windows after the first two (set-up, the first megabatch's load and
+the libraries' warm-up left out), the share of that wall time the loop
+waited for a batch (the tracer's ``loop: wait`` totals, where the loop
+records them), the store's bytes and its cache and
 upload time, and the peak device memory. Prints the card's name and power
 limit first and writes ``profile_train_loop.txt`` (``--stage1``:
 ``profile_train_loop_stage1.txt``, ``--motionx``:
@@ -80,17 +81,16 @@ def _route(smoke, tree: dict, name: str, steps: int, extra: tuple, args_of) -> s
     exp = smoke.WORK / ("loop_" + name.replace(" ", "_"))
     args = args_of(smoke, tree, exp) + list(extra) + [
         f"task.train.max_steps={steps}", f"task.train.save_every_step={steps}",
-        "task.train.log_every_step=4"]
+        "task.train.log_every_step=4", "task.train.trace=true"]
     summary = entry.main(args)
     windows = summary["logged"][2:]
     seconds = sum(w["seconds"] for w in windows)
     n = sum(w["steps"] for w in windows)
     per = [w["seconds"] / w["steps"] for w in windows]
-    # a loop without AM_LOOP_TIMING's record (an older checkout) leaves it out
-    if all("timing" in w for w in windows):
-        wait = sum(w["timing"]["wait_batch"] for w in windows)
-        total = sum(sum(w["timing"].values()) for w in windows)
-        waited = f"waiting for a batch {100 * wait / total:.1f}% of the loop's wall time"
+    # a loop without the tracer's totals (an older checkout) leaves it out
+    if all("spans" in w for w in windows):
+        wait = sum(w["spans"]["seconds"].get("loop: wait", 0.0) for w in windows)
+        waited = f"waiting for a batch {100 * wait / seconds:.1f}% of the loop's wall time"
     else:
         waited = "waiting for a batch: not recorded"
     peak = summary.get("peak_memory_bytes", float("nan")) / 2**30
@@ -109,7 +109,6 @@ def main(out_dir: str = "build/profile", stage1: bool = False, motionx: bool = F
         raise RuntimeError("profile_train_loop runs only on a CUDA device")
     smoke = _smoke()
     os.chdir(smoke.ROOT)  # the entry reads ./configs
-    os.environ["AM_LOOP_TIMING"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

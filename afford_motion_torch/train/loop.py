@@ -23,10 +23,13 @@ Both streams are pure functions of (base seed, step). On a curve-sorted
 packed store with the fps geometry wire the loop switches the banded
 kernels on (``_maybe_enable_banded``). ``task.train.profile_steps`` traces
 that many steps with ``torch.profiler`` after the first 2 G, into
-``<exp_dir>/log/profile``; ``AM_LOOP_TIMING=1`` logs the loop's wall time by
-phase at every logged step. A CDM's frozen scene model takes the
-pretrained weights of ``model.scene_model.pretrained_weight`` where that
-file exists (``_maybe_load_pretrained_scene``).
+``<exp_dir>/log/profile``; ``task.train.trace`` switches the port's tracer
+on (``utils/trace.py``): spans of set-up, the producer, the loop, the step's
+parts and the model's two halves, whose totals and counters the loop logs at
+every logged step, and which every profiler trace shows as ``am.`` ranges.
+A CDM's frozen scene model takes the pretrained weights of
+``model.scene_model.pretrained_weight`` where that file exists
+(``_maybe_load_pretrained_scene``).
 
 Data parallelism (``parallel/mesh.py``; launched by ``torchrun`` through
 ``afford_motion_torch.train_ddp``): ``task.train.batch_size`` is the global
@@ -60,7 +63,9 @@ from ..models.layers import set_dropout_generator
 from ..models.pointtransformer import load_pretrained_scene
 from ..models.text import TextEncoder
 from ..parallel.mesh import DataParallel, DevicePrefetcher, current
+from ..utils import trace
 from ..utils.io import Board, get_logger, mkdir_if_not_exists
+from ..utils.trace import span
 from .checkpoint import load_train_state, save_train_state
 from .device_store import DeviceStore, index_stream, make_assemble_fn, max_bytes_from_env
 from .state import TrainState, annealed_lr
@@ -128,50 +133,59 @@ def make_train_step(model, diffusion: GaussianDiffusion, sampler=None,
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         dev = diffusion.device
-        if assemble is not None:
-            x, cond = assemble(cond)
+        with span("step: assemble"):
+            if assemble is not None:
+                x, cond = assemble(cond)
+            x = x.float()  # a half-precision wire target; q_sample and the loss run in f32
         model.train()
-        generator = torch.Generator(device=dev).manual_seed(int(seed))
-        x = x.float()  # a half-precision wire target; q_sample and the loss run in f32
-        b = x.shape[0]
-        rows = slice(rank * b, (rank + 1) * b)
-        if t is None:
-            t, weights = sampler.sample(generator, world * b, dev, state.sampler_state)
-            t, weights = t[rows], weights[rows]
-        else:
-            t = t[rows]
-            weights = torch.ones((b,), dtype=torch.float32, device=dev)
-        noise = (diffusion.randn_rows((world * b,) + tuple(x.shape[1:]), generator, rows)
-                 if noise is None else noise[rows])
-        set_dropout_generator(model, generator if world == 1 else torch.Generator(
-            device=dev).manual_seed(rank_seed(seed, rank)))
-        cond_h = add_hierarchies(model, cond)
+        with span("step: draws"):
+            generator = torch.Generator(device=dev).manual_seed(int(seed))
+            b = x.shape[0]
+            rows = slice(rank * b, (rank + 1) * b)
+            if t is None:
+                t, weights = sampler.sample(generator, world * b, dev, state.sampler_state)
+                t, weights = t[rows], weights[rows]
+            else:
+                t = t[rows]
+                weights = torch.ones((b,), dtype=torch.float32, device=dev)
+            noise = (diffusion.randn_rows((world * b,) + tuple(x.shape[1:]), generator, rows)
+                     if noise is None else noise[rows])
+            set_dropout_generator(model, generator if world == 1 else torch.Generator(
+                device=dev).manual_seed(rank_seed(seed, rank)))
+        with span("step: hierarchy"):
+            cond_h = add_hierarchies(model, cond)
 
         def model_fn(x_t, ts):
             return forward(x_t, ts, cond_h)
 
-        terms = diffusion.training_losses(model_fn, x, t, generator=generator,
-                                          x_mask=cond_h.get("x_mask"), noise=noise)
-        loss = (terms["loss"] * weights).mean()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("step: loss"):
+            terms = diffusion.training_losses(model_fn, x, t, generator=generator,
+                                              x_mask=cond_h.get("x_mask"), noise=noise)
+            loss = (terms["loss"] * weights).mean()
+        with span("step: optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with span("step: backward"):
+            loss.backward()
         set_dropout_generator(model, None)
-        norms = [torch.linalg.vector_norm(p.grad) for group in state.optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
-        lr = annealed_lr(state.lr, state.step, state.lr_anneal_steps)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
+        with span("step: optimizer"):
+            norms = [torch.linalg.vector_norm(p.grad) for group in state.optimizer.param_groups
+                     for p in group["params"] if p.grad is not None]
+            lr = annealed_lr(state.lr, state.step, state.lr_anneal_steps)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
         state.step += 1
-        losses = terms["loss"].detach()
-        metrics = torch.stack([loss.detach(), terms.get("mse", terms["loss"]).mean().detach()])
-        if world > 1:
-            metrics = dp.all_reduce(metrics) / world
-            if state.sampler_state is not None:
-                t, losses = dp.all_gather_rows(t), dp.all_gather_rows(losses)
-        state.sampler_state = sampler.update(state.sampler_state, t, losses)
-        return {"loss": metrics[0], "mse": metrics[1],
-                "grad_norm": torch.linalg.vector_norm(torch.stack(norms))}
+        with span("step: metrics"):
+            losses = terms["loss"].detach()
+            metrics = torch.stack([loss.detach(),
+                                   terms.get("mse", terms["loss"]).mean().detach()])
+            if world > 1:
+                metrics = dp.all_reduce(metrics) / world
+                if state.sampler_state is not None:
+                    t, losses = dp.all_gather_rows(t), dp.all_gather_rows(losses)
+            state.sampler_state = sampler.update(state.sampler_state, t, losses)
+            grad_norm = torch.linalg.vector_norm(torch.stack(norms))
+        return {"loss": metrics[0], "mse": metrics[1], "grad_norm": grad_norm}
 
     return train_step
 
@@ -186,67 +200,72 @@ class TrainLoop:
                  text_encoder: TextEncoder, *, device: torch.device,
                  exp_dir: str = "outputs/exp", seed: int = 2023):
         tcfg = cfg.task.train
-        self.model, self.diffusion = model, diffusion
-        self.dataloader, self.text_encoder = dataloader, text_encoder
-        self.device = device
-        self.dp = current()
-        self.world, self.rank = (self.dp.world, self.dp.rank) if self.dp else (1, 0)
-        self.max_steps = int(tcfg.max_steps)
-        self.log_every_step = int(tcfg.get("log_every_step", 100))
-        self.save_every_step = int(tcfg.get("save_every_step", 10000))
-        self.profile_steps = int(tcfg.get("profile_steps", 0))
-        self.exp_dir = exp_dir
-        self.ckpt_dir = mkdir_if_not_exists(os.path.join(exp_dir, "ckpt"))
-        self._base_seed = int(seed)
-        # what the run measured, for the caller: one entry per logged window
-        self.summary: Dict[str, Any] = {"device": str(device), "logged": [],
-                                        "rank": self.rank, "world": self.world}
-        # the global batch's rows of this rank (raises where W does not divide it)
-        self.batch_size = B = int(dataloader.batch_size)
-        self._rows = self.dp.local_rows(B) if self.dp else slice(0, B)
-        self._maybe_enable_banded()
-        self._maybe_load_pretrained_scene(cfg)
+        if bool(tcfg.get("trace", False)):
+            trace.enable()
+        with span("setup: train loop"):
+            self.model, self.diffusion = model, diffusion
+            self.dataloader, self.text_encoder = dataloader, text_encoder
+            self.device = device
+            self.dp = current()
+            self.world, self.rank = (self.dp.world, self.dp.rank) if self.dp else (1, 0)
+            self.max_steps = int(tcfg.max_steps)
+            self.log_every_step = int(tcfg.get("log_every_step", 100))
+            self.save_every_step = int(tcfg.get("save_every_step", 10000))
+            self.profile_steps = int(tcfg.get("profile_steps", 0))
+            self.exp_dir = exp_dir
+            self.ckpt_dir = mkdir_if_not_exists(os.path.join(exp_dir, "ckpt"))
+            self._base_seed = int(seed)
+            # what the run measured, for the caller: one entry per logged window
+            self.summary: Dict[str, Any] = {"device": str(device), "logged": [],
+                                            "rank": self.rank, "world": self.world}
+            # the global batch's rows of this rank (raises where W does not divide it)
+            self.batch_size = B = int(dataloader.batch_size)
+            self._rows = self.dp.local_rows(B) if self.dp else slice(0, B)
+            self._maybe_enable_banded()
+            self._maybe_load_pretrained_scene(cfg)
 
-        # items load serially inside the producer thread's megabatch draw,
-        # so that the datasets' random choices follow its per-megabatch seeds
-        dataloader.prefetch = 0
-        dataloader.num_workers = 0
+            # items load serially inside the producer thread's megabatch draw,
+            # so that the datasets' random choices follow its per-megabatch seeds
+            dataloader.prefetch = 0
+            dataloader.num_workers = 0
 
-        sampler_type = str(tcfg.get("schedule_sampler_type", "uniform"))
-        if sampler_type in ("loss-second-moment", "loss_second_moment"):
-            self._sampler = LossSecondMomentResampler(diffusion.num_timesteps)
-        else:
-            self._sampler = UniformSampler(diffusion.num_timesteps)
-        self.state = TrainState.create(
-            model, lr=float(tcfg.lr), weight_decay=float(tcfg.get("weight_decay", 0.0)),
-            lr_anneal_steps=int(tcfg.get("lr_anneal_steps", 0)),
-            sampler_state=self._sampler.init_state(device))
-        n_params = sum(p.numel() for p in model.parameters())
-        logger.info(f"Model initialized: {n_params / 1e6:.2f}M params")
-        resume = str(tcfg.get("resume_ckpt", "") or "")
-        if resume:
-            load_train_state(self.state, resume)  # on every rank
-            logger.info(f"Resumed from {resume} at step {self.state.step}")
-        self._forward = model
-        if self.dp is not None:
-            self.dp.broadcast_module(model)
-            self._forward = self.dp.wrap(model)
+            sampler_type = str(tcfg.get("schedule_sampler_type", "uniform"))
+            if sampler_type in ("loss-second-moment", "loss_second_moment"):
+                self._sampler = LossSecondMomentResampler(diffusion.num_timesteps)
+            else:
+                self._sampler = UniformSampler(diffusion.num_timesteps)
+            with span("setup: optimizer"):  # the first AdamW imports torch._dynamo
+                self.state = TrainState.create(
+                    model, lr=float(tcfg.lr), weight_decay=float(tcfg.get("weight_decay", 0.0)),
+                    lr_anneal_steps=int(tcfg.get("lr_anneal_steps", 0)),
+                    sampler_state=self._sampler.init_state(device))
+            n_params = sum(p.numel() for p in model.parameters())
+            logger.info(f"Model initialized: {n_params / 1e6:.2f}M params")
+            resume = str(tcfg.get("resume_ckpt", "") or "")
+            if resume:
+                load_train_state(self.state, resume)  # on every rank
+                logger.info(f"Resumed from {resume} at step {self.state.step}")
+            self._forward = model
+            if self.dp is not None:
+                self.dp.broadcast_module(model)
+                self._forward = self.dp.wrap(model)
 
-        # steps_per_dispatch survives as the megabatch draw of the data
-        # stream: one (G*B)-item batch per G steps, as the JAX loop draws it
-        self.steps_per_dispatch = int(tcfg.get("steps_per_dispatch", 4))
-        if (self.steps_per_dispatch > self.max_steps
-                or len(dataloader.dataset) < self.steps_per_dispatch * B
-                or not getattr(dataloader, "drop_last", False)):
-            self.steps_per_dispatch = 1
+            # steps_per_dispatch survives as the megabatch draw of the data
+            # stream: one (G*B)-item batch per G steps, as the JAX loop draws it
+            self.steps_per_dispatch = int(tcfg.get("steps_per_dispatch", 4))
+            if (self.steps_per_dispatch > self.max_steps
+                    or len(dataloader.dataset) < self.steps_per_dispatch * B
+                    or not getattr(dataloader, "drop_last", False)):
+                self.steps_per_dispatch = 1
 
-        self._store = self._assemble = None
-        # 'off' on the command line reads as YAML's false
-        if str(tcfg.get("device_store", "auto")).lower() not in ("off", "false"):
-            self._build_store(str(tcfg.get("device_store_shard", "auto")).lower()
-                              not in ("off", "false"))
-        self.train_step = make_train_step(model, diffusion, self._sampler, self._assemble,
-                                          dp=self.dp, forward=self._forward)
+            self._store = self._assemble = None
+            # 'off' on the command line reads as YAML's false
+            if str(tcfg.get("device_store", "auto")).lower() not in ("off", "false"):
+                with span("setup: device store"):
+                    self._build_store(str(tcfg.get("device_store_shard", "auto")).lower()
+                                      not in ("off", "false"))
+            self.train_step = make_train_step(model, diffusion, self._sampler, self._assemble,
+                                              dp=self.dp, forward=self._forward)
 
     def _build_store(self, shard: bool = True) -> None:
         """The device-resident corpus, where ``DeviceStore.try_build``
@@ -392,14 +411,15 @@ class TrainLoop:
             py_rng = random.Random((self._base_seed * 1000003 + gi) & 0xFFFFFFFF)
             np_rng = np.random.RandomState((self._base_seed * 69069 + gi * 40503 + 12345)
                                            & 0x7FFFFFFF)
-            if self.world > 1:
-                own = self._local_positions(len(ids))
-                meta = store.draw_batch(dataset, ids, py_rng, np_rng, own=own)
-                item_row = meta.pop("item_row")
-                meta = take_rows(meta, own)
-                meta["item_row"] = item_row
-            else:
-                meta = store.draw_batch(dataset, ids, py_rng, np_rng)
+            with span("store: draw batch"):
+                if self.world > 1:
+                    own = self._local_positions(len(ids))
+                    meta = store.draw_batch(dataset, ids, py_rng, np_rng, own=own)
+                    item_row = meta.pop("item_row")
+                    meta = take_rows(meta, own)
+                    meta["item_row"] = item_row
+                else:
+                    meta = store.draw_batch(dataset, ids, py_rng, np_rng)
             text = encode_text(self.text_encoder, meta.pop("c_text"))
             meta["text_emb"] = text.pop("text_emb").astype(np.float16)
             meta.update(text)
@@ -424,50 +444,36 @@ class TrainLoop:
         # the producer stops after the last megabatch the run takes
         n_groups = max(0, -(-(self.max_steps - state.step) // G))
         prefetcher = DevicePrefetcher(lambda: itertools.islice(groups(), n_groups), prepare,
-                                      self.device)
+                                      self.device, first=state.step // G)
         profile_start = 2 * G if self.profile_steps > 0 else -1
         profile_stop = profile_start + self.profile_steps
         profiler = None
-        # AM_LOOP_TIMING=1: the loop's wall time by phase, logged and reset
-        # at every logged step
-        timing = os.environ.get("AM_LOOP_TIMING", "") == "1"
-        tm = {"wait_batch": 0.0, "dispatch": 0.0, "metrics_get": 0.0, "other": 0.0}
-        t_mark = time.monotonic()
-
-        def mark(key):
-            nonlocal t_mark
-            now = time.monotonic()
-            tm[key] += now - t_mark
-            t_mark = now
-
         t_window, steps_window, last_saved = time.monotonic(), 0, None
         megabatches = iter(prefetcher)
         try:
             while state.step < self.max_steps:
-                mark("other")
-                mega = next(megabatches, None)
-                mark("wait_batch")
+                with span("loop: wait", megabatch=state.step // G):
+                    mega = next(megabatches, None)
                 if mega is None:
                     break
                 for g in range(G):
-                    mark("other")
                     if profiler is None and 0 <= profile_start <= state.step:
                         profiler = self._start_profiler()
                         profile_start = -1  # one trace a run
                     elif profiler is not None and state.step >= profile_stop:
                         self._stop_profiler(profiler)
                         profiler = None
-                    cond = {k: v[g * B:(g + 1) * B] if k == "item_row" else v[g * b:(g + 1) * b]
-                            for k, v in mega.items()}
-                    x = cond.pop("x", None)
-                    metrics = self.train_step(state, x, cond,
-                                              step_seed(self._base_seed, state.step))
-                    mark("dispatch")
+                    with span("loop: step", step=state.step):
+                        cond = {k: v[g * B:(g + 1) * B] if k == "item_row"
+                                else v[g * b:(g + 1) * b] for k, v in mega.items()}
+                        x = cond.pop("x", None)
+                        metrics = self.train_step(state, x, cond,
+                                                  step_seed(self._base_seed, state.step))
                     steps_window += 1
                     step = state.step
                     if step % self.log_every_step == 0:  # every rank: metrics are global
-                        m = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                        mark("metrics_get")
+                        with span("loop: metrics"):
+                            m = {k: float(v) for k, v in metrics.items()}  # waits for the device
                         dt = time.monotonic() - t_window
                         epoch = step // steps_per_epoch
                         logger.info(
@@ -480,16 +486,12 @@ class TrainLoop:
                                          "step": step})
                         self.summary["logged"].append(
                             {"step": step, **m, "steps": steps_window, "seconds": dt})
-                        if timing:
-                            self.summary["logged"][-1]["timing"] = dict(tm)
-                            total = sum(tm.values()) or 1e-9
-                            logger.info("loop timing | " + " | ".join(
-                                f"{k} {v:.2f}s ({100 * v / total:.0f}%)" for k, v in tm.items()))
-                            for k in tm:
-                                tm[k] = 0.0
+                        if trace.enabled():
+                            self._log_trace(self.summary["logged"][-1])
                         t_window, steps_window = time.monotonic(), 0
                     if step % self.save_every_step == 0:
-                        last_saved = self.save()
+                        with span("loop: save"):
+                            last_saved = self.save()
                     if step >= self.max_steps:
                         break
         finally:
@@ -497,13 +499,23 @@ class TrainLoop:
                 self._stop_profiler(profiler)
             prefetcher.close()
         if last_saved is None or not last_saved.endswith(f"model{state.step:06d}.pt"):
-            last_saved = self.save()
+            with span("loop: save"):
+                last_saved = self.save()
         self.summary["step"] = state.step
         self.summary["last_ckpt"] = last_saved
         if self.device.type == "cuda":
             self.summary["device_name"] = torch.cuda.get_device_name(self.device)
             self.summary["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated(self.device))
         return self.summary
+
+    @staticmethod
+    def _log_trace(entry: Dict[str, Any]) -> None:
+        """The tracer's span totals and counters since the last logged step:
+        kept in the summary's ``entry`` under ``spans`` and logged."""
+        entry["spans"] = totals = trace.totals()
+        logger.info("trace | " + " | ".join(
+            [f"{k} {v:.3f}s" for k, v in sorted(totals["seconds"].items())]
+            + [f"{k} {v}" for k, v in sorted(totals["counts"].items())]))
 
     def _start_profiler(self):
         from torch.profiler import ProfilerActivity, profile

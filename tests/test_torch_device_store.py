@@ -437,17 +437,34 @@ def test_entry_resume_is_bit_exact(tree, monkeypatch, route):
 
 def test_entry_profiles_and_times_the_loop(tree, monkeypatch):
     """``task.train.profile_steps`` writes a ``torch.profiler`` trace under
-    the run's ``log/profile``, and ``AM_LOOP_TIMING=1`` logs the loop's
-    phases at every logged step."""
+    the run's ``log/profile``, and ``task.train.trace=true`` logs the
+    tracer's span totals and counters at every logged step, keeps them in
+    the summary, and names the program's layers in that trace as ``am.``
+    ranges, backward and the denoiser among them."""
+    from afford_motion_torch.utils import trace
+
     monkeypatch.chdir(REPO)
-    monkeypatch.setenv("AM_LOOP_TIMING", "1")
-    train_pkg.main(_entry_args(tree, "profiled", "task.train.max_steps=6",
-                               "task.train.profile_steps=2"))
+    try:
+        summary = train_pkg.main(_entry_args(tree, "profiled", "task.train.max_steps=6",
+                                             "task.train.profile_steps=2",
+                                             "task.train.trace=true"))
+    finally:
+        trace.disable()
+        trace.take()
+        trace.totals()
     run = tree.parent / "profiled"
     assert (run / "log" / "profile" / "trace.json").stat().st_size > 0
+    profile = (run / "log" / "profile" / "trace.json").read_text()
+    assert '"am.step: backward"' in profile and '"am.model: denoiser"' in profile
     log = (run / "log" / "runtime.log").read_text()
     assert "profiler trace written to log/profile" in log
-    timing = [line for line in log.splitlines() if "loop timing |" in line]
+    timing = [line for line in log.splitlines() if "trace |" in line]
     assert len(timing) == 3 and all(
-        all(k in line for k in ("wait_batch", "dispatch", "metrics_get", "other"))
+        all(k in line for k in ("loop: wait", "loop: step", "step: backward", "model: denoiser"))
         for line in timing)
+    # the producer's three megabatches and set-up fall in the first window
+    assert all(k in timing[0] for k in ("setup: train loop", "producer: prepare",
+                                        "producer: bytes uploaded"))
+    logged = summary["logged"]
+    assert len(logged) == 3 and all(e["spans"]["seconds"]["loop: step"] > 0 for e in logged)
+    assert logged[0]["spans"]["counts"]["producer: bytes uploaded"] > 0
